@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels serving training]
 
-Builds every CUDA kernel of the serving path from ``ops/csrc`` with nvcc
-(into ``build/torch_kernels/``), then:
+Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
+process per source started together (into ``build/torch_kernels/``), then:
 
-1. kernel phase: the flash forward kernel against its plain PyTorch version
-   on the card (TF32 off), at the serving shape and at longer sequences, in
-   f32 and bf16, without and with dropout; its time beside the plain
-   version's, a library call's (``scaled_dot_product_attention``, which the
-   port never calls) and the least time the card could take;
+1. kernel phase, TF32 off: each kernel against its plain PyTorch version on
+   the card, with its time beside the plain version's, a library call's
+   (which the port never calls) and the least time the card could take --
+   the flash forward (#1) and its lse variant (#2) against
+   ``scaled_dot_product_attention``, the blocked backward dQ (#3) and dK/dV
+   (#4) against SDPA's backward, at the serving shape and at longer
+   sequences, f32 and bf16, dropout 0 and 0.1; AdamW (#5) over every
+   ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
+   bf16 mu, against ``torch.optim.AdamW(fused=True)``;
 2. serving phase: ViT-base (f32, 12 layers of attention at 41 tokens, all
    through the kernel: ``flash_min_seq=0``) behind ``serving.serve`` answers
    16 concurrent HTTP requests; every client's rows must equal
@@ -18,16 +22,25 @@ Builds every CUDA kernel of the serving path from ``ops/csrc`` with nvcc
    and the kernel's launch count must show the requests went through it;
    then the bs-64 predict throughput with the kernel and with plain
    attention, a profile of that predict, and the check once more with bf16
-   Linear layers.
+   Linear layers;
+3. training phase: ViT-base with ``flash_min_seq=0`` and a blocked-backward
+   threshold of 0, so every step runs 12 lse forwards, 12 dQ, 12 dK/dV and
+   one AdamW launch: three f32 steps against a plain twin (plain attention,
+   plain AdamW) from one init, then ``Trainer.train()`` in bf16 with dropout
+   0.1 and TimeOut over 2 epochs of the hard synthetic corpus, with its
+   train samples/s, eval macro-AUROC and a profile of one step.
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
-line before the last lists the kernels, the last is the result.  Exits
-non-zero, printing no result, when no GPU is visible.
+line before the last lists the kernels, the last is the result (printed only
+when every phase ran).  Exits non-zero, printing no result, when no GPU is
+visible.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -39,11 +52,13 @@ import torch
 import torch.nn.functional as F
 
 from ecg_representation_learning_tpu_torch.configs import TrainConfig, VitConfig
-from ecg_representation_learning_tpu_torch.ops import _build
+from ecg_representation_learning_tpu_torch.data import get_ptbxl_splits, synth_ptbxl
+from ecg_representation_learning_tpu_torch.models.vit import EcgVit
+from ecg_representation_learning_tpu_torch.ops import _build, adamw
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
 from ecg_representation_learning_tpu_torch.serving import serve
-from ecg_representation_learning_tpu_torch.train import Trainer
+from ecg_representation_learning_tpu_torch.train import SplitData, Trainer
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
 # (f32 on the CUDA cores, bf16 on the tensor cores)
@@ -55,9 +70,32 @@ LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SERVING_SHAPE = (64, 12, 41, 64)     # ViT-base at bs 64: B, H, T = 40 patches + cls, D
 KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
                 ((2, 12, 1024, 64), torch.bfloat16), ((1, 4, 2049, 64), torch.float32)]
+# backward kernels vs plain version, max abs error over max(1, max |plain|):
+# f32 sums in another order (the CPU tests hold the plain version to JAX at
+# 2e-5 the same way); bf16 rounds ds and the outputs to 8 significant bits
+BWD_LIMITS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LSE_LIMIT = 1e-5                     # row log-sum-exp, f32 in both dtypes
+ADAMW_LIMIT = 0.0                    # the kernel repeats the plain version's
+                                     # IEEE operations in order: bit for bit
 SERVING_TOL = 1e-4                   # probabilities, kernel vs plain attention, f32
 BF16_TOL = 2e-2                      # the same in bf16: 8 significant bits
 N_CLIENTS = 16
+PARITY_STEPS = 3
+LOSS_RTOL = 1e-4                     # per-step loss, kernels vs plain twin, f32
+# parameters after PARITY_STEPS steps, kernels vs plain twin: an Adam step
+# moves a weight by lr * (|mu_hat| / sqrt(nu_hat) + wd * |p|), about lr, so a
+# gradient element at rounding level whose sign differs between the twins
+# can end 2 * lr apart per step; every other element agrees to ~1e-6
+PARAM_TOL = 2 * PARITY_STEPS * 3e-4 * 1.1
+TRAIN_N = 832                        # hard corpus: 644 train rows, 10 steps/epoch at bs 64
+# (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
+KERNELS = [
+    ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
+    ('flash_fwd_lse', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:142'),
+    ('flash_bwd_dq', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:235'),
+    ('flash_bwd_dkv', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:277'),
+    ('adamw', 'adamw', 'ecg_representation_learning_tpu/ops/adamw_pallas.py:41'),
+]
 
 
 def emit(obj) -> None:
@@ -79,15 +117,33 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def flash_bound(shape, dtype):
-    """Least time for one flash forward: q, k, v read once and o written
-    once at the HBM rate, against 4*B*H*T^2*D operations (two products) at
-    the peak rate for the dtype.  Returns (ms, 'bytes' | 'operations')."""
+def bound(n_bytes, n_ops, dtype):
+    """Least time for ``n_bytes`` moved at the HBM rate and ``n_ops`` at the
+    peak rate for ``dtype``: (ms, 'bytes' | 'operations')."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
+
+
+def flash_bound(shape, dtype, lse=False):
+    """Least time for one flash forward: q, k, v read once and o (and with
+    ``lse`` the f32 row lse) written once, against 4*B*H*T^2*D operations
+    (two products)."""
     b, h, t, d = shape
     elem = torch.finfo(dtype).bits // 8
-    bytes_ms = 4 * b * h * t * d * elem / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * b * h * t * t * d / PEAK_OPS_PER_S[dtype] * 1e3
-    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
+    return bound(4 * b * h * t * d * elem + (4 * b * h * t if lse else 0),
+                 4 * b * h * t * t * d, dtype)
+
+
+def flash_bwd_bound(shape, dtype, kernel):
+    """Least time for a backward kernel: q, k, v, dO read once with the f32
+    lse and delta, and dQ (``'dq'``: 6*B*H*T^2*D operations) or dK and dV
+    (``'dkv'``: 8*B*H*T^2*D) written once."""
+    b, h, t, d = shape
+    elem = torch.finfo(dtype).bits // 8
+    n_out, ops = (1, 6) if kernel == 'dq' else (2, 8)
+    return bound((4 + n_out) * b * h * t * d * elem + 2 * 4 * b * h * t,
+                 ops * b * h * t * t * d, dtype)
 
 
 def kernel_phase():
@@ -125,6 +181,290 @@ def kernel_phase():
                 and r['dtype'] == str(torch.float32) and r['dropout_rate'] == 0.0)
 
 
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def sdpa_backward_ms(q, k, v, do) -> float:
+    """Device ms of ``scaled_dot_product_attention``'s backward through
+    autograd: forward + backward, minus the forward (the port never calls
+    it)."""
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg).backward(do)
+    both = time_ms(fwd_bwd, reps=20)
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg), reps=20)
+    return both - fwd
+
+
+def flash_grad_phase():
+    """Kernels #2-#4 against their plain versions at every case, rates 0 and
+    0.1: the forward's (out, lse), then dQ and (dK, dV) from the same lse
+    and delta.  Times at rate 0.  Returns {kernel: serving-shape f32 row}."""
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    rows, failures = {}, []
+    for shape, dtype in KERNEL_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device='cuda').to(dtype)
+                       for _ in range(4))
+        for rate, seed in ((0.0, 0), (0.1, 4321)):
+            out, lse = attn.flash_attention_forward(q, k, v, seed, None, rate,
+                                                    return_lse=True)
+            torch.cuda.synchronize()
+            out_p, lse_p = attn.flash_attention_forward_reference(
+                q, k, v, seed, None, rate, return_lse=True)
+            delta = (do.float() * out_p.float()).sum(-1)
+            args = (q, k, v, do, lse_p, delta, seed, shape[-1] ** -0.5, rate)
+            got = {'flash_fwd_lse': (out, lse),
+                   'flash_bwd_dq': (attn.flash_bwd_dq_kernel(*args),),
+                   'flash_bwd_dkv': attn.flash_bwd_dkv_kernel(*args)}
+            torch.cuda.synchronize()
+            want = {'flash_fwd_lse': (out_p, lse_p),
+                    'flash_bwd_dq': (attn.flash_bwd_dq_reference(*args),),
+                    'flash_bwd_dkv': attn.flash_bwd_dkv_reference(*args)}
+            for name in got:
+                if name == 'flash_fwd_lse':
+                    errs = [(out.float() - out_p.float()).abs().max().item(),
+                            (lse - lse_p).abs().max().item()]
+                    ok = errs[0] <= LIMITS[dtype] and errs[1] <= LSE_LIMIT
+                    b_ms, b_by = flash_bound(shape, dtype, lse=True)
+                else:
+                    rel = [_rel_err(g, w) for g, w in zip(got[name], want[name])]
+                    errs = [(g.float() - w.float()).abs().max().item()
+                            for g, w in zip(got[name], want[name])]
+                    ok = max(rel) <= BWD_LIMITS[dtype]
+                    b_ms, b_by = flash_bwd_bound(shape, dtype, name.split('_')[-1])
+                finite = all(bool(torch.isfinite(x).all()) for x in got[name])
+                row = {'phase': 'kernel', 'kernel': name, 'shape': list(shape),
+                       'dtype': str(dtype), 'dropout_rate': rate,
+                       'max_abs_err': max(errs), 'errs': errs, 'finite': finite,
+                       'bound_ms': b_ms, 'bound_by': b_by}
+                if name != 'flash_fwd_lse':
+                    row.update(rel_errs=rel, rel_limit=BWD_LIMITS[dtype])
+                if rate == 0.0:
+                    if name == 'flash_fwd_lse':
+                        row['kernel_ms'] = time_ms(lambda: attn.flash_attention_forward(
+                            q, k, v, return_lse=True))
+                        row['plain_ms'] = time_ms(lambda: attn.flash_attention_forward_reference(
+                            q, k, v, return_lse=True), reps=20)
+                        row['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                    else:
+                        kern = getattr(attn, f'{name}_kernel')
+                        ref = getattr(attn, f'{name}_reference')
+                        row['kernel_ms'] = time_ms(lambda: kern(*args))
+                        row['plain_ms'] = time_ms(lambda: ref(*args), reps=20)
+                        row['library_ms'] = sdpa_backward_ms(q, k, v, do)
+                emit(row)
+                if shape == SERVING_SHAPE and dtype == torch.float32 and rate == 0.0:
+                    rows[name] = row
+                if not (finite and ok):
+                    failures.append(row)
+    if failures:
+        raise AssertionError(f'flash lse/backward kernels disagree with their plain '
+                             f'versions: {failures}')
+    return rows
+
+
+def adamw_phase():
+    """Kernel #5 against its plain version on every ViT-base leaf over three
+    steps (plain, clip engaged, non-finite), with f32 and with bf16 mu; its
+    time beside the plain version's and ``torch.optim.AdamW(fused=True)``'s
+    on the same tensors.  Returns the f32-mu row."""
+    with torch.device('meta'):
+        shapes = [p.shape for p in EcgVit(VitConfig.from_defined('base')).parameters()]
+    n_params = sum(s.numel() for s in shapes)
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
+    steps = [(1.0, 1.0), (0.37, 1.0), (1.0, 0.0)]      # (clip scale, finite)
+    out = None
+    for mu_dtype in (torch.float32, torch.bfloat16):
+        def leaves(fn):
+            return [fn(s) for s in shapes]
+        params = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
+        mus = leaves(lambda s: torch.zeros(s, device='cuda', dtype=mu_dtype))
+        nus = leaves(lambda s: torch.zeros(s, device='cuda'))
+        twin = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+        errs = []
+        for count, (scale, finite) in enumerate(steps, start=1):
+            grads = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
+            if not finite:
+                grads[0].view(-1)[0] = float('nan')
+            scalars = torch.tensor([scale, 3e-4, 1 - 0.9 ** count, 1 - 0.999 ** count,
+                                    finite], dtype=torch.float32, device='cuda')
+            adamw.adamw_update(params, grads, mus, nus, scalars, **hyper)
+            torch.cuda.synchronize()
+            adamw.adamw_update_reference(*twin[:1], grads, *twin[1:], scalars, **hyper)
+            errs.append(max((a.float() - b.float()).abs().max().item()
+                            for xs, ys in zip((params, mus, nus), twin)
+                            for a, b in zip(xs, ys)))
+        finite_ok = all(bool(torch.isfinite(p).all()) for p in params)
+        mu_bytes = torch.finfo(mu_dtype).bits // 8
+        b_ms, b_by = bound(n_params * (4 * 5 + 2 * mu_bytes), 15 * n_params, torch.float32)
+        row = {'phase': 'kernel', 'kernel': 'adamw', 'leaves': len(shapes),
+               'params': n_params, 'mu_dtype': str(mu_dtype), 'max_abs_err': max(errs),
+               'errs_per_step': errs, 'finite': finite_ok, 'bound_ms': b_ms,
+               'bound_by': b_by, 'kernel_ms': time_ms(
+                   lambda: adamw.adamw_update(params, grads, mus, nus, scalars, **hyper),
+                   reps=20),
+               'plain_ms': time_ms(lambda: adamw.adamw_update_reference(
+                   *twin[:1], grads, *twin[1:], scalars, **hyper), reps=5)}
+        if mu_dtype == torch.float32:
+            lib = [torch.nn.Parameter(p.clone()) for p in params]
+            for p, g in zip(lib, grads):
+                p.grad = g
+            opt = torch.optim.AdamW(lib, lr=3e-4, weight_decay=1e-2, fused=True)
+            row['library_ms'] = time_ms(opt.step, reps=20)
+            del lib, opt
+            out = row
+        emit(row)
+        if not (finite_ok and max(errs) <= ADAMW_LIMIT):
+            raise AssertionError(f'adamw kernel disagrees with its plain version: {row}')
+        del params, mus, nus, twin, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def _counts():
+    return {'flash_fwd': attn.flash_fwd_kernel.launches,
+            'flash_fwd_lse': attn.flash_fwd_lse_kernel.launches,
+            'flash_bwd_dq': attn.flash_bwd_dq_kernel.launches,
+            'flash_bwd_dkv': attn.flash_bwd_dkv_kernel.launches,
+            'adamw': adamw.adamw_kernel.launches}
+
+
+def _zero_counts():
+    for k in (attn.flash_fwd_kernel, attn.flash_fwd_lse_kernel, attn.flash_bwd_dq_kernel,
+              attn.flash_bwd_dkv_kernel, adamw.adamw_kernel):
+        k.launches = 0
+
+
+def _steps_per_s(tr: Trainer, data: SplitData, n_steps: int) -> float:
+    """Train samples per second over ``n_steps`` steps (host clock, the
+    last loss fetched, so the device has finished)."""
+    bs = tr.cfg.train_batch_size
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        m = tr.train_step(data, np.arange(i * bs, (i + 1) * bs) % len(data))
+    float(m['loss'])
+    return n_steps * bs / (time.perf_counter() - t0)
+
+
+def profile_train_step(tr: Trainer, data: SplitData, steps: int = 3) -> dict:
+    """Where a ViT-base train step spends its time (see ``_profile``)."""
+    take = np.arange(tr.cfg.train_batch_size)
+    float(tr.train_step(data, take)['loss'])
+
+    def run():
+        for _ in range(steps):
+            m = tr.train_step(data, take)
+        float(m['loss'])
+    return _profile(f'ViT-base {tr.model_cfg.dtype} bs-{tr.cfg.train_batch_size} '
+                    f'train step, {steps} steps', 'step', steps, run)
+
+
+def training_phase():
+    """ViT-base training through kernels #2-#5 (``flash_min_seq=0`` and a
+    blocked-backward threshold of 0, so every layer's forward is the lse
+    kernel and its backward the dQ and dK/dV kernels).  Returns the kernel
+    launches of the ``Trainer.train()`` run, the main path."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    rng = np.random.default_rng(1)
+    n = PARITY_STEPS * 64
+    batch = SplitData(
+        signals=(0.2 * rng.standard_normal((n, 12, 2500))).astype(np.float32),
+        labels=(rng.uniform(size=(n, 71)) < 0.1).astype(np.float32))
+
+    # 1. parity, f32, dropout off: kernels vs a plain twin from one init
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0)
+    tcfg = TrainConfig(train_batch_size=64, log_to_console=False, save_final=False)
+    tr = Trainer(cfg, tcfg, train_data=batch, norm_stats=stats)
+    tr.init_state()
+    twin = Trainer(dataclasses.replace(cfg, use_flash_attention=False), tcfg,
+                   train_data=batch, norm_stats=stats)
+    twin.set_params(tr.model.state_dict())
+    twin.optimizer.update = adamw.adamw_update_reference
+    per_step, losses = [], []
+    for k in range(PARITY_STEPS):
+        take = np.arange(64 * k, 64 * (k + 1))
+        _zero_counts()
+        got = float(tr.train_step(batch, take)['loss'])
+        counts = _counts()
+        _zero_counts()
+        want = float(twin.train_step(batch, take)['loss'])
+        per_step.append(counts)
+        losses.append((got, want))
+    layers = cfg.num_hidden_layers
+    expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
+              'flash_bwd_dkv': layers, 'adamw': 1}
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(tr.model.state_dict().values(), twin.model.state_dict().values()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    f32_rate = _steps_per_s(tr, batch, 5)
+    emit({'phase': 'train_parity', 'model': 'ecg-vit-base', 'dtype': 'float32',
+          'steps': PARITY_STEPS, 'losses_kernel_plain': losses,
+          'max_loss_rel_err': loss_err, 'loss_limit': LOSS_RTOL,
+          'max_param_abs_err': param_err, 'param_limit': PARAM_TOL,
+          'launches_per_step': per_step, 'expected_per_step': expect,
+          'train_samples_per_s_f32': f32_rate})
+    if any(c != expect for c in per_step):
+        raise AssertionError(f'train steps launched {per_step}, expected {expect} each')
+    if not (loss_err <= LOSS_RTOL and param_err <= PARAM_TOL):
+        raise AssertionError(f'kernel training differs from the plain twin: losses '
+                             f'{losses}, params {param_err}')
+    del tr, twin
+    torch.cuda.empty_cache()
+
+    # 2. Trainer.train() on the hard corpus, bf16, dropout 0.1, TimeOut
+    t0 = time.perf_counter()
+    signals, labels, folds = synth_ptbxl(n=TRAIN_N, hard=True, n_marker_classes=16)
+    synth_s = time.perf_counter() - t0
+    splits = get_ptbxl_splits(signals, labels, folds)
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    out_dir = 'runs/chip_smoke_train'
+    shutil.rmtree(out_dir, ignore_errors=True)
+    tr = Trainer(cfg16, TrainConfig(num_train_epoch=2, train_batch_size=64,
+                                    augment_timeout=True, log_to_console=False,
+                                    save_final=False),
+                 train_data=splits.train, eval_data=splits.eval, norm_stats=stats,
+                 output_dir=out_dir)
+    payloads = []
+    log = tr._log
+    tr._log = lambda payload: (payloads.append(payload), log(payload))
+    _zero_counts()
+    t0 = time.perf_counter()
+    result = tr.train()
+    train_s = time.perf_counter() - t0
+    launches = _counts()     # the eval forwards add flash_fwd launches
+    shutil.rmtree(out_dir, ignore_errors=True)
+    train_losses = [p['train/loss'] for p in payloads if 'train/loss' in p]
+    aucs = [h['macro_auc'] for h in result['history']]
+    steps = tr.step
+    summary = {'phase': 'train', 'model': 'ecg-vit-base', 'dtype': 'bfloat16',
+               'corpus': f'synth_ptbxl(n={TRAIN_N}, hard=True, n_marker_classes=16)',
+               'corpus_seconds': synth_s, 'train_rows': len(splits.train),
+               'eval_rows': len(splits.eval), 'epochs': result['epochs'],
+               'steps': steps, 'train_seconds': train_s, 'launches': launches,
+               'train_losses': train_losses,
+               'eval_losses': [h['loss'] for h in result['history']],
+               'eval_macro_auc': aucs,
+               'train_samples_per_s_bf16': _steps_per_s(tr, splits.train, 10)}
+    emit(summary)
+    want = {'flash_fwd_lse': layers * steps, 'flash_bwd_dq': layers * steps,
+            'flash_bwd_dkv': layers * steps, 'adamw': steps}
+    if not (len(train_losses) == steps == 2 * tr.steps_per_epoch
+            and all(np.isfinite(train_losses)) and aucs[-1] is not None
+            and np.isfinite(aucs[-1])
+            and all(launches[k] == v for k, v in want.items())):
+        raise AssertionError(f'training run failed (launches expected {want}): {summary}')
+    emit(profile_train_step(tr, splits.train))
+    return {k: launches[k] for k in want}
+
+
 def _post(port: int, payload) -> dict:
     req = urllib.request.Request(
         f'http://127.0.0.1:{port}/predict', data=json.dumps(payload).encode(),
@@ -139,26 +479,40 @@ def _wall(fn) -> float:
     return time.perf_counter() - t0
 
 
-def profile_predict(tr: Trainer, batch: np.ndarray, calls: int = 3) -> dict:
-    """Where a bs-64 ``predict`` spends its time: wall time, summed device
-    time, the device's busy share and the kernels that take the most."""
+def _profile(what: str, unit: str, n: int, run) -> dict:
+    """Profile ``run()``, which does ``n`` units of work ending in a host
+    fetch: wall time, summed device time, the device's busy share, the
+    kernels that take the most device time and the host operators that take
+    the most CPU time of their own (the profiler adds to the latter)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    tr.predict(batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _wall(lambda: [tr.predict(batch) for _ in range(calls)])
+        wall = _wall(run)
+    events = prof.key_averages()
     # device-side events only (kernels, copies): the CPU ops that launched
     # them carry the same device time again
-    kernels = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in events
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(t for _, t, _ in kernels)
-    top = sorted(kernels, key=lambda k: -k[1])[:8]
-    return {'phase': 'profile', 'what': f'bs-64 predict, {calls} calls',
-            'wall_ms_per_call': 1e3 * wall / calls,
-            'device_ms_per_call': device_us / 1e3 / calls,
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
+                   if e.device_type == DeviceType.CPU), key=lambda k: -k[1])[:10]
+    return {'phase': 'profile', 'what': what,
+            f'wall_ms_per_{unit}': 1e3 * wall / n,
+            f'device_ms_per_{unit}': device_us / 1e3 / n,
             'device_busy_share': device_us / 1e6 / wall,
-            'top_kernels': [{'name': n[:90], 'ms_per_call': t / 1e3 / calls,
-                             'launches_per_call': c / calls} for n, t, c in top]}
+            f'device_launches_per_{unit}': sum(c for _, _, c in kernels) / n,
+            'top_kernels': [{'name': k[:90], f'ms_per_{unit}': t / 1e3 / n,
+                             f'launches_per_{unit}': c / n} for k, t, c in top],
+            'top_host_ops': [{'name': k[:60], f'self_cpu_ms_per_{unit}': t / 1e3 / n,
+                              f'calls_per_{unit}': c / n} for k, t, c in host]}
+
+
+def profile_predict(tr: Trainer, batch: np.ndarray, calls: int = 3) -> dict:
+    """Where a bs-64 ``predict`` spends its time (see ``_profile``)."""
+    tr.predict(batch)
+    return _profile(f'bs-64 predict, {calls} calls', 'call', calls,
+                    lambda: [tr.predict(batch) for _ in range(calls)])
 
 
 def _plain_twin(tr: Trainer) -> Trainer:
@@ -277,7 +631,15 @@ def serving_phase():
     return summary, launches
 
 
-def main() -> int:
+PHASES = ('kernels', 'serving', 'training')
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--phases', nargs='+', choices=PHASES, default=list(PHASES),
+                    help='run only these phases (default: all; the result line '
+                         'is printed only when all ran)')
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 1
@@ -287,27 +649,37 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build(['flash_fwd'])
+    libs = ['flash_fwd', 'flash_bwd', 'adamw']
+    _build.build(libs)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             open(f'{_build.library_path("flash_fwd")}.log').read().splitlines()
-             if 'registers' in ln or 'spill' in ln]
+    ptxas = {lib: [ln.strip() for ln in
+                   open(f'{_build.library_path(lib)}.log').read().splitlines()
+                   if 'registers' in ln or 'spill' in ln] for lib in libs}
     emit({'phase': 'env', 'nvidia_smi': smi, 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'device': torch.cuda.get_device_name(0),
           'kernel_build_s': build_s, 'ptxas': ptxas})
 
-    k = kernel_phase()
-    _, launches = serving_phase()
+    rows, launches = {}, {}
+    if 'kernels' in args.phases:
+        rows['flash_fwd'] = kernel_phase()
+        rows.update(flash_grad_phase())
+        rows['adamw'] = adamw_phase()
+    if 'serving' in args.phases:
+        _, launches['flash_fwd'] = serving_phase()
+    if 'training' in args.phases:
+        launches.update(training_phase())
+    if set(args.phases) != set(PHASES):
+        return 0
 
     print(smi, flush=True)
     emit({'kernels': [{
-        'name': 'flash_fwd', 'route': 'cuda',
-        'source': 'ecg_representation_learning_tpu_torch/ops/csrc/flash_fwd.cu',
-        'replaces': 'ecg_representation_learning_tpu/ops/attention.py:87',
-        'launches': launches, 'max_abs_err': k['max_abs_err'],
-        'ms': k['kernel_ms'], 'plain_ms': k['plain_ms'],
-        'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
-        'library_ms': k['library_ms']}]})
+        'name': name, 'route': 'cuda',
+        'source': f'ecg_representation_learning_tpu_torch/ops/csrc/{src}.cu',
+        'replaces': replaces, 'launches': launches[name],
+        'max_abs_err': rows[name]['max_abs_err'], 'ms': rows[name]['kernel_ms'],
+        'plain_ms': rows[name]['plain_ms'], 'bound_ms': rows[name]['bound_ms'],
+        'bound_by': rows[name]['bound_by'], 'library_ms': rows[name]['library_ms']}
+        for name, src, replaces in KERNELS]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

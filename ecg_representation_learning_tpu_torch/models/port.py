@@ -10,6 +10,9 @@ modules, so the mapping is by path:
     ``pos_embed`` carry over as they are (``qkv`` has no bias).
 
 Both directions copy values exactly, so flax -> torch -> flax is bit-exact.
+``fused_adamw_state_from_flax`` maps the JAX ``FusedAdamWState`` (count, mu
+and nu trees shaped like the params) onto the port's optimizer state the
+same way, so both sides can continue from one mid-run state.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..configs import VitConfig
+from ..train.optim import FusedAdamWState
 from .vit import EcgVit
 
 
@@ -40,6 +44,13 @@ def _torch_key(path) -> str:
     return '.'.join(parts)
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A torch copy of ``arr``; bfloat16 (ml_dtypes) goes through f32, exactly."""
+    if arr.dtype.name == 'bfloat16':
+        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True, order='C'))
+
+
 def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch.Tensor]:
     """flax ``EcgVit`` params -> the port's ``EcgVit`` state_dict.
 
@@ -59,7 +70,7 @@ def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch
         if tuple(arr.shape) != tuple(want[key].shape):
             raise ValueError(f'{key}: expected shape {tuple(want[key].shape)}, '
                              f'got {arr.shape}')
-        out[key] = torch.from_numpy(np.array(arr, copy=True, order='C'))
+        out[key] = _tensor(arr)
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f'flax params lack {missing}')
@@ -93,3 +104,13 @@ def flax_params_from_vit_state_dict(state_dict: Mapping[str, torch.Tensor]) -> D
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return {'params': tree}
+
+
+def fused_adamw_state_from_flax(opt_state, cfg: VitConfig) -> FusedAdamWState:
+    """The JAX ``FusedAdamWState(count, mu, nu)`` -> the port's optimizer
+    state: moments keyed by the port's parameter names (Dense kernels
+    transposed, as the params), their dtypes kept (bf16 mu stays bf16), and
+    the count as an int."""
+    return FusedAdamWState(count=int(np.asarray(opt_state.count)),
+                           mu=vit_state_dict_from_flax(opt_state.mu, cfg),
+                           nu=vit_state_dict_from_flax(opt_state.nu, cfg))

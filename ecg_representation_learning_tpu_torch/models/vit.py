@@ -9,15 +9,22 @@ other.  Numerics kept from the flax model:
   * with ``dtype='bfloat16'`` every Linear casts its input, weight and bias
     to bf16 (flax ``Dense(dtype=bf16)``); the head stays f32;
   * the MLP's GELU is the exact erf form;
-  * attention goes through ``ops.attention.attention``: the flash kernel for
-    T >= ``flash_min_seq``, plain attention below.
+  * attention goes through ``ops.attention.attention``: flash attention
+    (with its gradient) for T >= ``flash_min_seq``, plain attention below;
+  * train mode applies dropout at the JAX sites, each with its salt: attention
+    probabilities (the hashed mask, seeded per layer per step), the attention
+    output (salt 2), the MLP hidden (3) and output (4), the embedding (5, at
+    ``attention_probs_dropout_prob`` as the reference's emb_dropout);
+  * ``return_attention`` runs the plain probabilities path and returns the
+    per-layer attention maps (L, B, H, T, T) for rollout.
 
-Inference only for now: dropout (the identity in eval) and the training
-forward arrive with the training slice.
+``remat`` (activation recompute) is not ported and raises: recomputing a
+block would redraw its dropout seeds from the generators.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from ..configs import VitConfig
 from ..ops.attention import attention
+from ..ops.dropout import DropoutRng, make_dropout
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -99,16 +107,28 @@ class SelfAttention(nn.Module):
         dt = _dtype(cfg)
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size, bias=False, dtype=dt)
         self.out = Dense(cfg.hidden_size, cfg.hidden_size, dtype=dt)
+        self.drop = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=2)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
         cfg = self.cfg
         b, t, _ = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, cfg.num_attention_heads, cfg.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)   # (B,H,T,D)
-        out = attention(q, k, v, use_flash=cfg.use_flash_attention,
-                        min_seq=cfg.flash_min_seq)
+        probs = None
+        if return_probs:
+            scale = 1.0 / math.sqrt(cfg.head_dim)
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.matmul(probs.to(v.dtype), v)
+        else:
+            rate = cfg.attention_probs_dropout_prob
+            active = self.training and rate > 0.0
+            out = attention(q, k, v, dropout_rate=rate, deterministic=not self.training,
+                            seed=rng.seed() if active else 0,
+                            use_flash=cfg.use_flash_attention, min_seq=cfg.flash_min_seq,
+                            generator=rng.device if active else None)
         out = out.permute(0, 2, 1, 3).reshape(b, t, cfg.hidden_size)
-        return self.out(out)
+        return self.drop(self.out(out), rng), probs
 
 
 class Mlp(nn.Module):
@@ -117,9 +137,12 @@ class Mlp(nn.Module):
         dt = _dtype(cfg)
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dt)
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dt)
+        self.drop1 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=3)
+        self.drop2 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=4)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate='none'))
+    def forward(self, x, rng: Optional[DropoutRng] = None):
+        h = self.drop1(F.gelu(self.fc1(x), approximate='none'), rng)
+        return self.drop2(self.fc2(h), rng)
 
 
 class Block(nn.Module):
@@ -132,9 +155,10 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.hidden_size)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
+        attn_out, probs = self.attn(self.norm1(x), rng, return_probs)
+        x = x + attn_out
+        return x + self.mlp(self.norm2(x), rng), probs
 
 
 class EcgVitEncoder(nn.Module):
@@ -147,18 +171,27 @@ class EcgVitEncoder(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.num_patches + 1, cfg.hidden_size))
+        self.emb_drop = make_dropout(cfg.dropout_impl, cfg.attention_probs_dropout_prob,
+                                     salt=5)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_hidden_layers))
         self.final_norm = LayerNorm(cfg.hidden_size)
 
-    def forward(self, x):
+    def forward(self, x, rng: Optional[DropoutRng] = None,
+                return_attention: bool = False):
         h = self.patch_embed(x)
         b, n_patch, hidden = h.shape
         cls = self.cls_token.expand(b, 1, hidden).to(h.dtype)
         h = torch.cat([cls, h], dim=1)
         h = h + self.pos_embed[:, :n_patch + 1].to(h.dtype)
+        h = self.emb_drop(h, rng)
+        maps = []
         for block in self.blocks:
-            h = block(h)
-        return self.final_norm(h)
+            h, probs = block(h, rng, return_attention)
+            maps.append(probs)
+        h = self.final_norm(h)
+        if return_attention:
+            return h, torch.stack(maps, dim=0)   # (L, B, H, T, T)
+        return h
 
 
 @dataclasses.dataclass
@@ -166,6 +199,7 @@ class VitOutput:
     """Mirrors the reference ``ModelOutput(loss, logits)``."""
     logits: torch.Tensor
     loss: Optional[torch.Tensor] = None
+    attention: Optional[torch.Tensor] = None
 
 
 class EcgVit(nn.Module):
@@ -175,7 +209,8 @@ class EcgVit(nn.Module):
         super().__init__()
         unported = {'moe_num_experts': cfg.moe_num_experts > 0,
                     'scan_blocks': cfg.scan_blocks,
-                    'ring_axis': cfg.ring_axis is not None}
+                    'ring_axis': cfg.ring_axis is not None,
+                    'remat': cfg.remat}
         if any(unported.values()):
             raise NotImplementedError(
                 f'not ported: {[k for k, v in unported.items() if v]}')
@@ -186,19 +221,26 @@ class EcgVit(nn.Module):
         self.head = nn.Linear(cfg.hidden_size, cfg.num_class)
 
     def forward(self, sample_values, labels=None, loss_reduction: str = 'mean',
-                loss_weight=None) -> VitOutput:
-        if self.training:
-            raise NotImplementedError(
-                'the training forward (dropout) arrives with the training '
-                'slice; call .eval() first')
-        h = self.encoder(sample_values)
-        pooled = h[:, 0] if self.cfg.pool == 'cls' else h.mean(dim=1)
+                loss_weight=None, return_attention: bool = False,
+                rng: Optional[DropoutRng] = None) -> VitOutput:
+        """Logits (and the BCE loss when ``labels`` are given).  In train
+        mode every active dropout site draws from ``rng``."""
+        cfg = self.cfg
+        if (self.training and rng is None
+                and max(cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob) > 0):
+            raise ValueError('a training forward with dropout needs rng=DropoutRng(...)')
+        attn = None
+        if return_attention:
+            h, attn = self.encoder(sample_values, rng, return_attention=True)
+        else:
+            h = self.encoder(sample_values, rng)
+        pooled = h[:, 0] if cfg.pool == 'cls' else h.mean(dim=1)
         logits = self.head(pooled.float())
         loss = None
         if labels is not None:
             loss = bce_with_logits(logits, labels, reduction=loss_reduction,
                                    weight=loss_weight)
-        return VitOutput(logits=logits, loss=loss)
+        return VitOutput(logits=logits, loss=loss, attention=attn)
 
 
 def bce_with_logits(logits, labels, reduction: str = 'mean', weight=None):

@@ -1,7 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C entry.
 //
-// Replaces the TPU kernel ops/attention.py::_flash_kernel of the JAX package
-// (Pallas, launched through _flash_forward's pl.pallas_call).  Same function:
+// Replaces the TPU kernels ops/attention.py::_flash_kernel and
+// ::_flash_kernel_lse of the JAX package (Pallas, launched through
+// _flash_forward's pl.pallas_call; the second also emits the row
+// log-sum-exp for the blocked backward).  Same function:
 // for each (bh = b*H + h, query row) the online-softmax attention
 // softmax(scale * q.k^T) . v over keys 0..T-1, with
 //   * an f32 running max m, sum l and accumulator, output in the input dtype;
@@ -16,7 +18,8 @@
 // at the serving shape B=64, H=12, T=41, D=64, q, k, v and o hold 8.06 M
 // elements: 32.2 MB in f32 (9.6 us of memory traffic), 16.1 MB in bf16
 // (4.8 us), while the two products are 4*B*H*T^2*D = 0.33 GFLOP (4.9 us on
-// the f32 CUDA cores, 0.33 us at the bf16 tensor-core rate).  So at that
+// the f32 CUDA cores, 0.33 us at the bf16 tensor-core rate); the lse adds
+// B*H*T f32 (0.13 MB, 0.04 us).  So at that
 // shape the kernel is bound by memory and by launch latency; at T >= 1k it
 // is bound by operations, which this design runs on the CUDA cores.
 //
@@ -84,7 +87,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int DC>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t, int d,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int t, int d,
                  int n_qtiles, float scale, uint32_t seed, int use_dropout,
                  uint32_t thresh, float inv_keep) {
   constexpr int DP = DC * 32;
@@ -165,40 +169,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = lane + 32 * c;
         if (col < d) o[base + static_cast<size_t>(qpos) * d + col] = from_f32<T>(acc[r][c] * inv_l);
       }
+      if (lse != nullptr && lane == 0) {
+        lse[static_cast<size_t>(bh) * t + qpos] = m[r] + logf(fmaxf(l[r], 1e-30f));
+      }
     }
   }
 }
 
 template <typename T, int DC>
-void launch(const void* q, const void* k, const void* v, void* o, int bh, int t,
-            int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+            int t, int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
             float inv_keep, cudaStream_t stream) {
   const int n_qtiles = (t + kBlockQ - 1) / kBlockQ;
   flash_fwd_kernel<T, DC><<<bh * n_qtiles, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), t, d, n_qtiles, scale, seed, use_dropout, thresh, inv_keep);
+      static_cast<T*>(o), lse, t, d, n_qtiles, scale, seed, use_dropout, thresh, inv_keep);
 }
 
 template <typename T>
-void dispatch(const void* q, const void* k, const void* v, void* o, int bh, int t,
-              int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
+void dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+              int t, int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
               float inv_keep, cudaStream_t stream) {
   switch ((d + 31) / 32) {
-    case 1: launch<T, 1>(q, k, v, o, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    case 2: launch<T, 2>(q, k, v, o, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    case 3: launch<T, 3>(q, k, v, o, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    default: launch<T, 4>(q, k, v, o, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
+    case 1: launch<T, 1>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
+    case 2: launch<T, 2>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
+    case 3: launch<T, 3>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
+    default: launch<T, 4>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
   }
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous (bh, t, d) arrays on the device, all f32 (is_bf16 = 0)
-// or all bf16 (is_bf16 = 1); 1 <= d <= 128.  seed >= 0; thresh and inv_keep
+// or all bf16 (is_bf16 = 1); 1 <= d <= 128.  lse: null, or a contiguous
+// (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0; thresh and inv_keep
 // are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate).
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         int bh, int t, int d, int is_bf16, float scale, int seed,
+                         void* lse, int bh, int t, int d, int is_bf16, float scale, int seed,
                          int use_dropout, int thresh, float inv_keep, void* stream) {
   const long long n_qtiles = (t + kBlockQ - 1) / kBlockQ;
   if (bh < 1 || t < 1 || d < 1 || d > 128 || seed < 0 || thresh < 0 ||
@@ -207,10 +215,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    dispatch<__nv_bfloat16>(q, k, v, o, bh, t, d, scale, static_cast<uint32_t>(seed),
+    dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, t, d, scale, static_cast<uint32_t>(seed),
                             use_dropout, static_cast<uint32_t>(thresh), inv_keep, s);
   } else {
-    dispatch<float>(q, k, v, o, bh, t, d, scale, static_cast<uint32_t>(seed),
+    dispatch<float>(q, k, v, o, static_cast<float*>(lse), bh, t, d, scale, static_cast<uint32_t>(seed),
                     use_dropout, static_cast<uint32_t>(thresh), inv_keep, s);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,8 +1,8 @@
-"""PTB-XL code tables and normalization statistics read by serving and the configs.
+"""PTB-XL code tables, grid constants and normalization statistics.
 
 A copy of the tables in the JAX package's ``registry.py`` (the port imports
-nothing of that package): the 71-code id order, the per-code descriptions
-and the train-split per-lead statistics.  ``tests/test_torch_imports.py`` and
+nothing of that package): the 71-code id order, the per-code descriptions,
+the 250 Hz 12-lead grid and the train-split per-lead statistics.  ``tests/test_torch_imports.py`` and
 ``tests/test_torch_serving.py`` hold the copy equal to the original.
 """
 from __future__ import annotations
@@ -23,6 +23,9 @@ PTBXL_ID2CODE: Tuple[str, ...] = (
 )
 PTBXL_N_CLASS = len(PTBXL_ID2CODE)
 assert PTBXL_N_CLASS == 71
+
+TARGET_FQS = 250  # common grid every corpus is resampled to (reference data_export.py:241)
+N_LEADS = 12
 
 PTBXL_CODE2DESCRIPTION: Dict[str, str] = {
     'NDT': 'non-diagnostic T abnormalities',

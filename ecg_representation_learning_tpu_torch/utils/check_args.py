@@ -18,6 +18,8 @@ class CheckArg:
         self.cache_mismatch('model_size', list(VitConfig._SIZES))
         self.cache_mismatch('ptbxl_type', list(PTBXL_TRAIN_STATS))
         self.cache_mismatch('loss_reduction', ['mean', 'none'])
+        self.cache_mismatch('optimizer', ['AdamW', 'Adam'])
+        self.cache_mismatch('schedule', ['constant', 'cosine'])
 
     def cache_mismatch(self, name: str, accepted: Sequence[str]):
         self.d_name2accepted[name] = list(accepted)

@@ -1,10 +1,14 @@
-"""Console (and optional file) logger, as in the JAX package's utils/logging.py."""
+"""Logging: console + file + TensorBoard sinks, as in the JAX package's utils/logging.py.
+
+Reference: colored console logger / plain file logger / TensorBoard scalars
+written in parallel by the trainer (models/train.py:229-239, 380-397).
+"""
 from __future__ import annotations
 
 import logging
 import os
 import sys
-from typing import Optional
+from typing import Any, Dict, Optional
 
 _FMT = '%(asctime)s | %(name)s | %(levelname)s - %(message)s'
 _DATEFMT = '%Y-%m-%d %H:%M:%S'
@@ -54,3 +58,67 @@ def get_logger(name: str, file_path: Optional[str] = None,
             h.setFormatter(logging.Formatter(_FMT, _DATEFMT))
             logger.addHandler(h)
     return logger
+
+
+class TbWriter:
+    """Thin TensorBoard scalar writer (no-op when neither tensorboardX nor
+    torch.utils.tensorboard can be imported).
+
+    Filters non-scalar payloads like the reference's tb_ignore_keys
+    (train.py:200, 390-397).
+    """
+
+    IGNORE_KEYS = ('step', 'epoch', 'per_class_auc')
+
+    def __init__(self, log_dir: Optional[str]):
+        self._writer = None
+        if log_dir:
+            try:
+                try:
+                    from tensorboardX import SummaryWriter
+                except ImportError:
+                    from torch.utils.tensorboard import SummaryWriter
+                os.makedirs(log_dir, exist_ok=True)
+                self._writer = SummaryWriter(log_dir)
+            except Exception:
+                self._writer = None
+
+    def log(self, payload: Dict[str, Any], step: int):
+        if self._writer is None:
+            return
+        for k, v in payload.items():
+            if any(key in k for key in self.IGNORE_KEYS) or v is None:
+                continue
+            if isinstance(v, (int, float)):
+                self._writer.add_scalar(k, v, global_step=step)
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
+def pretty_single(key: str, val, ref: Optional[Dict] = None):
+    """Human formatting per metric kind (reference util/train.py:59-79)."""
+    if key in ('step', 'epoch') and ref:
+        k = next((kk for kk in ref if key in kk), None)
+        if k:
+            lim = ref[k]
+            return f'{val:>{len(str(lim))}}/{lim}'
+        return val
+    if 'loss' in key and isinstance(val, (int, float)):
+        return f'{round(val, 4):7.4f}'  # round-then-format, reference util/train.py:65
+    if any(k in key for k in ('acc', 'recall', 'auc')):
+        def one(v):
+            return f'{v * 100:6.2f}' if isinstance(v, (int, float)) else '-'
+        if isinstance(val, dict):
+            return {k: one(v) for k, v in val.items()}
+        if isinstance(val, (list, tuple)):
+            return [one(v) for v in val]
+        return one(val)
+    if ('learning_rate' in key or key == 'lr') and isinstance(val, (int, float)):
+        return f'{val:.3e}'
+    return val
+
+
+def pretty_log_dict(d: Dict, ref: Optional[Dict] = None) -> Dict:
+    return {k: pretty_single(k, v, ref) for k, v in d.items()}

@@ -106,9 +106,15 @@ def test_dispatcher_dropout_uses_the_hashed_kernel_mask():
         eval_out.numpy(),
         np.asarray(jattn.flash_attention(*map(jnp.asarray, (q, k, v)), 0, None,
                                          128, 128, True)), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
+    # the plain branch drops with raw bits from its generator (JAX's
+    # bits < round((1 - rate) * (2^32 - 1))), not the hashed mask
+    with pytest.raises(ValueError, match='generator'):
         tattn.attention(*map(torch.from_numpy, (q, k, v)), dropout_rate=0.1,
                         deterministic=False, use_flash=False)
+    plain = tattn.attention(*map(torch.from_numpy, (q, k, v)), dropout_rate=0.1,
+                            deterministic=False, use_flash=False,
+                            generator=torch.Generator().manual_seed(0))
+    assert plain.shape == got.shape and not np.allclose(plain.numpy(), got, atol=1e-3)
 
 
 @pytest.mark.parametrize('bad,err', [

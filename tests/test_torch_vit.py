@@ -131,6 +131,10 @@ def test_port_mapping_rejects_partial_or_misshapen_params():
 def test_model_rejects_unported_features():
     with pytest.raises(NotImplementedError, match='moe_num_experts'):
         tvit.EcgVit(VitConfig.from_defined('debug', moe_num_experts=4))
+    # remat would redraw the dropout seeds on recompute: it stays unported
+    with pytest.raises(NotImplementedError, match='remat'):
+        tvit.EcgVit(VitConfig.from_defined('debug', remat=True))
+    # the training forward runs, but a dropout site needs its generators
     m = tvit.EcgVit(VitConfig.from_defined('debug', max_signal_length=320))
-    with pytest.raises(NotImplementedError, match='eval'):
+    with pytest.raises(ValueError, match='rng'):
         m.train()(torch.zeros(1, 12, 320))
