@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--phases kernels serving training]
+    python3 chip_smoke.py [--phases kernels serving training denoise]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -14,7 +14,11 @@ process per source started together (into ``build/torch_kernels/``), then:
    (#4) against SDPA's backward, at the serving shape and at longer
    sequences, f32 and bf16, dropout 0 and 0.1; AdamW (#5) over every
    ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
-   bf16 mu, against ``torch.optim.AdamW(fused=True)``;
+   bf16 mu, against ``torch.optim.AdamW(fused=True)``; the NLM kernel (#6)
+   on the denoise chain's rows of 64 records at full and bounded search, on
+   ragged rows with a zero row and on rows longer than one block's segment;
+   its five attribution variants (#7), then the probe
+   ``tools/nlm_sol_probe.py`` of the port;
 2. serving phase: ViT-base (f32, 12 layers of attention at 41 tokens, all
    through the kernel: ``flash_min_seq=0``) behind ``serving.serve`` answers
    16 concurrent HTTP requests; every client's rows must equal
@@ -28,7 +32,13 @@ process per source started together (into ``build/torch_kernels/``), then:
    one AdamW launch: three f32 steps against a plain twin (plain attention,
    plain AdamW) from one init, then ``Trainer.train()`` in bf16 with dropout
    0.1 and TimeOut over 2 epochs of the hard synthetic corpus, with its
-   train samples/s, eval macro-AUROC and a profile of one step.
+   train samples/s, eval macro-AUROC and a profile of one step;
+4. denoise phase: ``export_denoised``'s per-chunk body (``denoise_chunk``)
+   on synthetic 12 x 2500 records at 250 Hz: two chunks of 64 at full search
+   (the CLI default) and one at search 128, one NLM launch each; records/s,
+   the device time of each chain step and a profile; the output against a
+   twin whose NLM step is the plain version and against the chain on the
+   CPU; an all-zero lead comes out all zeros.
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
@@ -51,13 +61,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ecg_representation_learning_tpu_torch.configs import TrainConfig, VitConfig
-from ecg_representation_learning_tpu_torch.data import get_ptbxl_splits, synth_ptbxl
+from ecg_representation_learning_tpu_torch.configs import (PreprocessConfig, TrainConfig,
+                                                           VitConfig)
+from ecg_representation_learning_tpu_torch.data import get_ptbxl_splits, synth_ecg, synth_ptbxl
+from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit
-from ecg_representation_learning_tpu_torch.ops import _build, adamw
+from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
+from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
+from ecg_representation_learning_tpu_torch.ops.loess import rloess
+from ecg_representation_learning_tpu_torch.ops.preprocess import zheng_denoise, zheng_detrend
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
 from ecg_representation_learning_tpu_torch.serving import serve
+from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
 from ecg_representation_learning_tpu_torch.train import SplitData, Trainer
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
@@ -88,6 +104,24 @@ LOSS_RTOL = 1e-4                     # per-step loss, kernels vs plain twin, f32
 # can end 2 * lr apart per step; every other element agrees to ~1e-6
 PARAM_TOL = 2 * PARITY_STEPS * 3e-4 * 1.1
 TRAIN_N = 832                        # hard corpus: 644 train rows, 10 steps/epoch at bs 64
+# NLM kernel vs plain version, max abs error over max |x|: the JAX package's
+# bar between its kernel and the scan form (tests/test_nlm_pallas.py:22);
+# the box sums and accumulations are taken in another order
+NLM_LIMIT = 2e-6
+# operations per weight the NLM needs, from the TPU kernel's body for one
+# (row, position, s): SSD 3 (sub, square, mask), box sum 6 (a log tree of
+# adds), scale 2, exp 1, masks 3, accumulations 2 x 3 (+s and -s terms)
+NLM_OPS = 21
+DENOISE_CHUNK = 64                   # export_denoised's --batch default: 768 rows
+DENOISE_FQS, DENOISE_LEN = 250, 2500  # the combined export's grid: 10 s records
+# kernel #6's other cases: ragged rows (rows, L, search, pw) with an all-zero
+# row, and rows longer than one block's 4096-position segment
+NLM_RAGGED = (77, 1999, 64, 7)
+NLM_LONG = (24, 9000, 5000, 10)
+DEV = 'cuda'
+# chain on the card vs on the CPU, over max |x|: the LOESS solve and the
+# noise estimate's medians see f32 sums in another order on each device
+DENOISE_CPU_LIMIT = 1e-4
 # (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
 KERNELS = [
     ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
@@ -95,6 +129,8 @@ KERNELS = [
     ('flash_bwd_dq', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:235'),
     ('flash_bwd_dkv', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:277'),
     ('adamw', 'adamw', 'ecg_representation_learning_tpu/ops/adamw_pallas.py:41'),
+    ('nlm_rows', 'nlm', 'ecg_representation_learning_tpu/ops/nlm_pallas.py:48'),
+    ('nlm_variant', 'nlm', 'tools/nlm_sol_probe.py:36'),
 ]
 
 
@@ -327,17 +363,243 @@ def adamw_phase():
     return out
 
 
+def nlm_bound(rows: int, n: int, sch: int, pw: int):
+    """Least time for one NLM launch: x and 1/h read once, the output
+    written once, against NLM_OPS operations per weight that the rows need
+    (``nlm_fused.needed_weights``) at the f32 CUDA-core peak."""
+    return bound(4 * (2 * rows * n + rows),
+                 NLM_OPS * rows * nlm_fused.needed_weights(n, sch, pw), torch.float32)
+
+
+def _events_ms(fn):
+    """(result, device ms) of one call of ``fn``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _nlm_err(got, want, x, zero_rows=()):
+    """max |got - want| over max |x|, off the all-zero rows, whose interior
+    must be NaN in both (h = 0) and whose edges pass through."""
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    keep[list(zero_rows)] = False
+    for r in zero_rows:
+        for out in (got, want):
+            if not (torch.isnan(out[r, 1:-1]).any() and (out[r, :1] == 0).all()):
+                raise AssertionError(f'all-zero row {r} is not NaN inside: {out[r, :20]}')
+    err = (got[keep] - want[keep]).abs().max() / x.abs().max()
+    return err.item(), bool(torch.isfinite(got[keep]).all())
+
+
+def chain_rows():
+    """The denoise chain's NLM input for one chunk of synthetic records
+    (low-pass and robust LOESS on the card): rows (768, 2500) and their
+    bandwidths."""
+    x = synth_ecg(np.random.default_rng(8), DENOISE_CHUNK, length=DENOISE_LEN,
+                  fqs=DENOISE_FQS)
+    y = zheng_detrend(torch.from_numpy(x).to(DEV), DENOISE_FQS)
+    return y.reshape(-1, DENOISE_LEN), nlm_fused.nlm_bandwidth(y).reshape(-1)
+
+
+def nlm_phase(y2, h2):
+    """Kernel #6 against ``nlm_rows_reference``: the denoise chain's rows
+    ``y2`` (768, 2500) with bandwidths ``h2`` at full search (the CLI
+    default) and at search 128; ragged rows (77 x 1999, pw 7, search 64)
+    with an all-zero row; rows longer than one block's segment (24 x 9000,
+    search 5000).  Returns the full-search row."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    (r1, n1, s1, p1), (r2, n2, s2, p2) = NLM_RAGGED, NLM_LONG
+    ragged = 10 * torch.randn((r1, n1), generator=gen, device=DEV)
+    ragged[5] = 0.0
+    long_rows = torch.randn((r2, n2), generator=gen, device=DEV)
+    cases = [('chain_full', y2, h2, y2.shape[1], 10, ()),
+             ('chain_128', y2, h2, 128, 10, ()),
+             ('ragged_zero_row', ragged, nlm_fused.nlm_bandwidth(ragged, 1.5, p1), s1, p1, (5,)),
+             ('long_rows', long_rows, nlm_fused.nlm_bandwidth(long_rows, 1.5, p2), s2, p2, ())]
+    rows, failures = {}, []
+    for name, x, h, sch, pw, zero_rows in cases:
+        got = nlm_fused.nlm_rows(x, h, sch, pw)
+        torch.cuda.synchronize()
+        want, plain_once = _events_ms(lambda: nlm_fused.nlm_rows_reference(x, h, sch, pw))
+        err, finite = _nlm_err(got, want, x, zero_rows)
+        b_ms, b_by = nlm_bound(x.shape[0], x.shape[1], sch, pw)
+        row = {'phase': 'kernel', 'kernel': 'nlm_rows', 'case': name,
+               'shape': list(x.shape), 'sch_wd': sch, 'patch_wd': pw,
+               'max_abs_err': err, 'limit': NLM_LIMIT, 'finite': finite,
+               'zero_rows_nan': list(zero_rows), 'bound_ms': b_ms, 'bound_by': b_by,
+               'kernel_ms': time_ms(lambda: nlm_fused.nlm_rows(x, h, sch, pw),
+                                    reps=5 if sch > 1000 else 20, warmup=1),
+               'plain_ms': (plain_once if sch > 1000 else time_ms(
+                   lambda: nlm_fused.nlm_rows_reference(x, h, sch, pw), reps=3, warmup=1)),
+               'plain_timed': 'once' if sch > 1000 else 'mean of 3',
+               'library_ms': None,
+               'library': 'none: no single PyTorch call computes non-local means'}
+        emit(row)
+        rows[name] = row
+        if not (finite and err <= NLM_LIMIT):
+            failures.append(row)
+    if failures:
+        raise AssertionError(f'nlm kernel disagrees with its plain version: {failures}')
+    return rows['chain_full']
+
+
+def nlm_variant_phase():
+    """Kernel #7: each attribution variant against its plain version at the
+    probe's shape (768, 2500, search 128, pw 10, N(0, 1) rows, h = 1), then
+    the probe's own timing run (its launches are this kernel's main path)
+    and its attribution.  Returns the 'full' variant's row."""
+    r, n, sch, pw = probe.SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    x = torch.randn((r, n), generator=gen, device=DEV)
+    h = torch.ones(r, device=DEV)
+    b_ms, b_by = nlm_bound(r, n, sch, pw)
+    rows, failures = {}, []
+    for name, flags in probe.VARIANTS:
+        got = probe.run_variant(x, h, sch, pw, flags)
+        torch.cuda.synchronize()
+        want = probe.variant_reference(x, h, sch, pw, flags)
+        err, finite = _nlm_err(got, want, x)
+        row = {'phase': 'kernel', 'kernel': 'nlm_variant', 'variant': name,
+               'shape': [r, n], 'sch_wd': sch, 'patch_wd': pw, 'max_abs_err': err,
+               'limit': NLM_LIMIT, 'finite': finite, 'bound_ms': b_ms, 'bound_by': b_by,
+               'kernel_ms': time_ms(lambda: probe.run_variant(x, h, sch, pw, flags),
+                                    reps=20, warmup=1),
+               'plain_ms': time_ms(lambda: probe.variant_reference(x, h, sch, pw, flags),
+                                   reps=3, warmup=1),
+               'library_ms': None}
+        emit(row)
+        rows[name] = row
+        if not (finite and err <= NLM_LIMIT):
+            failures.append(row)
+    if failures:
+        raise AssertionError(f'nlm variants disagree with their plain versions: {failures}')
+    probe.variant_kernel.launches = 0
+    times = probe.measure()
+    launches = probe.variant_kernel.launches
+    emit({'phase': 'nlm_sol_probe', 'shape': list(probe.SHAPE), 'ms': times,
+          'attribution_ms': probe.attribution(times),
+          'attribution_share': {k: v / times['full'] for k, v in
+                                probe.attribution(times).items()},
+          'launches': launches})
+    full = dict(rows['full'], launches=launches,
+                max_abs_err=max(row['max_abs_err'] for row in rows.values()))
+    return full
+
+
+def _chunk_split(x, cfg, emit_profiles):
+    """Each chain step on one chunk, profiled alone after a warm-up call
+    (see ``_profile``): low-pass, rloess (6 smooths, 10 medians), the noise
+    estimate (2 medians) and the NLM kernel.  Returns {step: device ms, wall
+    ms, device launches}; emits each step's profile if asked."""
+    y1 = butterworth_low_pass(x, fs=DENOISE_FQS)
+    y = (y1 - rloess(y1, n=DENOISE_FQS, robust_iters=cfg.loess_robust_iters)
+         ).reshape(-1, x.shape[-1])
+    h = nlm_fused.nlm_bandwidth(y, cfg.nlm_smooth_factor, cfg.nlm_patch_halfwidth)
+    sch = cfg.nlm_search_width or x.shape[-1]
+    steps = {'lowpass': lambda: butterworth_low_pass(x, fs=DENOISE_FQS),
+             'rloess': lambda: rloess(y1, n=DENOISE_FQS, robust_iters=cfg.loess_robust_iters),
+             'sigma': lambda: nlm_fused.nlm_bandwidth(y, cfg.nlm_smooth_factor,
+                                                      cfg.nlm_patch_halfwidth),
+             'nlm': lambda: nlm_fused.nlm_rows(y, h, sch, cfg.nlm_patch_halfwidth)}
+    split = {}
+    for name, step in steps.items():
+        def run(step=step):
+            step()
+            torch.cuda.synchronize()
+        run()
+        prof = _profile(f'denoise step {name}, chunk of {DENOISE_CHUNK} records, '
+                        f'search {sch}', 'call', 1, run)
+        split[name] = {'device_ms': prof['device_ms_per_call'],
+                       'wall_ms': prof['wall_ms_per_call'],
+                       'launches': prof['device_launches_per_call']}
+        if emit_profiles:
+            emit(prof)
+    return split
+
+
+def denoise_phase():
+    """``export_denoised``'s per-chunk body on the card at the CLI defaults:
+    two chunks of 64 records at full search, one at search 128.  Returns
+    the NLM kernel's launches in those three runs (one per chunk)."""
+    rng = np.random.default_rng(7)
+    x = synth_ecg(rng, 3 * DENOISE_CHUNK, length=DENOISE_LEN, fqs=DENOISE_FQS)
+    zero_lead = (5, 4)                   # record 5 of the first chunk: lead 4 all zero
+    x[zero_lead] = 0.0
+    full, bounded = PreprocessConfig(), PreprocessConfig(nlm_search_width=128)
+    denoise_chunk(x[:2, :, :500], DENOISE_FQS, bounded, DEV)  # warm-up: cuBLAS, library
+    _zero_counts()
+    runs, outs = [], []
+    for i, cfg in enumerate((full, full, bounded)):
+        chunk = x[i * DENOISE_CHUNK:(i + 1) * DENOISE_CHUNK]
+        before = nlm_fused.nlm_rows_kernel.launches
+        t0 = time.perf_counter()
+        outs.append(denoise_chunk(chunk, DENOISE_FQS, cfg, DEV))
+        seconds = time.perf_counter() - t0
+        runs.append({'chunk': i, 'records': len(chunk),
+                     'nlm_search_width': cfg.nlm_search_width or DENOISE_LEN,
+                     'seconds': seconds, 'records_per_s': len(chunk) / seconds,
+                     'nlm_launches': nlm_fused.nlm_rows_kernel.launches - before})
+    launches = _counts()
+    emit({'phase': 'denoise', 'runs': runs, 'launches': launches})
+    if [r['nlm_launches'] for r in runs] != [1, 1, 1]:
+        raise AssertionError(f'expected one NLM launch per chunk: {runs}')
+
+    # the twin: the same chain with the plain NLM step, on the same rows
+    first = torch.from_numpy(x[:DENOISE_CHUNK]).to(DEV)
+    y = zheng_detrend(first, DENOISE_FQS, full)
+    h = nlm_fused.nlm_bandwidth(y, full.nlm_smooth_factor, full.nlm_patch_halfwidth)
+    y2 = y.reshape(-1, DENOISE_LEN)
+    twin = nlm_fused.nlm_rows_reference(y2, h.reshape(-1), DENOISE_LEN,
+                                        full.nlm_patch_halfwidth).reshape(first.shape)
+    raw = zheng_denoise(first, DENOISE_FQS, full)
+    ok = torch.ones(first.shape[:2], dtype=torch.bool, device=DEV)
+    ok[zero_lead] = False
+    twin_err = ((raw[ok] - twin[ok]).abs().max() / y[ok].abs().max()).item()
+    chain_err = float(np.abs(outs[0] - np.nan_to_num(raw.cpu().numpy())).max()
+                      / np.abs(x[:DENOISE_CHUNK]).max())
+
+    # the chain on the CPU, two records at full search
+    cpu = denoise_chunk(x[:2], DENOISE_FQS, full, device='cpu')
+    cpu_err = float(np.abs(outs[0][:2] - cpu).max() / np.abs(x[:2]).max())
+    zero_ok = bool((outs[0][zero_lead] == 0).all() and torch.isnan(raw[zero_lead]).any())
+    finite = all(bool(np.isfinite(o).all()) for o in outs)
+    summary = {'phase': 'denoise_check', 'records': int(x.shape[0]),
+               'shape': list(x.shape[1:]), 'fqs': DENOISE_FQS,
+               'max_abs_err_vs_plain_nlm_twin': twin_err, 'twin_limit': NLM_LIMIT,
+               'max_abs_err_chunk_vs_chain': chain_err,
+               'max_abs_err_vs_cpu_2_records': cpu_err, 'cpu_limit': DENOISE_CPU_LIMIT,
+               'zero_lead_zero': zero_ok, 'finite': finite,
+               'by_step_full': _chunk_split(first, full, emit_profiles=True),
+               'by_step_128': _chunk_split(first, bounded, emit_profiles=False)}
+    emit(summary)
+    if not (twin_err <= NLM_LIMIT and chain_err <= NLM_LIMIT
+            and cpu_err <= DENOISE_CPU_LIMIT and zero_ok and finite):
+        raise AssertionError(f'denoise chain check failed: {summary}')
+    second = x[DENOISE_CHUNK:2 * DENOISE_CHUNK]
+    for cfg, label in ((bounded, 'search 128'), (full, 'full search')):
+        denoise_chunk(second, DENOISE_FQS, cfg, DEV)
+        emit(_profile(f'denoise chunk of {DENOISE_CHUNK} records, {label}', 'chunk', 1,
+                      lambda: denoise_chunk(second, DENOISE_FQS, cfg, DEV)))
+    return {'nlm_rows': launches['nlm_rows']}
+
+
 def _counts():
     return {'flash_fwd': attn.flash_fwd_kernel.launches,
             'flash_fwd_lse': attn.flash_fwd_lse_kernel.launches,
             'flash_bwd_dq': attn.flash_bwd_dq_kernel.launches,
             'flash_bwd_dkv': attn.flash_bwd_dkv_kernel.launches,
-            'adamw': adamw.adamw_kernel.launches}
+            'adamw': adamw.adamw_kernel.launches,
+            'nlm_rows': nlm_fused.nlm_rows_kernel.launches,
+            'nlm_variant': probe.variant_kernel.launches}
 
 
 def _zero_counts():
     for k in (attn.flash_fwd_kernel, attn.flash_fwd_lse_kernel, attn.flash_bwd_dq_kernel,
-              attn.flash_bwd_dkv_kernel, adamw.adamw_kernel):
+              attn.flash_bwd_dkv_kernel, adamw.adamw_kernel, nlm_fused.nlm_rows_kernel,
+              probe.variant_kernel):
         k.launches = 0
 
 
@@ -400,7 +662,7 @@ def training_phase():
         losses.append((got, want))
     layers = cfg.num_hidden_layers
     expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
-              'flash_bwd_dkv': layers, 'adamw': 1}
+              'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
     param_err = max((a - b).abs().max().item() for a, b in
                     zip(tr.model.state_dict().values(), twin.model.state_dict().values()))
     loss_err = max(abs(a - b) / abs(b) for a, b in losses)
@@ -631,7 +893,7 @@ def serving_phase():
     return summary, launches
 
 
-PHASES = ('kernels', 'serving', 'training')
+PHASES = ('kernels', 'serving', 'training', 'denoise')
 
 
 def main(argv=None) -> int:
@@ -649,7 +911,7 @@ def main(argv=None) -> int:
                           '--format=csv,noheader'], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs = ['flash_fwd', 'flash_bwd', 'adamw']
+    libs = ['flash_fwd', 'flash_bwd', 'adamw', 'nlm']
     _build.build(libs)
     build_s = time.perf_counter() - t0
     ptxas = {lib: [ln.strip() for ln in
@@ -664,10 +926,15 @@ def main(argv=None) -> int:
         rows['flash_fwd'] = kernel_phase()
         rows.update(flash_grad_phase())
         rows['adamw'] = adamw_phase()
+        rows['nlm_rows'] = nlm_phase(*chain_rows())
+        rows['nlm_variant'] = nlm_variant_phase()
+        launches['nlm_variant'] = rows['nlm_variant']['launches']
     if 'serving' in args.phases:
         _, launches['flash_fwd'] = serving_phase()
     if 'training' in args.phases:
         launches.update(training_phase())
+    if 'denoise' in args.phases:
+        launches.update(denoise_phase())
     if set(args.phases) != set(PHASES):
         return 0
 

@@ -3,13 +3,16 @@
     python -m ecg_representation_learning_tpu_torch.cli train --size base --epochs 3
     python -m ecg_representation_learning_tpu_torch.cli evaluate --checkpoint runs/x/ckpt-final
     python -m ecg_representation_learning_tpu_torch.cli serve --checkpoint runs/x/ckpt-final
+    python -m ecg_representation_learning_tpu_torch.cli denoise --input ptbxl-combined.hdf5
 
 ``train`` and ``evaluate`` run on the synthetic PTB-XL-shaped corpus
 (``synth_ptbxl(n=--synth-n)``, as the JAX CLI does without ``--hdf5``; the
 HDF5 loaders are not ported).  The flags are the JAX CLI's, with its names
 and defaults, for the features the port has; ``--checkpoint`` and
 ``--resume-from`` take the port's checkpoints (``train/checkpoint.py``).
-Everything runs on the GPU.
+``denoise`` is the JAX CLI's (combined HDF5 -> denoised HDF5, resumable; it
+needs h5py).  Everything runs on the GPU; ``denoise --device cpu`` runs the
+plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
@@ -140,6 +143,16 @@ def cmd_serve(args):
         httpd.service.close()
 
 
+def cmd_denoise(args):
+    from .configs import PreprocessConfig
+    from .data.export import export_denoised
+    cfg = PreprocessConfig(nlm_search_width=args.nlm_search_width,
+                           loess_robust_iters=args.loess_robust_iters)
+    out = export_denoised(args.input, args.out, cfg=cfg, batch=args.batch,
+                          resume=not args.no_resume, device=args.device)
+    print(out)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog='ecg-torch')
     sub = p.add_subparsers(dest='cmd', required=True)
@@ -162,6 +175,19 @@ def build_parser() -> argparse.ArgumentParser:
     psv.add_argument('--host', default='127.0.0.1')
     psv.add_argument('--port', type=int, default=8000)
     psv.set_defaults(fn=cmd_serve)
+    pd_ = sub.add_parser('denoise', help='combined HDF5 -> denoised HDF5')
+    pd_.add_argument('--input', required=True)
+    pd_.add_argument('--out', default=None)
+    pd_.add_argument('--batch', type=int, default=64)
+    pd_.add_argument('--nlm-search-width', type=int, default=None)
+    pd_.add_argument('--loess-robust-iters', type=int, default=5,
+                     help='bisquare iterations (5 = MATLAB-exact; 2 stays '
+                          'within the reference export tolerance)')
+    pd_.add_argument('--no-resume', action='store_true')
+    pd_.add_argument('--device', default=None, choices=['cuda', 'cpu'],
+                     help='default: the GPU; cpu runs the plain versions of '
+                          'the kernels')
+    pd_.set_defaults(fn=cmd_denoise)
     return p
 
 

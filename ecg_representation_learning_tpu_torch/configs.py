@@ -1,4 +1,4 @@
-"""Frozen configuration dataclasses for the model and for training.
+"""Frozen configuration dataclasses for the model, training and preprocessing.
 
 ``VitConfig`` and ``TrainConfig`` are field-for-field copies of the JAX
 package's, so a configuration carries over with
@@ -9,7 +9,7 @@ raises on a ``VitConfig`` value it cannot honour (MoE, ``scan_blocks``,
 its own (meshes, FSDP, multi-step dispatch, the linear probe, the optax
 chain, async checkpoints, sub-f32 resident splits).  ``prng_impl`` and
 ``jax_debug_nans`` configure JAX alone and are carried, unread, so that a
-JAX configuration still loads.
+JAX configuration still loads.  ``PreprocessConfig`` is a whole copy.
 """
 from __future__ import annotations
 
@@ -178,3 +178,22 @@ class TrainConfig:
 
     def total_steps(self, n_train: int) -> int:
         return self.steps_per_epoch(n_train) * self.num_train_epoch
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessConfig:
+    """Fused preprocessing pipeline settings (reference Zheng chain constants in
+    config.json ``pre_processing.zheng``; see ops/ for the kernels)."""
+    source_fqs: int = 500
+    target_fqs: int = 250
+    lowpass_passband: float = 50.0
+    lowpass_stopband: float = 60.0
+    lowpass_ripple_db: float = 1.0
+    lowpass_attenuation_db: float = 2.5
+    loess_window: Optional[int] = None   # default: = source fqs (data_preprocessor.py:44)
+    # MATLAB 'rloess' runs 5 bisquare robustness iterations; 2 stays within
+    # the reference's own export tolerance (atol=10, data_preprocessor.py:196)
+    loess_robust_iters: int = 5
+    nlm_smooth_factor: float = 1.5
+    nlm_patch_halfwidth: int = 10
+    nlm_search_width: Optional[int] = None  # None = full signal (data_preprocessor.py:98-99)

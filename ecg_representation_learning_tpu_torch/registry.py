@@ -2,11 +2,13 @@
 
 A copy of the tables in the JAX package's ``registry.py`` (the port imports
 nothing of that package): the 71-code id order, the per-code descriptions,
-the 250 Hz 12-lead grid and the train-split per-lead statistics.  ``tests/test_torch_imports.py`` and
+the 250 Hz 12-lead grid, the Zheng denoise constants and the train-split
+per-lead statistics.  ``tests/test_torch_imports.py`` and
 ``tests/test_torch_serving.py`` hold the copy equal to the original.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 # id -> SCP code, 71 entries (order of scp_statements.csv restricted to the
@@ -26,6 +28,25 @@ assert PTBXL_N_CLASS == 71
 
 TARGET_FQS = 250  # common grid every corpus is resampled to (reference data_export.py:241)
 N_LEADS = 12
+
+
+# Zheng et al. denoising constants (reference config.json ``pre_processing.zheng``)
+@dataclasses.dataclass(frozen=True)
+class LowPassSpec:
+    passband: float = 50.0              # Hz
+    stopband: float = 60.0              # Hz
+    passband_ripple: float = 1.0        # dB
+    stopband_attenuation: float = 2.5   # dB
+
+
+@dataclasses.dataclass(frozen=True)
+class NlmSpec:
+    smooth_factor: float = 1.5  # Gaussian scale factor (config.json nlm.smooth_factor)
+    window_size: int = 10       # patch half-width (config.json nlm.window_size)
+
+
+LOW_PASS = LowPassSpec()
+NLM = NlmSpec()
 
 PTBXL_CODE2DESCRIPTION: Dict[str, str] = {
     'NDT': 'non-diagnostic T abnormalities',
