@@ -12,7 +12,10 @@ process per source started together (into ``build/torch_kernels/``), then:
    the flash forward (#1) and its lse variant (#2) against
    ``scaled_dot_product_attention``, the blocked backward dQ (#3) and dK/dV
    (#4) against SDPA's backward, at the serving shape and at longer
-   sequences, f32 and bf16, dropout 0 and 0.1; AdamW (#5) over every
+   sequences (ragged T and D, one row, exact tiles, rows of a size that
+   takes the kernel's scalar-load branch), f32 and bf16, dropout 0 and 0.1,
+   and the dropout mask of #1 and #2 checked entry by entry against
+   ``keep_full``; AdamW (#5) over every
    ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
    bf16 mu, against ``torch.optim.AdamW(fused=True)``; the NLM kernel (#6)
    on the denoise chain's rows of 64 records at full and bounded search, on
@@ -84,8 +87,17 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # order; bf16 also in where p is rounded (before vs after normalization)
 LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SERVING_SHAPE = (64, 12, 41, 64)     # ViT-base at bs 64: B, H, T = 40 patches + cls, D
+# the serving shape, long sequences, ragged T with D = 80 and 128 (the
+# kernels' 128-column tiles), one row, exact tiles, about a bs-64 batch's
+# tokens at T = 256, and rows of 40 and 132 bytes (the scalar-load branch)
 KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
-                ((2, 12, 1024, 64), torch.bfloat16), ((1, 4, 2049, 64), torch.float32)]
+                ((2, 12, 1024, 64), torch.bfloat16), ((1, 4, 2049, 64), torch.float32),
+                ((3, 5, 200, 80), torch.bfloat16), ((2, 4, 130, 128), torch.float32),
+                ((1, 1, 1, 64), torch.float32), ((8, 12, 128, 64), torch.bfloat16),
+                ((10, 12, 256, 64), torch.bfloat16), ((2, 3, 100, 20), torch.bfloat16),
+                ((2, 3, 77, 33), torch.float32)]
+# the dropout mask check: sequence lengths, (B, H), rate
+MASK_TS, MASK_BH, MASK_RATE = (41, 256), (2, 6), 0.1
 # backward kernels vs plain version, max abs error over max(1, max |plain|):
 # f32 sums in another order (the CPU tests hold the plain version to JAX at
 # 2e-5 the same way); bf16 rounds ds and the outputs to 8 significant bits
@@ -153,6 +165,44 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+# cycles of the spin kernel that device_ms queues calls behind: ~50 ms at
+# the H100's 1.98 GHz boost clock, longer than queueing 50 calls of any
+# version timed here
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps: int = 50, warmup: int = 5):
+    """Device time of ``fn`` per call with the host's launch rate out of the
+    way: the calls are queued behind a spin kernel, so the device runs them
+    back to back (CUDA events).  None if queueing them outlasted the spin."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    events[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    events[2].record()
+    events[2].synchronize()
+    if queued_ms >= events[0].elapsed_time(events[1]):
+        return None
+    return events[1].elapsed_time(events[2]) / reps
+
+
+def time_calls(row, calls) -> None:
+    """``row[f'{name}_ms']`` (per call, back to back) and
+    ``row[f'{name}_device_ms']`` for each of ``calls`` {name: fn}; the plain
+    version gets 20 reps, the rest 50."""
+    for name, fn in calls.items():
+        reps = 20 if name == 'plain' else 50
+        row[f'{name}_ms'] = time_ms(fn, reps=reps)
+        row[f'{name}_device_ms'] = device_ms(fn, reps=reps)
+
+
 def bound(n_bytes, n_ops, dtype):
     """Least time for ``n_bytes`` moved at the HBM rate and ``n_ops`` at the
     peak rate for ``dtype``: (ms, 'bytes' | 'operations')."""
@@ -202,11 +252,10 @@ def kernel_phase():
                    'limit': LIMITS[dtype], 'finite': bool(torch.isfinite(got).all()),
                    'bound_ms': bound_ms, 'bound_by': bound_by}
             if rate == 0.0:
-                row['kernel_ms'] = time_ms(lambda: attn.flash_attention_forward(q, k, v))
-                row['plain_ms'] = time_ms(
-                    lambda: attn.flash_attention_forward_reference(q, k, v), reps=20)
-                row['library_ms'] = time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v))
+                time_calls(row, {
+                    'kernel': lambda: attn.flash_attention_forward(q, k, v),
+                    'plain': lambda: attn.flash_attention_forward_reference(q, k, v),
+                    'library': lambda: F.scaled_dot_product_attention(q, k, v)})
             emit(row)
             rows.append(row)
             if not (row['finite'] and err <= LIMITS[dtype]):
@@ -215,6 +264,39 @@ def kernel_phase():
         raise AssertionError(f'flash kernel disagrees with its plain version: {failures}')
     return next(r for r in rows if r['shape'] == list(SERVING_SHAPE)
                 and r['dtype'] == str(torch.float32) and r['dropout_rate'] == 0.0)
+
+
+def dropout_mask_phase():
+    """The dropout mask of kernels #1 and #2, exactly: with q = k = 0 every
+    score is 0 and p = 1/T, and with v one-hot over a 64-key window
+    (v[w + c, c] = 1) output column c is nonzero iff key w + c is kept.  The
+    nonzero pattern must equal ``keep_full``'s at every (bh, query, key), so
+    a wrong fragment -> (qpos, kpos) map cannot hide inside a tolerance."""
+    b, h = MASK_BH
+    rows = []
+    for t in MASK_TS:
+        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device='cuda')
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.zeros((b, h, t, 64), device='cuda', dtype=dtype)
+            mismatches = {'flash_fwd': 0, 'flash_fwd_lse': 0}
+            for w in range(0, t, 64):
+                n = min(64, t - w)
+                v = torch.zeros_like(q)
+                v[:, :, w + torch.arange(n, device='cuda'), torch.arange(n, device='cuda')] = 1
+                want = torch.zeros((b, h, t, 64), dtype=torch.bool, device='cuda')
+                want[..., :n] = keep[..., w:w + n]
+                for name, lse in (('flash_fwd', False), ('flash_fwd_lse', True)):
+                    got = attn.flash_attention_forward(q, q, v, 4321, None, MASK_RATE,
+                                                       return_lse=lse)
+                    got = got[0] if lse else got
+                    mismatches[name] += int(((got != 0) != want).sum().item())
+            row = {'phase': 'kernel_dropout_mask', 'shape': [b, h, t, 64],
+                   'dtype': str(dtype), 'dropout_rate': MASK_RATE,
+                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
+            emit(row)
+            rows.append(row)
+    if any(sum(r['mismatches'].values()) for r in rows):
+        raise AssertionError(f'flash kernels drop other entries than keep_full: {rows}')
 
 
 def _rel_err(got, want) -> float:
@@ -282,11 +364,12 @@ def flash_grad_phase():
                     row.update(rel_errs=rel, rel_limit=BWD_LIMITS[dtype])
                 if rate == 0.0:
                     if name == 'flash_fwd_lse':
-                        row['kernel_ms'] = time_ms(lambda: attn.flash_attention_forward(
-                            q, k, v, return_lse=True))
-                        row['plain_ms'] = time_ms(lambda: attn.flash_attention_forward_reference(
-                            q, k, v, return_lse=True), reps=20)
-                        row['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                        time_calls(row, {
+                            'kernel': lambda: attn.flash_attention_forward(
+                                q, k, v, return_lse=True),
+                            'plain': lambda: attn.flash_attention_forward_reference(
+                                q, k, v, return_lse=True),
+                            'library': lambda: F.scaled_dot_product_attention(q, k, v)})
                     else:
                         kern = getattr(attn, f'{name}_kernel')
                         ref = getattr(attn, f'{name}_reference')
@@ -916,7 +999,8 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     ptxas = {lib: [ln.strip() for ln in
                    open(f'{_build.library_path(lib)}.log').read().splitlines()
-                   if 'registers' in ln or 'spill' in ln] for lib in libs}
+                   if 'Compiling entry' in ln or 'registers' in ln or 'spill' in ln]
+             for lib in libs}
     emit({'phase': 'env', 'nvidia_smi': smi, 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'device': torch.cuda.get_device_name(0),
           'kernel_build_s': build_s, 'ptxas': ptxas})
@@ -924,6 +1008,7 @@ def main(argv=None) -> int:
     rows, launches = {}, {}
     if 'kernels' in args.phases:
         rows['flash_fwd'] = kernel_phase()
+        dropout_mask_phase()
         rows.update(flash_grad_phase())
         rows['adamw'] = adamw_phase()
         rows['nlm_rows'] = nlm_phase(*chain_rows())

@@ -9,54 +9,79 @@
 //   * an f32 running max m, sum l and accumulator, output in the input dtype;
 //   * keys at positions >= T masked to NEG_INF = -1e30;
 //   * for bf16 inputs, p rounded to bf16 before the PV product (as the TPU
-//     kernel's p.astype(v.dtype));
+//     kernel's p.astype(v.dtype)); for f32 inputs IEEE f32 products (no TF32);
 //   * optional attention-probability dropout: l sums the raw p, the keep mask
 //     is the counter hash dropout_keep(seed, bh, qpos, kpos, rate) computed
-//     here in uint32 arithmetic, kept entries are scaled by 1/(1-rate).
+//     here in uint32 arithmetic, kept entries are scaled by 1/(1-rate);
+//   * with an lse array, the row m + log(max(l, 1e-30)) in f32.
 //
-// Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 without tensor cores):
-// at the serving shape B=64, H=12, T=41, D=64, q, k, v and o hold 8.06 M
-// elements: 32.2 MB in f32 (9.6 us of memory traffic), 16.1 MB in bf16
-// (4.8 us), while the two products are 4*B*H*T^2*D = 0.33 GFLOP (4.9 us on
-// the f32 CUDA cores, 0.33 us at the bf16 tensor-core rate); the lse adds
-// B*H*T f32 (0.13 MB, 0.04 us).  So at that
-// shape the kernel is bound by memory and by launch latency; at T >= 1k it
-// is bound by operations, which this design runs on the CUDA cores.
+// Bounds on the H100 SXM (3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores,
+// 989 TFLOP/s bf16 on the tensor cores), q, k, v read once and o written
+// once against the two products' 4*B*H*T^2*D operations:
+//   (64, 12, 41, 64)  f32  32.2 MB -> 9.6 us (bytes; the products 4.9 us)
+//   (64, 12, 41, 64)  bf16 16.1 MB -> 4.8 us (bytes; the products 0.33 us)
+//   (2, 12, 1024, 64) bf16 6.4 GFLOP -> 6.5 us (operations; bytes 3.8 us)
+//   (1, 4, 2049, 64)  f32  4.3 GFLOP -> 64 us (operations; bytes 2.5 us)
+// So the serving shape is bound by memory and launch latency, and long
+// sequences by the products: on the tensor cores in bf16, on the CUDA cores
+// in f32 (no tensor-core route meets the f32 path's 1e-5 without TF32 error).
 //
-// Design (simple first): one block of 4 warps per (bh, 16-row query tile).
-// Each warp owns 4 query rows; per staged 32-key tile of K and V in shared
-// memory (f32, K row pitch D+1 so lanes hit distinct banks), lane j scores
-// key j, the warp reduces max and sum with shuffles, and each lane
-// accumulates up to 4 output columns (lane, lane+32, ...) with p broadcast
-// by shuffle.  No padding of D or T in device memory: the block masks the
-// ragged tile itself.  Left for later: tensor cores (mma.sync / wgmma),
-// TMA or cp.async double buffering of the K/V tiles, and one block reusing
-// its K/V tiles for all query tiles of a head.
+// Design.  A block owns one (bh, query tile) and walks the head's keys in
+// 64-key tiles held in a 2-stage shared-memory ring: tile j+1 is copied with
+// cp.async (16-byte copies that zero-fill rows >= T and columns >= D) while
+// tile j is computed.  The query tile covers a whole 41-row serving head, so
+// its K/V are read once.  Rows whose D * size is not a multiple of 16 bytes,
+// or tensors not 16-byte aligned, take the same kernel's scalar-load branch.
+//   bf16: one warpgroup (4 warps) per 64 query rows; a block holds two
+//   warpgroups (128 rows) sharing each K/V tile unless that leaves more rows
+//   on the busiest SM (at T = 1024 with 24 heads, 192 wide blocks on 132 SMs
+//   put 256 rows on some SMs, 384 narrow ones at most 192).  Q, K and V
+//   tiles sit in the tensor cores' 128-byte-swizzle layout (64-column
+//   panels), and both products are wgmma: S = Q K^T as m64n64k16 from shared
+//   memory, O += P V with P as registers (the accumulator layout is the
+//   A-operand layout, rounded to bf16 in place) and V from shared memory,
+//   MN-major.  The softmax runs on the accumulator fragments: each thread
+//   masks and hashes its own (qpos, kpos), a row's max takes 2 shuffles
+//   across the quad that shares it, each thread keeps a partial raw-p sum
+//   reduced once at the end, and O is rescaled only when a max moved.  The
+//   output is staged through the warp's own Q rows and stored 16 bytes per
+//   thread; one lane per row writes the lse.
+//   f32: 256 threads over a 64 x 64 score tile, each a 4 x 4 block (rows
+//   ty + 16i, keys tx + 16j) built as outer products from float4 reads of
+//   Q and K rows (8 loads per 64 FMAs; K's row pitch DP + 4 keeps the reads
+//   conflict-free); a row's max is reduced over the 16 threads sharing it,
+//   P goes through shared memory, and O += P V is the same register tiling
+//   (4 rows x 4 columns per 64 of D).
+// Left for later: TMA loads and warp-specialised producers for bf16, whose
+// softmax (bound by the special-function unit's exp2) does not yet overlap
+// the products of the same warpgroup; 8 x 8 register tiles for f32 (4 x 4
+// needs 0.5 FMA per shared-memory byte, half of what keeps the CUDA cores
+// fed).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 16;               // query rows per block
-constexpr int kBlockK = 32;               // keys per staged tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kRows = kBlockQ / kWarps;   // query rows per warp
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBlockK = 64;               // keys per staged K/V tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// p as the PV product sees it: rounded to the input dtype
-template <typename T> __device__ __forceinline__ float round_p(float p) {
-  return to_f32(from_f32<T>(p));
-}
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;                             // null: no lse output
+  int t, d;
+  float scale;
+  uint32_t seed;
+  int use_dropout;
+  uint32_t thresh;
+  float inv_keep;
+};
 
 // dropout_keep's lowbias32-style mixer (ops/attention.py); wraps mod 2^32
 __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh,
@@ -71,131 +96,574 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh,
   return h;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// p after dropout (kept entries scaled by inv_keep); l has summed the raw p
+__device__ __forceinline__ float drop(const Params& p, float x, int bh, int qpos,
+                                      int kpos) {
+  const bool keep = (dropout_hash(p.seed, bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
+  return keep ? x * p.inv_keep : 0.f;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// 2^x on the special-function unit (2 ulp, as exp2f); results below 2^-126
+// flush to 0, which no sum or product of p here can see
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// DC = ceil(D / 32): output columns per lane
-template <typename T, int DC>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t, int d,
-                 int n_qtiles, float scale, uint32_t seed, int use_dropout,
-                 uint32_t thresh, float inv_keep) {
-  constexpr int DP = DC * 32;
-  __shared__ float q_s[kBlockQ][DP];
-  __shared__ float k_s[kBlockK][DP + 1];
-  __shared__ float v_s[kBlockK][DP];
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
+// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- bf16 path
+
+// A bf16 tile of ROWS rows x DP columns is stored as DP/64 panels of
+// [ROWS][64]: a panel row is 128 bytes, and its eight 16-byte chunks are
+// XORed with r % 8.  With panels 1024-byte aligned this is the tensor cores'
+// 128-byte swizzle, which wgmma reads through a matrix descriptor; it also
+// spreads the 8 rows of one chunk over 8 bank groups.
+template <int ROWS> __device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// rows [r0, r0 + ROWS) of a (t, d) bf16 matrix into a swizzled tile, zeros
+// outside it
+template <int ROWS, int DP, bool ALIGNED>
+__device__ __forceinline__ void load_tile_bf16(bf16* s, const bf16* g, int r0, int t, int d,
+                                               int tid, int nthreads) {
+  constexpr int CH = DP / 8;
+  if (ALIGNED) {                                   // d % 8 == 0
+    for (int i = tid; i < ROWS * CH; i += nthreads) {
+      const int r = i / CH, c = i - r * CH;
+      const bool ok = r0 + r < t && c * 8 < d;
+      cp_async16(s + swz<ROWS>(r, c), ok ? g + static_cast<size_t>(r0 + r) * d + c * 8 : g,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < ROWS * DP; i += nthreads) {
+      const int r = i / DP, c = i - r * DP;
+      s[swz<ROWS>(r, c >> 3) + (c & 7)] =
+          (r0 + r < t && c < d) ? g[static_cast<size_t>(r0 + r) * d + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// makes this thread's shared-memory writes (cp.async or plain stores)
+// visible to the tensor cores' reads, which go through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: leading and stride byte offsets, layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins registers that an in-flight wgmma reads or writes: the compiler may
+// neither move their other uses across this point nor reuse them before it
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d = A . B (+ d if accumulate) for the warpgroup's 64 rows x 64 columns,
+// k = 16, bf16 -> f32: A (64 x 16) and B (16 x 64), both K-major, in shared
+// memory.  d[4j + e] of warp w is row 16w + g + 8(e/2), column 8j + 2q + e%2
+// (g = lane/4, q = lane%4), the m16n8 accumulator layout per 8 columns.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// the same with A in registers (the m16n8k16 A-fragment layout per warp) and
+// B (16 x 64) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// two f32 rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// NW warps = NW/4 warpgroups of 64 query rows; DP = D padded to 64 or 128
+template <int NW, int DP, bool ALIGNED>
+__global__ void __launch_bounds__(NW * 32, (NW == 8 && DP == 64) ? 2 : 1)
+flash_fwd_bf16(const Params p) {
+  constexpr int BQ = 16 * NW;             // query rows per block
+  constexpr int NT = 32 * NW;
+  constexpr int KS = DP / 16;             // k16 steps of Q K^T over D
+  constexpr int NP = DP / 64;             // 64-column panels
+  constexpr int CH = DP / 8;              // 16-byte chunks per tile row
+  constexpr uint32_t kPanelQ = BQ * 128, kPanelK = kBlockK * 128;   // bytes
+  extern __shared__ uint4 smem_u4[];
+  const uint32_t raw = smem_u32(smem_u4);  // the swizzle follows the address:
+  bf16* q_s = reinterpret_cast<bf16*>(     // tiles start 1024-byte aligned
+      reinterpret_cast<char*>(smem_u4) + (((raw + 1023u) & ~1023u) - raw));  // [BQ][DP]
+  bf16* k_s = q_s + BQ * DP;                        // [2][kBlockK][DP]
+  bf16* v_s = k_s + 2 * kBlockK * DP;               // [2][kBlockK][DP]
+
+  const int t = p.t, d = p.d;
+  const int n_qtiles = (t + BQ - 1) / BQ;
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const size_t base = static_cast<size_t>(bh) * t * d;
+  const bf16* qg = static_cast<const bf16*>(p.q) + base;
+  const bf16* kg = static_cast<const bf16*>(p.k) + base;
+  const bf16* vg = static_cast<const bf16*>(p.v) + base;
+  const int n_kt = (t + kBlockK - 1) / kBlockK;
+  const int row0 = q0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
+  const uint32_t q_addr = smem_u32(q_s) + (warp >> 2) * 64 * 128;  // the warpgroup's rows
 
-  for (int i = tid; i < kBlockQ * d; i += blockDim.x) {
-    const int r = i / d, c = i - r * d;
-    q_s[r][c] = (q0 + r < t) ? to_f32(q[base + static_cast<size_t>(q0 + r) * d + c]) : 0.f;
+  load_tile_bf16<BQ, DP, ALIGNED>(q_s, qg, q0, t, d, tid, NT);
+  load_tile_bf16<kBlockK, DP, ALIGNED>(k_s, kg, 0, t, d, tid, NT);
+  load_tile_bf16<kBlockK, DP, ALIGNED>(v_s, vg, 0, t, d, tid, NT);
+  cp_async_commit();
+
+  float acc[NP][32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    cp_async_wait<0>();                   // tile j has landed
+    fence_proxy_async();
+    __syncthreads();                      // ... for all; tile j-1 is consumed
+    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+      load_tile_bf16<kBlockK, DP, ALIGNED>(k_s + (st ^ 1) * kBlockK * DP, kg,
+                                           (j + 1) * kBlockK, t, d, tid, NT);
+      load_tile_bf16<kBlockK, DP, ALIGNED>(v_s + (st ^ 1) * kBlockK * DP, vg,
+                                           (j + 1) * kBlockK, t, d, tid, NT);
+      cp_async_commit();
+    }
+    const uint32_t k_addr = smem_u32(k_s + st * kBlockK * DP);
+    const uint32_t v_addr = smem_u32(v_s + st * kBlockK * DP);
+
+    // S = Q K^T for the warpgroup's 64 rows x 64 keys; a k16 step advances
+    // 32 bytes along a 128-byte row, then to the next panel
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss(s, gmma_desc(q_addr + (kk >> 2) * kPanelQ + (kk & 3) * 32, 16, 1024),
+               gmma_desc(k_addr + (kk >> 2) * kPanelK + (kk & 3) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    // online softmax on the fragments: s[4nb + e] is (row0 + 8(e/2), key
+    // k0 + 8nb + 2tq + e%2)
+    const int k0 = j * kBlockK;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * p.scale;
+      if (k0 + kBlockK > t && k0 + (i >> 2) * 8 + 2 * tq + (i & 1) >= t) x = kNegInf;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float neg[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2_ftz((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+      l[h] *= alpha[h];
+      neg[h] = -mx[h] * kLog2e;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a max moved
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[pn][i] *= alpha[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float x = exp2_ftz(fmaf(s[i], kLog2e, neg[h]));
+      l[h] += x;                          // the normalizer sums the raw p
+      if (p.use_dropout) x = drop(p, x, bh, row0 + 8 * h, k0 + (i >> 2) * 8 + 2 * tq + (i & 1));
+      s[i] = x;
+    }
+
+    // O += P V: P's accumulator fragments, rounded to bf16, are the A
+    // operand in registers; V (keys x D, D contiguous) is B, MN-major, a k16
+    // step 16 rows (2048 bytes) on
+    uint32_t pa[kBlockK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(pa);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_regs(acc[pn]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        wgmma_rs(acc[pn], pa[kk], gmma_desc(v_addr + pn * kPanelK + kk * 2048, kPanelK, 1024));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_regs(acc[pn]);
+    fence_regs(pa);
   }
 
-  float m[kRows], l[kRows], acc[kRows][DC];
+  // epilogue: row sums over the quad, normalize, stage the warp's 16 rows in
+  // its own Q rows, store 16 bytes per thread
+  float inv[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / l[h];
+    const int row = row0 + 8 * h;
+    if (p.lse != nullptr && tq == 0 && row < t)
+      p.lse[static_cast<size_t>(bh) * t + row] = m[h] + logf(fmaxf(l[h], 1e-30f));
+  }
+  __syncthreads();                        // every warpgroup's reads of Q are done
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      *reinterpret_cast<uint32_t*>(q_s + swz<BQ>(warp * 16 + g + 8 * h, 8 * pn + (i >> 2)) +
+                                   2 * tq) =
+          pack_bf16(acc[pn][i] * inv[h], acc[pn][i + 1] * inv[h]);
+    }
+  __syncwarp();
+  bf16* og = static_cast<bf16*>(p.o) + base;
+  const int r_base = q0 + warp * 16;
+  if (ALIGNED) {
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = i / CH, c = i - r * CH;
+      if (r_base + r < t && c * 8 < d)
+        *reinterpret_cast<uint4*>(og + static_cast<size_t>(r_base + r) * d + c * 8) =
+            *reinterpret_cast<const uint4*>(q_s + swz<BQ>(warp * 16 + r, c));
+    }
+  } else {
+    for (int i = lane; i < 16 * DP; i += 32) {
+      const int r = i / DP, c = i - r * DP;
+      if (r_base + r < t && c < d)
+        og[static_cast<size_t>(r_base + r) * d + c] = q_s[swz<BQ>(warp * 16 + r, c >> 3) + (c & 7)];
+    }
+  }
+}
+
+// ----------------------------------------------------------------- f32 path
+
+constexpr int kF32Threads = 256;          // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int kF32Rows = 64;              // query rows per block
+constexpr int kPPitch = kBlockK + 16;     // P row pitch: the two rows a warp
+                                          // writes land 16 banks apart
+
+// rows [r0, r0 + 64) of a (t, d) f32 matrix into a [64][pitch] tile, zeros
+// outside it (columns up to DP)
+template <int DP, bool ALIGNED>
+__device__ __forceinline__ void load_tile_f32(float* s, int pitch, const float* g, int r0,
+                                              int t, int d, int tid) {
+  constexpr int CH = DP / 4;
+  if (ALIGNED) {                                   // d % 4 == 0
+    for (int i = tid; i < kF32Rows * CH; i += kF32Threads) {
+      const int r = i / CH, c = i - r * CH;
+      const bool ok = r0 + r < t && c * 4 < d;
+      cp_async16(s + r * pitch + c * 4,
+                 ok ? g + static_cast<size_t>(r0 + r) * d + c * 4 : g, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < kF32Rows * DP; i += kF32Threads) {
+      const int r = i / DP, c = i - r * DP;
+      s[r * pitch + c] = (r0 + r < t && c < d) ? g[static_cast<size_t>(r0 + r) * d + c] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// DP = D padded to 64 or 128
+template <int DP, bool ALIGNED>
+__global__ void __launch_bounds__(kF32Threads, DP == 64 ? 2 : 1)
+flash_fwd_f32(const Params p) {
+  constexpr int QP = DP + 4;              // Q/K row pitch: float4 reads of 8
+                                          // consecutive rows hit distinct banks
+  constexpr int NC = DP / 64;             // output column groups per thread
+  extern __shared__ float4 smem_f4[];
+  float* q_s = reinterpret_cast<float*>(smem_f4);   // [64][QP]
+  float* k_s = q_s + kF32Rows * QP;                 // [2][kBlockK][QP]
+  float* v_s = k_s + 2 * kBlockK * QP;              // [2][kBlockK][DP]
+  float* p_s = v_s + 2 * kBlockK * DP;              // [64][kPPitch]
+
+  const int t = p.t, d = p.d;
+  const int n_qtiles = (t + kF32Rows - 1) / kF32Rows;
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kF32Rows;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t base = static_cast<size_t>(bh) * t * d;
+  const float* qg = static_cast<const float*>(p.q) + base;
+  const float* kg = static_cast<const float*>(p.k) + base;
+  const float* vg = static_cast<const float*>(p.v) + base;
+  const int n_kt = (t + kBlockK - 1) / kBlockK;
+  const int dq = (d + 3) & ~3;            // columns read; zero past d
+
+  load_tile_f32<DP, ALIGNED>(q_s, QP, qg, q0, t, d, tid);
+  load_tile_f32<DP, ALIGNED>(k_s, QP, kg, 0, t, d, tid);
+  load_tile_f32<DP, ALIGNED>(v_s, DP, vg, 0, t, d, tid);
+  cp_async_commit();
+
+  // this thread: rows ty + 16i (i < 4); score keys tx + 16jj (jj < 4); output
+  // columns 4tx + 64c (c < NC)
+  float m[4], l[4];
+  float4 acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int k0 = 0; k0 < t; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed; q_s is written
-    for (int i = tid; i < kBlockK * d; i += blockDim.x) {
-      const int j = i / d, c = i - j * d;
-      const bool ok = k0 + j < t;
-      const size_t off = base + static_cast<size_t>(k0 + j) * d + c;
-      k_s[j][c] = ok ? to_f32(k[off]) : 0.f;
-      v_s[j][c] = ok ? to_f32(v[off]) : 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    cp_async_wait<0>();                   // tile j has landed
+    __syncthreads();                      // ... for all; tile j-1 and P are consumed
+    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+      load_tile_f32<DP, ALIGNED>(k_s + (st ^ 1) * kBlockK * QP, QP, kg, (j + 1) * kBlockK,
+                                 t, d, tid);
+      load_tile_f32<DP, ALIGNED>(v_s + (st ^ 1) * kBlockK * DP, DP, vg, (j + 1) * kBlockK,
+                                 t, d, tid);
+      cp_async_commit();
+    }
+    const float* ks = k_s + st * kBlockK * QP;
+    const float* vs = v_s + st * kBlockK * DP;
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < dq; c += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * QP + c);
+        b[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * QP + c);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = fmaf(a[i].x, b[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(a[i].y, b[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(a[i].z, b[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(a[i].w, b[jj].w, s[i][jj]);
+        }
+    }
+
+    const int k0 = j * kBlockK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = s[i][jj] * p.scale;
+        if (k0 + tx + 16 * jj >= t) x = kNegInf;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)   // the 16 threads of row ty + 16i
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = exp2_ftz((m[i] - mx) * kLog2e);
+      m[i] = mx;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c].x *= alpha;
+        acc[i][c].y *= alpha;
+        acc[i][c].z *= alpha;
+        acc[i][c].w *= alpha;
+      }
+      const float neg = -mx * kLog2e;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = exp2_ftz(fmaf(s[i][jj], kLog2e, neg));
+        l[i] += x;                        // the normalizer sums the raw p
+        if (p.use_dropout) x = drop(p, x, bh, q0 + ty + 16 * i, k0 + tx + 16 * jj);
+        p_s[(ty + 16 * i) * kPPitch + tx + 16 * jj] = x;
+      }
     }
     __syncthreads();
 
-    const int kpos = k0 + lane;
-    const int n_keys = min(kBlockK, t - k0);
+    // O += P V over the tile's keys (P is 0 and V is zero-filled past t)
+    const int kn = min(kBlockK, t - k0);
+    for (int kk = 0; kk < kn; kk += 4) {
+      float4 pr[4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = warp * kRows + r;
-      const int qpos = q0 + row;
-      if (qpos < t) {  // uniform across the warp
-        float s = 0.f;
-        for (int c = 0; c < d; ++c) s = fmaf(q_s[row][c], k_s[lane][c], s);
-        s = kpos < t ? s * scale : kNegInf;
-        const float m_new = fmaxf(m[r], warp_max(s));
-        const float alpha = expf(m[r] - m_new);
-        float p = expf(s - m_new);
-        l[r] = alpha * l[r] + warp_sum(p);  // the normalizer sums the raw p
-        if (use_dropout) {
-          const bool keep = (dropout_hash(seed, bh, qpos, kpos) & 0xFFFFFFu) >= thresh;
-          p = keep ? p * inv_keep : 0.f;
-        }
-        p = round_p<T>(p);
-        m[r] = m_new;
+      for (int i = 0; i < 4; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * kPPitch + kk);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
-        for (int j = 0; j < n_keys; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, p, j);
+      for (int e = 0; e < 4; ++e) {
 #pragma unroll
-          for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pj, v_s[j][lane + 32 * c], acc[r][c]);
+        for (int c = 0; c < NC; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + (kk + e) * DP + 4 * tx + 64 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fma4(acc[i][c], lane_of(pr[i], e), vv);
         }
       }
     }
   }
 
+  float* og = static_cast<float*>(p.o) + base;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + warp * kRows + r;
-    if (qpos < t) {
-      const float inv_l = 1.f / l[r];
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = lane + 32 * c;
-        if (col < d) o[base + static_cast<size_t>(qpos) * d + col] = from_f32<T>(acc[r][c] * inv_l);
-      }
-      if (lse != nullptr && lane == 0) {
-        lse[static_cast<size_t>(bh) * t + qpos] = m[r] + logf(fmaxf(l[r], 1e-30f));
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= t) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * tx + 64 * c;
+      const float4 out = make_float4(acc[i][c].x * inv, acc[i][c].y * inv, acc[i][c].z * inv,
+                                     acc[i][c].w * inv);
+      float* dst = og + static_cast<size_t>(row) * d + col;
+      if (ALIGNED) {
+        if (col < d) *reinterpret_cast<float4*>(dst) = out;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) dst[e] = lane_of(out, e);
       }
     }
+    if (p.lse != nullptr && tx == 0)
+      p.lse[static_cast<size_t>(bh) * t + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
-template <typename T, int DC>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-            int t, int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
-            float inv_keep, cudaStream_t stream) {
-  const int n_qtiles = (t + kBlockQ - 1) / kBlockQ;
-  flash_fwd_kernel<T, DC><<<bh * n_qtiles, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, t, d, n_qtiles, scale, seed, use_dropout, thresh, inv_keep);
+// ------------------------------------------------------------------ launch
+
+cudaError_t launch(void (*kernel)(Params), int blocks, int threads, size_t smem,
+                   cudaStream_t stream, const Params& p) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, threads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <typename T>
-void dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-              int t, int d, float scale, uint32_t seed, int use_dropout, uint32_t thresh,
-              float inv_keep, cudaStream_t stream) {
-  switch ((d + 31) / 32) {
-    case 1: launch<T, 1>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    case 2: launch<T, 2>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    case 3: launch<T, 3>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-    default: launch<T, 4>(q, k, v, o, lse, bh, t, d, scale, seed, use_dropout, thresh, inv_keep, stream); break;
-  }
+template <int NW, int DP, bool ALIGNED>
+cudaError_t run_bf16(int bh, const Params& p, cudaStream_t stream) {
+  const int n_qtiles = (p.t + 16 * NW - 1) / (16 * NW);
+  const size_t smem = static_cast<size_t>(16 * NW + 4 * kBlockK) * DP * sizeof(bf16) + 1024;
+  return launch(flash_fwd_bf16<NW, DP, ALIGNED>, bh * n_qtiles, 32 * NW, smem, stream, p);
+}
+
+template <int DP, bool ALIGNED>
+cudaError_t run_f32(int bh, const Params& p, cudaStream_t stream) {
+  const int n_qtiles = (p.t + kF32Rows - 1) / kF32Rows;
+  const size_t smem = (static_cast<size_t>(kF32Rows + 2 * kBlockK) * (DP + 4) +
+                       2 * kBlockK * DP + kF32Rows * kPPitch) * sizeof(float);
+  return launch(flash_fwd_f32<DP, ALIGNED>, bh * n_qtiles, kF32Threads, smem, stream, p);
+}
+
+// bf16 takes 128-row blocks (two warpgroups sharing each K/V tile) unless
+// 64-row blocks leave fewer query rows on the busiest SM
+template <int DP, bool ALIGNED>
+cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
+  if (!is_bf16) return run_f32<DP, ALIGNED>(bh, p, stream);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long narrow = static_cast<long long>(bh) * ((p.t + 63) / 64);
+  const long long wide = static_cast<long long>(bh) * ((p.t + 127) / 128);
+  return 128 * ((wide + sms - 1) / sms) <= 64 * ((narrow + sms - 1) / sms)
+             ? run_bf16<8, DP, ALIGNED>(bh, p, stream)
+             : run_bf16<4, DP, ALIGNED>(bh, p, stream);
 }
 
 }  // namespace
@@ -204,22 +672,30 @@ void dispatch(const void* q, const void* k, const void* v, void* o, float* lse, 
 // or all bf16 (is_bf16 = 1); 1 <= d <= 128.  lse: null, or a contiguous
 // (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0; thresh and inv_keep
 // are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate).
-// Launches on `stream` and returns cudaGetLastError().
+// Launches on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int t, int d, int is_bf16, float scale, int seed,
                          int use_dropout, int thresh, float inv_keep, void* stream) {
-  const long long n_qtiles = (t + kBlockQ - 1) / kBlockQ;
+  const long long n_qtiles = (t + kBlockK - 1) / kBlockK;
   if (bh < 1 || t < 1 || d < 1 || d > 128 || seed < 0 || thresh < 0 ||
       static_cast<long long>(bh) * n_qtiles > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Params p{q, k, v, o, static_cast<float*>(lse), t, d, scale,
+                 static_cast<uint32_t>(seed), use_dropout, static_cast<uint32_t>(thresh),
+                 inv_keep};
+  // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
+  // aligned arrays; anything else takes the kernels' scalar-load branch
+  const size_t elem = is_bf16 ? 2 : 4;
+  const uintptr_t addrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const bool aligned = (d * elem) % 16 == 0 && addrs % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, t, d, scale, static_cast<uint32_t>(seed),
-                            use_dropout, static_cast<uint32_t>(thresh), inv_keep, s);
+  cudaError_t err;
+  if (d <= 64) {
+    err = aligned ? run<64, true>(bh, is_bf16, p, s) : run<64, false>(bh, is_bf16, p, s);
   } else {
-    dispatch<float>(q, k, v, o, static_cast<float*>(lse), bh, t, d, scale, static_cast<uint32_t>(seed),
-                    use_dropout, static_cast<uint32_t>(thresh), inv_keep, s);
+    err = aligned ? run<128, true>(bh, is_bf16, p, s) : run<128, false>(bh, is_bf16, p, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -45,17 +45,39 @@ def test_dropout_keep_broadcasts_scalars():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize('rate', [0.0, 0.1])
-@pytest.mark.parametrize('d', [16, 64])
-@pytest.mark.parametrize('t', [41, 130])   # one key tile; two, ragged
-def test_flash_reference_matches_pallas_interpret(t, d, rate):
-    q, k, v = _qkv(t * d, (2, 3, t, d))
-    want = np.asarray(jattn.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 1234, None, 128, 128,
-        True, rate))
-    got = tattn.flash_attention_forward_reference(
-        *map(torch.from_numpy, (q, k, v)), seed=1234, dropout_rate=rate).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+# (t, d, rate, dtype, atol, return_lse): T = 1 one row, 41 one key tile, 65
+# and 130 ragged; bf16 atol: the Pallas kernel rounds the unnormalized p, the
+# plain version the normalized p, and the output is bf16 (2^-8 relative).
+# The f32 cases without lse are named t-d-rate, the rest t-d-rate-dtype-lse.
+_FLASH_REF_CASES = [
+    pytest.param(t, d, rate, dtype, atol, lse,
+                 id=f'{t}-{d}-{rate}' + ('' if dtype is np.float32 and not lse
+                                         else f'-{np.dtype(dtype).name}-{"lse" if lse else "out"}'))
+    for dtype, atol in ((np.float32, 1e-5), (jnp.bfloat16, 2e-2))
+    for lse in (False, True)
+    for t in (1, 41, 65, 130) for d in (16, 64) for rate in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize('t,d,rate,dtype,atol,return_lse', _FLASH_REF_CASES)
+def test_flash_reference_matches_pallas_interpret(t, d, rate, dtype, atol, return_lse):
+    q, k, v = (x.astype(dtype) for x in _qkv(t * d, (2, 3, t, d)))
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    args = [torch.from_numpy(x.astype(np.float32)).to(tdt) for x in (q, k, v)]
+    if return_lse:
+        want, want_lse = jattn._flash_forward(
+            *map(jnp.asarray, (q, k, v)), 1234, d ** -0.5, 128, 128, interpret=True,
+            return_lse=True, dropout_rate=rate)
+        got, got_lse = tattn.flash_attention_forward_reference(
+            *args, seed=1234, dropout_rate=rate, return_lse=True)
+        # f32 row sums of the same scores in both dtypes
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=0)
+    else:
+        want = jattn.flash_attention(*map(jnp.asarray, (q, k, v)), 1234, None, 128, 128,
+                                     True, rate)
+        got = tattn.flash_attention_forward_reference(*args, seed=1234, dropout_rate=rate)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=atol,
+                               rtol=0)
 
 
 def test_flash_forward_on_cpu_runs_the_plain_version():
