@@ -14,8 +14,10 @@ process per source started together (into ``build/torch_kernels/``), then:
    (#4) against SDPA's backward, at the serving shape and at longer
    sequences (ragged T and D, one row, exact tiles, rows of a size that
    takes the kernel's scalar-load branch), f32 and bf16, dropout 0 and 0.1,
-   and the dropout mask of #1 and #2 checked entry by entry against
-   ``keep_full``; AdamW (#5) over every
+   and the dropout masks of #1 to #4 checked entry by entry against
+   ``keep_full``; #3 and #4 also as one backward (with the delta reduction)
+   beside SDPA's backward and the plain recompute, in device time; AdamW (#5)
+   over every
    ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
    bf16 mu, against ``torch.optim.AdamW(fused=True)``; the NLM kernel (#6)
    on the denoise chain's rows of 64 records at full and bounded search, on
@@ -53,6 +55,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -305,24 +308,89 @@ def _rel_err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
-def sdpa_backward_ms(q, k, v, do) -> float:
+def bwd_dropout_mask_phase():
+    """The dropout mask of kernels #3 and #4, exactly.  lse = log T and
+    delta = 0 passed in make p = 1/T wherever q.k = 0, and with v = dO = e0
+    every dpv is 1, so ds is keep / (1 - rate) / T:
+      dQ: q = 0, k one-hot over a 64-key window (k[w + c, c] = 1): dQ[i, c]
+          is nonzero iff query i keeps key w + c;
+      dK: k = 0, q one-hot over a window of queries: dK[j, c] is nonzero
+          iff query w + c keeps key j;
+      dV: q = k = v = 0, dO one-hot over a window of queries: dV[j, c] =
+          p_eff[w + c, j], nonzero iff query w + c keeps key j.
+    Each nonzero pattern must equal ``keep_full``'s, so a wrong fragment ->
+    (qpos, kpos) map cannot hide inside a tolerance."""
+    b, h = MASK_BH
+    rows = []
+    for t in MASK_TS:
+        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device=DEV)
+        lse = torch.full((b, h, t), math.log(t), device=DEV)
+        delta = torch.zeros((b, h, t), device=DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            zero = torch.zeros((b, h, t, 64), device=DEV, dtype=dtype)
+            e0 = zero.clone()
+            e0[..., 0] = 1
+            mismatches = {'flash_bwd_dq': 0, 'flash_bwd_dk': 0, 'flash_bwd_dv': 0}
+            for w in range(0, t, 64):
+                n = min(64, t - w)
+                idx = torch.arange(n, device=DEV)
+                window = zero.clone()
+                window[:, :, w + idx, idx] = 1
+
+                def run(kernel, q, k, v, do):
+                    return kernel(q, k, v, do, lse, delta, 4321, 0.125, MASK_RATE)
+                got = {'flash_bwd_dq': run(attn.flash_bwd_dq_kernel, zero, window, e0, e0),
+                       'flash_bwd_dk': run(attn.flash_bwd_dkv_kernel, window, zero, e0, e0)[0],
+                       'flash_bwd_dv': run(attn.flash_bwd_dkv_kernel, zero, zero, zero, window)[1]}
+                want_q = torch.zeros((b, h, t, 64), dtype=torch.bool, device=DEV)
+                want_q[..., :n] = keep[..., w:w + n]
+                want_kv = torch.zeros_like(want_q)
+                want_kv[..., :n] = keep[:, :, w:w + n, :].transpose(-1, -2)
+                for name, x in got.items():
+                    want = want_q if name == 'flash_bwd_dq' else want_kv
+                    mismatches[name] += int(((x != 0) != want).sum().item())
+            row = {'phase': 'kernel_bwd_dropout_mask', 'shape': [b, h, t, 64],
+                   'dtype': str(dtype), 'dropout_rate': MASK_RATE,
+                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
+            emit(row)
+            rows.append(row)
+    if any(sum(r['mismatches'].values()) for r in rows):
+        raise AssertionError(f'backward kernels drop other entries than keep_full: {rows}')
+
+
+def sdpa_backward_device_ms(q, k, v, do):
     """Device ms of ``scaled_dot_product_attention``'s backward through
-    autograd: forward + backward, minus the forward (the port never calls
-    it)."""
+    autograd: forward + backward, minus the forward, each queued behind the
+    spin (``device_ms``; the port never calls it).  None if either timing
+    outlasted the spin."""
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
 
     def fwd_bwd():
         F.scaled_dot_product_attention(qg, kg, vg).backward(do)
-    both = time_ms(fwd_bwd, reps=20)
+    both = device_ms(fwd_bwd, reps=20)
     with torch.no_grad():
-        fwd = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg), reps=20)
-    return both - fwd
+        fwd = device_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg), reps=20)
+    return None if both is None or fwd is None else both - fwd
+
+
+def bwd_pair_row(shape, dtype, q, k, v, do, out, lse, sdpa_ms) -> dict:
+    """Kernels #3 and #4 as the gradient runs them (the delta reduction,
+    then dQ and dK/dV: ``flash_attention_backward_blocked``) against SDPA's
+    backward and the plain f32 recompute that the default path runs below
+    ``BLOCKED_BWD_MIN_SEQ``, all in device time at dropout 0."""
+    blocked = device_ms(lambda: attn.flash_attention_backward_blocked(q, k, v, out, lse, do))
+    recompute = device_ms(lambda: attn.flash_backward_recompute(q, k, v, do), reps=20)
+    return {'phase': 'kernel_bwd_pair', 'shape': list(shape), 'dtype': str(dtype),
+            'blocked_device_ms': blocked, 'sdpa_backward_device_ms': sdpa_ms,
+            'recompute_device_ms': recompute,
+            'blocked_over_sdpa': (blocked / sdpa_ms if blocked and sdpa_ms else None)}
 
 
 def flash_grad_phase():
     """Kernels #2-#4 against their plain versions at every case, rates 0 and
     0.1: the forward's (out, lse), then dQ and (dK, dV) from the same lse
-    and delta.  Times at rate 0.  Returns {kernel: serving-shape f32 row}."""
+    and delta.  Times at rate 0, and a row for #3 + #4 as one backward.
+    Returns {kernel: serving-shape f32 row}."""
     gen = torch.Generator(device='cuda').manual_seed(1)
     rows, failures = {}, []
     for shape, dtype in KERNEL_CASES:
@@ -373,14 +441,18 @@ def flash_grad_phase():
                     else:
                         kern = getattr(attn, f'{name}_kernel')
                         ref = getattr(attn, f'{name}_reference')
-                        row['kernel_ms'] = time_ms(lambda: kern(*args))
-                        row['plain_ms'] = time_ms(lambda: ref(*args), reps=20)
-                        row['library_ms'] = sdpa_backward_ms(q, k, v, do)
+                        time_calls(row, {'kernel': lambda: kern(*args),
+                                         'plain': lambda: ref(*args)})
+                        if name == 'flash_bwd_dq':    # after the kernel's own times
+                            sdpa_ms = sdpa_backward_device_ms(q, k, v, do)
+                        row['library_ms'] = sdpa_ms
                 emit(row)
                 if shape == SERVING_SHAPE and dtype == torch.float32 and rate == 0.0:
                     rows[name] = row
                 if not (finite and ok):
                     failures.append(row)
+            if rate == 0.0:
+                emit(bwd_pair_row(shape, dtype, q, k, v, do, out, lse, sdpa_ms))
     if failures:
         raise AssertionError(f'flash lse/backward kernels disagree with their plain '
                              f'versions: {failures}')
@@ -824,11 +896,16 @@ def _wall(fn) -> float:
     return time.perf_counter() - t0
 
 
+# substrings of the port's kernel symbols, for the profiles' ``port_kernels``
+PORT_KERNEL_SYMBOLS = ('flash_fwd_', 'bwd_dq_', 'bwd_dkv_', 'adamw_kernel', 'nlm_')
+
+
 def _profile(what: str, unit: str, n: int, run) -> dict:
     """Profile ``run()``, which does ``n`` units of work ending in a host
     fetch: wall time, summed device time, the device's busy share, the
-    kernels that take the most device time and the host operators that take
-    the most CPU time of their own (the profiler adds to the latter)."""
+    kernels that take the most device time, the port's own kernels, and the
+    host operators that take the most CPU time of their own (the profiler
+    adds to the latter)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -849,6 +926,9 @@ def _profile(what: str, unit: str, n: int, run) -> dict:
             f'device_launches_per_{unit}': sum(c for _, _, c in kernels) / n,
             'top_kernels': [{'name': k[:90], f'ms_per_{unit}': t / 1e3 / n,
                              f'launches_per_{unit}': c / n} for k, t, c in top],
+            'port_kernels': [{'name': k[:90], f'ms_per_{unit}': t / 1e3 / n,
+                              f'launches_per_{unit}': c / n} for k, t, c in kernels
+                             if any(sym in k for sym in PORT_KERNEL_SYMBOLS)],
             'top_host_ops': [{'name': k[:60], f'self_cpu_ms_per_{unit}': t / 1e3 / n,
                               f'calls_per_{unit}': c / n} for k, t, c in host]}
 
@@ -1009,6 +1089,7 @@ def main(argv=None) -> int:
     if 'kernels' in args.phases:
         rows['flash_fwd'] = kernel_phase()
         dropout_mask_phase()
+        bwd_dropout_mask_phase()
         rows.update(flash_grad_phase())
         rows['adamw'] = adamw_phase()
         rows['nlm_rows'] = nlm_phase(*chain_rows())

@@ -2,8 +2,9 @@
 
 Each source ``ops/csrc/<name>.cu`` exposes a plain C interface and compiles,
 at first use, into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of
-the checkout, for ``sm_90a`` (Hopper).  The hash covers the source and the
-flags, so an edited kernel is rebuilt and a stale library is never loaded.
+the checkout, for ``sm_90a`` (Hopper).  The hash covers the source, every
+header ``csrc/*.cuh`` (the sources include them) and the flags, so an edited
+kernel or header is rebuilt and a stale library is never loaded.
 ptxas's register and shared-memory report for each kernel is kept beside
 the library as ``<library>.log``.  Nothing here runs when the module is
 imported: the CPU tests import every module, and there is no nvcc there.
@@ -21,8 +22,10 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
+# --split-compile=0 optimizes a source's kernels in parallel on every core
+# (flash_bwd.cu has 32 kernel instantiations)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v', '--split-compile=0')
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,8 +46,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:12]}.so'
 
 

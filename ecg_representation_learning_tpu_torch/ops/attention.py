@@ -331,7 +331,9 @@ def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
     runs kernels #3 and #4; a CPU tensor the plain version."""
     scale = _scale(q, scale)
     g = g.contiguous()
-    delta = (g.float() * out.float()).sum(-1)
+    # the multiply promotes a bf16 ``out`` to f32 as it reads it: the same
+    # exact products as casting it first, one kernel fewer
+    delta = (g.float() * out).sum(-1)
 
     def cuda():
         args = (q, k, v, g, lse, delta, int(seed), scale, float(dropout_rate))

@@ -61,9 +61,18 @@ def test_lse_forward_matches_pallas_interpret(t, rate):
 
 @pytest.mark.parametrize('rate', [0.0, 0.1])
 @pytest.mark.parametrize('dtype', [np.float32, jnp.bfloat16])
-@pytest.mark.parametrize('t', [41, 200])
-def test_blocked_backward_matches_pallas_interpret(t, dtype, rate):
-    q, k, v, g = _inputs(1000 + t, (2, 3, t, 64))
+@pytest.mark.parametrize('t,d', [
+    pytest.param(41, 64, id='41'),              # one block
+    pytest.param(200, 64, id='200'),            # two, ragged
+    pytest.param(1, 64, id='1'),                # one row
+    pytest.param(65, 64, id='65'),              # one past a 64-row tile
+    pytest.param(65, 80, id='65-d80'),          # and ragged D (128-column tiles)
+    pytest.param(1, 80, id='1-d80'),
+])
+def test_blocked_backward_matches_pallas_interpret(t, d, dtype, rate):
+    """The plain versions the card's kernels are held to, pinned to the
+    Pallas kernels at ragged tiles of T and D."""
+    q, k, v, g = _inputs(1000 + t + (d - 64), (2, 3, t, d))
     jq, jk, jv, jg = (jnp.asarray(x, dtype) for x in (q, k, v, g))
     out, lse = jattn._flash_forward(jq, jk, jv, 4242, 0.125, 128, 128, interpret=True,
                                     return_lse=True, dropout_rate=rate)
