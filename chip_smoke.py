@@ -20,9 +20,11 @@ process per source started together (into ``build/torch_kernels/``), then:
    over every
    ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
    bf16 mu, against ``torch.optim.AdamW(fused=True)``; the NLM kernel (#6)
-   on the denoise chain's rows of 64 records at full and bounded search, on
-   ragged rows with a zero row and on rows longer than one block's segment;
-   its five attribution variants (#7), then the probe
+   on the denoise chain's rows of 64 records at full and bounded search (in
+   device time too, at every cluster size, and twice for the same bits), of
+   16 records, with QRS-sized spikes, on ragged rows with a zero row and on
+   rows longer than the register branch stages and than shared memory
+   holds; its five attribution variants (#7), then the probe
    ``tools/nlm_sol_probe.py`` of the port;
 2. serving phase: ViT-base (f32, 12 layers of attention at 41 tokens, all
    through the kernel: ``flash_min_seq=0``) behind ``serving.serve`` answers
@@ -129,10 +131,12 @@ NLM_LIMIT = 2e-6
 NLM_OPS = 21
 DENOISE_CHUNK = 64                   # export_denoised's --batch default: 768 rows
 DENOISE_FQS, DENOISE_LEN = 250, 2500  # the combined export's grid: 10 s records
-# kernel #6's other cases: ragged rows (rows, L, search, pw) with an all-zero
-# row, and rows longer than one block's 4096-position segment
+# kernel #6's other cases (rows, L, search, pw): ragged rows with an all-zero
+# row (pw 7: the generic branch), rows longer than the register branch's
+# 4096 positions, which the generic branch cuts into segments
 NLM_RAGGED = (77, 1999, 64, 7)
 NLM_LONG = (24, 9000, 5000, 10)
+NLM_LONGER = (2, 70000, 64, 10)       # a row longer than shared memory holds
 DEV = 'cuda'
 # chain on the card vs on the CPU, over max |x|: the LOESS solve and the
 # noise estimate's medians see f32 sums in another order on each device
@@ -562,18 +566,31 @@ def chain_rows():
 def nlm_phase(y2, h2):
     """Kernel #6 against ``nlm_rows_reference``: the denoise chain's rows
     ``y2`` (768, 2500) with bandwidths ``h2`` at full search (the CLI
-    default) and at search 128; ragged rows (77 x 1999, pw 7, search 64)
-    with an all-zero row; rows longer than one block's segment (24 x 9000,
-    search 5000).  Returns the full-search row."""
+    default) and at search 128, the first 192 rows (a 16-record chunk) at
+    full search, 64 of them with QRS-sized spikes added; ragged rows
+    (77 x 1999, pw 7: the generic branch, search 64) with an all-zero row;
+    rows longer than the register branch stages (24 x 9000, search 5000) and
+    longer than shared memory holds (2 x 70000, search 64).  Every case also
+    in device time; two calls on the chain's rows must give the same bits,
+    and the chain's shapes are timed at every cluster size.  Returns the
+    full-search row."""
     gen = torch.Generator(device=DEV).manual_seed(3)
-    (r1, n1, s1, p1), (r2, n2, s2, p2) = NLM_RAGGED, NLM_LONG
+    (r1, n1, s1, p1), (r2, n2, s2, p2), (r3, n3, s3, p3) = NLM_RAGGED, NLM_LONG, NLM_LONGER
     ragged = 10 * torch.randn((r1, n1), generator=gen, device=DEV)
     ragged[5] = 0.0
     long_rows = torch.randn((r2, n2), generator=gen, device=DEV)
+    longer_rows = torch.randn((r3, n3), generator=gen, device=DEV)
+    spiky, n0 = y2[:64].clone(), y2.shape[1]
+    spiky[:, n0 // 4] += 50 * y2.abs().max()     # ~10^3 x the SSDs of the beats around it
+    spiky[:, 3 * n0 // 4:3 * n0 // 4 + 3] -= 20 * y2.abs().max()
     cases = [('chain_full', y2, h2, y2.shape[1], 10, ()),
              ('chain_128', y2, h2, 128, 10, ()),
+             ('chain_16_records', y2[:192], h2[:192], y2.shape[1], 10, ()),
+             ('chain_spiky', spiky, nlm_fused.nlm_bandwidth(spiky, 1.5, 10), y2.shape[1], 10, ()),
              ('ragged_zero_row', ragged, nlm_fused.nlm_bandwidth(ragged, 1.5, p1), s1, p1, (5,)),
-             ('long_rows', long_rows, nlm_fused.nlm_bandwidth(long_rows, 1.5, p2), s2, p2, ())]
+             ('long_rows', long_rows, nlm_fused.nlm_bandwidth(long_rows, 1.5, p2), s2, p2, ()),
+             ('longer_than_smem', longer_rows, nlm_fused.nlm_bandwidth(longer_rows, 1.5, p3),
+              s3, p3, ())]
     rows, failures = {}, []
     for name, x, h, sch, pw, zero_rows in cases:
         got = nlm_fused.nlm_rows(x, h, sch, pw)
@@ -581,17 +598,29 @@ def nlm_phase(y2, h2):
         want, plain_once = _events_ms(lambda: nlm_fused.nlm_rows_reference(x, h, sch, pw))
         err, finite = _nlm_err(got, want, x, zero_rows)
         b_ms, b_by = nlm_bound(x.shape[0], x.shape[1], sch, pw)
+        call = lambda: nlm_fused.nlm_rows(x, h, sch, pw)  # noqa: E731
         row = {'phase': 'kernel', 'kernel': 'nlm_rows', 'case': name,
                'shape': list(x.shape), 'sch_wd': sch, 'patch_wd': pw,
                'max_abs_err': err, 'limit': NLM_LIMIT, 'finite': finite,
                'zero_rows_nan': list(zero_rows), 'bound_ms': b_ms, 'bound_by': b_by,
-               'kernel_ms': time_ms(lambda: nlm_fused.nlm_rows(x, h, sch, pw),
-                                    reps=5 if sch > 1000 else 20, warmup=1),
+               'kernel_ms': time_ms(call, reps=5 if sch > 1000 else 20, warmup=1),
+               'kernel_device_ms': device_ms(call, reps=10 if sch > 1000 else 50, warmup=1),
                'plain_ms': (plain_once if sch > 1000 else time_ms(
                    lambda: nlm_fused.nlm_rows_reference(x, h, sch, pw), reps=3, warmup=1)),
                'plain_timed': 'once' if sch > 1000 else 'mean of 3',
                'library_ms': None,
                'library': 'none: no single PyTorch call computes non-local means'}
+        if name.startswith('chain_') and name != 'chain_spiky':
+            hinv = (1.0 / h).contiguous()
+            row['device_ms_by_cluster'] = {
+                c: device_ms(lambda c=c: nlm_fused.nlm_rows_kernel(x, hinv, sch, pw, cluster=c),
+                             reps=10 if sch > 1000 else 50, warmup=1)
+                for c in range(1, nlm_fused.MAX_CLUSTER + 1)}
+        if name == 'chain_full':
+            again = nlm_fused.nlm_rows(x, h, sch, pw)
+            row['same_bits_twice'] = bool(torch.equal(got, again))
+            if not row['same_bits_twice']:
+                failures.append(row)
         emit(row)
         rows[name] = row
         if not (finite and err <= NLM_LIMIT):
@@ -622,6 +651,8 @@ def nlm_variant_phase():
                'limit': NLM_LIMIT, 'finite': finite, 'bound_ms': b_ms, 'bound_by': b_by,
                'kernel_ms': time_ms(lambda: probe.run_variant(x, h, sch, pw, flags),
                                     reps=20, warmup=1),
+               'kernel_device_ms': device_ms(lambda: probe.run_variant(x, h, sch, pw, flags),
+                                             warmup=1),
                'plain_ms': time_ms(lambda: probe.variant_reference(x, h, sch, pw, flags),
                                    reps=3, warmup=1),
                'library_ms': None}
