@@ -36,37 +36,50 @@
 // work falls as s grows.  At the end every block stores its partials in its
 // shared memory, and block r sums positions [r, r+1) * ceil(n/C) of all C
 // blocks in rank order through distributed shared memory (map_shared_rank):
-// a fixed order and no float atomics, so two calls give the same bits.  C is
-// chosen so that the blocks fill the card (about 8 per SM), or given by the
-// caller (`cluster`).  Every f32 sum leaves out the s = 0 term, the one large
-// term at a QRS sample (weight 1 on the sample itself), and adds it last, so
-// the small terms are not dropped.  The box sum is add-only in both
+// a fixed order and no float atomics, so two calls give the same bits.
+// C is chosen at launch from the card (choose_cluster): the kernel is bound
+// by each SM's issue rate, not by how many blocks an SM holds at once (on
+// the H100, 192 rows at C = 1, at most two blocks per SM, took 3.0 ms and
+// 768 rows, six per SM, 9.3 ms), so a launch takes about as long as the
+// blocks its busiest SM runs, each 1/C of a row's shifts:
+// ceil(blocks * C / SMs) / C.  C is the smallest of 1..8 within 5 % of the
+// least such cost, since a larger C stages the row and reduces more often:
+// C = 1 for the chain's 768 rows, 2 for 192.  The occupancy query checks that
+// a block fits on an SM.  Every f32 sum leaves out the s = 0 term, the one
+// large term at a QRS sample (weight 1 on the sample itself), and adds it
+// last, so the small terms are not dropped.  The box sum is add-only in both
 // branches: never a running sum that subtracts the tap leaving the window,
 // whose rounding after a QRS-sized SSD would carry into the small distances
 // that follow it.  Two branches:
 //
 // * Register branch (pw == 10, n <= 4096; the denoise chain's rows).  A block
 //   owns a row, staged once in shared memory with zero pads.  Thread t owns
-//   the K = 15 positions [15t, 15t+15) and keeps its own x window (K + 2pw =
-//   35 values) in registers for the whole call.  Per shift it reads x[k+s]
+//   the K = 11 positions [11t, 11t+11) and keeps its own x window (K + 2pw =
+//   31 values) in registers for the whole call.  Per shift it reads x[k+s]
 //   for its window (stride K between lanes, K odd, so a warp's 32 reads fall
-//   on 32 banks with no skew), forms the 35 SSDs and the 15 box sums in
+//   on 32 banks with no skew), forms the 31 SSDs and the 11 box sums in
 //   registers (van Herk / Gil-Werman with K <= 2pw+1: every window is a
 //   suffix of [c, K-2] + the common core [K-1, 2pw] + a prefix of
-//   [2pw+1, c+2pw], about 4 adds per weight), the 15 weights and their +s
+//   [2pw+1, c+2pw], about 4 adds per weight), the 11 weights and their +s
 //   terms (x[i+s] is already in registers).  For the -s term it writes the
-//   weights into the shift's shared row; after one __syncthreads per shift
-//   each thread reads w_s[i-s] and x[i-s] for its positions, and two rows
-//   let the next shift write while no one reads.  Recomputing the -s
-//   distance from the thread's own window instead would need no barrier but
-//   a second SSD, box sum and expf per weight (~15 more instructions against
-//   ~3 shared accesses).  A run whose window touches a row edge or the
-//   interior's bound checks each SSD and term against its position; only
-//   those two loops branch on it, so one copy of the box sum and the exp
-//   serves every run and the loop's code stays small (a build with a
-//   separately unrolled masked copy, one that paired two rows per block so
-//   that no thread idles at large shifts, and one that read the window from
-//   shared memory to free registers all ran slower on the H100).
+//   weights into the shift's shared row.  B = kShifts shifts share one
+//   __syncthreads: a thread forms the +s terms of its B next shifts, writing
+//   B weight rows, then after the barrier reads w_s[i-s] and x[i-s] of all B;
+//   two sets of rows let the next batch write while no one reads.
+//   Recomputing the -s distance from the thread's own window instead would
+//   need no barrier but a second SSD, box sum and expf per weight (~15 more
+//   instructions against ~3 shared accesses).  K and B were chosen by timing
+//   builds side by side on the H100 (tools/nlm_design.py): K = 11 runs the
+//   chain's rows in 8 warps per block at 2 blocks per SM, faster than K = 9,
+//   13 and 15, and B = 1 beat 2 and 4 at K = 11 (at K = 15, B = 4 was ahead).
+//   A run
+//   whose window touches a row edge or the interior's bound checks each SSD
+//   and term against its position; only those two loops branch on it, so
+//   one copy of the box sum and the exp serves every run and the loop's code
+//   stays small (a build with a separately unrolled masked copy, one that
+//   paired two rows per block so that no thread idles at large shifts, and
+//   one that read the window from shared memory to free registers all ran
+//   slower on the H100).
 //
 // * Generic branch (any other pw, and rows longer than 4096: the segmented
 //   path).  A block owns a segment of T = threads * 8 positions of one row
@@ -87,14 +100,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kPW = 10;                 // the register branch's patch half-width
-constexpr int kK = 15;                  // positions per thread (odd: no bank conflicts)
+constexpr int kK = 11;                  // positions per thread (odd: no bank conflicts)
 constexpr int kWin = kK + 2 * kPW;      // a thread's SSD window
 constexpr int kResMax = 4096;           // longest row the register branch stages
-constexpr int kResThreads = (kResMax + kK - 1) / kK / 32 * 32 + 32;   // 288
+constexpr int kResThreads = (kResMax + kK - 1) / kK / 32 * 32 + 32;   // 384
 constexpr int kGenPer = 8;              // positions per thread, generic branch
 constexpr int kGenThreads = 512;        // generic segment <= 4096 positions
+constexpr int kShifts = 1;              // B: shifts per barrier, register branch
 constexpr int kMaxCluster = 8;
-constexpr int kBlocksPerSm = 8;         // blocks to aim for when C is automatic
 
 static_assert(kK <= 2 * kPW + 1, "the core box sum needs K <= 2 pw + 1");
 static_assert(kK % 2 == 1, "K odd keeps stride-K shared reads off shared banks");
@@ -261,8 +274,9 @@ __device__ __forceinline__ void minus_run(const float* xs, const float* wrow,
 }
 
 // A block owns one row and the shifts s = rank, rank + C, ... of its cluster
-// rank (s > 0; reduce_store adds s = 0).  Thread t owns positions
-// [15t, 15t+15); row arrays are indexed by position through offsets.
+// rank (s > 0; reduce_store adds s = 0), kShifts of them per barrier.  Thread
+// t owns positions [Kt, Kt+K); row arrays are indexed by position through
+// offsets.
 template <bool BOX, bool EXP, bool MIRROR, bool ACCUM>
 __global__ void __launch_bounds__(kResThreads) nlm_res_kernel(Params p) {
   extern __shared__ float smem[];
@@ -270,7 +284,7 @@ __global__ void __launch_bounds__(kResThreads) nlm_res_kernel(Params p) {
   const int row = blockIdx.x / p.C, rank = blockIdx.x % p.C;
   const int lx = kPW + TK + kPW + 1;
   float* xs = smem + kPW;                    // xs[k] = x[k], zero outside [0, n)
-  float* wbuf = smem + lx;                   // two weight rows of TK
+  float* wbuf = smem + lx;                   // two sets of kShifts weight rows of TK
   const float* __restrict__ xr = p.x + static_cast<size_t>(row) * n;
   const float hinv = p.hinv[row];
   for (int j = threadIdx.x; j < lx; j += blockDim.x) {
@@ -287,18 +301,28 @@ __global__ void __launch_bounds__(kResThreads) nlm_res_kernel(Params p) {
   for (int c = 0; c < kK; ++c) num[c] = z[c] = 0.f;
 
   int buf = 0;
-  for (int s = rank; s < p.sch; s += p.C) {
-    if (s == 0) continue;
-    float* wrow = wbuf + buf * TK;
-    int lo, hi;
-    needed<MIRROR, ACCUM>(n, kPW, s, lo, hi);
-    if (i0 < hi && i0 + kK > lo)
-      plus_run<BOX, EXP, MIRROR, ACCUM>(xs, wrow, xk, num, z, i0, s, n, hinv);
+  for (int s0 = rank; s0 < p.sch; s0 += kShifts * p.C) {
+    // a batch: the block's next kShifts shifts s0, s0 + C, ...
+#pragma unroll 1
+    for (int b = 0; b < kShifts; ++b) {
+      const int s = s0 + b * p.C;
+      if (s == 0 || s >= p.sch) continue;
+      int lo, hi;
+      needed<MIRROR, ACCUM>(n, kPW, s, lo, hi);
+      if (i0 < hi && i0 + kK > lo)
+        plus_run<BOX, EXP, MIRROR, ACCUM>(xs, wbuf + (buf * kShifts + b) * TK, xk, num, z,
+                                          i0, s, n, hinv);
+    }
     if (ACCUM && MIRROR) {
-      __syncthreads();   // the shift's weight row is written
-      if (i0 + kK - 1 - s >= 1 && i0 + kK - 1 >= kPW + 1 && i0 < n - kPW)
-        minus_run(xs, wrow, num, z, i0, s, n);
-      buf ^= 1;          // the next shift writes the other row
+      __syncthreads();   // the batch's weight rows are written
+#pragma unroll 1
+      for (int b = 0; b < kShifts; ++b) {
+        const int s = s0 + b * p.C;
+        if (s == 0 || s >= p.sch) continue;
+        if (i0 + kK - 1 - s >= 1 && i0 + kK - 1 >= kPW + 1 && i0 < n - kPW)
+          minus_run(xs, wbuf + (buf * kShifts + b) * TK, num, z, i0, s, n);
+      }
+      buf ^= 1;          // the next batch writes the other rows
     }
   }
   __syncthreads();       // every read of the weight rows is done
@@ -453,56 +477,90 @@ __global__ void __launch_bounds__(kGenThreads) nlm_gen_kernel(Params p) {
 
 // ---------------------------------------------------------------- launch
 
-template <bool BOX, bool EXP, bool MIRROR, bool ACCUM>
-int launch(const void* x, const void* hinv, void* out, int rows, int n, int sch, int pw,
-           float eps, int cluster, void* stream) {
-  if (rows < 1 || n < 1 || sch < 1 || pw < 0 || cluster < 0 || cluster > kMaxCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // shifts past the row add nothing to a masked accumulation
-  const int steps_sch = ACCUM ? std::min(sch, std::max(n - pw - 1, 0)) : sch;
-  const bool res = pw == kPW && n <= kResMax;
-  int threads, seg, segs;
-  long long blocks;
-  size_t floats;
-  if (res) {   // a block per row
-    threads = ((n + kK - 1) / kK + 31) / 32 * 32;
-    seg = threads * kK;
-    segs = 1;
-    blocks = rows;
-    floats = static_cast<size_t>(2 * kPW + seg + 1) + 2 * static_cast<size_t>(seg);
-  } else {     // a block per (row, segment)
-    threads = (n + kGenPer - 1) / kGenPer;
-    threads = std::min(kGenThreads, std::max(32, (threads + 31) / 32 * 32));
-    seg = threads * kGenPer;
-    segs = (n + seg - 1) / seg;
-    blocks = static_cast<long long>(rows) * segs;
-    floats = static_cast<size_t>(2 * (seg + 2 * pw) + seg) * (segs > 1 ? 2 : 1);
+// argmin over c in [1, cmax] of ceil(blocks * c / sms) / c, the smallest c
+// within 5 % of the least (cost_c <= 1.05 cost_min, in integers)
+int choose_cluster(long long blocks, int sms, int cmax) {
+  long long best_w = 0;
+  int best_c = 0;
+  long long waves[kMaxCluster + 1];
+  for (int c = 1; c <= cmax; ++c) {
+    waves[c] = (blocks * c + sms - 1) / sms;
+    if (best_c == 0 || waves[c] * best_c < best_w * c) {
+      best_w = waves[c];
+      best_c = c;
+    }
   }
-  const size_t smem = floats * sizeof(float);
-  int C = cluster;
-  if (C == 0) {
-    int dev = 0, sms = 0;
+  for (int c = 1; c <= cmax; ++c)
+    if (waves[c] * best_c * 20 <= best_w * c * 21) return c;
+  return best_c;
+}
+
+// The launch plan of one call: branch, block shape, shared memory, and the
+// kernel to launch.
+template <bool BOX, bool EXP, bool MIRROR, bool ACCUM>
+struct Plan {
+  bool res;
+  int threads, seg, segs, steps_sch;
+  long long blocks;   // clusters: one per (row, segment)
+  size_t smem;
+  void (*kernel)(Params);
+
+  Plan(int rows, int n, int sch, int pw) {
+    // shifts past the row add nothing to a masked accumulation
+    steps_sch = ACCUM ? std::min(sch, std::max(n - pw - 1, 0)) : sch;
+    res = pw == kPW && n <= kResMax;
+    size_t floats;
+    if (res) {   // a block per row
+      threads = ((n + kK - 1) / kK + 31) / 32 * 32;
+      seg = threads * kK;
+      segs = 1;
+      blocks = rows;
+      floats = static_cast<size_t>(2 * kPW + seg + 1) + 2 * kShifts * static_cast<size_t>(seg);
+    } else {     // a block per (row, segment)
+      threads = (n + kGenPer - 1) / kGenPer;
+      threads = std::min(kGenThreads, std::max(32, (threads + 31) / 32 * 32));
+      seg = threads * kGenPer;
+      segs = (n + seg - 1) / seg;
+      blocks = static_cast<long long>(rows) * segs;
+      floats = static_cast<size_t>(2 * (seg + 2 * pw) + seg) * (segs > 1 ? 2 : 1);
+    }
+    smem = floats * sizeof(float);
+    kernel = res ? nlm_res_kernel<BOX, EXP, MIRROR, ACCUM> : nlm_gen_kernel<BOX, EXP, MIRROR, ACCUM>;
+  }
+
+  // The cluster size C (see the header): choose_cluster over the card's SMs;
+  // the occupancy query checks that a block of this shape fits on an SM.
+  cudaError_t cluster(int& C) {
+    int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const long long want = static_cast<long long>(kBlocksPerSm) * sms;
-    C = static_cast<int>(std::min(static_cast<long long>(kMaxCluster),
-                             std::max(1LL, (want + blocks - 1) / blocks)));
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+    C = choose_cluster(blocks, sms, std::max(1, std::min(kMaxCluster, steps_sch)));
+    return cudaSuccess;
   }
-  C = std::max(1, std::min(C, steps_sch));
-  if (blocks * C > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = res ? nlm_res_kernel<BOX, EXP, MIRROR, ACCUM> : nlm_gen_kernel<BOX, EXP, MIRROR, ACCUM>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+};
+
+template <bool BOX, bool EXP, bool MIRROR, bool ACCUM>
+int launch(const void* x, const void* hinv, void* out, int rows, int n, int sch, int pw,
+           float eps, void* stream) {
+  if (rows < 1 || n < 1 || sch < 1 || pw < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan<BOX, EXP, MIRROR, ACCUM> plan(rows, n, sch, pw);
+  int C = 1;
+  cudaError_t e = plan.cluster(C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (plan.blocks * C > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const float*>(x), static_cast<const float*>(hinv),
-                 static_cast<float*>(out), n, steps_sch, pw, seg, segs, C, eps};
+                 static_cast<float*>(out), n, plan.steps_sch, pw, plan.seg, plan.segs, C, eps};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks * C));
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(static_cast<unsigned>(plan.blocks * C));
+  cfg.blockDim = dim3(plan.threads);
+  cfg.dynamicSmemBytes = plan.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -511,7 +569,7 @@ int launch(const void* x, const void* hinv, void* out, int rows, int n, int sch,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
+  e = cudaLaunchKernelEx(&cfg, plan.kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -519,14 +577,23 @@ int launch(const void* x, const void* hinv, void* out, int rows, int n, int sch,
 }  // namespace
 
 // x, out: (rows, n) f32 contiguous on the device; hinv: (rows,) f32, 1/h per
-// row.  sch: shift magnitudes 0 .. sch-1; pw: patch half-width; cluster: the
-// blocks that split one row's shifts (1..8), 0 to choose from the card.
-// Launches one kernel on `stream` and returns its launch error
-// (cudaErrorInvalidValue for arguments it does not take).
+// row.  sch: shift magnitudes 0 .. sch-1; pw: patch half-width.  Launches one
+// kernel on `stream` and returns its launch error (cudaErrorInvalidValue for
+// arguments it does not take).
 extern "C" int nlm_rows(const void* x, const void* hinv, void* out, int rows, int n,
-                        int sch, int pw, int cluster, void* stream) {
+                        int sch, int pw, void* stream) {
   return launch<true, true, true, true>(x, hinv, out, rows, n, sch, pw,
-                                        2.220446049250313e-16f, cluster, stream);
+                                        2.220446049250313e-16f, stream);
+}
+
+// The cluster size nlm_rows launches with for these arguments on the current
+// device, or minus its CUDA error.
+extern "C" int nlm_rows_cluster(int rows, int n, int sch, int pw) {
+  if (rows < 1 || n < 1 || sch < 1 || pw < 0) return -static_cast<int>(cudaErrorInvalidValue);
+  Plan<true, true, true, true> plan(rows, n, sch, pw);
+  int C = 1;
+  const cudaError_t e = plan.cluster(C);
+  return e == cudaSuccess ? C : -static_cast<int>(e);
 }
 
 // The attribution variants: nlm_rows with the box sum (boxtree: else d = ssd
@@ -535,11 +602,11 @@ extern "C" int nlm_rows(const void* x, const void* hinv, void* out, int rows, in
 // unmasked w of every step, and there is no -s term) switched off.
 extern "C" int nlm_variant(const void* x, const void* hinv, void* out, int rows, int n,
                            int sch, int pw, int boxtree, int use_exp, int mirror, int accum,
-                           int cluster, void* stream) {
+                           void* stream) {
   const float eps = 1e-12f;
   const int key = (boxtree ? 8 : 0) | (use_exp ? 4 : 0) | (mirror ? 2 : 0) | (accum ? 1 : 0);
 #define NLM_CASE(K, B, E, M, A) \
-  case K: return launch<B, E, M, A>(x, hinv, out, rows, n, sch, pw, eps, cluster, stream);
+  case K: return launch<B, E, M, A>(x, hinv, out, rows, n, sch, pw, eps, stream);
   switch (key) {
     NLM_CASE(0, false, false, false, false)
     NLM_CASE(1, false, false, false, true)

@@ -11,11 +11,12 @@ divides by h.
 
 The kernel is bound by the operations each needed weight costs (SSD, box
 sum, an accurate exp, the accumulations).  It splits a row's shifts over the
-blocks of a thread block cluster and sums their partials in a fixed order
-(no atomics: the same bits every call); at pw = 10 and rows of up to 4096 a
-thread forms 15 consecutive weights per shift in registers with an add-only
-box sum, and the -s term reads the weights from a shared row (one barrier
-per shift); other widths and longer rows take a generic, segmented branch
+blocks of a thread block cluster, whose size it chooses from the card's SMs
+(``cluster_size`` reports it), and sums their partials in a fixed order (no
+atomics: the same bits every call); at pw = 10 and rows of up to 4096 a
+thread forms 11 consecutive weights per shift in registers with an add-only
+box sum, and the -s term reads the weights from a shared row (one barrier per
+shift); other widths and longer rows take a generic, segmented branch
 (``csrc/nlm.cu``'s header has the design).
 
 ``nlm_rows`` launches the kernel for a CUDA tensor (``nlm_rows_kernel``, with
@@ -38,7 +39,6 @@ EPS = float(np.finfo(np.float64).eps)  # sys.float_info.epsilon parity
 # the kernel's switches, each on in nlm_rows: the box sum, the exp, the -s
 # term, the masked accumulation (tools/nlm_sol_probe.py turns them off)
 FLAGS = ('boxtree', 'exp', 'mirror', 'accum')
-MAX_CLUSTER = 8       # blocks of a thread block cluster that split one row's shifts
 
 
 def nlm_rows_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd: int,
@@ -52,13 +52,6 @@ def nlm_rows_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd
     the -s term, w[i-s] x[i-s], where i-s > 0; num/(z + eps) on the interior
     patch_wd+1 <= i < L-patch_wd, x elsewhere.  With switches off it is the
     matching attribution variant of ``tools/nlm_sol_probe.py``.
-
-    The weights are f32; num and z are summed in f64, so this version is the
-    weighted mean to f32 rounding whatever order the terms come in.  An f32
-    running sum over thousands of shifts drops every term below half an ulp
-    of a large first term (a QRS sample's own weight), by as much as
-    chip_smoke.py's NLM_LIMIT; a kernel that sums the same terms in another
-    order keeps them.
     """
     r, n = x2.shape
     pw = patch_wd
@@ -66,8 +59,8 @@ def nlm_rows_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd
     pos = torch.arange(n, device=x2.device)
     interior = (pos >= pw + 1) & (pos < n - pw)
     xpad = F.pad(x2, (0, sch_wd))
-    num = torch.zeros_like(x2, dtype=torch.float64)
-    z = torch.zeros_like(x2, dtype=torch.float64)
+    num = torch.zeros_like(x2)
+    z = torch.zeros_like(x2)
     for s in range(sch_wd):
         xs = xpad[:, s:s + n]                                  # x[k+s], 0 past the end
         valid_tail = pos + s < n
@@ -78,16 +71,16 @@ def nlm_rows_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd
             num = num + w
             z = z + w
             continue
-        wp = torch.where(interior & valid_tail, w, 0.0).double()
+        wp = torch.where(interior & valid_tail, w, 0.0)
         num = num + wp * xs
         z = z + wp
         if mirror and 0 < s < n:
             wm = F.pad(w[:, :n - s], (s, 0))                   # w[i-s]
             xm = F.pad(x2[:, :n - s], (s, 0))                  # x[i-s]
-            wmv = torch.where(interior & (pos - s > 0), wm, 0.0).double()
+            wmv = torch.where(interior & (pos - s > 0), wm, 0.0)
             num = num + wmv * xm
             z = z + wmv
-    den = (num / (z + eps)).to(x2.dtype)
+    den = num / (z + eps)
     return torch.where(interior, den, x2)
 
 
@@ -105,18 +98,16 @@ class NlmKernel:
         if self._fn is None:
             fn = getattr(_build.load('nlm'), self.entry)
             n_flags = len(FLAGS) if self.entry == 'nlm_variant' else 0
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (5 + n_flags)
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (4 + n_flags)
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def __call__(self, x2: torch.Tensor, hinv: torch.Tensor, sch_wd: int, patch_wd: int,
-                 flags: Optional[dict] = None, cluster: int = 0) -> torch.Tensor:
+                 flags: Optional[dict] = None) -> torch.Tensor:
         """Rows ``x2`` (R, L) f32 and ``hinv`` (R,) f32, both contiguous on
-        one CUDA device; returns the (R, L) output.  ``cluster``: the blocks
-        of a cluster that split a row's shifts (1 to 8), 0 to let the kernel
-        choose from the card's size."""
+        one CUDA device; returns the (R, L) output."""
         if x2.dim() != 2 or x2.dtype != torch.float32 or not x2.is_contiguous():
             raise ValueError(f'x2 must be a contiguous (R, L) float32 tensor, got '
                              f'{tuple(x2.shape)} {x2.dtype}')
@@ -127,15 +118,14 @@ class NlmKernel:
                              f'{hinv.device}')
         if x2.device.type != 'cuda':
             raise ValueError(f'nlm kernel takes CUDA tensors, got {x2.device}')
-        if sch_wd < 1 or patch_wd < 0 or not 0 <= cluster <= MAX_CLUSTER:
-            raise ValueError(f'need sch_wd >= 1, patch_wd >= 0 and 0 <= cluster <= '
-                             f'{MAX_CLUSTER}, got {sch_wd}, {patch_wd}, {cluster}')
+        if sch_wd < 1 or patch_wd < 0:
+            raise ValueError(f'need sch_wd >= 1 and patch_wd >= 0, got {sch_wd}, {patch_wd}')
         fn = self._load()
         out = torch.empty_like(x2)
         switches = [] if flags is None else [int(flags.get(k, True)) for k in FLAGS]
         with torch.cuda.device(x2.device):
             err = fn(x2.data_ptr(), hinv.data_ptr(), out.data_ptr(), x2.shape[0],
-                     x2.shape[1], sch_wd, patch_wd, *switches, cluster,
+                     x2.shape[1], sch_wd, patch_wd, *switches,
                      torch.cuda.current_stream(x2.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f'{self.entry} launch failed: CUDA error {err}')
@@ -144,6 +134,19 @@ class NlmKernel:
 
 
 nlm_rows_kernel = NlmKernel('nlm_rows')
+
+
+def cluster_size(rows: int, n: int, sch_wd: int, patch_wd: int) -> int:
+    """The thread block cluster size (blocks that split a row's shifts)
+    that ``nlm_rows`` launches with for these arguments on the current CUDA
+    device; the kernel chooses it from the card's SMs."""
+    fn = _build.load('nlm').nlm_rows_cluster
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    c = fn(rows, n, sch_wd, patch_wd)
+    if c < 1:
+        raise RuntimeError(f'nlm_rows_cluster failed: CUDA error {-c}')
+    return c
 
 
 def nlm_rows(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd: int) -> torch.Tensor:
@@ -186,7 +189,7 @@ def needed_weights(n: int, sch_wd: int, patch_wd: int) -> int:
     each s, the span from the first to the last position that a +s term
     (interior i with i+s < n) or a -s term (p = i-s > 0) reads.  The kernel
     forms these and a few more: its register branch every weight of a
-    thread's 15-position run that meets the span, its generic branch the span
+    thread's 11-position run that meets the span, its generic branch the span
     of each segment (and, for a row split into segments, the -s window before
     it, formed again by that segment's block).  chip_smoke.py counts the
     operations the rows need from this number, not what the kernel forms."""

@@ -15,13 +15,14 @@ differences the times.  The components map to lines of the kernel:
 
 The variants are the template switches of the same design as ``nlm_rows``
 (replacing the JAX probe's ``_variant_kernel``): a row's shifts split over a
-thread block cluster, at pw = 10 and rows of up to 4096 15 weights per
-thread and shift in registers with an add-only box sum, the -s term from a
-shared weight row behind one barrier per shift.  So ``full - (-mirror)`` is
-what that shared-row term costs, and ``full - (-exp)`` what the accurate exp
-costs, the two parts that bound the kernel.  Every variant also normalizes
-with 1e-12, not the f64 epsilon, as the TPU probe does.  Each has a plain PyTorch version (``variant_reference``), which
-the CPU tests hold to the JAX probe's kernel.
+thread block cluster, at pw = 10 and rows of up to 4096 11 weights per
+thread and shift in registers with an add-only box sum, the -s term from
+a shared weight row behind one barrier per shift.  So ``full - (-mirror)``
+is what that shared-row term costs, and ``full - (-exp)`` what the accurate
+exp costs.  Every variant also normalizes with 1e-12, not the f64 epsilon,
+as the TPU probe does.  Each has a plain PyTorch version
+(``variant_reference``), which the CPU tests hold to the JAX probe's
+kernel.
 """
 from __future__ import annotations
 

@@ -4,13 +4,14 @@ CUDA source, against the plain version, the JAX package's Pallas kernel
 interpret mode.
 
 The kernel runs only on the GPU; this model pins its index logic on the CPU:
-the launch plan (branch, threads, segments, cluster size and shared memory),
-the cluster's split of the shift axis into interleaved batches, each
-thread's run of K positions with its halo window and the bank of every
-stride-K shared access, the add-only box sums (the register branch's suffix
-+ core + prefix, the generic branch's blockwise prefix and exclusive-suffix
-scans), the weight rows in two buffers with the -s term's reads of
-w_s[i-s], the s = 0 term added after the sums, the conditions under which a thread runs a step unmasked, the
+the launch plan (branch, threads, segments, shared memory, and the cluster
+size chosen from the card's SMs), the cluster's interleaved split of the
+shift axis, each thread's run of K positions with its halo window and the
+bank of every stride-K shared access, the add-only box sums (the register
+branch's suffix + core + prefix, the generic branch's blockwise prefix and
+exclusive-suffix scans), the batches of SHIFTS weight rows per barrier in
+two sets with the -s term's reads of w_s[i-s], the s = 0 term added after
+the sums, the conditions under which a thread runs a step unmasked, the
 segmented path for long rows, and the fixed-order reduction of the blocks'
 partials.  Weight rows and SSD buffers start each step as NaN in the model,
 so a read of an entry no thread wrote shows as a NaN in the output.
@@ -21,6 +22,8 @@ sums and accumulations are taken in another order.
 """
 import functools
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,14 +41,14 @@ torch.set_num_threads(2)
 
 # constants of nlm.cu
 PW = 10                      # kPW: the register branch's patch half-width
-K = 15                       # kK: positions per thread
+K = 11                       # kK: positions per thread
 WIN = K + 2 * PW             # kWin
 RES_MAX = 4096               # kResMax
-RES_THREADS = 288            # kResThreads
+RES_THREADS = 384            # kResThreads
 GEN_PER = 8                  # kGenPer
 GEN_THREADS = 512            # kGenThreads
+SHIFTS = 1                   # kShifts: shifts per barrier, register branch
 MAX_CLUSTER = 8              # kMaxCluster
-BLOCKS_PER_SM = 8            # kBlocksPerSm
 H100_SMS = 132
 SMEM_LIMIT = 232448          # bytes of shared memory a block can use on the H100
 EPS_ROWS = np.float32(np.finfo(np.float64).eps)
@@ -55,22 +58,31 @@ F32 = np.float32
 ALL_ON = {'boxtree': True, 'exp': True, 'mirror': True, 'accum': True}
 
 
+def choose_cluster(blocks, sms, cmax):
+    """choose_cluster: the smallest c in [1, cmax] whose cost
+    ceil(blocks c / sms) / c is within 5 % of the least."""
+    waves = {c: -(-(blocks * c) // sms) for c in range(1, cmax + 1)}
+    best = min(waves, key=lambda c: (waves[c] / c, c))
+    return next(c for c in waves if waves[c] * best * 20 <= waves[best] * c * 21)
+
+
 def plan(rows, n, sch, pw, accum=True, cluster=0, sms=H100_SMS):
-    """launch<>: the branch, block shape, cluster size and shared memory."""
+    """Plan<>: the branch, block shape, shared memory and the cluster size
+    (``cluster`` forces one, as the kernel never does, to model others)."""
     steps_sch = min(sch, max(n - pw - 1, 0)) if accum else sch
     res = pw == PW and n <= RES_MAX
     if res:
         threads = -(-(-(-n // K)) // 32) * 32
         seg, segs = threads * K, 1
         blocks = rows
-        floats = 2 * PW + seg + 1 + 2 * seg
+        floats = 2 * PW + seg + 1 + 2 * SHIFTS * seg
     else:
         threads = min(GEN_THREADS, max(32, -(-(-(-n // GEN_PER)) // 32) * 32))
         seg = threads * GEN_PER
         segs = -(-n // seg)
         blocks = rows * segs
         floats = (2 * (seg + 2 * pw) + seg) * (2 if segs > 1 else 1)
-    c = cluster or min(MAX_CLUSTER, max(1, -(-(BLOCKS_PER_SM * sms) // blocks)))
+    c = cluster or choose_cluster(blocks, sms, max(1, min(MAX_CLUSTER, steps_sch)))
     c = max(1, min(c, steps_sch))
     return {'branch': 'register' if res else 'generic', 'threads': threads, 'seg': seg,
             'segs': segs, 'sch': steps_sch, 'C': c, 'smem': 4 * floats, 'grid': blocks * c}
@@ -140,35 +152,36 @@ def res_block(x, hinv, p, rank, f):
     xk = xs[PW + k]
     num = np.zeros((p['threads'], K), F32)
     z = np.zeros((p['threads'], K), F32)
-    wbuf = np.full((2, tk), np.nan, F32)
+    wbuf = np.full((2, SHIFTS, tk), np.nan, F32)
     buf = 0
-    for s in range(rank, p['sch'], c_):
-        if s == 0:
-            continue
-        wbuf[buf] = np.nan                 # an entry not written this shift reads as NaN
-        lo, hi = needed(n, PW, s, f['mirror'], f['accum'])
-        act = ((i0 < hi) & (i0 + K > lo))[:, None]
-        xv = xs[PW + np.minimum(k + s, n)]
-        ssd = np.where((k >= 0) & (k + s < n), (xk - xv) * (xk - xv), F32(0))
-        dist = box_core(ssd) if f['boxtree'] else ssd[:, PW:PW + K]
-        w = weight(dist, hinv, f['exp'])
-        if f['accum'] and f['mirror']:
-            sel = np.nonzero(act[:, 0])[0]
-            wbuf[buf][i[sel]] = w[sel]
-        if not f['accum']:
-            m = act & interior
-            num = np.where(m, num + w, num)
-            z = np.where(m, z + w, z)
-        else:
-            m = act & interior & (i + s < n)
-            num = np.where(m, fma(w, xv[:, PW:PW + K], num), num)
-            z = np.where(m, z + w, z)
-        if f['accum'] and f['mirror']:
-            m = interior & (i - s > 0)
-            qi = np.where(m, i - s, 0)
-            wm = np.where(m, wbuf[buf][qi], F32(0))
-            num = np.where(m, fma(wm, xs[PW + qi], num), num)
-            z = np.where(m, z + wm, z)
+    for s0 in range(rank, p['sch'], SHIFTS * c_):
+        batch = [(b, s0 + b * c_) for b in range(SHIFTS) if 0 < s0 + b * c_ < p['sch']]
+        wbuf[buf] = np.nan                 # an entry not written this batch reads as NaN
+        for b, s in batch:
+            lo, hi = needed(n, PW, s, f['mirror'], f['accum'])
+            act = ((i0 < hi) & (i0 + K > lo))[:, None]
+            xv = xs[PW + np.minimum(k + s, n)]
+            ssd = np.where((k >= 0) & (k + s < n), (xk - xv) * (xk - xv), F32(0))
+            dist = box_core(ssd) if f['boxtree'] else ssd[:, PW:PW + K]
+            w = weight(dist, hinv, f['exp'])
+            if f['accum'] and f['mirror']:
+                sel = np.nonzero(act[:, 0])[0]
+                wbuf[buf, b][i[sel]] = w[sel]
+            if not f['accum']:
+                m = act & interior
+                num = np.where(m, num + w, num)
+                z = np.where(m, z + w, z)
+            else:
+                m = act & interior & (i + s < n)
+                num = np.where(m, fma(w, xv[:, PW:PW + K], num), num)
+                z = np.where(m, z + w, z)
+        if f['accum'] and f['mirror']:     # after the batch's barrier
+            for b, s in batch:
+                m = interior & (i - s > 0)
+                qi = np.where(m, i - s, 0)
+                wm = np.where(m, wbuf[buf, b][qi], F32(0))
+                num = np.where(m, fma(wm, xs[PW + qi], num), num)
+                z = np.where(m, z + wm, z)
             buf ^= 1
     keep = i.reshape(-1) < n
     out_num, out_z = np.zeros(n, F32), np.zeros(n, F32)
@@ -335,13 +348,13 @@ def rows_with_spikes(rng, rows, n, spike=True):
 # ---------------------------------------------------------------- launch plan
 
 @pytest.mark.parametrize('rows,n,sch,pw,branch,threads,segs,c', [
-    (768, 2500, 2500, 10, 'register', 192, 1, 2),     # the chain, full search
-    (768, 2500, 128, 10, 'register', 192, 1, 2),      # search 128
-    (192, 2500, 2500, 10, 'register', 192, 1, 6),     # --batch 16
-    (77, 1999, 64, 7, 'generic', 256, 1, 8),          # ragged pw: generic branch
-    (24, 9000, 5000, 10, 'generic', 512, 3, 8),       # longer than the staging limit
-    (2, 70000, 64, 10, 'generic', 512, 18, 8),        # longer than shared memory holds
-    (6, 4096, 300, 10, 'register', 288, 1, 8),
+    (768, 2500, 2500, 10, 'register', 256, 1, 1),     # the chain, full search
+    (768, 2500, 128, 10, 'register', 256, 1, 1),      # search 128
+    (192, 2500, 2500, 10, 'register', 256, 1, 2),     # --batch 16
+    (77, 1999, 64, 7, 'generic', 256, 1, 5),          # ragged pw: generic branch
+    (24, 9000, 5000, 10, 'generic', 512, 3, 5),       # longer than the staging limit
+    (2, 70000, 64, 10, 'generic', 512, 18, 7),        # longer than shared memory holds
+    (6, 4096, 300, 10, 'register', 384, 1, 8),
     (6, 4097, 300, 10, 'generic', 512, 2, 8),
     (3, 12, 20, 10, 'register', 32, 1, 1),            # no interior: no step
 ])
@@ -352,6 +365,35 @@ def test_launch_plan(rows, n, sch, pw, branch, threads, segs, c):
     assert p['smem'] <= SMEM_LIMIT
     assert p['seg'] * p['segs'] >= n
     assert p['grid'] % p['C'] == 0 and 1 <= p['C'] <= MAX_CLUSTER
+
+
+@pytest.mark.parametrize('blocks,sms,cmax,c', [
+    (768, 132, 8, 1),     # 6 blocks per SM at every C: the smallest
+    (192, 132, 8, 2),     # C = 2 evens out 192 rows over 132 SMs
+    (72, 132, 8, 5),      # 0.6 waves per rank, within 5 % of C = 7's 0.571
+    (1, 132, 8, 8),       # one row: every rank on an SM of its own
+    (1, 132, 3, 3),       # no more ranks than shifts
+    (10_000, 132, 8, 1),
+])
+def test_cluster_size_from_the_sms(blocks, sms, cmax, c):
+    assert choose_cluster(blocks, sms, cmax) == c
+
+
+@pytest.mark.parametrize('blocks', [1, 5, 24, 72, 131, 132, 133, 192, 300, 768, 1000])
+@pytest.mark.parametrize('sms', [66, 114, 132])
+def test_cluster_size_is_the_smallest_near_the_least_cost(blocks, sms):
+    cost = {c: -(-(blocks * c) // sms) / c for c in range(1, MAX_CLUSTER + 1)}
+    c = choose_cluster(blocks, sms, MAX_CLUSTER)
+    assert cost[c] <= 1.05 * min(cost.values()) + 1e-12
+    assert all(cost[d] > 1.05 * min(cost.values()) + 1e-12 for d in range(1, c))
+
+
+@pytest.mark.parametrize('name,value', [('kPW', PW), ('kK', K), ('kResMax', RES_MAX),
+                                        ('kGenPer', GEN_PER), ('kGenThreads', GEN_THREADS),
+                                        ('kShifts', SHIFTS), ('kMaxCluster', MAX_CLUSTER)])
+def test_model_constants_are_the_sources(name, value):
+    src = (Path(nlm_fused.__file__).parent / 'csrc' / 'nlm.cu').read_text()
+    assert re.search(rf'constexpr int {name} = (\d+);', src).group(1) == str(value)
 
 
 def test_register_branch_limits():
@@ -457,7 +499,7 @@ CASES = [
     (2, 301, 500, 10, 8),      # search wider than the row
     (2, 23, 30, 10, 0),        # one interior position
     (2, 12, 20, 10, 0),        # shorter than one thread's run: no interior
-    (2, 481, 97, 10, 2),       # crosses a warp's 480 positions
+    (2, 353, 97, 10, 2),       # crosses a warp's 352 positions
     # generic branch
     (3, 199, 64, 7, 0),        # the ragged case's pw
     (2, 64, 64, 0, 4),         # pw = 0
