@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--phases kernels serving training denoise]
+    python3 chip_smoke.py [--phases kernels serving training pretrain denoise]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -11,9 +11,10 @@ process per source started together (into ``build/torch_kernels/``), then:
    (which the port never calls) and the least time the card could take --
    the flash forward (#1) and its lse variant (#2) against
    ``scaled_dot_product_attention``, the blocked backward dQ (#3) and dK/dV
-   (#4) against SDPA's backward, at the serving shape and at longer
-   sequences (ragged T and D, one row, exact tiles, rows of a size that
-   takes the kernel's scalar-load branch), f32 and bf16, dropout 0 and 0.1,
+   (#4) against SDPA's backward, at the serving shape, the pretraining
+   shapes and longer sequences (ragged T and D, one row, exact tiles, rows
+   of a size that takes the kernel's scalar-load branch), f32 and bf16,
+   dropout 0 and 0.1,
    and the dropout masks of #1 to #4 checked entry by entry against
    ``keep_full``; #3 and #4 also as one backward (with the delta reduction)
    beside SDPA's backward and the plain recompute, in device time; AdamW (#5)
@@ -42,7 +43,16 @@ process per source started together (into ``build/torch_kernels/``), then:
    plain AdamW) from one init, then ``Trainer.train()`` in bf16 with dropout
    0.1 and TimeOut over 2 epochs of the hard synthetic corpus, with its
    train samples/s, eval macro-AUROC and a profile of one step;
-4. denoise phase: ``export_denoised``'s per-chunk body (``denoise_chunk``)
+4. pretrain phase: the same for self-supervised pretraining, MAE (default
+   ``MaeConfig``: each step 14 lse forwards, dQ and dK/dV -- 12 encoder
+   layers at 10 visible tokens, 2 decoder layers at 40 tokens over 4 heads
+   -- and one AdamW) then contrastive (12 layers at 2B = 128 rows): three f32
+   steps of each against a plain twin fed the same mask noise or views,
+   ``train()`` in bf16 with dropout 0.1 for one epoch with eval, a profile of
+   one step, then the handoff: ``load_any_encoder`` of the final checkpoint
+   into a fresh ViT-base (the trunk's bits checked) and one epoch of the
+   linear probe (the trunk's bits unchanged, the head moved);
+5. denoise phase: ``export_denoised``'s per-chunk body (``denoise_chunk``)
    on synthetic 12 x 2500 records at 250 Hz: two chunks of 64 at full search
    (the CLI default) and one at search 128, one NLM launch each; records/s,
    the device time of each chain step and a profile; the output against a
@@ -71,7 +81,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ecg_representation_learning_tpu_torch.configs import (PreprocessConfig, TrainConfig,
+from ecg_representation_learning_tpu_torch.configs import (ContrastiveConfig, MaeConfig,
+                                                           PreprocessConfig, TrainConfig,
                                                            VitConfig)
 from ecg_representation_learning_tpu_torch.data import get_ptbxl_splits, synth_ecg, synth_ptbxl
 from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
@@ -84,7 +95,10 @@ from ecg_representation_learning_tpu_torch.ops.preprocess import zheng_denoise, 
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
 from ecg_representation_learning_tpu_torch.serving import serve
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
-from ecg_representation_learning_tpu_torch.train import SplitData, Trainer
+from ecg_representation_learning_tpu_torch.train import SplitData, Trainer, checkpoint
+from ecg_representation_learning_tpu_torch.train.contrastive import (ContrastiveTrainer,
+                                                                     load_any_encoder)
+from ecg_representation_learning_tpu_torch.train.pretrain import MaeTrainer
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
 # (f32 on the CUDA cores, bf16 on the tensor cores)
@@ -94,15 +108,23 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # order; bf16 also in where p is rounded (before vs after normalization)
 LIMITS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SERVING_SHAPE = (64, 12, 41, 64)     # ViT-base at bs 64: B, H, T = 40 patches + cls, D
+# the pretraining path at bs 64 (default MaeConfig and ContrastiveConfig):
+# the MAE encoder sees round(40 * 0.25) = 10 visible tokens, its decoder 40
+# tokens over 4 heads of hidden 256, the contrastive trunk 2B = 128 rows
+PRETRAIN_SHAPES = {'mae_encoder': (64, 12, 10, 64), 'mae_decoder': (64, 4, 40, 64),
+                   'contrastive_trunk': (128, 12, 41, 64)}
 # the serving shape, long sequences, ragged T with D = 80 and 128 (the
 # kernels' 128-column tiles), one row, exact tiles, about a bs-64 batch's
-# tokens at T = 256, and rows of 40 and 132 bytes (the scalar-load branch)
+# tokens at T = 256, rows of 40 and 132 bytes (the scalar-load branch), and
+# the pretraining shapes (T = 10 fills a sixth of a 64-row tile)
 KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
                 ((2, 12, 1024, 64), torch.bfloat16), ((1, 4, 2049, 64), torch.float32),
                 ((3, 5, 200, 80), torch.bfloat16), ((2, 4, 130, 128), torch.float32),
                 ((1, 1, 1, 64), torch.float32), ((8, 12, 128, 64), torch.bfloat16),
                 ((10, 12, 256, 64), torch.bfloat16), ((2, 3, 100, 20), torch.bfloat16),
-                ((2, 3, 77, 33), torch.float32)]
+                ((2, 3, 77, 33), torch.float32)] + [
+                    (shape, dtype) for shape in PRETRAIN_SHAPES.values()
+                    for dtype in (torch.float32, torch.bfloat16)]
 # the dropout mask check: sequence lengths, (B, H), rate
 MASK_TS, MASK_BH, MASK_RATE = (41, 256), (2, 6), 0.1
 # backward kernels vs plain version, max abs error over max(1, max |plain|):
@@ -816,8 +838,8 @@ def _steps_per_s(tr: Trainer, data: SplitData, n_steps: int) -> float:
     return n_steps * bs / (time.perf_counter() - t0)
 
 
-def profile_train_step(tr: Trainer, data: SplitData, steps: int = 3) -> dict:
-    """Where a ViT-base train step spends its time (see ``_profile``)."""
+def profile_train_step(tr, data: SplitData, steps: int = 3, kind: str = 'train') -> dict:
+    """Where a ViT-base ``kind`` step spends its time (see ``_profile``)."""
     take = np.arange(tr.cfg.train_batch_size)
     float(tr.train_step(data, take)['loss'])
 
@@ -826,7 +848,7 @@ def profile_train_step(tr: Trainer, data: SplitData, steps: int = 3) -> dict:
             m = tr.train_step(data, take)
         float(m['loss'])
     return _profile(f'ViT-base {tr.model_cfg.dtype} bs-{tr.cfg.train_batch_size} '
-                    f'train step, {steps} steps', 'step', steps, run)
+                    f'{kind} step, {steps} steps', 'step', steps, run)
 
 
 def training_phase():
@@ -927,6 +949,188 @@ def training_phase():
         raise AssertionError(f'training run failed (launches expected {want}): {summary}')
     emit(profile_train_step(tr, splits.train))
     return {k: launches[k] for k in want}
+
+
+def _pretrainer(objective: str, cfg: VitConfig, tcfg: TrainConfig, **kw):
+    if objective == 'mae':
+        return MaeTrainer(cfg, MaeConfig(), tcfg, **kw)
+    return ContrastiveTrainer(cfg, ContrastiveConfig(), tcfg, **kw)
+
+
+def _pretrain_expect(objective: str, cfg: VitConfig) -> dict:
+    """Launches of one step: a forward (lse), dQ and dK/dV per attention
+    layer -- the encoder's, and for MAE the decoder's -- and one AdamW."""
+    layers = cfg.num_hidden_layers + (MaeConfig().decoder_num_layers
+                                      if objective == 'mae' else 0)
+    return {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
+            'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
+
+
+def pretrain_parity(objective: str, stats) -> None:
+    """Three f32 steps (TF32 off, dropout 0) of the pretrainer against a
+    plain twin (plain attention, plain AdamW) from one init; both draw the
+    same mask noise or views from generators in the same state, which each
+    step checks.  Fails on a loss, a parameter or a launch count off."""
+    rng = np.random.default_rng(2)
+    n = PARITY_STEPS * 64
+    batch = SplitData(signals=(0.2 * rng.standard_normal((n, 12, 2500))).astype(np.float32),
+                      labels=np.zeros((n, 1), np.float32))
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0)
+    tcfg = TrainConfig(train_batch_size=64, log_to_console=False, save_final=False)
+    tr = _pretrainer(objective, cfg, tcfg, train_data=batch, norm_stats=stats)
+    tr.init_state()
+    twin = _pretrainer(objective, dataclasses.replace(cfg, use_flash_attention=False), tcfg,
+                       train_data=batch, norm_stats=stats)
+    twin.set_params(tr.model.state_dict())
+    twin.optimizer.update = adamw.adamw_update_reference
+    per_step, losses, same_draws = [], [], []
+    for k in range(PARITY_STEPS):
+        same_draws.append(bool(torch.equal(tr.rng.device.get_state(),
+                                           twin.rng.device.get_state())))
+        take = np.arange(64 * k, 64 * (k + 1))
+        _zero_counts()
+        got = tr.train_step(batch, take)
+        got = {key: float(v) for key, v in got.items()}
+        counts = _counts()
+        _zero_counts()
+        want = {key: float(v) for key, v in twin.train_step(batch, take).items()}
+        per_step.append(counts)
+        losses.append((got['loss'], want['loss']))
+    expect = _pretrain_expect(objective, cfg)
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(tr.model.state_dict().values(), twin.model.state_dict().values()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    row = {'phase': 'pretrain_parity', 'objective': objective, 'model': 'ecg-vit-base',
+           'dtype': 'float32', 'steps': PARITY_STEPS, 'losses_kernel_plain': losses,
+           'max_loss_rel_err': loss_err, 'loss_limit': LOSS_RTOL,
+           'max_param_abs_err': param_err, 'param_limit': PARAM_TOL,
+           'same_draws_each_step': same_draws, 'launches_per_step': per_step,
+           'expected_per_step': expect,
+           'train_samples_per_s_f32': _steps_per_s(tr, batch, 5)}
+    emit(row)
+    if any(c != expect for c in per_step):
+        raise AssertionError(f'{objective} steps launched {per_step}, expected {expect} each')
+    if not (all(same_draws) and loss_err <= LOSS_RTOL and param_err <= PARAM_TOL):
+        raise AssertionError(f'{objective} pretraining differs from the plain twin: {row}')
+
+
+def _handoff(objective: str, ckpt: str, splits, stats) -> dict:
+    """``load_any_encoder`` of the pretrain checkpoint into a fresh ViT-base:
+    the trunk must equal the checkpoint's bit for bit (for MAE its position
+    embeddings at rows 1..P); then one epoch of the linear probe, after which
+    the trunk's bits are unchanged and the head has moved."""
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    out_dir = f'runs/chip_smoke_probe_{objective}'
+    shutil.rmtree(out_dir, ignore_errors=True)
+    vit = Trainer(cfg16, TrainConfig(num_train_epoch=1, train_batch_size=64, linear_probe=True,
+                                     log_to_console=False, save_final=False),
+                  train_data=splits.train, eval_data=splits.eval, norm_stats=stats,
+                  output_dir=out_dir)
+    fresh = vit.init_state()
+    merged = load_any_encoder(ckpt, fresh)
+    saved = checkpoint.restore_checkpoint(ckpt)['params']
+    if objective == 'mae':
+        names = {'encoder.patch_embed.': 'encoder_patch_embed.',
+                 'encoder.blocks.': 'encoder_blocks.', 'encoder.final_norm.': 'encoder_norm.'}
+        src = {k: next(v + k[len(p):] for p, v in names.items() if k.startswith(p))
+               for k in merged if k.startswith(tuple(names))}
+        pos = merged['encoder.pos_embed'].cpu()
+        trunk_ok = (torch.equal(pos[:, 1:], saved['encoder_pos_embed'])
+                    and torch.equal(pos[:, :1], fresh['encoder.pos_embed'][:, :1].cpu()))
+    else:
+        src = {k: k for k in merged if k.startswith('encoder.')}
+        trunk_ok = True
+    trunk_ok = trunk_ok and all(torch.equal(merged[k].cpu(), saved[v]) for k, v in src.items())
+    vit.set_params(merged)
+    before = {k: v.clone() for k, v in vit.model.state_dict().items()}
+    _zero_counts()
+    t0 = time.perf_counter()
+    vit.train()
+    probe_s = time.perf_counter() - t0
+    launches = _counts()
+    after = vit.model.state_dict()
+    frozen = all(torch.equal(after[k], v) for k, v in before.items() if 'head' not in k)
+    head_moved = all(not torch.equal(after[k], before[k]) for k in ('head.weight', 'head.bias'))
+    test = vit.evaluate(splits.test)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    row = {'phase': 'pretrain_handoff', 'objective': objective, 'checkpoint': ckpt,
+           'trunk_tensors': len(src) + (objective == 'mae'), 'trunk_bits_equal': trunk_ok,
+           'probe_steps': vit.step, 'probe_seconds': probe_s, 'probe_launches': launches,
+           'trunk_frozen': frozen, 'head_moved': head_moved,
+           'probe_test_macro_auc_smoke': test['macro_auc']}
+    emit(row)
+    if not (trunk_ok and frozen and head_moved and launches['flash_bwd_dq'] > 0
+            and launches['adamw'] == 0 and np.isfinite(test['loss'])):
+        raise AssertionError(f'{objective} handoff failed: {row}')
+    return launches
+
+
+def pretrain_phase():
+    """Self-supervised pretraining of ViT-base through kernels #1-#5, MAE
+    then contrastive: parity against a plain twin in f32, then ``train()``
+    in bf16 with dropout 0.1 for one epoch with eval on the hard corpus
+    (launches per step checked, a profiled step), then the handoff of the
+    final checkpoint into a linear probe.  Returns the kernel launches of
+    the ``train()`` runs and the probes, the main path."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    signals, labels, folds = synth_ptbxl(n=TRAIN_N, hard=True, n_marker_classes=16)
+    splits = get_ptbxl_splits(signals, labels, folds)
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    total = {}
+    for objective in ('mae', 'contrastive'):
+        pretrain_parity(objective, stats)
+        torch.cuda.empty_cache()
+        out_dir = f'runs/chip_smoke_{objective}'
+        shutil.rmtree(out_dir, ignore_errors=True)
+        tr = _pretrainer(objective, cfg16, TrainConfig(num_train_epoch=1, train_batch_size=64,
+                                                       log_to_console=False),
+                         train_data=splits.train, eval_data=splits.eval, norm_stats=stats,
+                         output_dir=out_dir)
+        payloads = []
+        log = tr._log
+        tr._log = lambda payload: (payloads.append(payload), log(payload))
+        _zero_counts()
+        t0 = time.perf_counter()
+        result = tr.train()
+        train_s = time.perf_counter() - t0
+        launches = _counts()          # the eval forwards add flash_fwd launches
+        steps = tr.step
+        expect = {k: v * steps for k, v in _pretrain_expect(objective, cfg16).items()
+                  if k != 'flash_fwd'}
+        row = {'phase': 'pretrain', 'objective': objective, 'model': 'ecg-vit-base',
+               'dtype': 'bfloat16', 'dropout': 0.1,
+               'corpus': f'synth_ptbxl(n={TRAIN_N}, hard=True, n_marker_classes=16)',
+               'train_rows': len(splits.train), 'eval_rows': len(splits.eval),
+               'epochs': result['epochs'], 'steps': steps, 'train_seconds': train_s,
+               'train_losses': [p['pretrain/loss'] for p in payloads if 'pretrain/loss' in p],
+               'eval_loss': result['best_eval_loss'], 'launches': launches,
+               'launches_per_step': {k: launches[k] / steps for k in expect},
+               'train_samples_per_s_bf16': _steps_per_s(tr, splits.train, 10)}
+        if objective == 'contrastive':
+            sigs, idx = tr._sig_inputs(splits.eval, np.arange(min(64, len(splits.eval))))
+            row['eval_contrast_acc'] = float(tr.eval_batch(
+                sigs.index_select(0, idx), torch.Generator(device=DEV).manual_seed(0))[1])
+            row['train_contrast_acc'] = [p['pretrain/contrast_acc'] for p in payloads
+                                         if 'pretrain/contrast_acc' in p]
+        emit(row)
+        if not (steps == tr.steps_per_epoch and np.isfinite(row['eval_loss'])
+                and all(np.isfinite(row['train_losses']))
+                and all(launches[k] == v for k, v in expect.items())
+                and launches['flash_fwd'] > 0):
+            raise AssertionError(f'{objective} pretraining run failed (launches expected '
+                                 f'{expect}): {row}')
+        emit(profile_train_step(tr, splits.train, kind=f'{objective} pretrain'))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        probe = _handoff(objective, result['checkpoint'], splits, stats)
+        for k, v in probe.items():
+            total[k] = total.get(k, 0) + v
+        shutil.rmtree(out_dir, ignore_errors=True)
+        del tr
+        torch.cuda.empty_cache()
+    return total
 
 
 def _post(port: int, payload) -> dict:
@@ -1108,7 +1312,7 @@ def serving_phase():
     return summary, launches
 
 
-PHASES = ('kernels', 'serving', 'training', 'denoise')
+PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise')
 
 
 def main(argv=None) -> int:
@@ -1151,6 +1355,9 @@ def main(argv=None) -> int:
         _, launches['flash_fwd'] = serving_phase()
     if 'training' in args.phases:
         launches.update(training_phase())
+    if 'pretrain' in args.phases:
+        for name, count in pretrain_phase().items():
+            launches[name] = launches.get(name, 0) + count
     if 'denoise' in args.phases:
         launches.update(denoise_phase())
     if set(args.phases) != set(PHASES):

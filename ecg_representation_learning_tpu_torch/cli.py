@@ -1,15 +1,20 @@
 """Command-line interface of the port.
 
     python -m ecg_representation_learning_tpu_torch.cli train --size base --epochs 3
+    python -m ecg_representation_learning_tpu_torch.cli pretrain --objective contrastive
+    python -m ecg_representation_learning_tpu_torch.cli train --init-encoder \
+        runs/contrastive/ckpt-final --probe
     python -m ecg_representation_learning_tpu_torch.cli evaluate --checkpoint runs/x/ckpt-final
     python -m ecg_representation_learning_tpu_torch.cli serve --checkpoint runs/x/ckpt-final
     python -m ecg_representation_learning_tpu_torch.cli denoise --input ptbxl-combined.hdf5
 
-``train`` and ``evaluate`` run on the synthetic PTB-XL-shaped corpus
-(``synth_ptbxl(n=--synth-n)``, as the JAX CLI does without ``--hdf5``; the
-HDF5 loaders are not ported).  The flags are the JAX CLI's, with its names
-and defaults, for the features the port has; ``--checkpoint`` and
-``--resume-from`` take the port's checkpoints (``train/checkpoint.py``).
+``train``, ``pretrain`` and ``evaluate`` run on the synthetic PTB-XL-shaped
+corpus (``synth_ptbxl(n=--synth-n)``, as the JAX CLI does without
+``--hdf5``; the HDF5 loaders are not ported).  The flags are the JAX CLI's,
+with its names and defaults, for the features the port has;
+``--checkpoint``, ``--resume-from`` and ``--init-encoder`` take the port's
+checkpoints (``train/checkpoint.py``).  ``pretrain --stream`` (streaming
+multi-corpus pretraining) is not ported and exits with an error.
 ``denoise`` is the JAX CLI's (combined HDF5 -> denoised HDF5, resumable; it
 needs h5py).  Everything runs on the GPU; ``denoise --device cpu`` runs the
 plain versions of the kernels on the CPU.
@@ -90,10 +95,16 @@ def cmd_train(args):
         weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_ratio=args.warmup_ratio, patience=args.patience,
         augment_timeout=args.timeout_augment, seed=args.seed,
-        grad_accum=args.grad_accum, ema_decay=args.ema_decay)
+        grad_accum=args.grad_accum, ema_decay=args.ema_decay, linear_probe=args.probe)
     tr = Trainer(_model_cfg_for(args), cfg, train_data=splits.train,
                  eval_data=splits.eval, norm_stats=_stats(args),
                  output_dir=args.output_dir)
+    if args.init_encoder:
+        # the SSL -> supervised handoff: a pretrained trunk (MAE or
+        # contrastive, detected) into the classifier; --probe freezes it
+        from .train.contrastive import load_any_encoder
+        tr.init_state()
+        tr.set_params(load_any_encoder(args.init_encoder, tr.model.state_dict()))
     if args.resume_from:
         tr.load_checkpoint(args.resume_from)
     result = tr.train()
@@ -101,6 +112,34 @@ def cmd_train(args):
     print(json.dumps({'best_eval_loss': result['best_eval_loss'],
                       'test_macro_auc': test_metrics['macro_auc'],
                       'epochs': result['epochs']}))
+
+
+def cmd_pretrain(args):
+    from .configs import ContrastiveConfig, MaeConfig, TrainConfig
+    from .train.contrastive import ContrastiveTrainer
+    from .train.pretrain import MaeTrainer
+    if args.stream:
+        raise SystemExit('pretrain --stream: streaming multi-corpus pretraining is not '
+                         'ported')
+    splits = _load_splits(args)
+    cfg = TrainConfig(
+        num_train_epoch=args.epochs, train_batch_size=args.batch_size,
+        eval_batch_size=args.batch_size, learning_rate=args.lr,
+        weight_decay=args.weight_decay, schedule=args.schedule,
+        warmup_ratio=args.warmup_ratio, patience=args.patience,
+        grad_accum=args.grad_accum, ema_decay=args.ema_decay, seed=args.seed)
+    kw = dict(train_data=splits.train, eval_data=splits.eval, norm_stats=_stats(args))
+    if args.objective == 'contrastive':
+        tr = ContrastiveTrainer(_model_cfg_for(args),
+                                ContrastiveConfig(temperature=args.temperature), cfg,
+                                output_dir=args.output_dir or 'runs/contrastive', **kw)
+    else:
+        tr = MaeTrainer(_model_cfg_for(args), MaeConfig(mask_ratio=args.mask_ratio), cfg,
+                        output_dir=args.output_dir or 'runs/mae', **kw)
+    result = tr.train(resume=args.resume_from or False)
+    print(json.dumps({'pretrain_loss': result['loss'],
+                      'best_eval_loss': result['best_eval_loss'],
+                      'checkpoint': result['checkpoint']}))
 
 
 def cmd_evaluate(args):
@@ -156,12 +195,30 @@ def cmd_denoise(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog='ecg-torch')
     sub = p.add_subparsers(dest='cmd', required=True)
-    for name, fn in (('train', cmd_train), ('evaluate', cmd_evaluate)):
+    for name, fn in (('train', cmd_train), ('pretrain', cmd_pretrain),
+                     ('evaluate', cmd_evaluate)):
         sp = sub.add_parser(name)
         _add_common_train_flags(sp)
         sp.add_argument('--synth-n', type=int, default=512)
-        if name == 'train':
+        if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
+        if name == 'train':
+            sp.add_argument('--init-encoder', default=None, metavar='SSL_CKPT',
+                            help='initialize the encoder trunk from a pretrain '
+                                 'checkpoint (cli pretrain output; MAE or '
+                                 'contrastive, detected)')
+            sp.add_argument('--probe', action='store_true',
+                            help='linear probe: freeze the pretrained trunk, '
+                                 'train only the classification head')
+        if name == 'pretrain':
+            sp.add_argument('--objective', default='mae', choices=['mae', 'contrastive'],
+                            help='self-supervised objective: masked-patch '
+                                 'reconstruction (MAE) or two-view NT-Xent')
+            sp.add_argument('--mask-ratio', type=float, default=0.75)
+            sp.add_argument('--temperature', type=float, default=0.1,
+                            help='NT-Xent temperature (contrastive only)')
+            sp.add_argument('--stream', action='append', default=None, metavar='SHARDS',
+                            help='streaming multi-corpus pretraining: not ported')
         if name == 'evaluate':
             sp.add_argument('--checkpoint', default=None)
             sp.add_argument('--out', default='eval')

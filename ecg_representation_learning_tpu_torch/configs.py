@@ -1,15 +1,15 @@
 """Frozen configuration dataclasses for the model, training and preprocessing.
 
-``VitConfig`` and ``TrainConfig`` are field-for-field copies of the JAX
-package's, so a configuration carries over with
-``VitConfig(**dataclasses.asdict(cfg))`` (likewise ``TrainConfig``).  Fields
+``VitConfig``, ``MaeConfig``, ``ContrastiveConfig`` and ``TrainConfig`` are
+field-for-field copies of the JAX package's, so a configuration carries over
+with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  Fields
 whose feature the port has not reached yet keep their defaults: the model
 raises on a ``VitConfig`` value it cannot honour (MoE, ``scan_blocks``,
 ``ring_axis``, ``remat``), and ``TrainConfig`` raises on construction for
-its own (meshes, FSDP, multi-step dispatch, the linear probe, the optax
-chain, async checkpoints, sub-f32 resident splits).  ``prng_impl`` and
-``jax_debug_nans`` configure JAX alone and are carried, unread, so that a
-JAX configuration still loads.  ``PreprocessConfig`` is a whole copy.
+its own (meshes, FSDP, multi-step dispatch, async checkpoints, sub-f32
+resident splits).  ``prng_impl`` and ``jax_debug_nans`` configure JAX alone
+and are carried, unread, so that a JAX configuration still loads.
+``PreprocessConfig`` is a whole copy.
 """
 from __future__ import annotations
 
@@ -104,6 +104,33 @@ class VitConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MaeConfig:
+    """Masked-patch pretraining head (models/mae.py)."""
+    mask_ratio: float = 0.75
+    decoder_hidden_size: int = 256
+    decoder_num_layers: int = 2
+    decoder_num_heads: int = 4
+    decoder_intermediate_size: int = 1024
+    norm_patch_targets: bool = True  # normalize each target patch to zero-mean/unit-var
+
+
+@dataclasses.dataclass(frozen=True)
+class ContrastiveConfig:
+    """SimCLR-style pretraining: NT-Xent over two stochastic views
+    (models/contrastive.py, train/contrastive.py)."""
+    temperature: float = 0.1
+    proj_hidden_size: int = 512     # hidden width of the 2-layer projection MLP
+    proj_dim: int = 128             # embedding dim the loss acts on
+    # view-construction knobs (ops/augment.contrastive_view)
+    scale_lo: float = 0.8
+    scale_hi: float = 1.25
+    jitter_sigma: float = 0.05
+    lead_dropout: float = 0.2
+    shift_frac: float = 0.5
+    timeout_hi: float = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyper-parameters (defaults from reference models/train.py:407-427).
 
@@ -126,7 +153,8 @@ class TrainConfig:
     prng_impl: str = 'rbg'          # JAX only: ignored
     adam_mu_dtype: Optional[str] = None  # Adam's first moment: None (f32) | 'bfloat16'
     fused_optimizer: bool = True    # the fused AdamW step (ops/csrc/adamw.cu);
-                                    # False (the optax chain) is not ported
+                                    # False: the optax chain's semantics in
+                                    # plain PyTorch (train/optim.AdamChain)
     log_per_epoch: bool = False     # log the train metrics once per epoch
                                     # (each logged step syncs the device)
     epoch_scan: bool = False        # not ported
@@ -146,7 +174,8 @@ class TrainConfig:
                                     # raise at the next host sync
     jax_debug_nans: bool = False    # JAX only: ignored
     loss_weight: Optional[Tuple[float, float]] = None  # (w_neg, w_pos) BCE weights
-    linear_probe: bool = False      # not ported
+    linear_probe: bool = False      # train the head only (the optax chain,
+                                    # updates zeroed outside 'head')
     device_resident: Optional[bool] = None  # keep the split on the device and
                                     # gather batches by index; None = when it
                                     # fits hbm_split_max_bytes
@@ -163,8 +192,6 @@ class TrainConfig:
                     'fsdp': self.fsdp,
                     'epoch_scan': self.epoch_scan,
                     'steps_per_dispatch': self.steps_per_dispatch != 1,
-                    'linear_probe': self.linear_probe,
-                    'fused_optimizer': not self.fused_optimizer,
                     'async_checkpoint': self.async_checkpoint,
                     'resident_dtype': self.resident_dtype is not None}
         if any(unported.values()):

@@ -1,13 +1,14 @@
-"""Weights between the JAX package's flax ``EcgVit`` and the port's.
+"""Weights between the JAX package's flax models and the port's.
 
-The flax tree (``{'params': {'encoder': {...}, 'head': {...}}}``, unrolled
-``block_i`` layout, numpy leaves) and the port's ``state_dict`` name the same
-modules, so the mapping is by path:
+The flax trees (``{'params': {...}}``, unrolled ``block_i`` layout, numpy
+leaves) and the port's ``state_dict``s name the same modules, so the mapping
+is by path, for ``EcgVit``, ``EcgMae`` and ``EcgContrastive`` alike:
 
-  * ``block_i`` <-> ``blocks.i`` (an ``nn.ModuleList``);
+  * ``block_i`` <-> ``blocks.i`` and ``encoder_block_i`` <->
+    ``encoder_blocks.i`` (``nn.ModuleList``s);
   * a Dense ``kernel`` (in, out) <-> a Linear ``weight`` (out, in), transposed;
-  * a LayerNorm ``scale`` <-> ``weight``; ``bias``, ``cls_token`` and
-    ``pos_embed`` carry over as they are (``qkv`` has no bias).
+  * a LayerNorm ``scale`` <-> ``weight``; biases, tokens and position
+    embeddings carry over as they are (``qkv`` has no bias).
 
 Both directions copy values exactly, so flax -> torch -> flax is bit-exact.
 ``fused_adamw_state_from_flax`` maps the JAX ``FusedAdamWState`` (count, mu
@@ -16,10 +17,12 @@ same way, so both sides can continue from one mid-run state.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..configs import VitConfig
 from ..train.optim import FusedAdamWState
@@ -34,11 +37,15 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (key,), val
 
 
+_FLAX_BLOCK = re.compile(r'(.*)block_(\d+)')
+
+
 def _torch_key(path) -> str:
     parts = []
     for p in path:
-        if p.startswith('block_'):
-            parts += ['blocks', p[len('block_'):]]
+        m = _FLAX_BLOCK.fullmatch(p)
+        if m:
+            parts += [f'{m.group(1)}blocks', m.group(2)]
         else:
             parts.append({'kernel': 'weight', 'scale': 'weight'}.get(p, p))
     return '.'.join(parts)
@@ -51,13 +58,14 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True, order='C'))
 
 
-def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch.Tensor]:
-    """flax ``EcgVit`` params -> the port's ``EcgVit`` state_dict.
+def state_dict_from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """flax params -> a state_dict for ``model`` (an instance of the port's
+    counterpart; its parameters are only read for their names and shapes).
 
     Raises ``KeyError`` on a missing or unexpected key and ``ValueError`` on
     a shape mismatch, so a partial mapping cannot pass silently."""
     tree = params['params'] if 'params' in params else params
-    want = EcgVit(cfg).state_dict()
+    want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
@@ -77,10 +85,18 @@ def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch
     return out
 
 
-def flax_params_from_vit_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Inverse of :func:`vit_state_dict_from_flax`: the port's state_dict ->
-    ``{'params': ...}`` with numpy leaves.  A 2-D ``weight`` is a Linear's
-    (a Dense ``kernel``), a 1-D one a LayerNorm's ``scale``."""
+def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch.Tensor]:
+    """flax ``EcgVit`` params -> the port's ``EcgVit`` state_dict."""
+    with torch.device('meta'):
+        model = EcgVit(cfg)
+    return state_dict_from_flax(params, model)
+
+
+def flax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`state_dict_from_flax`: a state_dict of the port's
+    ``EcgVit``, ``EcgMae`` or ``EcgContrastive`` -> ``{'params': ...}`` with
+    numpy leaves.  A 2-D ``weight`` is a Linear's (a Dense ``kernel``), a 1-D
+    one a LayerNorm's ``scale``."""
     tree: Dict = {}
     for key, val in state_dict.items():
         arr = val.detach().cpu().numpy()
@@ -88,8 +104,8 @@ def flax_params_from_vit_state_dict(state_dict: Mapping[str, torch.Tensor]) -> D
         path = []
         i = 0
         while i < len(parts):
-            if parts[i] == 'blocks':
-                path.append(f'block_{parts[i + 1]}')
+            if parts[i].endswith('blocks') and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f'{parts[i][:-len("blocks")]}block_{parts[i + 1]}')
                 i += 2
             else:
                 path.append(parts[i])

@@ -7,8 +7,11 @@ the trainer's generators, the parameter EMA when it is tracked, and the
 epoch -- everything an exact resume needs.  A save writes into a
 ``<path>.tmp-<pid>`` sibling and renames it on completion, so a directory
 under the final name is always a committed checkpoint; a save killed midway
-leaves only a tmp directory, which the listings skip.  Importing orbax
-checkpoints of the JAX package is not ported.
+leaves only a tmp directory, which the listings skip.  The files need no
+template to be read, so ``pretrain_params`` hands a pretrain checkpoint's
+parameters to the SSL -> supervised handoff (train/contrastive.py) whatever
+its decoder or projection head.  Importing orbax checkpoints of the JAX
+package is not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import glob
 import os
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
@@ -52,6 +55,26 @@ def restore_checkpoint(path: str) -> Dict[str, Any]:
     if not os.path.isfile(file):
         raise FileNotFoundError(f'no committed checkpoint at {path} (missing {STATE_FILE})')
     return torch.load(file, map_location='cpu', weights_only=True)
+
+
+def pretrain_params(path: str) -> Dict[str, torch.Tensor]:
+    """A pretrain checkpoint's parameters, read without a template: its EMA
+    when one was saved (the smoothing exists to be transferred), else the
+    raw parameters."""
+    raw = restore_checkpoint(path)
+    return raw.get('ema_params') or raw['params']
+
+
+def check_params(params: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
+                 what: str) -> None:
+    """Raise ``ValueError`` unless ``params`` has exactly ``want``'s names
+    and shapes."""
+    bad = sorted(set(params) ^ set(want))
+    bad += sorted(k for k in set(params) & set(want)
+                  if tuple(params[k].shape) != tuple(want[k].shape))
+    if bad:
+        raise ValueError(f'{what} does not match this model (wrong model size?): '
+                         f'{len(bad)} names or shapes differ, e.g. {bad[:4]}')
 
 
 def committed_checkpoints(output_dir: str) -> List[str]:

@@ -8,12 +8,12 @@ optimizer step, the parameter EMA.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
 
-from .optim import FusedAdamW, FusedAdamWState, global_norm
+from .optim import AdamChain, FusedAdamW, FusedAdamWState, global_norm
 
 
 def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
@@ -37,7 +37,7 @@ def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
     return aux, grads
 
 
-def finish_update(optimizer: FusedAdamW, cfg, opt_state: FusedAdamWState,
+def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: FusedAdamWState,
                   params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                   nonfinite_count: torch.Tensor, ema: Dict[str, torch.Tensor] = None
                   ) -> Tuple[FusedAdamWState, torch.Tensor, torch.Tensor]:
@@ -46,11 +46,19 @@ def finish_update(optimizer: FusedAdamW, cfg, opt_state: FusedAdamWState,
 
     A non-finite global gradient norm adds one to ``nonfinite_count`` on the
     device (the host raises at its next sync), and with ``cfg.debug_nans``
-    the fused step zeroes that step's gradients by select, so the parameters
-    are never poisoned."""
+    that step's gradients are zeroed by select, so the parameters are never
+    poisoned: inside the fused step, or here before the optax chain (whose
+    clip then sees a norm of 0, the norm of the zeroed gradients)."""
     grad_norm = global_norm(list(grads.values()))
-    nonfinite_count = nonfinite_count + (~torch.isfinite(grad_norm)).to(torch.int32)
-    opt_state = optimizer.apply(grads, opt_state, params, g_norm=grad_norm)
+    finite = torch.isfinite(grad_norm)
+    nonfinite_count = nonfinite_count + (~finite).to(torch.int32)
+    clip_norm = grad_norm
+    if cfg.debug_nans and not isinstance(optimizer, FusedAdamW):
+        with torch.no_grad():
+            grads = {k: torch.where(finite, g, torch.zeros((), dtype=g.dtype, device=g.device))
+                     for k, g in grads.items()}
+        clip_norm = torch.where(finite, grad_norm, 0.0)
+    opt_state = optimizer.apply(grads, opt_state, params, g_norm=clip_norm)
     if cfg.ema_decay > 0:   # e * d + p * (1 - d), d and 1 - d in f32 as in JAX
         d = np.float32(cfg.ema_decay)
         e, p = list(ema.values()), [params[k] for k in ema]

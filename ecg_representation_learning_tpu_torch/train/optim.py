@@ -1,9 +1,10 @@
-"""The fused AdamW step and the learning-rate schedules.
+"""The fused AdamW step, the optax chain and the learning-rate schedules.
 
 Counterpart of the JAX package's ``train/optim.py``: ``FusedAdamW`` with its
-exact semantics, ``make_schedule`` (optax's warmup-cosine, cosine, linear
-warmup + constant, computed in f32 as optax does) and ``make_optimizer`` for
-the fused path.  The optax chain (``fused_optimizer=False``) is not ported.
+exact semantics, ``AdamChain`` (the optax chain of ``fused_optimizer=False``,
+in plain PyTorch: XLA in JAX, so it has no kernel), ``make_schedule``
+(optax's warmup-cosine, cosine, linear warmup + constant, computed in f32 as
+optax does) and ``make_optimizer``.
 
 ``FusedAdamW.apply`` takes the global gradient norm (a PyTorch reduction,
 as it was XLA outside Pallas), folds the clip and the non-finite select into
@@ -116,6 +117,76 @@ class FusedAdamW:
         return dataclasses.replace(state, count=state.count + 1)
 
 
+class AdamChain:
+    """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr, weight_decay,
+    mu_dtype=mu_dtype))`` (``adam`` when weight_decay is 0), leaf by leaf in
+    plain PyTorch with optax's operations in optax's order:
+
+        g   = ||g|| < clip ? g : (g / ||g||) * clip
+        mu  = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g*g + b2 * nu
+                                        (b1 rounded to mu's dtype)
+        u   = (mu / bc1) / (sqrt(nu / bc2) + eps) + wd * p
+        p   = p + (-lr) * u
+
+    with bc = 1 - b**count after the increment and lr from the schedule at the
+    count before it.  ``trainable`` (a set of parameter names; None: all),
+    set by ``pretrain.make_probe_optimizer``, zeroes the updates of every
+    other parameter after the chain, as ``optax.masked(optax.set_to_zero(),
+    frozen)``: their moments still move, the clip still sees their
+    gradients, and their values are left untouched.
+    Non-finite steps are zeroed by the caller (``loop.finish_update``), as in
+    JAX.  The state is the fused path's ``FusedAdamWState``."""
+
+    def __init__(self, learning_rate: Union[float, Schedule], *, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+                 clip_norm: Optional[float] = None,
+                 mu_dtype: Optional[Union[str, torch.dtype]] = None):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+        if isinstance(mu_dtype, str):
+            mu_dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[mu_dtype]
+        self.mu_dtype = mu_dtype
+        self.trainable: Optional[frozenset] = None
+
+    init = FusedAdamW.init
+    lr_at = FusedAdamW.lr_at
+
+    def apply(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
+              params: Dict[str, torch.Tensor],
+              g_norm: Optional[torch.Tensor] = None) -> FusedAdamWState:
+        """One step: updates ``params`` and the moments in place and returns
+        the state with its count advanced."""
+        names = list(params)
+        if g_norm is None:
+            g_norm = global_norm([grads[k] for k in names])
+        c = _F32(state.count + 1)
+        host = torch.tensor([_F32(1) - _F32(self.b1) ** c, _F32(1) - _F32(self.b2) ** c,
+                             -self.lr_at(state.count)], dtype=torch.float32)
+        bc1, bc2, neg_lr = host.to(g_norm.device).unbind(0)
+        b1, b2 = self.b1, self.b2
+        with torch.no_grad():
+            for k in names:
+                p, mu, nu = params[k], state.mu[k], state.nu[k]
+                g = grads[k].float()
+                if self.clip_norm is not None:
+                    g = torch.where(g_norm < self.clip_norm, g, (g / g_norm) * self.clip_norm)
+                # optax's weak-typed b1 takes mu's dtype (bf16: 0.8984375); XLA
+                # then keeps the product in f32 up to the add
+                b1_mu = float(torch.tensor(b1, dtype=mu.dtype))
+                mu2 = (1 - b1) * g + b1_mu * mu.float()
+                nu2 = (1 - b2) * (g * g) + b2 * nu
+                u = (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                mu.copy_(mu2)
+                nu.copy_(nu2)
+                if self.trainable is None or k in self.trainable:
+                    p.add_(neg_lr * u)
+        return dataclasses.replace(state, count=state.count + 1)
+
+
 def _polynomial(init: float, end: float, steps: int) -> Schedule:
     """optax.linear_schedule (polynomial with power 1), in f32."""
     if steps <= 0:
@@ -169,11 +240,15 @@ def make_schedule(cfg: TrainConfig, total_steps: int) -> Schedule:
     raise ValueError(f'Unknown schedule {cfg.schedule!r}')
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int) -> Tuple[FusedAdamW, Schedule]:
-    """The fused Adam/AdamW and its schedule (``cfg.fused_optimizer``)."""
+def make_optimizer(cfg: TrainConfig, total_steps: int
+                   ) -> Tuple[Union[FusedAdamW, AdamChain], Schedule]:
+    """Adam/AdamW and its schedule: the fused step by default, the optax
+    chain with ``cfg.fused_optimizer=False``."""
     ca(optimizer=cfg.optimizer)
     sched = make_schedule(cfg, total_steps)
-    return FusedAdamW(
-        sched, weight_decay=cfg.weight_decay if cfg.optimizer == 'AdamW' else 0.0,
-        clip_norm=cfg.grad_clip_norm, zero_nonfinite=cfg.debug_nans,
-        mu_dtype=cfg.adam_mu_dtype), sched
+    wd = cfg.weight_decay if cfg.optimizer == 'AdamW' else 0.0
+    if not cfg.fused_optimizer:
+        return AdamChain(sched, weight_decay=wd, clip_norm=cfg.grad_clip_norm,
+                         mu_dtype=cfg.adam_mu_dtype), sched
+    return FusedAdamW(sched, weight_decay=wd, clip_norm=cfg.grad_clip_norm,
+                      zero_nonfinite=cfg.debug_nans, mu_dtype=cfg.adam_mu_dtype), sched

@@ -19,7 +19,13 @@ Evaluation and inference serve the EMA weights when ``cfg.ema_decay > 0``.
 Randomness: model init from a CPU generator seeded with ``cfg.seed``; dropout
 seeds (attention kernel, hashed masks) from a host generator and Bernoulli
 masks and TimeOut draws from a generator on the device, both seeded from
-``cfg.seed`` and checkpointed.
+``cfg.seed`` and checkpointed.  ``cfg.linear_probe`` trains the head alone
+(the optax chain, updates zeroed outside ``head``; train/pretrain.py).
+
+``TrainerBase`` holds what the supervised trainer shares with the
+pretrainers (train/pretrain.py, train/contrastive.py): device and
+normalization stats, the optimizer and its state, the EMA, the generators,
+seeded init, checkpoints and logging.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from ..configs import TrainConfig, VitConfig
 from ..models.vit import EcgVit
 from ..ops.augment import timeout as timeout_op
 from ..ops.dropout import DropoutRng
+from ..ops.normalize import normalize_fixed
 from ..ops.pad import time_end_pad
 from ..runtime import default_device
 from ..utils.logging import TbWriter, get_logger, pretty_log_dict
@@ -62,7 +69,7 @@ def _prep_batch(sig: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 timeout_scale=(0.0, 0.5)) -> torch.Tensor:
     """Per-batch transform: normalize -> pad -> (``train``) TimeOut."""
-    sig = (sig - mean.reshape(-1, 1)) / std.reshape(-1, 1)
+    sig = normalize_fixed(sig, mean, std)
     sig = time_end_pad(sig, patch_size)
     if train:
         sig = timeout_op(sig, *timeout_scale, generator=generator)
@@ -76,26 +83,45 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
-class Trainer:
-    """Supervised multi-label trainer (the reference MyTrainer equivalent)."""
+def flax_init_(model: torch.nn.Module, seed: int) -> None:
+    """Seeded init with flax's distributions: lecun-normal Linear weights,
+    zero biases, unit LayerNorm scales, normal(0.02) tokens and position
+    embeddings.  Drawn on the CPU from one ``torch.Generator`` in parameter
+    order, so the weights do not depend on the device."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(('cls_token', 'pos_embed', 'mask_token')):
+                torch.nn.init.normal_(p, 0.0, 0.02, generator=gen)
+            elif name.endswith('bias'):
+                p.zero_()
+            elif p.dim() == 2:
+                _lecun_normal_(p, gen)
+            else:
+                p.fill_(1.0)
 
-    def __init__(self, model_cfg: VitConfig, train_cfg: TrainConfig,
-                 train_data: Optional[SplitData] = None,
-                 eval_data: Optional[SplitData] = None,
-                 norm_stats: Optional[Dict[str, Any]] = None,
-                 output_dir: Optional[str] = None, name: str = 'EcgVit', device=None):
+
+class TrainerBase:
+    """State and bookkeeping shared by the supervised trainer and the
+    pretrainers: ``model`` on ``device``, the optimizer (fused AdamW or the
+    optax chain) and its state, the EMA, the generators, the step and epoch
+    counters, checkpoints and the log sinks."""
+
+    def __init__(self, model: torch.nn.Module, model_cfg: VitConfig, train_cfg: TrainConfig,
+                 train_data: Optional[SplitData], eval_data: Optional[SplitData],
+                 norm_stats: Optional[Dict[str, Any]], output_dir: str, name: str,
+                 logger_name: str, device=None):
         self.device = default_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.name = name
-        self.model = EcgVit(model_cfg).eval()
+        self.model = model.eval()
         self.train_data, self.eval_data = train_data, eval_data
         stats = norm_stats or {'mean': [0.0] * model_cfg.num_channels,
                                'std': [1.0] * model_cfg.num_channels}
         self.mean = torch.tensor(stats['mean'], dtype=torch.float32, device=self.device)
         self.std = torch.tensor(stats['std'], dtype=torch.float32, device=self.device)
-        self.save_time = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
-        self.output_dir = output_dir or os.path.join('runs', self.save_time)
+        self.output_dir = output_dir
 
         if train_cfg.train_batch_size % max(1, train_cfg.grad_accum):
             raise ValueError(f'grad_accum {train_cfg.grad_accum} must divide '
@@ -112,9 +138,9 @@ class Trainer:
         self.step = 0         # optimizer steps taken, on the host
         self.epoch = 0
         self._nonfinite = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._resident = {}   # id(SplitData) -> (signals, labels) on the device
+        self._resident = {}   # id(SplitData) -> split arrays on the device
         self.last_restore_info: Dict[str, Any] = {}
-        self.logger = get_logger(f'{name} Train')
+        self.logger = get_logger(logger_name)
         self.logger_fl = None
         self.tb = None
 
@@ -138,24 +164,11 @@ class Trainer:
                     if self.cfg.ema_decay > 0 else None)
 
     def init_state(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """Seeded init with flax's distributions: lecun-normal Linear weights,
-        zero biases, unit LayerNorm scales, normal(0.02) cls and pos tokens.
-        Drawn on the CPU from one ``torch.Generator``, so the weights do not
-        depend on the device.  Resets the optimizer state, the EMA, the step
-        and the dropout generators."""
+        """Seeded init (``flax_init_``); resets the optimizer state, the EMA,
+        the step and the generators."""
         seed = self.cfg.seed if seed is None else seed
-        gen = torch.Generator().manual_seed(seed)
         self.model.to('cpu')
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                if name.endswith(('cls_token', 'pos_embed')):
-                    torch.nn.init.normal_(p, 0.0, 0.02, generator=gen)
-                elif name.endswith('bias'):
-                    p.zero_()
-                elif p.dim() == 2:
-                    _lecun_normal_(p, gen)
-                else:
-                    p.fill_(1.0)
+        flax_init_(self.model, seed)
         self.model.to(self.device)
         self._reset_run_state(seed)
         self.initialized = True
@@ -164,7 +177,8 @@ class Trainer:
 
     def set_params(self, state_dict: Mapping[str, torch.Tensor]):
         """Install an externally built state_dict (e.g. flax params carried
-        over with ``models.port.vit_state_dict_from_flax``), re-initializing
+        over with ``models.port.vit_state_dict_from_flax``, or a pretrained
+        trunk from ``train.contrastive.load_any_encoder``), re-initializing
         the optimizer state and re-seeding the EMA from it."""
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device)
@@ -180,7 +194,6 @@ class Trainer:
         if self.cfg.log_to_console:
             self.logger.info(msg)
 
-    # ------------------------------------------------------------------ steps
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the device, copied without waiting for it."""
         t = torch.from_numpy(np.ascontiguousarray(x))
@@ -188,6 +201,140 @@ class Trainer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The update tail of a step (``loop.finish_update``) on the
+        accumulated ``grads``; returns the gradient norm."""
+        params = {k: p.detach() for k, p in self.params().items()}
+        self.opt_state, grad_norm, self._nonfinite = finish_update(
+            self.optimizer, self.cfg, self.opt_state, params, grads, self._nonfinite,
+            self.ema)
+        for p in self.params().values():
+            p.grad = None
+        self.step += 1
+        return grad_norm
+
+    def _check_finite(self, where: str) -> None:
+        if self.cfg.debug_nans and int(self._nonfinite) > 0:
+            # the reference's grad-clip error_if_nonfinite (train.py:281): the
+            # device counter catches every step, raised at this host sync
+            raise FloatingPointError(
+                f'non-finite gradient norm {where} ({int(self._nonfinite)} bad '
+                f'steps; params unpoisoned)')
+
+    def _eval_forward(self, *args, **kw):
+        """The eval-mode forward on the served weights: the EMA when
+        ``cfg.ema_decay > 0``, else the trained parameters."""
+        self.model.eval()
+        if self.ema is not None:
+            return torch.func.functional_call(self.model, self.ema, args, kw)
+        return self.model(*args, **kw)
+
+    # ------------------------------------------------------------ checkpoints
+    def latest_checkpoint(self) -> Optional[str]:
+        """Most recent committed ``ckpt-*`` under output_dir."""
+        from .checkpoint import latest_committed_checkpoint
+        return latest_committed_checkpoint(self.output_dir)
+
+    def save_checkpoint(self, tag: str = 'final') -> str:
+        from .checkpoint import save_checkpoint
+        path = os.path.join(os.path.abspath(self.output_dir), f'ckpt-{tag}')
+        state = {'step': self.step, 'epoch': self.epoch,
+                 'params': self.model.state_dict(),
+                 'opt_state': {'count': self.opt_state.count, 'mu': self.opt_state.mu,
+                               'nu': self.opt_state.nu},
+                 'rng': {'host': self.rng.host.get_state(),
+                         'device': self.rng.device.get_state()}}
+        if self.ema is not None:
+            state['ema_params'] = self.ema
+        save_checkpoint(path, state)
+        self._info(f'Checkpoint saved to {path}')
+        return path
+
+    def load_checkpoint(self, path: str):
+        """Restore a checkpoint of this model: params, step, epoch, the
+        generators, and -- when they match this trainer -- the optimizer
+        state (else it is re-initialized, with a warning) and the EMA
+        (seeded from the params when the checkpoint has none; dropped, and
+        ``last_restore_info['dropped_ema']`` set, when this trainer keeps
+        none)."""
+        from .checkpoint import restore_checkpoint
+        log = logging.getLogger(__name__)
+        if not self.initialized:
+            self.init_state()
+        raw = restore_checkpoint(path)
+        try:
+            self.model.load_state_dict(raw['params'], strict=True)
+        except RuntimeError as e:
+            raise ValueError(f'checkpoint {path} params do not match this model '
+                             f'(wrong model size/config?): {e}') from None
+        self.model.to(self.device)
+        params = {k: p.detach() for k, p in self.params().items()}
+        self._reset_optimizer()
+        opt = raw['opt_state']
+        fresh = self.opt_state
+        if all(k in opt[m] and opt[m][k].shape == getattr(fresh, m)[k].shape
+               and opt[m][k].dtype == getattr(fresh, m)[k].dtype
+               for m in ('mu', 'nu') for k in params):
+            self.opt_state = FusedAdamWState(
+                count=int(opt['count']),
+                mu={k: opt['mu'][k].to(self.device) for k in params},
+                nu={k: opt['nu'][k].to(self.device) for k in params})
+        else:
+            log.warning('optimizer state in %s does not match this trainer (e.g. '
+                        'another adam_mu_dtype); reinitialized it', path)
+        extra: Dict[str, Any] = {'epoch': int(raw['epoch'])}
+        if self.ema is not None:
+            if 'ema_params' not in raw:
+                log.warning('checkpoint %s has no EMA; seeding it from the params', path)
+            self.ema = {k: v.to(self.device).clone()
+                        for k, v in raw.get('ema_params', raw['params']).items()}
+        elif 'ema_params' in raw:
+            log.warning('checkpoint %s carries EMA params this trainer does not '
+                        'track (ema_decay=0); dropping them', path)
+            extra['dropped_ema'] = True
+        self.rng.host.set_state(raw['rng']['host'])
+        self.rng.device.set_state(raw['rng']['device'])
+        self.step = int(raw['step'])
+        self.epoch = int(raw['epoch'])
+        self.last_restore_info = extra
+        return self.model.state_dict()
+
+    # ----------------------------------------------------------------- logging
+    def _open_sinks(self, logger_name: str, file_name: str) -> None:
+        """The file log ``output_dir/file_name`` and TensorBoard ``output_dir/tb``."""
+        self.logger_fl = get_logger(logger_name,
+                                    file_path=os.path.join(self.output_dir, file_name))
+        self.tb = TbWriter(os.path.join(self.output_dir, 'tb'))
+
+    def _log(self, payload: Dict[str, Any]):
+        pretty = pretty_log_dict(payload)
+        if self.cfg.log_to_console:
+            self.logger.info(str(pretty))
+        if self.logger_fl:
+            self.logger_fl.info(str(pretty))
+        if self.tb:
+            self.tb.log(payload, step=self.step)
+
+
+class Trainer(TrainerBase):
+    """Supervised multi-label trainer (the reference MyTrainer equivalent)."""
+
+    def __init__(self, model_cfg: VitConfig, train_cfg: TrainConfig,
+                 train_data: Optional[SplitData] = None,
+                 eval_data: Optional[SplitData] = None,
+                 norm_stats: Optional[Dict[str, Any]] = None,
+                 output_dir: Optional[str] = None, name: str = 'EcgVit', device=None):
+        self.save_time = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
+        super().__init__(EcgVit(model_cfg), model_cfg, train_cfg, train_data, eval_data,
+                         norm_stats, output_dir or os.path.join('runs', self.save_time),
+                         name, f'{name} Train', device)
+        if train_cfg.linear_probe:
+            # the head alone: the optax chain with the trunk's updates zeroed
+            from .pretrain import make_probe_optimizer
+            self.optimizer, self.schedule = make_probe_optimizer(
+                train_cfg, self.total_steps, self.params())
+
+    # ------------------------------------------------------------------ steps
     def _split_arrays(self, data: SplitData):
         """The split as device tensors when it fits ``hbm_split_max_bytes``
         (or ``device_resident`` says so), so a step gathers its rows on the
@@ -241,23 +388,10 @@ class Trainer:
         logits = torch.cat([a[1] for a in aux])
         lab = torch.cat([a[2] for a in aux])
         lr = self.optimizer.lr_at(self.step)
-        self.opt_state, grad_norm, self._nonfinite = finish_update(
-            self.optimizer, cfg, self.opt_state, {k: p.detach() for k, p in params.items()},
-            grads, self._nonfinite, self.ema)
-        for p in params.values():
-            p.grad = None
-        self.step += 1
+        grad_norm = self._update(grads)
         probs = torch.sigmoid(logits.float())
         return {'loss': loss, 'learning_rate': lr, 'grad_norm': grad_norm,
                 **binary_stats(probs, lab)}
-
-    def _check_finite(self, where: str) -> None:
-        if self.cfg.debug_nans and int(self._nonfinite) > 0:
-            # the reference's grad-clip error_if_nonfinite (train.py:281): the
-            # device counter catches every step, raised at this host sync
-            raise FloatingPointError(
-                f'non-finite gradient norm {where} ({int(self._nonfinite)} bad '
-                f'steps; params unpoisoned)')
 
     # ------------------------------------------------------------------ loops
     def _index_batches(self, data: SplitData, batch_size: int, shuffle_rng=None,
@@ -274,11 +408,6 @@ class Trainer:
                 take = np.concatenate([take, np.zeros(batch_size - n_real, np.int64)])
             yield take, n_real
 
-    def latest_checkpoint(self) -> Optional[str]:
-        """Most recent committed ``ckpt-*`` under output_dir."""
-        from .checkpoint import latest_committed_checkpoint
-        return latest_committed_checkpoint(self.output_dir)
-
     def train(self, resume: Union[bool, str] = False) -> Dict[str, Any]:
         """Run the training loop.  ``resume``: True restarts from the latest
         checkpoint in output_dir if there is one; a string restores that
@@ -290,9 +419,7 @@ class Trainer:
             if path:
                 self.load_checkpoint(path)
                 self._info(f'Resumed from {path} (epoch {self.epoch})')
-        self.logger_fl = get_logger(f'{self.name} TrainFile',
-                                    file_path=os.path.join(self.output_dir, 'train.log'))
-        self.tb = TbWriter(os.path.join(self.output_dir, 'tb'))
+        self._open_sinks(f'{self.name} TrainFile', 'train.log')
         if not self.initialized:
             self.init_state()
         self._info(f'Launched training {self.model_cfg.meta} with {dataclasses.asdict(cfg)}')
@@ -340,14 +467,6 @@ class Trainer:
                 'epochs': self.epoch, 'seconds': dt}
 
     # -------------------------------------------------------------- inference
-    def _eval_forward(self, sig: torch.Tensor, **kw):
-        """The eval-mode forward on the served weights: the EMA when
-        ``cfg.ema_decay > 0``, else the trained parameters."""
-        self.model.eval()
-        if self.ema is not None:
-            return torch.func.functional_call(self.model, self.ema, (sig,), kw)
-        return self.model(sig, **kw)
-
     @torch.inference_mode()
     def evaluate(self, data: SplitData, loss_reduction: str = 'mean',
                  return_predictions: bool = False) -> Dict[str, Any]:
@@ -439,81 +558,7 @@ class Trainer:
         probs = self.predict(flat).reshape(n, len(starts), -1)
         return probs.max(axis=1) if agg == 'max' else probs.mean(axis=1)
 
-    # ------------------------------------------------------------ checkpoints
-    def save_checkpoint(self, tag: str = 'final') -> str:
-        from .checkpoint import save_checkpoint
-        path = os.path.join(os.path.abspath(self.output_dir), f'ckpt-{tag}')
-        state = {'step': self.step, 'epoch': self.epoch,
-                 'params': self.model.state_dict(),
-                 'opt_state': {'count': self.opt_state.count, 'mu': self.opt_state.mu,
-                               'nu': self.opt_state.nu},
-                 'rng': {'host': self.rng.host.get_state(),
-                         'device': self.rng.device.get_state()}}
-        if self.ema is not None:
-            state['ema_params'] = self.ema
-        save_checkpoint(path, state)
-        self._info(f'Checkpoint saved to {path}')
-        return path
-
-    def load_checkpoint(self, path: str):
-        """Restore a checkpoint of this model: params, step, epoch, the
-        generators, and -- when they match this trainer -- the optimizer
-        state (else it is re-initialized, with a warning) and the EMA
-        (seeded from the params when the checkpoint has none; dropped, and
-        ``last_restore_info['dropped_ema']`` set, when this trainer keeps
-        none)."""
-        from .checkpoint import restore_checkpoint
-        log = logging.getLogger(__name__)
-        if not self.initialized:
-            self.init_state()
-        raw = restore_checkpoint(path)
-        try:
-            self.model.load_state_dict(raw['params'], strict=True)
-        except RuntimeError as e:
-            raise ValueError(f'checkpoint {path} params do not match this model '
-                             f'(wrong model size/config?): {e}') from None
-        self.model.to(self.device)
-        params = {k: p.detach() for k, p in self.params().items()}
-        self._reset_optimizer()
-        opt = raw['opt_state']
-        fresh = self.opt_state
-        if all(k in opt[m] and opt[m][k].shape == getattr(fresh, m)[k].shape
-               and opt[m][k].dtype == getattr(fresh, m)[k].dtype
-               for m in ('mu', 'nu') for k in params):
-            self.opt_state = FusedAdamWState(
-                count=int(opt['count']),
-                mu={k: opt['mu'][k].to(self.device) for k in params},
-                nu={k: opt['nu'][k].to(self.device) for k in params})
-        else:
-            log.warning('optimizer state in %s does not match this trainer (e.g. '
-                        'another adam_mu_dtype); reinitialized it', path)
-        extra: Dict[str, Any] = {'epoch': int(raw['epoch'])}
-        if self.ema is not None:
-            if 'ema_params' not in raw:
-                log.warning('checkpoint %s has no EMA; seeding it from the params', path)
-            self.ema = {k: v.to(self.device).clone()
-                        for k, v in raw.get('ema_params', raw['params']).items()}
-        elif 'ema_params' in raw:
-            log.warning('checkpoint %s carries EMA params this trainer does not '
-                        'track (ema_decay=0); dropping them', path)
-            extra['dropped_ema'] = True
-        self.rng.host.set_state(raw['rng']['host'])
-        self.rng.device.set_state(raw['rng']['device'])
-        self.step = int(raw['step'])
-        self.epoch = int(raw['epoch'])
-        self.last_restore_info = extra
-        return self.model.state_dict()
-
     # ----------------------------------------------------------------- logging
-    def _log(self, payload: Dict[str, Any]):
-        pretty = pretty_log_dict(payload)
-        if self.cfg.log_to_console:
-            self.logger.info(str(pretty))
-        if self.logger_fl:
-            self.logger_fl.info(str(pretty))
-        if self.tb:
-            self.tb.log(payload, step=self.step)
-
     def _log_epoch(self, metrics: Dict[str, Any], prefix: str):
         payload = {f'{prefix}/{k}': v for k, v in metrics.items()
                    if k not in ('per_sample_loss', 'predictions', 'history',

@@ -54,6 +54,10 @@ def _run(code: str):
 def test_port_and_chip_smoke_import_without_jax():
     modules = _port_modules()
     assert len(modules) >= 14, modules
+    pretraining = {f'{port.__name__}.{m}' for m in (
+        'models.mae', 'models.contrastive', 'train.pretrain', 'train.contrastive',
+        'ops.normalize')}
+    assert pretraining <= set(modules), pretraining - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)

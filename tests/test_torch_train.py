@@ -225,7 +225,7 @@ def _jax_train_flags():
     p = jcli.argparse.ArgumentParser()
     jcli._add_common_train_flags(p)
     for flag, default in (('--synth-n', 512), ('--stats', None), ('--resume-from', None),
-                          ('--hdf5', None)):
+                          ('--hdf5', None), ('--init-encoder', None), ('--probe', False)):
         p.add_argument(flag, default=default)
     return {a.option_strings[-1]: a.default for a in p._actions if a.option_strings}
 

@@ -19,7 +19,7 @@ from ecg_representation_learning_tpu.models import vit as jvit
 from ecg_representation_learning_tpu_torch.configs import VitConfig
 from ecg_representation_learning_tpu_torch.models import vit as tvit
 from ecg_representation_learning_tpu_torch.models.port import (
-    flax_params_from_vit_state_dict, vit_state_dict_from_flax)
+    flax_params_from_state_dict, vit_state_dict_from_flax)
 
 torch.set_num_threads(2)
 
@@ -106,7 +106,7 @@ def test_forward_flops_per_sample_equal(size):
 @pytest.mark.parametrize('patch_norm', [True, False])
 def test_weights_round_trip_flax_torch_flax_bit_exact(patch_norm):
     _, tm, params = _pair(patch_norm=patch_norm)
-    back = flax_params_from_vit_state_dict(tm.state_dict())
+    back = flax_params_from_state_dict(tm.state_dict())
     want = jax.tree_util.tree_flatten_with_path(params)
     got = jax.tree_util.tree_flatten_with_path(back)
     assert [p for p, _ in got[0]] == [p for p, _ in want[0]]
