@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--phases kernels serving training pretrain denoise]
+    python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -57,7 +57,17 @@ process per source started together (into ``build/torch_kernels/``), then:
    (the CLI default) and one at search 128, one NLM launch each; records/s,
    the device time of each chain step and a profile; the output against a
    twin whose NLM step is the plain version and against the chain on the
-   CPU; an all-zero lead comes out all zeros.
+   CPU; an all-zero lead comes out all zeros;
+6. corpus phase (the disk-corpus slice's array paths; the card's machine has
+   no h5py): ``synth_ptbxl_device`` at PTB-XL scale (21,837 x 12 x 2500) on
+   the card, twice for the same bits, its std against the host generator's;
+   the official splits gathered on the card, then 20 ViT-base bf16 steps
+   with the train split resident in f32, f16 and bf16 (f16's eval loss
+   within 2e-2 of f32's); a seeded reference-layout ViT-base written as a
+   vit-pytorch 0.33.2 ``.pt`` and read back through ``--port-checkpoint``'s
+   loader bit for bit; int8 inference (compression, bs-64 predict against a
+   plain twin with the same int8 weights and against f32); ``cli infer``'s
+   body on 20 s records, against the plain twin.
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
@@ -70,6 +80,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -84,8 +95,12 @@ import torch.nn.functional as F
 from ecg_representation_learning_tpu_torch.configs import (ContrastiveConfig, MaeConfig,
                                                            PreprocessConfig, TrainConfig,
                                                            VitConfig)
-from ecg_representation_learning_tpu_torch.data import get_ptbxl_splits, synth_ecg, synth_ptbxl
+from ecg_representation_learning_tpu_torch import cli as ecg_cli
+from ecg_representation_learning_tpu_torch.data import (get_ptbxl_splits, synth_ecg,
+                                                        synth_ptbxl, synth_ptbxl_device)
 from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
+from ecg_representation_learning_tpu_torch.models.port import (
+    export_vit_pytorch_state_dict, reference_vit_config)
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit
 from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
@@ -99,6 +114,7 @@ from ecg_representation_learning_tpu_torch.train import SplitData, Trainer, chec
 from ecg_representation_learning_tpu_torch.train.contrastive import (ContrastiveTrainer,
                                                                      load_any_encoder)
 from ecg_representation_learning_tpu_torch.train.pretrain import MaeTrainer
+from ecg_representation_learning_tpu_torch.train.trainer import RESIDENT_DTYPES
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
 # (f32 on the CUDA cores, bf16 on the tensor cores)
@@ -165,6 +181,15 @@ DEV = 'cuda'
 # chain on the card vs on the CPU, over max |x|: the LOESS solve and the
 # noise estimate's medians see f32 sums in another order on each device
 DENOISE_CPU_LIMIT = 1e-4
+# the corpus phase: the device corpus at PTB-XL scale; its std against the
+# host generator's at n = 512 (tests/test_synth_device.py:27); bf16 steps
+# per storage dtype and the eval rows behind the f16 gate
+# (tests/test_train.py:425); the int8 gate against f32
+# (tests/test_quantize.py:57); the 20 s records `cli infer` scores
+CORPUS_N, CORPUS_STD_N, CORPUS_STD_RTOL = 21837, 512, 0.3
+RESIDENT_STEPS, RESIDENT_EVAL_N, RESIDENT_RTOL = 20, 512, 2e-2
+INT8_TOL = 0.05
+INFER_N = 64
 # (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
 KERNELS = [
     ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
@@ -1196,11 +1221,11 @@ def profile_predict(tr: Trainer, batch: np.ndarray, calls: int = 3) -> dict:
                     lambda: [tr.predict(batch) for _ in range(calls)])
 
 
-def _plain_twin(tr: Trainer) -> Trainer:
-    """The same weights with attention on the plain path."""
-    cfg = dataclasses.replace(tr.model_cfg, use_flash_attention=False)
-    twin = Trainer(cfg, tr.cfg, norm_stats={'mean': tr.mean.tolist(),
-                                            'std': tr.std.tolist()})
+def _twin(tr: Trainer, flash: bool) -> Trainer:
+    """A trainer with ``tr``'s weights and inference settings, attention on
+    the kernel (``flash``) or on the plain path."""
+    cfg = dataclasses.replace(tr.model_cfg, use_flash_attention=flash)
+    twin = Trainer(cfg, tr.cfg, norm_stats={'mean': tr.mean.tolist(), 'std': tr.std.tolist()})
     twin.set_params(tr.model.state_dict())
     return twin
 
@@ -1256,7 +1281,7 @@ def serving_phase():
         raise AssertionError(f'{requests} requests, {dispatches} dispatches, '
                              f'{launches} flash launches: the path skipped the kernel')
 
-    plain = _plain_twin(tr)
+    plain = _twin(tr, flash=False)
     err_self = err_plain = 0.0
     for x, probs in zip(inputs, got):
         if probs.shape != (1, cfg.num_class) or not np.isfinite(probs).all():
@@ -1303,7 +1328,7 @@ def serving_phase():
     tr16 = Trainer(cfg16, tr.cfg, norm_stats={'mean': tr.mean.tolist(),
                                               'std': tr.std.tolist()})
     tr16.set_params(tr.model.state_dict())
-    want16 = _plain_twin(tr16).predict(batch[:8])
+    want16 = _twin(tr16, flash=False).predict(batch[:8])
     err16 = float(np.abs(tr16.predict(batch[:8]) - want16).max())
     emit({'phase': 'serving_bf16', 'max_abs_err_vs_plain_attention': err16,
           'limit': BF16_TOL})
@@ -1312,7 +1337,212 @@ def serving_phase():
     return summary, launches
 
 
-PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise')
+def _samples_per_s(fn, n_samples: int, reps: int = 5) -> float:
+    """``n_samples`` per call of ``fn`` (which returns host arrays, so the
+    device has finished) over ``reps`` calls after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return reps * n_samples / (time.perf_counter() - t0)
+
+
+def _corpus_device(smi: str):
+    """``synth_ptbxl_device`` at PTB-XL scale, twice (the same bits), and at
+    n = 512 against the host generator's hard corpus."""
+    small, _, _ = synth_ptbxl_device(n=CORPUS_STD_N, n_marker_classes=16)   # warm-up
+    host, _, _ = synth_ptbxl(n=CORPUS_STD_N, hard=True, n_marker_classes=16)
+    std_rel = abs(float(small.std()) - float(host.std())) / float(host.std())
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = synth_ptbxl_device(n=CORPUS_N, n_marker_classes=16)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, out))
+    (s1, (signals, labels, folds)), (s2, (again, labels2, folds2)) = runs
+    same = (bool(torch.equal(signals, again)) and labels == labels2
+            and bool((folds == folds2).all()))
+    del runs, again
+    row = {'phase': 'corpus_device', 'nvidia_smi': smi, 'n': CORPUS_N,
+           'shape': list(signals.shape), 'device': str(signals.device),
+           'bytes': signals.numel() * signals.element_size(),
+           'seconds': [s1, s2], 'records_per_s': [CORPUS_N / s1, CORPUS_N / s2],
+           'finite': bool(torch.isfinite(signals).all()), 'std': float(signals.std()),
+           'std_n512_device_host': [float(small.std()), float(host.std())],
+           'std_rel_diff': std_rel, 'std_limit': CORPUS_STD_RTOL, 'same_bits_twice': same}
+    emit(row)
+    if not (row['finite'] and same and signals.device.type == DEV
+            and std_rel < CORPUS_STD_RTOL):
+        raise AssertionError(f'device corpus failed: {row}')
+    return signals, labels, folds
+
+
+def _corpus_resident(splits, cfg16: VitConfig, stats, smi: str) -> None:
+    """``RESIDENT_STEPS`` bf16 steps from one seed with the resident split
+    stored in f32, f16 and bf16; the f16 run's eval loss must stay within
+    ``RESIDENT_RTOL`` of the f32 run's."""
+    eval_data = SplitData(signals=splits.eval.signals[:RESIDENT_EVAL_N],
+                          labels=splits.eval.labels[:RESIDENT_EVAL_N])
+    take = np.random.default_rng(0).permutation(len(splits.train))
+    rows = {}
+    for dtype in (None, 'float16', 'bfloat16'):
+        tr = Trainer(cfg16, TrainConfig(train_batch_size=64, log_to_console=False,
+                                        save_final=False, resident_dtype=dtype),
+                     train_data=splits.train, eval_data=eval_data, norm_stats=stats)
+        tr.init_state()
+        losses = [float(tr.train_step(splits.train, take[:64])['loss'])]
+        t0 = time.perf_counter()
+        for i in range(1, RESIDENT_STEPS):
+            m = tr.train_step(splits.train, take[64 * i:64 * (i + 1)])
+        losses.append(float(m['loss']))
+        seconds = time.perf_counter() - t0
+        sigs, labs = tr._split_arrays(splits.train)
+        rows[str(dtype)] = row = {
+            'storage_dtype': str(sigs.dtype), 'labels_dtype': str(labs.dtype),
+            'resident_bytes': sigs.numel() * sigs.element_size()
+            + labs.numel() * labs.element_size(),
+            'train_samples_per_s_bf16': (RESIDENT_STEPS - 1) * 64 / seconds,
+            'first_last_loss': losses, 'eval_loss': tr.evaluate(eval_data)['loss']}
+        want = RESIDENT_DTYPES[dtype]
+        if not (sigs.dtype == want and labs.dtype == torch.float32 and sigs.device.type == DEV
+                and tr.step == RESIDENT_STEPS and np.isfinite(row['eval_loss'])):
+            raise AssertionError(f'resident {dtype} run failed: {row}')
+        del tr, sigs, labs
+        torch.cuda.empty_cache()
+    rel = abs(rows['float16']['eval_loss'] - rows['None']['eval_loss']) / rows['None']['eval_loss']
+    emit({'phase': 'corpus_resident', 'nvidia_smi': smi, 'model': 'ecg-vit-base',
+          'dtype': 'bfloat16', 'steps': RESIDENT_STEPS, 'train_rows': len(splits.train),
+          'eval_rows': len(eval_data), 'runs': rows, 'f16_eval_loss_rel_diff': rel,
+          'limit': RESIDENT_RTOL})
+    if not rel <= RESIDENT_RTOL:
+        raise AssertionError(f'f16 storage moved the eval loss by {rel} (limit {RESIDENT_RTOL})')
+
+
+def _corpus_reference(stats) -> Trainer:
+    """A seeded reference-layout ViT-base, written as a vit-pytorch 0.33.2
+    ``.pt`` and read back through the CLI's ``_maybe_port``: every parameter
+    must equal its source bit for bit.  Returns the ported trainer (f32)."""
+    ref_cfg = reference_vit_config('base', flash_min_seq=0)
+    src = Trainer(ref_cfg, TrainConfig(log_to_console=False), norm_stats=stats)
+    src.init_state()
+    out_dir = 'runs/chip_smoke_corpus'
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, 'reference.pt')
+    sd = export_vit_pytorch_state_dict(src.model.state_dict(), ref_cfg)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    tr = Trainer(ref_cfg, TrainConfig(log_to_console=False), norm_stats=stats)
+    tr.init_state(seed=1)
+    t0 = time.perf_counter()
+    ecg_cli._maybe_port(argparse.Namespace(port_checkpoint=path), tr)
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    want = src.model.state_dict()
+    got = tr.model.state_dict()
+    equal = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    row = {'phase': 'corpus_reference_weights', 'tensors': len(sd),
+           'pt_bytes': sum(v.nbytes for v in sd.values()), 'load_seconds': load_s,
+           'bits_equal': equal}
+    emit(row)
+    if not equal:
+        raise AssertionError(f'the ported reference weights differ from the source: {row}')
+    return tr
+
+
+def _corpus_int8(tr: Trainer, test_x: np.ndarray, smi: str):
+    """int8 inference of the ported ViT-base: compression, bs-64 predict on
+    the kernel path against a plain twin with the same int8 weights and
+    against f32, and the samples/s of each.  Returns the int8 trainers."""
+    q8 = _twin(tr, flash=True)
+    summary = q8.enable_int8_inference()
+    plain8 = _twin(tr, flash=False)
+    plain8.enable_int8_inference()
+    same_int8 = all(torch.equal(q8._int8[part][k], plain8._int8[part][k])
+                    for part in ('qweights', 'scales') for k in q8._int8[part])
+    attn.flash_fwd_kernel.launches = 0
+    p8 = q8.predict(test_x)
+    launches = attn.flash_fwd_kernel.launches
+    err_plain = float(np.abs(p8 - plain8.predict(test_x)).max())
+    p32 = tr.predict(test_x)
+    err_f32 = float(np.abs(p8 - p32).max())
+    rate = {'f32': 0.0, 'int8': 0.0}
+    for name, t in (('f32', tr), ('int8', q8), ('int8', q8), ('f32', tr)):
+        rate[name] += _samples_per_s(lambda: t.predict(test_x), len(test_x)) / 2
+    row = {'phase': 'corpus_int8', 'nvidia_smi': smi,
+           'model': 'ecg-vit-base (reference layout)',
+           'dtype': 'float32', **summary, 'quantized_leaves': len(q8._int8['qweights']),
+           'twins_same_int8': same_int8, 'flash_launches': launches,
+           'max_abs_err_vs_plain_attention': err_plain, 'limit': SERVING_TOL,
+           'max_abs_err_vs_f32': err_f32, 'f32_limit': INT8_TOL,
+           'top1_agreement_vs_f32': float((p8.argmax(1) == p32.argmax(1)).mean()),
+           'bs64_predict_samples_per_s_int8': rate['int8'],
+           'bs64_predict_samples_per_s_f32': rate['f32']}
+    emit(row)
+    if not (summary['compression'] > 2 and same_int8 and err_plain <= SERVING_TOL
+            and err_f32 < INT8_TOL and launches == tr.model_cfg.num_hidden_layers
+            and p8.shape == (len(test_x), tr.model_cfg.num_class)):
+        raise AssertionError(f'int8 inference failed: {row}')
+    return q8, plain8
+
+
+def _corpus_infer(q8: Trainer, plain8: Trainer, smi: str) -> None:
+    """``cli.infer_records`` (the body of ``cli infer``) on 20 s records,
+    which ``predict_long`` cuts into windows, int8 on the kernel path and on
+    the plain twin: the same codes in the same order, probabilities within
+    ``SERVING_TOL``."""
+    records, _, _ = synth_ptbxl_device(n=INFER_N, length=2 * DENOISE_LEN, seed=5,
+                                       n_marker_classes=16)
+    records = records.cpu().numpy()        # what `cli infer` reads from its HDF5
+    got = ecg_cli.infer_records(q8, records, top_k=5)
+    want = ecg_cli.infer_records(plain8, records, top_k=5)
+    codes = [[c['code'] for c in r['top']] for r in got['records']]
+    same_codes = codes == [[c['code'] for c in r['top']] for r in want['records']]
+    err = max(abs(a['prob'] - b['prob']) for r, w in zip(got['records'], want['records'])
+              for a, b in zip(r['top'], w['top']))
+    rate = _samples_per_s(lambda: ecg_cli.infer_records(q8, records, top_k=5), INFER_N)
+    row = {'phase': 'corpus_infer', 'nvidia_smi': smi, 'records': INFER_N,
+           'record_shape': list(records.shape[1:]), 'int8': True, 'top_k': 5,
+           'same_codes_same_order': same_codes, 'max_abs_prob_err': err,
+           'limit': SERVING_TOL, 'records_per_s': rate, 'first_record': got['records'][0]}
+    emit(row)
+    if not (same_codes and err <= SERVING_TOL and got['n_records'] == INFER_N):
+        raise AssertionError(f'infer differs between the kernel and plain paths: {row}')
+
+
+def corpus_phase(smi: str):
+    """The disk-corpus slice on the card (no h5py there, so its array
+    paths): the device corpus at PTB-XL scale, ViT-base bf16 steps on it
+    resident in f32, f16 and bf16, the reference weights through
+    ``--port-checkpoint``'s loader, int8 inference, and ``cli infer``'s
+    body.  Returns the kernel launches of the phase."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    _zero_counts()
+    signals, labels, folds = _corpus_device(smi)
+    splits = get_ptbxl_splits(signals, labels, folds)
+    del signals
+    test_x = splits.test.signals[:64].cpu().numpy()
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    _corpus_resident(splits, cfg16, stats, smi)
+    del splits
+    torch.cuda.empty_cache()
+    tr = _corpus_reference(stats)
+    q8, plain8 = _corpus_int8(tr, test_x, smi)
+    _corpus_infer(q8, plain8, smi)
+    launches = _counts()
+    per_layer = 3 * RESIDENT_STEPS * cfg16.num_hidden_layers     # three storage dtypes
+    expect = {'flash_fwd_lse': per_layer, 'flash_bwd_dq': per_layer,
+              'flash_bwd_dkv': per_layer, 'adamw': 3 * RESIDENT_STEPS}
+    emit({'phase': 'corpus', 'launches': launches, 'expected_training': expect})
+    if not (all(launches[k] == v for k, v in expect.items()) and launches['flash_fwd'] > 0):
+        raise AssertionError(f'corpus phase launched {launches}, expected {expect} and #1')
+    del tr, q8, plain8
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ('flash_fwd', *expect)}
+
+
+PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus')
 
 
 def main(argv=None) -> int:
@@ -1360,6 +1590,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'denoise' in args.phases:
         launches.update(denoise_phase())
+    if 'corpus' in args.phases:
+        for name, count in corpus_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0
 

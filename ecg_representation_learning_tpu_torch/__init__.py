@@ -7,22 +7,29 @@ what it needs.  The
 tests under ``tests/test_torch_*.py`` hold each module against its JAX
 counterpart on the same numpy inputs.
 
-Ported so far (serving, training and the denoise chain):
+Ported so far (serving, training, the denoise chain, pretraining and the
+disk corpus):
 
 - ``registry``  -- PTB-XL code tables, train-split stats, Zheng denoise constants
 - ``configs``   -- ``VitConfig`` (with the size ladder), ``TrainConfig``,
-                   ``PreprocessConfig``
+                   ``PreprocessConfig``, ``MaeConfig``, ``ContrastiveConfig``
 - ``runtime``   -- device selection (CUDA, or the CPU only when asked for)
 - ``ops``       -- attention (flash forward/backward kernels), AdamW, dropout,
                    the DSP chain (filter, loess, nlm, resample, preprocess) and
                    the fused NLM kernel; sources in ``ops/csrc``, built with
                    nvcc at first use
-- ``models``    -- the 1-D ViT and the flax <-> torch weight mapping
-- ``train``     -- ``Trainer`` (train, evaluate, predict), optimizer, metrics
-- ``data``      -- PTB-XL splits, the synthetic corpus, ``export_denoised``
+- ``models``    -- the 1-D ViT, MAE and contrastive models, the flax <-> torch
+                   weight mapping and the reference's vit-pytorch checkpoints,
+                   weight-only int8
+- ``train``     -- ``Trainer`` (train, evaluate, predict, int8 inference),
+                   the pretrainers, optimizer, metrics, checkpoints
+- ``data``      -- the combined HDF5 and label index (h5py when used), PTB-XL
+                   splits, the synthetic corpora (host and device),
+                   ``export_denoised``
 - ``serving``   -- micro-batching HTTP inference server
 - ``tools``     -- ``nlm_sol_probe`` (the NLM kernel's cost attribution)
-- ``cli``       -- ``train``, ``evaluate``, ``serve``, ``denoise``
+- ``cli``       -- ``synth``, ``train``, ``pretrain``, ``evaluate``, ``infer``,
+                   ``serve``, ``port``, ``denoise``
 """
 
 __version__ = '0.1.0'

@@ -1,28 +1,39 @@
 """Command-line interface of the port.
 
-    python -m ecg_representation_learning_tpu_torch.cli train --size base --epochs 3
+    python -m ecg_representation_learning_tpu_torch.cli synth --n 512 --out data/
+    python -m ecg_representation_learning_tpu_torch.cli train --size base --epochs 3 \
+        --hdf5 data/PTB-XL-combined.hdf5 --labels-csv data/ptb-xl-labels.csv
     python -m ecg_representation_learning_tpu_torch.cli pretrain --objective contrastive
     python -m ecg_representation_learning_tpu_torch.cli train --init-encoder \
         runs/contrastive/ckpt-final --probe
-    python -m ecg_representation_learning_tpu_torch.cli evaluate --checkpoint runs/x/ckpt-final
+    python -m ecg_representation_learning_tpu_torch.cli evaluate --checkpoint runs/x/ckpt-final \
+        --hdf5 ... --labels-csv ... --pick-edge-samples
+    python -m ecg_representation_learning_tpu_torch.cli infer --hdf5 unlabeled.hdf5 --int8
     python -m ecg_representation_learning_tpu_torch.cli serve --checkpoint runs/x/ckpt-final
+    python -m ecg_representation_learning_tpu_torch.cli port --port-checkpoint ep8.pt
     python -m ecg_representation_learning_tpu_torch.cli denoise --input ptbxl-combined.hdf5
 
-``train``, ``pretrain`` and ``evaluate`` run on the synthetic PTB-XL-shaped
-corpus (``synth_ptbxl(n=--synth-n)``, as the JAX CLI does without
-``--hdf5``; the HDF5 loaders are not ported).  The flags are the JAX CLI's,
-with its names and defaults, for the features the port has;
-``--checkpoint``, ``--resume-from`` and ``--init-encoder`` take the port's
-checkpoints (``train/checkpoint.py``).  ``pretrain --stream`` (streaming
-multi-corpus pretraining) is not ported and exits with an error.
-``denoise`` is the JAX CLI's (combined HDF5 -> denoised HDF5, resumable; it
-needs h5py).  Everything runs on the GPU; ``denoise --device cpu`` runs the
+``train``, ``pretrain`` and ``evaluate`` read a combined HDF5 and its label
+index (``--hdf5``, ``--labels-csv``; ``cli synth`` writes both), else they
+run on the synthetic PTB-XL-shaped corpus (``synth_ptbxl(n=--synth-n)``), as
+the JAX CLI does.  ``infer`` scores an unlabeled combined HDF5 (top-k codes
+per record to JSON); ``--port-checkpoint`` starts ``train``, ``evaluate``,
+``serve`` and ``infer`` from a reference vit-pytorch 0.33.2 ``.pt``, and
+``port`` converts one into the port's checkpoint format once.  ``--int8``
+serves weight-only int8 Linear weights.  The flags are the JAX CLI's, with
+its names and defaults, for the features the port has; ``--checkpoint``,
+``--resume-from`` and ``--init-encoder`` take the port's checkpoints
+(``train/checkpoint.py``).  ``pretrain --stream`` (streaming multi-corpus
+pretraining) is not ported and exits with an error.  ``denoise`` is the JAX
+CLI's (combined HDF5 -> denoised HDF5, resumable).  The HDF5 paths need
+h5py; everything runs on the GPU, and ``denoise --device cpu`` runs the
 plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -37,6 +48,10 @@ def _add_common_train_flags(p):
     p.add_argument('--warmup-ratio', type=float, default=0.05)
     p.add_argument('--patience', type=int, default=8)
     p.add_argument('--timeout-augment', action='store_true')
+    p.add_argument('--resident-dtype', default=None,
+                   choices=[None, 'float16', 'bfloat16'],
+                   help='storage dtype of the device-resident signals (halves '
+                        'their bytes; steps compute in float32)')
     p.add_argument('--grad-accum', type=int, default=1,
                    help='microbatches per optimizer step (activation memory '
                         '/ N at the same effective batch; grads averaged '
@@ -46,29 +61,42 @@ def _add_common_train_flags(p):
                         'eval/inference then run on the EMA weights')
     p.add_argument('--seed', type=int, default=77)
     p.add_argument('--output-dir', default=None)
+    p.add_argument('--n-sample', type=int, default=None)
     p.add_argument('--bf16', action=argparse.BooleanOptionalAction, default=True,
                    help='bfloat16 Linear layers (--no-bf16 for float32)')
     p.add_argument('--patch-norm', action=argparse.BooleanOptionalAction,
                    default=True,
                    help='LayerNorms around the patch projection (--no-patch-norm: '
-                        'the reference vit-pytorch 0.33.2 layout)')
+                        'the reference vit-pytorch 0.33.2 layout, which '
+                        '--port-checkpoint implies)')
+
+
+def _add_stats_flag(p):
     p.add_argument('--stats', default=None, choices=[None, 'original', 'denoised'],
                    help='PTB-XL per-lead normalization statistics')
 
 
 def _model_cfg_for(args):
+    """VitConfig for the run; --port-checkpoint implies the reference
+    vit-pytorch-0.33.2 layout (patch_norm=False)."""
     from .configs import VitConfig
+    from .models.port import reference_vit_config
     from .utils.check_args import ca
     ca(model_size=args.size)
-    return VitConfig.from_defined(args.size, dtype='bfloat16' if args.bf16 else 'float32',
-                                  patch_norm=args.patch_norm)
+    dtype = 'bfloat16' if args.bf16 else 'float32'
+    if getattr(args, 'port_checkpoint', None) or not args.patch_norm:
+        return reference_vit_config(args.size, dtype=dtype)
+    return VitConfig.from_defined(args.size, dtype=dtype)
 
 
 def _load_splits(args):
-    from .data import get_ptbxl_splits, synth_ptbxl
-    print('[cli] using a synthetic PTB-XL-shaped corpus', file=sys.stderr)
+    from .data import get_ptbxl_splits, load_ptbxl_from_export, synth_ptbxl
+    if args.hdf5 and args.labels_csv:
+        return load_ptbxl_from_export(args.hdf5, args.labels_csv, args.n_sample)
+    print('[cli] no --hdf5/--labels-csv given; using a synthetic PTB-XL-shaped corpus',
+          file=sys.stderr)
     signals, labels, folds = synth_ptbxl(n=args.synth_n)
-    return get_ptbxl_splits(signals, labels, folds)
+    return get_ptbxl_splits(signals, labels, folds, args.n_sample)
 
 
 def _stats(args):
@@ -85,6 +113,31 @@ def _load_ckpt(tr, args):
               f'training value) to serve the EMA weights instead.', file=sys.stderr)
 
 
+def _maybe_port(args, tr):
+    """Install the reference vit-pytorch state_dict of --port-checkpoint."""
+    if getattr(args, 'port_checkpoint', None):
+        from .models.port import port_vit_pytorch_state_dict, read_reference_state_dict
+        tr.set_params(port_vit_pytorch_state_dict(
+            read_reference_state_dict(args.port_checkpoint), tr.model_cfg))
+
+
+def _serving_trainer(args):
+    """The inference trainer of ``serve`` and ``infer``: seeded init, then
+    --port-checkpoint, --checkpoint and --int8 in that order."""
+    from .configs import TrainConfig
+    from .train import Trainer
+    tr = Trainer(_model_cfg_for(args), TrainConfig(eval_batch_size=args.batch_size,
+                                                   ema_decay=args.ema_decay),
+                 norm_stats=_stats(args))
+    tr.init_state()
+    _maybe_port(args, tr)
+    if args.checkpoint:
+        _load_ckpt(tr, args)
+    if args.int8:
+        tr.enable_int8_inference()
+    return tr
+
+
 def cmd_train(args):
     from .configs import TrainConfig
     from .train import Trainer
@@ -94,11 +147,13 @@ def cmd_train(args):
         eval_batch_size=args.batch_size, learning_rate=args.lr,
         weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_ratio=args.warmup_ratio, patience=args.patience,
-        augment_timeout=args.timeout_augment, seed=args.seed,
-        grad_accum=args.grad_accum, ema_decay=args.ema_decay, linear_probe=args.probe)
+        augment_timeout=args.timeout_augment, seed=args.seed, n_sample=args.n_sample,
+        resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay, linear_probe=args.probe)
     tr = Trainer(_model_cfg_for(args), cfg, train_data=splits.train,
                  eval_data=splits.eval, norm_stats=_stats(args),
                  output_dir=args.output_dir)
+    _maybe_port(args, tr)
     if args.init_encoder:
         # the SSL -> supervised handoff: a pretrained trunk (MAE or
         # contrastive, detected) into the classifier; --probe freezes it
@@ -127,7 +182,8 @@ def cmd_pretrain(args):
         eval_batch_size=args.batch_size, learning_rate=args.lr,
         weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_ratio=args.warmup_ratio, patience=args.patience,
-        grad_accum=args.grad_accum, ema_decay=args.ema_decay, seed=args.seed)
+        resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay, seed=args.seed)
     kw = dict(train_data=splits.train, eval_data=splits.eval, norm_stats=_stats(args))
     if args.objective == 'contrastive':
         tr = ContrastiveTrainer(_model_cfg_for(args),
@@ -151,25 +207,57 @@ def cmd_evaluate(args):
                                                    eval_batch_size=args.batch_size),
                  eval_data=splits.eval, norm_stats=_stats(args))
     tr.init_state()
+    _maybe_port(args, tr)
     if args.checkpoint:
         _load_ckpt(tr, args)
-    results = evaluate_trained(tr, {'eval': splits.eval, 'test': splits.test},
-                               out_dir=args.out)
+    named = {'eval': splits.eval, 'test': splits.test}
+    results = evaluate_trained(tr, named, out_dir=args.out)
+    if args.pick_edge_samples:
+        from .train.evaluate import pick_eval_eg
+        pick_eval_eg(tr, named, out_dir=args.out)
     print(json.dumps({k: v.get('macro_auc') for k, v in results.items()
                       if isinstance(v, dict)}))
 
 
+def infer_records(tr, signals, top_k: int = 5):
+    """Per-record top-k PTB-XL codes of ``signals`` (N, 12, L) through
+    ``tr.predict_long`` (records longer than the model input are windowed,
+    per-class max): ``{'n_records', 'top_k', 'records': [{'record': i,
+    'top': [{'code', 'prob'}, ...]}, ...]}``, records numbered in input
+    order."""
+    import numpy as np
+    from .registry import PTBXL_ID2CODE
+    probs = tr.predict_long(signals)
+    top = np.argsort(-probs, axis=1)[:, :top_k]
+    records = [{'record': int(i),
+                'top': [{'code': PTBXL_ID2CODE[int(c)], 'prob': float(probs[i, c])}
+                        for c in top[i]]}
+               for i in range(probs.shape[0])]
+    return {'n_records': len(records), 'top_k': top_k, 'records': records}
+
+
+def cmd_infer(args):
+    """Batch inference on an unlabeled combined HDF5: per-record top-k codes
+    to JSON (the serving-side counterpart of ``evaluate``).  Records are
+    numbered as ``EcgDataset.load()`` returns them: the processed rows of a
+    partially denoised file."""
+    from .data import EcgDataset
+    ds = EcgDataset(args.hdf5)
+    try:
+        signals = ds.load()
+    finally:
+        ds.close()
+    result = infer_records(_serving_trainer(args), signals, args.top_k)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, 'w') as f:
+        json.dump(result, f)
+    print(json.dumps({'out': args.out, 'n_records': result['n_records']}))
+
+
 def cmd_serve(args):
     """Run the batch-inference HTTP server on the GPU (serving.py)."""
-    from .configs import TrainConfig
     from .serving import serve
-    from .train import Trainer
-    tr = Trainer(_model_cfg_for(args), TrainConfig(eval_batch_size=args.batch_size,
-                                                   ema_decay=args.ema_decay),
-                 norm_stats=_stats(args))
-    tr.init_state()
-    if args.checkpoint:
-        _load_ckpt(tr, args)
+    tr = _serving_trainer(args)
     httpd = serve(tr, host=args.host, port=args.port)
     print(json.dumps({'serving': f'http://{args.host}:{httpd.server_address[1]}',
                       'endpoints': ['/health', '/predict']}), flush=True)
@@ -180,6 +268,33 @@ def cmd_serve(args):
     finally:
         httpd.server_close()
         httpd.service.close()
+
+
+def cmd_port(args):
+    """One-time conversion: a reference vit-pytorch EcgVit state_dict (.pt)
+    -> the port's checkpoint ``{out}/ckpt-ported`` (``--checkpoint`` and
+    ``--resume-from`` take it)."""
+    from .configs import TrainConfig
+    from .train import Trainer
+    tr = Trainer(_model_cfg_for(args), TrainConfig(), output_dir=args.out)
+    tr.init_state()
+    _maybe_port(args, tr)
+    path = tr.save_checkpoint(tag='ported')
+    print(json.dumps({'checkpoint': path, 'size': args.size,
+                      'note': 'load with a patch_norm=False config '
+                              '(models.port.reference_vit_config)'}))
+
+
+def cmd_synth(args):
+    """Write a synthetic PTB-XL-shaped corpus: ``PTB-XL-combined.hdf5`` and
+    ``ptb-xl-labels.csv`` under --out."""
+    from .data import synth_ptbxl, write_combined_hdf5, write_labels_csv
+    signals, labels, folds = synth_ptbxl(n=args.n, seed=args.seed,
+                                         n_marker_classes=args.marker_classes,
+                                         hard=args.hard)
+    h5 = write_combined_hdf5(os.path.join(args.out, 'PTB-XL-combined.hdf5'), signals)
+    labels_csv = write_labels_csv(os.path.join(args.out, 'ptb-xl-labels.csv'), labels, folds)
+    print(json.dumps({'hdf5': h5, 'labels_csv': labels_csv, 'n': args.n}))
 
 
 def cmd_denoise(args):
@@ -199,7 +314,14 @@ def build_parser() -> argparse.ArgumentParser:
                      ('evaluate', cmd_evaluate)):
         sp = sub.add_parser(name)
         _add_common_train_flags(sp)
+        sp.add_argument('--hdf5', default=None)
+        sp.add_argument('--labels-csv', default=None)
         sp.add_argument('--synth-n', type=int, default=512)
+        _add_stats_flag(sp)
+        if name in ('train', 'evaluate'):
+            sp.add_argument('--port-checkpoint', default=None, metavar='PT_FILE',
+                            help='initialize from a reference vit-pytorch EcgVit '
+                                 'state_dict (.pt) via models/port.py')
         if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
         if name == 'train':
@@ -222,16 +344,52 @@ def build_parser() -> argparse.ArgumentParser:
         if name == 'evaluate':
             sp.add_argument('--checkpoint', default=None)
             sp.add_argument('--out', default='eval')
+            sp.add_argument('--pick-edge-samples', action='store_true',
+                            help='also dump low/median/high-loss sample indices')
         sp.set_defaults(fn=fn)
+    pi = sub.add_parser('infer', help='unlabeled HDF5 -> per-record top-k '
+                                      'code probabilities (JSON)')
+    _add_common_train_flags(pi)
+    pi.add_argument('--hdf5', required=True)
+    _add_stats_flag(pi)
+    pi.add_argument('--checkpoint', default=None)
+    pi.add_argument('--port-checkpoint', default=None, metavar='PT_FILE')
+    pi.add_argument('--top-k', type=int, default=5)
+    pi.add_argument('--int8', action='store_true',
+                    help='weight-only int8 quantized inference (models/quantize.py; '
+                         '~4x smaller weights)')
+    pi.add_argument('--out', default='predictions.json')
+    pi.set_defaults(fn=cmd_infer)
     psv = sub.add_parser('serve', help='HTTP batch-inference server '
                                        '(GET /health, POST /predict)')
     _add_common_train_flags(psv)
+    _add_stats_flag(psv)
     psv.add_argument('--checkpoint', default=None,
                      help='a port checkpoint (ckpt-* directory) to serve; '
                           'default: a seeded random init')
+    psv.add_argument('--port-checkpoint', default=None, metavar='PT_FILE')
+    psv.add_argument('--int8', action='store_true',
+                     help='serve weight-only int8 quantized weights')
     psv.add_argument('--host', default='127.0.0.1')
     psv.add_argument('--port', type=int, default=8000)
     psv.set_defaults(fn=cmd_serve)
+    pp = sub.add_parser('port', help='reference vit-pytorch EcgVit .pt -> a port '
+                                     'checkpoint')
+    _add_common_train_flags(pp)
+    pp.add_argument('--port-checkpoint', required=True, metavar='PT_FILE')
+    pp.add_argument('--out', default='ported')
+    pp.set_defaults(fn=cmd_port)
+    ps = sub.add_parser('synth', help='write a synthetic PTB-XL-shaped corpus')
+    ps.add_argument('--n', type=int, default=512)
+    ps.add_argument('--seed', type=int, default=77)
+    ps.add_argument('--marker-classes', type=int, default=0,
+                    help='>0: mark that many classes with frequency-band '
+                         'markers (multi-class quality benchmark)')
+    ps.add_argument('--hard', action='store_true',
+                    help='discriminating variant: overlapping bands, noisy '
+                         'amplitudes, confounders, long-tailed prevalence')
+    ps.add_argument('--out', default='data')
+    ps.set_defaults(fn=cmd_synth)
     pd_ = sub.add_parser('denoise', help='combined HDF5 -> denoised HDF5')
     pd_.add_argument('--input', required=True)
     pd_.add_argument('--out', default=None)

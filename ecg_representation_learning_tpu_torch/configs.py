@@ -6,9 +6,9 @@ with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  Fields
 whose feature the port has not reached yet keep their defaults: the model
 raises on a ``VitConfig`` value it cannot honour (MoE, ``scan_blocks``,
 ``ring_axis``, ``remat``), and ``TrainConfig`` raises on construction for
-its own (meshes, FSDP, multi-step dispatch, async checkpoints, sub-f32
-resident splits).  ``prng_impl`` and ``jax_debug_nans`` configure JAX alone
-and are carried, unread, so that a JAX configuration still loads.
+its own (meshes, FSDP, multi-step dispatch, async checkpoints).
+``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
+unread, so that a JAX configuration still loads.
 ``PreprocessConfig`` is a whole copy.
 """
 from __future__ import annotations
@@ -159,7 +159,9 @@ class TrainConfig:
                                     # (each logged step syncs the device)
     epoch_scan: bool = False        # not ported
     steps_per_dispatch: int = 1     # not ported (1 only)
-    resident_dtype: Optional[str] = None  # not ported (None: f32 splits)
+    resident_dtype: Optional[str] = None  # storage dtype of a resident split's
+                                    # signals: None (f32) | 'float16' |
+                                    # 'bfloat16'; cast to f32 after the gather
     grad_accum: int = 1             # microbatches per optimizer step; must
                                     # divide train_batch_size
     ema_decay: float = 0.0          # >0: EMA of the params, served by evaluate/predict
@@ -192,8 +194,7 @@ class TrainConfig:
                     'fsdp': self.fsdp,
                     'epoch_scan': self.epoch_scan,
                     'steps_per_dispatch': self.steps_per_dispatch != 1,
-                    'async_checkpoint': self.async_checkpoint,
-                    'resident_dtype': self.resident_dtype is not None}
+                    'async_checkpoint': self.async_checkpoint}
         if any(unported.values()):
             raise NotImplementedError(
                 f'not ported: {[k for k, v in unported.items() if v]}')

@@ -1,13 +1,18 @@
 """Model layer of the port: the 1-D ViT, the MAE and contrastive
-pretraining models, and the flax <-> torch weight mapping."""
+pretraining models, the flax <-> torch weight mapping with the reference's
+vit-pytorch checkpoints, and weight-only int8 (``models.quantize``)."""
 from .contrastive import EcgContrastive, nt_xent
 from .mae import EcgMae, MaeOutput, patchify, random_masking, unpatchify
-from .port import (flax_params_from_state_dict, fused_adamw_state_from_flax,
-                   state_dict_from_flax, vit_state_dict_from_flax)
+from .port import (export_vit_pytorch_state_dict, flax_params_from_state_dict,
+                   fused_adamw_state_from_flax, load_reference_checkpoint,
+                   port_vit_pytorch_state_dict, reference_vit_config, state_dict_from_flax,
+                   strip_wrapper_prefix, vit_state_dict_from_flax)
 from .vit import EcgVit, EcgVitEncoder, VitOutput, bce_with_logits, forward_flops_per_sample
 
 __all__ = ['EcgContrastive', 'EcgMae', 'EcgVit', 'EcgVitEncoder', 'MaeOutput',
-           'VitOutput', 'bce_with_logits', 'flax_params_from_state_dict',
-           'forward_flops_per_sample',
-           'fused_adamw_state_from_flax', 'nt_xent', 'patchify', 'random_masking',
-           'state_dict_from_flax', 'unpatchify', 'vit_state_dict_from_flax']
+           'VitOutput', 'bce_with_logits', 'export_vit_pytorch_state_dict',
+           'flax_params_from_state_dict', 'forward_flops_per_sample',
+           'fused_adamw_state_from_flax', 'load_reference_checkpoint', 'nt_xent',
+           'patchify', 'port_vit_pytorch_state_dict', 'random_masking',
+           'reference_vit_config', 'state_dict_from_flax', 'strip_wrapper_prefix',
+           'unpatchify', 'vit_state_dict_from_flax']

@@ -1,0 +1,80 @@
+"""Weight-only int8 quantization for inference (the JAX package's
+``models/quantize.py``).
+
+The weights of the Linear layers are stored on the device as int8 with one
+float32 scale per output channel; each layer dequantizes its weight when it
+runs (``q.float() * s``, then the layer's compute dtype, as the JAX package
+casts its dequantized f32 tree), so the Linear products stay in the model's
+compute dtype and no activation is quantized.  The JAX package leaves the
+dequantization to XLA, which fuses it into each product's operand read; here
+it is one elementwise product per layer before cuBLAS.
+
+Scheme (the JAX package's): symmetric per output channel, round half to
+even, clipped to [-127, 127], scale floor 1e-12.  A leaf is quantized when
+its flax path (``models.port.flax_path``) ends in ``kernel`` and it has at
+least two dims and ``MIN_QUANT_SIZE`` elements: the Linear weights,
+``head`` included.  LayerNorms, biases, the cls token and the position
+embeddings stay float32.  A flax kernel is (in, out) and JAX reduces axis
+-2; a torch ``Linear.weight`` is (out, in), so the port reduces dim -1 and
+its int8 tensors and scales are JAX's transposed.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterable, Mapping, Tuple
+
+import torch
+
+from .port import flax_path
+
+# leaves smaller than this stay unquantized (scales and padding would eat
+# the saving; small tensors also carry outsized accuracy weight)
+MIN_QUANT_SIZE = 4096
+
+
+def quantizable(key: str, leaf: torch.Tensor) -> bool:
+    """Whether the parameter ``key`` is stored as int8: a Dense kernel by its
+    flax path, of at least 2 dims and ``MIN_QUANT_SIZE`` elements."""
+    return (leaf.dim() >= 2 and leaf.numel() >= MIN_QUANT_SIZE
+            and flax_path(key, leaf.dim())[-1] == 'kernel')
+
+
+def quantize_int8(state_dict: Mapping[str, torch.Tensor]
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """({key: int8 weight}, {key: f32 scale of shape (out, 1)}) for the
+    quantizable leaves of ``state_dict``, on their device."""
+    qweights, scales = {}, {}
+    for key, leaf in state_dict.items():
+        if not quantizable(key, leaf):
+            continue
+        w = leaf.detach().float()
+        s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+        qweights[key] = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        scales[key] = s
+    return qweights, scales
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The float32 weight of an int8 tensor and its scales."""
+    return q.float() * s
+
+
+def quantized_bytes(tensors: Iterable[torch.Tensor]) -> int:
+    """Total bytes of ``tensors`` (the serving-memory headline number)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def int8_weights(model: torch.nn.Module, qweights: Mapping[str, torch.Tensor],
+                 scales: Mapping[str, torch.Tensor]):
+    """Within the block, each Linear of ``model`` whose weight is in
+    ``qweights`` computes with its dequantized int8 weight instead of its
+    own (``models.vit.Dense.int8``)."""
+    layers = [(model.get_submodule(key.rsplit('.', 1)[0]), key) for key in qweights]
+    try:
+        for layer, key in layers:
+            layer.int8 = (qweights[key], scales[key])
+        yield model
+    finally:
+        for layer, _ in layers:
+            layer.int8 = None

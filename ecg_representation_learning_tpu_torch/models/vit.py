@@ -7,7 +7,8 @@ other.  Numerics kept from the flax model:
   * patch vectors are channel-major: (B, C, P, patch) -> (B, P, C*patch);
   * LayerNorm uses eps 1e-5 and computes in f32;
   * with ``dtype='bfloat16'`` every Linear casts its input, weight and bias
-    to bf16 (flax ``Dense(dtype=bf16)``); the head stays f32;
+    to bf16 (flax ``Dense(dtype=bf16)``); the head stays f32; every Linear,
+    the head included, can compute with an int8 weight (``models/quantize``);
   * the MLP's GELU is the exact erf form;
   * attention goes through ``ops.attention.attention``: flash attention
     (with its gradient) for T >= ``flash_min_seq``, plain attention below;
@@ -45,17 +46,22 @@ def _dtype(cfg: VitConfig) -> torch.dtype:
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in ``dtype`` (input, weight and bias cast)."""
+    """``nn.Linear`` that computes in ``dtype`` (input, weight and bias cast).
+    While ``int8`` holds an (int8 weight, scales) pair (set by
+    ``models.quantize.int8_weights``), the layer computes with that weight
+    dequantized in place of its own."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.int8 = None
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        w = self.weight if self.int8 is None else self.int8[0].float() * self.int8[1]
+        return F.linear(x.to(dt), w.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -218,7 +224,7 @@ class EcgVit(nn.Module):
             raise ValueError(f"pool must be 'cls' or 'mean', got {cfg.pool!r}")
         self.cfg = cfg
         self.encoder = EcgVitEncoder(cfg)
-        self.head = nn.Linear(cfg.hidden_size, cfg.num_class)
+        self.head = Dense(cfg.hidden_size, cfg.num_class)      # f32
 
     def forward(self, sample_values, labels=None, loss_reduction: str = 'mean',
                 loss_weight=None, return_attention: bool = False,

@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-import weakref
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -61,15 +60,10 @@ class MaeTrainer(TrainerBase):
         resident = (cfg.device_resident if cfg.device_resident is not None
                     else data.signals.nbytes <= cfg.hbm_split_max_bytes)
         if resident:
-            key = id(data)
-            if key not in self._resident:
-                self._resident[key] = torch.as_tensor(np.asarray(data.signals, np.float32),
-                                                      device=self.device)
-                # evict with the SplitData: a reused id() must not alias a new split
-                weakref.finalize(data, self._resident.pop, key, None)
-            return self._resident[key], self._to_device(take.astype(np.int64))
-        return (self._to_device(np.asarray(data.signals[take], np.float32)),
-                torch.arange(take.size, device=self.device))
+            sigs = self._resident_split(data, lambda d: self._on_device(d.signals,
+                                                                  self._signal_dtype))
+            return sigs, self._to_device(take.astype(np.int64))
+        return self._rows(data.signals, take), torch.arange(take.size, device=self.device)
 
     def _model_input(self, sig: torch.Tensor) -> torch.Tensor:
         """Normalize, pad, then crop to ``max_signal_length``: an input that

@@ -13,7 +13,13 @@
   * inference (``predict``, ``predict_long``), as the JAX ``eval_step``:
     z-normalize, ``time_end_pad``, forward, sigmoid, every batch padded to
     ``eval_batch_size`` (with copies of row 0) and trimmed, so the device
-    always sees one batch shape.
+    always sees one batch shape; with ``enable_int8_inference`` evaluation
+    and inference run on int8 Linear weights (``models/quantize.py``).
+
+A split is resident on the device when it fits ``hbm_split_max_bytes``:
+its signals in ``cfg.resident_dtype`` (f32, f16 or bf16), cast to f32 right
+after each gather, its labels in f32.  A split whose signals are a tensor
+(``synth_ptbxl_device``) moves with ``.to``, never through numpy.
 
 Evaluation and inference serve the EMA weights when ``cfg.ema_decay > 0``.
 Randomness: model init from a CPU generator seeded with ``cfg.seed``; dropout
@@ -54,10 +60,16 @@ from .metrics import binary_stats, classification_report, multilabel_auroc, per_
 from .optim import FusedAdamWState, make_optimizer
 
 
+# TrainConfig.resident_dtype -> the storage dtype of a resident split's signals
+RESIDENT_DTYPES = {None: torch.float32, 'float16': torch.float16,
+                   'bfloat16': torch.bfloat16}
+
+
 @dataclasses.dataclass
 class SplitData:
     """One split: raw signals + multi-hot labels."""
-    signals: np.ndarray   # (N, C, L) float32, unnormalized (raw 250 Hz grid)
+    signals: np.ndarray   # (N, C, L) float32, unnormalized (raw 250 Hz grid);
+                          # or a torch tensor (synth_ptbxl_device), on any device
     labels: np.ndarray    # (N, num_class) float32 multi-hot
 
     def __len__(self):
@@ -138,7 +150,10 @@ class TrainerBase:
         self.step = 0         # optimizer steps taken, on the host
         self.epoch = 0
         self._nonfinite = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._resident = {}   # id(SplitData) -> split arrays on the device
+        # id(SplitData) -> the split on the device, signals in the storage dtype
+        self._resident: Dict[int, Any] = {}
+        self._signal_dtype = RESIDENT_DTYPES[train_cfg.resident_dtype]
+        self._int8: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.last_restore_info: Dict[str, Any] = {}
         self.logger = get_logger(logger_name)
         self.logger_fl = None
@@ -187,6 +202,7 @@ class TrainerBase:
         else:
             self._reset_optimizer()
         self.initialized = True
+        self._refresh_int8()
         self._info(f'loaded weights into {self.model_cfg.meta} on {self.device}')
         return self.model.state_dict()
 
@@ -200,6 +216,31 @@ class TrainerBase:
         if self.device.type == 'cuda':
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _resident_split(self, data: SplitData, build):
+        """``build(data)``, the split's device tensors, made once per split
+        and dropped with it."""
+        key = id(data)
+        if key not in self._resident:
+            self._resident[key] = build(data)
+            # evict with the SplitData: a reused id() must not alias a new split
+            weakref.finalize(data, self._resident.pop, key, None)
+        return self._resident[key]
+
+    def _on_device(self, x, dtype: torch.dtype) -> torch.Tensor:
+        """``x`` (a host array, or a tensor on any device) on the trainer's
+        device in ``dtype``.  A tensor moves with ``.to``, never through
+        numpy; a host array is cast before its copy."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype)
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dtype).to(self.device)
+
+    def _rows(self, x, take: np.ndarray) -> torch.Tensor:
+        """Rows ``take`` of ``x`` in f32 on the device: the copied batch of a
+        split that is not resident."""
+        if isinstance(x, torch.Tensor):
+            return x[torch.as_tensor(take, device=x.device)].to(self.device, torch.float32)
+        return self._to_device(np.asarray(x[take], np.float32))
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The update tail of a step (``loop.finish_update``) on the
@@ -221,13 +262,31 @@ class TrainerBase:
                 f'non-finite gradient norm {where} ({int(self._nonfinite)} bad '
                 f'steps; params unpoisoned)')
 
-    def _eval_forward(self, *args, **kw):
-        """The eval-mode forward on the served weights: the EMA when
+    def _served_state(self) -> Dict[str, torch.Tensor]:
+        """The weights evaluation and inference serve: the EMA when
         ``cfg.ema_decay > 0``, else the trained parameters."""
+        if self.ema is not None:
+            return self.ema
+        return {k: p.detach() for k, p in self.params().items()}
+
+    def _eval_forward(self, *args, **kw):
+        """The eval-mode forward on the served weights (``_served_state``),
+        or on their int8 snapshot while int8 inference is enabled."""
         self.model.eval()
+        if self._int8 is not None:
+            from ..models.quantize import int8_weights
+            q = self._int8
+            with int8_weights(self.model, q['qweights'], q['scales']):
+                return torch.func.functional_call(self.model, q['rest'], args, kw)
         if self.ema is not None:
             return torch.func.functional_call(self.model, self.ema, args, kw)
         return self.model(*args, **kw)
+
+    def _refresh_int8(self) -> None:
+        """Re-quantize the int8 snapshot after a weight swap (``set_params``,
+        ``load_checkpoint``), so int8 inference never serves stale weights."""
+        if self._int8 is not None:
+            self.enable_int8_inference()
 
     # ------------------------------------------------------------ checkpoints
     def latest_checkpoint(self) -> Optional[str]:
@@ -297,6 +356,7 @@ class TrainerBase:
         self.step = int(raw['step'])
         self.epoch = int(raw['epoch'])
         self.last_restore_info = extra
+        self._refresh_int8()
         return self.model.state_dict()
 
     # ----------------------------------------------------------------- logging
@@ -336,33 +396,29 @@ class Trainer(TrainerBase):
 
     # ------------------------------------------------------------------ steps
     def _split_arrays(self, data: SplitData):
-        """The split as device tensors when it fits ``hbm_split_max_bytes``
-        (or ``device_resident`` says so), so a step gathers its rows on the
-        device from an index vector; else None (each batch is copied)."""
+        """The split on the device (signals in ``cfg.resident_dtype``, labels
+        in f32) when it fits ``hbm_split_max_bytes`` (or ``device_resident``
+        says so), so a step gathers its rows on the device from an index
+        vector; else None (each batch is copied)."""
         cfg = self.cfg
         resident = (cfg.device_resident if cfg.device_resident is not None
                     else data.signals.nbytes + data.labels.nbytes <= cfg.hbm_split_max_bytes)
         if not resident:
             return None
-        key = id(data)
-        if key not in self._resident:
-            self._resident[key] = (
-                torch.as_tensor(np.asarray(data.signals, np.float32), device=self.device),
-                torch.as_tensor(np.asarray(data.labels, np.float32), device=self.device))
-            # evict with the SplitData: a reused id() must not alias a new split
-            weakref.finalize(data, self._resident.pop, key, None)
-        return self._resident[key]
+        return self._resident_split(data, lambda d: (
+            self._on_device(d.signals, self._signal_dtype),
+            self._on_device(d.labels, torch.float32)))
 
     def _step_inputs(self, data: SplitData, take: np.ndarray):
         """(signals, labels, idx) on the device: the whole resident split and
-        the real indices, or the copied batch and 0..n-1."""
+        the real indices, or the copied batch and 0..n-1.  The signals come
+        in their storage dtype; the caller casts the gathered rows to f32."""
         dev = self._split_arrays(data)
         if dev is not None:
             sigs, labs = dev
             return sigs, labs, self._to_device(take.astype(np.int64))
-        sigs = self._to_device(np.asarray(data.signals[take], np.float32))
-        labs = self._to_device(np.asarray(data.labels[take], np.float32))
-        return sigs, labs, torch.arange(take.size, device=self.device)
+        return (self._rows(data.signals, take), self._rows(data.labels, take),
+                torch.arange(take.size, device=self.device))
 
     def train_step(self, data: SplitData, take: np.ndarray) -> Dict[str, Any]:
         """One optimizer step on the rows ``take`` of ``data``.  Returns the
@@ -504,6 +560,29 @@ class Trainer(TrainerBase):
         if return_predictions:
             out['predictions'] = {'probs': probs_np, 'labels': labels_np}
         return out
+
+    def enable_int8_inference(self) -> Dict[str, float]:
+        """Quantize the served weights (the EMA when tracked) to int8 with
+        per-output-channel scales (``models/quantize.py``); ``evaluate``,
+        ``predict`` and ``predict_long`` then run on them.  The other leaves
+        are snapshotted with them.  Returns the size summary.  Call again
+        after further training to re-snapshot."""
+        from ..models.quantize import quantize_int8, quantized_bytes
+        if not self.initialized:
+            raise RuntimeError('call init_state() or load a checkpoint first')
+        served = self._served_state()
+        qweights, scales = quantize_int8(served)
+        rest = {k: v.detach().clone() for k, v in served.items() if k not in qweights}
+        self._int8 = {'qweights': qweights, 'scales': scales, 'rest': rest}
+        before = quantized_bytes(served.values())
+        after = quantized_bytes([*qweights.values(), *scales.values(), *rest.values()])
+        summary = {'param_bytes_f32': before, 'param_bytes_int8': after,
+                   'compression': before / max(after, 1)}
+        self._info(f'int8 inference enabled: {summary}')
+        return summary
+
+    def disable_int8_inference(self) -> None:
+        self._int8 = None
 
     @torch.inference_mode()
     def predict(self, signals: np.ndarray) -> np.ndarray:

@@ -1,10 +1,12 @@
-"""The port loads with JAX and the JAX package blocked.
+"""The port loads with JAX and the JAX package blocked, and without h5py
+and pandas (the GPU machine has neither).
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax`` and ``ecg_representation_learning_tpu``
-(the name itself or ``ecg_representation_learning_tpu.``-prefixed, so the
-port ``ecg_representation_learning_tpu_torch`` is not caught), then
-imports every module of the port and ``chip_smoke.py``.
+``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas`` and
+``ecg_representation_learning_tpu`` (the name itself or
+``ecg_representation_learning_tpu.``-prefixed, so the port
+``ecg_representation_learning_tpu_torch`` is not caught), then imports every
+module of the port and ``chip_smoke.py``.
 """
 import pkgutil
 import subprocess
@@ -19,7 +21,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BLOCKER = '''
 import importlib, importlib.abc, importlib.util, sys
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ecg_representation_learning_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'h5py', 'pandas',
+           'ecg_representation_learning_tpu')
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -58,6 +61,9 @@ def test_port_and_chip_smoke_import_without_jax():
         'models.mae', 'models.contrastive', 'train.pretrain', 'train.contrastive',
         'ops.normalize')}
     assert pretraining <= set(modules), pretraining - set(modules)
+    corpus = {f'{port.__name__}.{m}' for m in ('models.quantize', 'models.port',
+                                                 'data.datasets', 'train.evaluate', 'cli')}
+    assert corpus <= set(modules), corpus - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)
@@ -66,7 +72,8 @@ def test_port_and_chip_smoke_import_without_jax():
 
 
 @pytest.mark.parametrize('name', ['jax', 'ecg_representation_learning_tpu',
-                                  'ecg_representation_learning_tpu.registry'])
+                                  'ecg_representation_learning_tpu.registry', 'h5py',
+                                  'pandas'])
 def test_blocker_blocks_the_jax_side(name):
     code = f'MODULES = [{name!r}]\nCHIP_SMOKE = ""\n' + BLOCKER
     res = _run(code)

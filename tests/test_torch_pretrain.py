@@ -473,7 +473,8 @@ def test_cli_pretrain_flags_are_the_jax_names_and_defaults():
     p = jcli.argparse.ArgumentParser()
     jcli._add_common_train_flags(p)
     for flag, default in (('--synth-n', 512), ('--stats', None), ('--resume-from', None),
-                          ('--hdf5', None), ('--objective', 'mae'), ('--mask-ratio', 0.75),
+                          ('--hdf5', None), ('--labels-csv', None),
+                          ('--objective', 'mae'), ('--mask-ratio', 0.75),
                           ('--temperature', 0.1), ('--stream', None)):
         p.add_argument(flag, default=default)
     want = {a.option_strings[-1]: a.default for a in p._actions if a.option_strings}

@@ -219,27 +219,55 @@ def test_resident_and_streamed_splits_give_the_same_step(corpus, tmp_path):
     assert losses[0] == losses[1]
 
 
-def _jax_train_flags():
-    """The JAX CLI's train flags and defaults (its common flags plus the
-    ones its main() adds for train)."""
-    p = jcli.argparse.ArgumentParser()
-    jcli._add_common_train_flags(p)
-    for flag, default in (('--synth-n', 512), ('--stats', None), ('--resume-from', None),
-                          ('--hdf5', None), ('--init-encoder', None), ('--probe', False)):
-        p.add_argument(flag, default=default)
-    return {a.option_strings[-1]: a.default for a in p._actions if a.option_strings}
+class _Parsed(Exception):
+    """Raised with the JAX CLI's parser in place of parsing."""
 
 
-def test_cli_flags_are_the_jax_names_and_defaults():
-    want = _jax_train_flags()
-    sub = next(a for a in cli.build_parser()._actions if a.dest == 'cmd').choices
-    got = {a.option_strings[-1]: a.default for a in sub['train']._actions
-           if a.option_strings and a.dest != 'help'}
-    assert set(got) <= set(want), set(got) - set(want)
-    assert {k: want[k] for k in got} == got
-    for name in ('evaluate', 'serve'):
-        flags = {a.option_strings[-1] for a in sub[name]._actions if a.option_strings}
-        assert '--checkpoint' in flags
+def _subcommands(parser):
+    return next(a for a in parser._actions if a.dest == 'cmd').choices
+
+
+def _flags(sp):
+    """{flag: (default, required)} of a subcommand."""
+    return {a.option_strings[-1]: (a.default, a.required) for a in sp._actions
+            if a.option_strings and a.dest != 'help'}
+
+
+# flags the port adds to a JAX subcommand
+PORT_ONLY = {'denoise': {'--device'}}
+# flags of this slice that each subcommand must have
+REQUIRED = {
+    'train': {'--hdf5', '--labels-csv', '--n-sample', '--resident-dtype', '--port-checkpoint'},
+    'pretrain': {'--hdf5', '--labels-csv', '--n-sample', '--resident-dtype'},
+    'evaluate': {'--hdf5', '--labels-csv', '--n-sample', '--port-checkpoint',
+                 '--pick-edge-samples', '--checkpoint'},
+    'serve': {'--checkpoint', '--port-checkpoint', '--int8', '--stats'},
+    'infer': {'--hdf5', '--stats', '--checkpoint', '--port-checkpoint', '--top-k', '--int8',
+              '--out', '--size', '--no-bf16', '--batch-size', '--ema-decay'},
+    'port': {'--port-checkpoint', '--out', '--size', '--no-bf16'},
+    'synth': {'--n', '--seed', '--marker-classes', '--hard', '--out'},
+}
+
+
+def test_cli_flags_are_the_jax_names_and_defaults(monkeypatch):
+    """Every flag of every port subcommand is the JAX CLI's, with its default
+    (and whether it is required); the disk-corpus flags are all there."""
+    def capture(self, *args, **kw):
+        raise _Parsed(self)
+    with monkeypatch.context() as m:
+        m.setattr(jcli.argparse.ArgumentParser, 'parse_args', capture)
+        with pytest.raises(_Parsed) as parsed:
+            jcli.main([])
+    jsub = _subcommands(parsed.value.args[0])
+    sub = _subcommands(cli.build_parser())
+    assert set(REQUIRED) | {'denoise'} <= set(sub) <= set(jsub)
+    for name, sp in sub.items():
+        got, want = _flags(sp), _flags(jsub[name])
+        assert set(got) - set(want) == PORT_ONLY.get(name, set()), name
+        assert {k: want[k] for k in got if k in want} == \
+            {k: v for k, v in got.items() if k in want}, name
+        assert REQUIRED.get(name, set()) <= set(got), name
+    assert set(_flags(sub['synth'])) == set(_flags(jsub['synth']))
 
 
 def test_cli_train_evaluate_and_serve_a_checkpoint(monkeypatch, tmp_path, capsys):
