@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus]
+    python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -67,7 +67,22 @@ process per source started together (into ``build/torch_kernels/``), then:
    vit-pytorch 0.33.2 ``.pt`` and read back through ``--port-checkpoint``'s
    loader bit for bit; int8 inference (compression, bs-64 predict against a
    plain twin with the same int8 weights and against f32); ``cli infer``'s
-   body on 20 s records, against the plain twin.
+   body on 20 s records, against the plain twin;
+7. stream phase (raw-corpus ingest and streaming pretraining): a synthetic
+   PTB-XL-shaped WFDB fmt-16 tree of 256 records (12 x 5000 at 500 Hz) read
+   through ``_batch_reader`` by the native library (built from
+   ``data/csrc`` with the host compiler) and by the numpy path, bit-equal,
+   records/s of each; ``export_combined``'s body (FFT resample 500 -> 250 Hz)
+   on the card against the CPU; the stream step's wire decode and fused
+   preprocess alone on a bs-64 batch of each corpus (records/s);
+   ``MixedRecordStream`` over the tree and a CODE-TEST-shaped bulk
+   (400 Hz x 4096) as in-memory int16 shards ->
+   ``prefetch_to_device`` (pinned host batches, a side stream) ->
+   ``MaeTrainer.train_stream`` at ViT-base, bs 64, 30 steps in f32 and in
+   bf16 (steps/s, samples/s, the input fraction, H2D bytes per step, a
+   profiled step, launches of #2-#5 per step, the mixture's counts against
+   a numpy replay); 6 steps with a checkpoint every 3 against 3 steps and a
+   resume to 6, bit for bit; 4 contrastive stream steps (2B = 128 rows).
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
@@ -98,7 +113,12 @@ from ecg_representation_learning_tpu_torch.configs import (ContrastiveConfig, Ma
 from ecg_representation_learning_tpu_torch import cli as ecg_cli
 from ecg_representation_learning_tpu_torch.data import (get_ptbxl_splits, synth_ecg,
                                                         synth_ptbxl, synth_ptbxl_device)
+from ecg_representation_learning_tpu_torch.data import export as data_export
+from ecg_representation_learning_tpu_torch.data import native
 from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
+from ecg_representation_learning_tpu_torch.data.pipeline import (MixedRecordStream,
+                                                                 ShardedRecordStream,
+                                                                 prefetch_to_device)
 from ecg_representation_learning_tpu_torch.models.port import (
     export_vit_pytorch_state_dict, reference_vit_config)
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit
@@ -106,7 +126,8 @@ from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
 from ecg_representation_learning_tpu_torch.ops.loess import rloess
-from ecg_representation_learning_tpu_torch.ops.preprocess import zheng_denoise, zheng_detrend
+from ecg_representation_learning_tpu_torch.ops.preprocess import (fused_train_path,
+                                                                  zheng_denoise, zheng_detrend)
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
 from ecg_representation_learning_tpu_torch.serving import serve
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
@@ -190,6 +211,18 @@ CORPUS_N, CORPUS_STD_N, CORPUS_STD_RTOL = 21837, 512, 0.3
 RESIDENT_STEPS, RESIDENT_EVAL_N, RESIDENT_RTOL = 20, 512, 2e-2
 INT8_TOL = 0.05
 INFER_N = 64
+# the stream phase: a PTB-XL-shaped WFDB fmt-16 tree (tests/test_raw_tree_
+# integration.py's layout, gain 200) and a CODE-TEST-shaped bulk, as int16
+# shards at their native rates; the mixture's weights and seed; ViT-base
+# steps of the MAE stream in f32 and bf16, the resume check, and the
+# contrastive stream steps; the export's resample tolerance (over max |x|,
+# tests/test_torch_denoise_ops.py::test_resample_to_matches_jax)
+STREAM_TREE = (256, 5000, 500)        # records, samples, Hz
+STREAM_BULK = (256, 4096, 400)
+STREAM_WIRE_SCALE, STREAM_GAIN = 1000.0, 200.0
+STREAM_WEIGHTS, STREAM_SEED = (0.5, 0.5), 77
+STREAM_BS, STREAM_STEPS, RESUME_STEPS, RESUME_EVERY, CON_STREAM_STEPS = 64, 30, 6, 3, 4
+EXPORT_LIMIT = 1e-5
 # (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
 KERNELS = [
     ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
@@ -1542,7 +1575,323 @@ def corpus_phase(smi: str):
     return {k: launches[k] for k in ('flash_fwd', *expect)}
 
 
-PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus')
+def _write_wfdb_record(rec_dir: str, ecg_id: int, sig_phys: np.ndarray) -> None:
+    """One fmt-16 WFDB record in PTB-XL's naming (records500/..._hr.dat):
+    the layout of tests/test_raw_tree_integration.py's writer."""
+    name = f'{ecg_id:05d}_hr'
+    c, length = sig_phys.shape
+    dig = np.round(sig_phys * STREAM_GAIN).astype(np.int16)
+    with open(os.path.join(rec_dir, f'{name}.dat'), 'wb') as f:
+        f.write(dig.T.reshape(-1).astype('<i2').tobytes())
+    lines = [f'{name} {c} {STREAM_TREE[2]} {length}']
+    lines += [f'{name}.dat 16 {STREAM_GAIN:g}(0)/mV 16 0 0 0 0 lead{i}' for i in range(c)]
+    with open(os.path.join(rec_dir, f'{name}.hea'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+
+
+def _read_all(paths, use_native: bool):
+    """Every record of ``paths`` through ``_batch_reader`` (the native batch
+    reader, or the numpy path), stacked, and the seconds it took."""
+    t0 = time.perf_counter()
+    if use_native:
+        n, read = data_export._batch_reader('PTB-XL', paths)
+        batch = read(0, n)
+    else:
+        with native.disabled():
+            n, read = data_export._batch_reader('PTB-XL', paths)
+            batch = read(0, n)
+    return np.stack(batch), time.perf_counter() - t0
+
+
+def _stream_ingest(root: str, smi: str) -> np.ndarray:
+    """The WFDB tree read through ``_batch_reader`` by the native library and
+    by the numpy path (bit-equal), records/s of each, in turns."""
+    n, length, fqs = STREAM_TREE
+    rec_dir = os.path.join(root, 'PTB-XL', 'records500', '00000')
+    os.makedirs(rec_dir)
+    rng = np.random.default_rng(STREAM_SEED)
+    for ecg_id in range(1, n + 1):
+        _write_wfdb_record(rec_dir, ecg_id,
+                           rng.normal(0, 0.4, (12, length)).astype(np.float32))
+    paths = data_export.get_rec_paths('PTB-XL', root)
+    t0 = time.perf_counter()
+    available = native.native_available()      # builds the library
+    build_s = time.perf_counter() - t0
+    _read_all(paths, False)                    # warm the page cache
+    seconds = {True: [], False: []}
+    for use_native in (True, False, False, True):
+        batch, sec = _read_all(paths, use_native)
+        seconds[use_native].append(sec)
+        if use_native:
+            fast = batch
+        else:
+            slow = batch
+    equal = fast.dtype == slow.dtype == np.float32 and fast.tobytes() == slow.tobytes()
+    row = {'phase': 'stream_ingest', 'nvidia_smi': smi, 'records': n,
+           'record_shape': [12, length], 'fqs': fqs, 'native_available': available,
+           'native_build_s': build_s, 'native_equals_numpy_bits': equal,
+           'native_seconds': seconds[True], 'numpy_seconds': seconds[False],
+           'native_records_per_s': n / np.mean(seconds[True]),
+           'numpy_records_per_s': n / np.mean(seconds[False])}
+    emit(row)
+    if not (available and equal and len(paths) == n):
+        raise AssertionError(f'ingest failed (native against numpy): {row}')
+    return fast
+
+
+def _stream_export(records: np.ndarray, smi: str) -> None:
+    """``export_combined``'s per-batch body (FFT resample 500 -> 250 Hz) on
+    the card against the same body on the CPU; records/s on the card."""
+    chunk = list(records)
+    n, length, fqs = STREAM_TREE
+    tgt = length * 250 // fqs
+    want = data_export.resample_chunk(chunk, fqs, 250, tgt, device='cpu')
+    got = data_export.resample_chunk(chunk, fqs, 250, tgt, device=DEV)   # warm-up
+    t0 = time.perf_counter()
+    for _ in range(3):
+        got = data_export.resample_chunk(chunk, fqs, 250, tgt, device=DEV)
+    sec = (time.perf_counter() - t0) / 3
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    row = {'phase': 'stream_export', 'nvidia_smi': smi, 'records': n,
+           'in_shape': [n, 12, length], 'out_shape': list(got.shape),
+           'max_abs_err_over_max_vs_cpu': err, 'limit': EXPORT_LIMIT,
+           'seconds_per_batch': sec, 'records_per_s': n / sec}
+    emit(row)
+    if not (err <= EXPORT_LIMIT and got.shape == (n, 12, tgt) and np.isfinite(got).all()):
+        raise AssertionError(f'export body on the card differs from the CPU: {row}')
+
+
+class _ArrayShards(ShardedRecordStream):
+    """Shards held in memory (the card's machine has no h5py): a path names
+    an array of ``SHARDS``."""
+    SHARDS = {}
+
+    def _load_shard(self, path):
+        return self.SHARDS[path]
+
+
+class _ArrayMix(MixedRecordStream):
+    stream_cls = _ArrayShards
+
+
+def _stream_corpora(tree: np.ndarray):
+    """Two corpora of two int16 shards each: the tree at 500 Hz, a
+    CODE-TEST-shaped bulk at 400 Hz."""
+    n, length, _ = STREAM_BULK
+    bulk = np.random.default_rng(STREAM_SEED + 1).normal(0, 0.4, (n, 12, length))
+    corpora = []
+    for name, recs in (('ptbxl', tree), ('code-test', bulk.astype(np.float32))):
+        wire = data_export.wire_chunk(list(recs), recs.shape[-1], 'int16', STREAM_WIRE_SCALE)
+        half = len(wire) // 2
+        _ArrayShards.SHARDS[f'{name}-0'], _ArrayShards.SHARDS[f'{name}-1'] = (
+            wire[:half], wire[half:])
+        corpora.append([f'{name}-0', f'{name}-1'])
+    return corpora
+
+
+def _mix_replay(steps: int):
+    rng = np.random.default_rng(STREAM_SEED)
+    draws = [int(rng.choice(2, p=np.asarray(STREAM_WEIGHTS) / sum(STREAM_WEIGHTS)))
+             for _ in range(steps)]
+    return {i: draws.count(i) for i in sorted(set(draws))}
+
+
+def _stream_run(tr, corpora, steps: int, **kw):
+    """``train_stream`` over the mixture behind ``prefetch_to_device``, as
+    ``cli pretrain --stream`` drives it.  Returns (result, prefetcher, wall
+    seconds to the last step's end)."""
+    stream = _ArrayMix(corpora, batch_size=STREAM_BS, weights=STREAM_WEIGHTS, seed=STREAM_SEED)
+    pf = prefetch_to_device(iter(stream), depth=2, device=tr.device)
+    rates = [STREAM_TREE[2], STREAM_BULK[2]]
+    t0 = time.perf_counter()
+    res = tr.train_stream(pf, total_steps=steps, raw_fqs=rates,
+                          wire_scale=[STREAM_WIRE_SCALE] * 2, log_every=10, **kw)
+    torch.cuda.synchronize()
+    return res, pf, time.perf_counter() - t0
+
+
+def _stream_preprocess(stats, smi: str) -> None:
+    """BASELINE.json's "records/sec preprocess" on the card: the stream
+    step's wire decode and ``fused_train_path`` (resample, FIR low-pass,
+    z-norm, pad) on one bs-``STREAM_BS`` int16 batch of each corpus, per
+    call back to back and in device time."""
+    mean = torch.tensor(stats['mean'], device=DEV)
+    std = torch.tensor(stats['std'], device=DEV)
+    scale = torch.tensor(STREAM_WIRE_SCALE, device=DEV)
+    rows = {}
+    for name, fqs in (('ptbxl', STREAM_TREE[2]), ('code-test', STREAM_BULK[2])):
+        wire = torch.as_tensor(_ArrayShards.SHARDS[f'{name}-0'][:STREAM_BS], device=DEV)
+
+        def prep():
+            return fused_train_path(wire.float() / scale, mean, std, fqs=fqs, target_fqs=250,
+                                    patch_size=64)
+        out = prep()
+        ms, dev_ms = time_ms(prep, reps=20), device_ms(prep, reps=20)
+        rows[name] = {'fqs': fqs, 'in_shape': list(wire.shape), 'out_shape': list(out.shape),
+                      'ms_per_batch': ms, 'device_ms_per_batch': dev_ms,
+                      'records_per_s': STREAM_BS * 1e3 / ms,
+                      'device_records_per_s': None if dev_ms is None else STREAM_BS * 1e3 / dev_ms}
+        if not (bool(torch.isfinite(out).all()) and out.shape[-1] % 64 == 0):
+            raise AssertionError(f'fused preprocess of {name} failed: {rows[name]}')
+    emit({'phase': 'stream_preprocess', 'nvidia_smi': smi, 'batches': rows})
+
+
+def _stream_expect(objective: str, cfg: VitConfig, steps: int) -> dict:
+    return {k: v * steps for k, v in _pretrain_expect(objective, cfg).items()}
+
+
+def _stream_mae(corpora, dtype: str, stats, smi: str) -> dict:
+    """ViT-base MAE stream pretraining, ``STREAM_STEPS`` steps at bs 64:
+    steps/s, samples/s, the timer's input fraction, H2D bytes per step (the
+    int16 wire against f32) and the copy's device time, the launches per
+    step, a profiled step's device-busy share; finite loss and parameters,
+    the mixture's counts as replayed."""
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, dtype=dtype)
+    tr = MaeTrainer(cfg, MaeConfig(), TrainConfig(num_train_epoch=STREAM_STEPS,
+                                                  train_batch_size=STREAM_BS,
+                                                  log_to_console=False, save_final=False),
+                    norm_stats=stats)
+    tr.init_state()
+    for fqs, shard in ((STREAM_TREE[2], 'ptbxl-0'), (STREAM_BULK[2], 'code-test-0')):
+        warm = torch.as_tensor(_ArrayShards.SHARDS[shard][:STREAM_BS], device=DEV)
+        float(tr.build_stream_step(fqs, STREAM_WIRE_SCALE)(warm)['loss'])   # warm-up
+    tr.init_state()
+    _zero_counts()
+    res, pf, wall = _stream_run(tr, corpora, STREAM_STEPS)
+    launches = _counts()
+    expect = _stream_expect('mae', cfg, STREAM_STEPS)
+    host16 = torch.from_numpy(_ArrayShards.SHARDS['ptbxl-0'][:STREAM_BS]).pin_memory()
+    host32 = host16.float().pin_memory()
+    step = tr.build_stream_step(STREAM_TREE[2], STREAM_WIRE_SCALE)
+    sig = host16.to(DEV)
+    prof = _profile(f'ViT-base {dtype} bs-{STREAM_BS} MAE stream step (500 Hz int16)', 'step', 3,
+                    lambda: float([step(sig) for _ in range(3)][-1]['loss']))
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.model.parameters())
+    row = {'phase': 'stream_pretrain', 'nvidia_smi': smi, 'objective': 'mae',
+           'model': 'ecg-vit-base', 'dtype': dtype, 'batch': STREAM_BS, 'steps': res['steps'],
+           'corpora': [list(STREAM_TREE), list(STREAM_BULK)], 'weights': STREAM_WEIGHTS,
+           'loss': res['loss'], 'params_finite': finite, 'mix_counts': res['mix_counts'],
+           'mix_counts_replayed': _mix_replay(STREAM_STEPS), 'wall_s': wall,
+           'steps_per_s': STREAM_STEPS / wall, 'samples_per_s': STREAM_BS * STREAM_STEPS / wall,
+           'timer_host_clock': res['timer'], 'h2d_batches': pf.batches,
+           'h2d_bytes_per_step_int16': pf.h2d_bytes / pf.batches,
+           'h2d_bytes_per_step_if_f32': 2 * pf.h2d_bytes / pf.batches,
+           'host_batches_pinned': pf.all_pinned,
+           'h2d_device_ms_int16_ptbxl_batch': time_ms(lambda: host16.to(DEV, non_blocking=True)),
+           'h2d_device_ms_f32_ptbxl_batch': time_ms(lambda: host32.to(DEV, non_blocking=True)),
+           'launches': launches, 'expected': expect,
+           'launches_per_step': {k: launches[k] / STREAM_STEPS for k in launches},
+           'profile_device_busy_share': prof['device_busy_share'],
+           'profile_device_ms_per_step': prof['device_ms_per_step'],
+           'profile_wall_ms_per_step': prof['wall_ms_per_step']}
+    emit(row)
+    emit(prof)
+    if not (np.isfinite(res['loss']) and finite and res['steps'] == STREAM_STEPS
+            and res['mix_counts'] == row['mix_counts_replayed'] and pf.all_pinned
+            and launches == expect):
+        raise AssertionError(f'MAE stream pretraining ({dtype}) failed: {row}')
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stream_resume(corpora, stats, smi: str) -> dict:
+    """``RESUME_STEPS`` bf16 steps with a checkpoint every ``RESUME_EVERY``,
+    against ``RESUME_EVERY`` steps and a resume to ``RESUME_STEPS`` in a new
+    trainer: the parameters bit for bit (#2-#5 use no atomics)."""
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    tcfg = TrainConfig(num_train_epoch=RESUME_STEPS, train_batch_size=STREAM_BS,
+                       log_to_console=False, save_final=False)
+    dirs = [f'runs/chip_smoke_stream_{k}' for k in ('full', 'resumed')]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    total = {}
+
+    def run(out_dir, steps, resume=False):
+        tr = MaeTrainer(cfg, MaeConfig(), tcfg, norm_stats=stats, output_dir=out_dir)
+        _zero_counts()
+        res, _, wall = _stream_run(tr, corpora, steps, ckpt_every=RESUME_EVERY, resume=resume)
+        for k, v in _counts().items():
+            total[k] = total.get(k, 0) + v
+        return tr, res, wall
+
+    full, res_full, wall_full = run(dirs[0], RESUME_STEPS)
+    _, res_first, _ = run(dirs[1], RESUME_EVERY)
+    resumed, res_resumed, _ = run(dirs[1], RESUME_STEPS, resume=True)
+    a, b = full.model.state_dict(), resumed.model.state_dict()
+    equal = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    kept = sorted(os.path.basename(p) for p in checkpoint.committed_checkpoints(dirs[1]))
+    row = {'phase': 'stream_resume', 'nvidia_smi': smi, 'model': 'ecg-vit-base',
+           'dtype': 'bfloat16', 'steps': RESUME_STEPS, 'ckpt_every': RESUME_EVERY,
+           'loss_full': res_full['loss'], 'loss_resumed': res_resumed['loss'],
+           'tail_mix_counts': res_resumed['mix_counts'], 'params_bits_equal': equal,
+           'checkpoints_kept': kept, 'wall_s_full_with_2_saves': wall_full,
+           'launches': total}
+    emit(row)
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    if not (equal and res_full['loss'] == res_resumed['loss'] and res_first['steps'] == RESUME_EVERY
+            and sum(res_resumed['mix_counts'].values()) == RESUME_STEPS - RESUME_EVERY):
+        raise AssertionError(f'the resumed stream differs from the uninterrupted one: {row}')
+    del full, resumed
+    torch.cuda.empty_cache()
+    return total
+
+
+def _stream_contrastive(corpora, stats, smi: str) -> dict:
+    """``CON_STREAM_STEPS`` ViT-base contrastive stream steps in bf16 (two
+    views of the decoded batch at its native rate: 2B = 128 rows)."""
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    tr = ContrastiveTrainer(cfg, ContrastiveConfig(), TrainConfig(
+        num_train_epoch=CON_STREAM_STEPS, train_batch_size=STREAM_BS, log_to_console=False,
+        save_final=False), norm_stats=stats)
+    _zero_counts()
+    res, _, wall = _stream_run(tr, corpora, CON_STREAM_STEPS)
+    launches = _counts()
+    expect = _stream_expect('contrastive', cfg, CON_STREAM_STEPS)
+    row = {'phase': 'stream_contrastive', 'nvidia_smi': smi, 'model': 'ecg-vit-base',
+           'dtype': 'bfloat16', 'rows_per_step': 2 * STREAM_BS, 'steps': res['steps'],
+           'loss': res['loss'], 'mix_counts': res['mix_counts'], 'wall_s': wall,
+           'launches': launches, 'expected': expect}
+    emit(row)
+    if not (np.isfinite(res['loss']) and res['steps'] == CON_STREAM_STEPS
+            and launches == expect):
+        raise AssertionError(f'contrastive stream pretraining failed: {row}')
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stream_phase(smi: str) -> dict:
+    """The ingest and streaming-pretraining slice: a synthetic WFDB tree read
+    natively and by numpy (bit-equal), the export's resample body on the card
+    against the CPU, then MAE stream pretraining of ViT-base over a two-corpus
+    int16 mixture (500 and 400 Hz) in f32 and bf16, the resume check, and
+    contrastive stream steps.  Returns the kernel launches of the phase."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    root = 'runs/chip_smoke_stream_tree'
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tree = _stream_ingest(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _stream_export(tree, smi)
+    corpora = _stream_corpora(tree)
+    _stream_preprocess(stats, smi)
+    total = {}
+    for part in (_stream_mae(corpora, 'float32', stats, smi),
+                 _stream_mae(corpora, 'bfloat16', stats, smi),
+                 _stream_resume(corpora, stats, smi),
+                 _stream_contrastive(corpora, stats, smi)):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    _ArrayShards.SHARDS.clear()
+    emit({'phase': 'stream', 'launches': total})
+    return total
+
+
+PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream')
 
 
 def main(argv=None) -> int:
@@ -1592,6 +1941,9 @@ def main(argv=None) -> int:
         launches.update(denoise_phase())
     if 'corpus' in args.phases:
         for name, count in corpus_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'stream' in args.phases:
+        for name, count in stream_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

@@ -7,10 +7,11 @@ what it needs.  The
 tests under ``tests/test_torch_*.py`` hold each module against its JAX
 counterpart on the same numpy inputs.
 
-Ported so far (serving, training, the denoise chain, pretraining and the
-disk corpus):
+Ported so far (serving, training, the denoise chain, pretraining, the disk
+corpus, and raw-corpus ingest with streaming pretraining):
 
-- ``registry``  -- PTB-XL code tables, train-split stats, Zheng denoise constants
+- ``registry``  -- PTB-XL code tables, the corpus table, train-split stats, Zheng
+                   denoise constants
 - ``configs``   -- ``VitConfig`` (with the size ladder), ``TrainConfig``,
                    ``PreprocessConfig``, ``MaeConfig``, ``ContrastiveConfig``
 - ``runtime``   -- device selection (CUDA, or the CPU only when asked for)
@@ -24,12 +25,16 @@ disk corpus):
 - ``train``     -- ``Trainer`` (train, evaluate, predict, int8 inference),
                    the pretrainers, optimizer, metrics, checkpoints
 - ``data``      -- the combined HDF5 and label index (h5py when used), PTB-XL
-                   splits, the synthetic corpora (host and device),
-                   ``export_denoised``
+                   splits, the synthetic corpora (host and device), the WFDB/CSV/
+                   bulk readers and the native decoder (``data/csrc``, built with
+                   the host compiler), the export jobs, the sharded and mixed
+                   streams with device prefetch, the torch ``Dataset`` adapter
 - ``serving``   -- micro-batching HTTP inference server
+- ``utils``     -- logging, argument checks, ``StepTimer``
 - ``tools``     -- ``nlm_sol_probe`` (the NLM kernel's cost attribution)
-- ``cli``       -- ``synth``, ``train``, ``pretrain``, ``evaluate``, ``infer``,
-                   ``serve``, ``port``, ``denoise``
+- ``cli``       -- ``synth``, ``train``, ``pretrain`` (and ``--stream``),
+                   ``evaluate``, ``infer``, ``serve``, ``port``, ``denoise``,
+                   ``export``, ``export-shards``
 """
 
 __version__ = '0.1.0'

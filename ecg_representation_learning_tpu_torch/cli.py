@@ -12,6 +12,13 @@
     python -m ecg_representation_learning_tpu_torch.cli serve --checkpoint runs/x/ckpt-final
     python -m ecg_representation_learning_tpu_torch.cli port --port-checkpoint ep8.pt
     python -m ecg_representation_learning_tpu_torch.cli denoise --input ptbxl-combined.hdf5
+    python -m ecg_representation_learning_tpu_torch.cli export --dataset PTB-XL \
+        --data-root raw/ --out data/
+    python -m ecg_representation_learning_tpu_torch.cli export-shards --dataset PTB-XL \
+        --data-root raw/ --out shards/ptbxl
+    python -m ecg_representation_learning_tpu_torch.cli pretrain --stream shards/ptbxl \
+        --stream shards/code-test --stream-weights 0.75,0.25 --stream-steps 1000 \
+        --ckpt-every 100 [--resume]
 
 ``train``, ``pretrain`` and ``evaluate`` read a combined HDF5 and its label
 index (``--hdf5``, ``--labels-csv``; ``cli synth`` writes both), else they
@@ -23,11 +30,19 @@ per record to JSON); ``--port-checkpoint`` starts ``train``, ``evaluate``,
 serves weight-only int8 Linear weights.  The flags are the JAX CLI's, with
 its names and defaults, for the features the port has; ``--checkpoint``,
 ``--resume-from`` and ``--init-encoder`` take the port's checkpoints
-(``train/checkpoint.py``).  ``pretrain --stream`` (streaming multi-corpus
-pretraining) is not ported and exits with an error.  ``denoise`` is the JAX
-CLI's (combined HDF5 -> denoised HDF5, resumable).  The HDF5 paths need
-h5py; everything runs on the GPU, and ``denoise --device cpu`` runs the
-plain versions of the kernels on the CPU.
+(``train/checkpoint.py``).  ``denoise`` is the JAX CLI's (combined HDF5 ->
+denoised HDF5, resumable).
+
+Ingest: ``export`` reads raw corpora (WFDB trees, Chapman CSVs, the
+CODE-test bulk HDF5) into ``{key}-combined.hdf5`` on the 250 Hz grid (FFT
+resample on the GPU) plus ``records.csv``; ``export-shards`` writes one
+corpus as native-rate int16 shards; ``pretrain --stream DIR ...`` (repeat
+per corpus) runs streaming MAE pretraining over them -- a weighted mixture,
+each corpus preprocessed on the GPU at its own rate (shard metadata), with
+``--ckpt-every`` checkpoints and an exact ``--resume``.  ``--objective
+contrastive`` is refused with ``--stream``, as in the JAX CLI.  The HDF5
+paths need h5py; everything runs on the GPU, and ``denoise --device cpu``
+runs the plain versions of the kernels on the CPU.
 """
 from __future__ import annotations
 
@@ -169,13 +184,84 @@ def cmd_train(args):
                       'epochs': result['epochs']}))
 
 
+def _expand_corpus(spec: str):
+    """One ``--stream`` value -> sorted shard paths: a directory (all *.hdf5
+    inside), a glob, or a single shard file."""
+    import glob as globlib
+    if os.path.isdir(spec):
+        paths = sorted(globlib.glob(os.path.join(spec, '*.hdf5')))
+    elif any(ch in spec for ch in '*?['):
+        paths = sorted(globlib.glob(spec))
+    else:
+        paths = [spec]
+    if not paths:
+        raise SystemExit(f'--stream {spec}: no shard files found')
+    return paths
+
+
+def _cmd_pretrain_stream(args):
+    """BASELINE config 5 as a product path: streaming multi-corpus MAE
+    pretraining over shard directories (``cli export-shards`` output), with
+    per-corpus weighted mixing, per-corpus native-rate preprocessing on the
+    GPU, int16 wire decode, periodic checkpoints and an exact resume."""
+    from .configs import MaeConfig, TrainConfig
+    from .data.export import read_shard_meta
+    from .data.pipeline import MixedRecordStream, prefetch_to_device
+    from .train.pretrain import MaeTrainer
+    if getattr(args, 'objective', 'mae') != 'mae':
+        raise SystemExit('--stream supports --objective mae (the config-5 '
+                         'pretrain job); contrastive streaming is not a '
+                         'reference capability')
+    corpora = [_expand_corpus(s) for s in args.stream]
+    metas = [read_shard_meta(c[0]) for c in corpora]
+    # per-corpus native rate + wire scale: shard metadata by default
+    # (written by `cli export-shards`), flags override for plain shards
+    if args.stream_raw_fqs:
+        raw_fqs = [int(v) for v in args.stream_raw_fqs.split(',')]
+    else:
+        raw_fqs = [m.get('fqs', 250) for m in metas]
+    if args.stream_wire_scale:
+        wire_scale = [(None if v in ('', 'none') else float(v))
+                      for v in args.stream_wire_scale.split(',')]
+    else:
+        wire_scale = [m.get('wire_scale') for m in metas]
+    weights = ([float(v) for v in args.stream_weights.split(',')]
+               if args.stream_weights else None)
+    for name, seq in (('--stream-raw-fqs', raw_fqs),
+                      ('--stream-wire-scale', wire_scale),
+                      ('--stream-weights', weights or raw_fqs)):
+        if len(seq) != len(corpora):
+            raise SystemExit(f'{name}: {len(seq)} values for {len(corpora)} corpora')
+    # train_data=None makes steps_per_epoch 1, so the LR schedule spans
+    # exactly --stream-steps optimizer steps
+    cfg = TrainConfig(
+        num_train_epoch=args.stream_steps, train_batch_size=args.batch_size,
+        eval_batch_size=args.batch_size, learning_rate=args.lr,
+        weight_decay=args.weight_decay, schedule=args.schedule,
+        warmup_ratio=args.warmup_ratio, grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay, seed=args.seed)
+    tr = MaeTrainer(_model_cfg_for(args), MaeConfig(mask_ratio=args.mask_ratio), cfg,
+                    norm_stats=_stats(args), output_dir=args.output_dir or 'runs/mae-stream')
+    stream = MixedRecordStream(corpora, batch_size=args.batch_size, weights=weights,
+                               seed=args.seed, dtype=None)
+    res = tr.train_stream(
+        prefetch_to_device(iter(stream), depth=2, device=tr.device),
+        total_steps=args.stream_steps, raw_fqs=raw_fqs, wire_scale=wire_scale,
+        log_every=args.log_every, ckpt_every=args.ckpt_every,
+        resume=args.resume_from or args.resume)
+    ckpt = tr.latest_checkpoint() or tr.save_checkpoint(tag='final')
+    print(json.dumps({'pretrain_loss': res['loss'], 'steps': res['steps'],
+                      'mix_counts': res['mix_counts'],
+                      'corpora': [len(c) for c in corpora],
+                      'checkpoint': ckpt}))
+
+
 def cmd_pretrain(args):
     from .configs import ContrastiveConfig, MaeConfig, TrainConfig
     from .train.contrastive import ContrastiveTrainer
     from .train.pretrain import MaeTrainer
     if args.stream:
-        raise SystemExit('pretrain --stream: streaming multi-corpus pretraining is not '
-                         'ported')
+        return _cmd_pretrain_stream(args)
     splits = _load_splits(args)
     cfg = TrainConfig(
         num_train_epoch=args.epochs, train_batch_size=args.batch_size,
@@ -297,6 +383,25 @@ def cmd_synth(args):
     print(json.dumps({'hdf5': h5, 'labels_csv': labels_csv, 'n': args.n}))
 
 
+def cmd_export(args):
+    """Raw corpora -> ``{key}-combined.hdf5`` each (every corpus of
+    ``EXPORT_DATASETS`` unless --dataset) and ``records.csv`` under --out."""
+    from .data.export import export_combined, export_records_csv
+    from .registry import EXPORT_DATASETS
+    keys = [args.dataset] if args.dataset else list(EXPORT_DATASETS)
+    for key in keys:
+        export_combined(key, args.data_root, args.out)
+    export_records_csv(keys, args.data_root, os.path.join(args.out, 'records.csv'))
+
+
+def cmd_export_shards(args):
+    from .data.export import export_shards
+    paths = export_shards(args.dataset, args.data_root, args.out,
+                          records_per_shard=args.records_per_shard,
+                          wire_dtype=args.wire, wire_scale=args.wire_scale)
+    print(json.dumps({'shards': len(paths), 'out': args.out, 'first': paths[0]}))
+
+
 def cmd_denoise(args):
     from .configs import PreprocessConfig
     from .data.export import export_denoised
@@ -340,7 +445,32 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument('--temperature', type=float, default=0.1,
                             help='NT-Xent temperature (contrastive only)')
             sp.add_argument('--stream', action='append', default=None, metavar='SHARDS',
-                            help='streaming multi-corpus pretraining: not ported')
+                            help='streaming multi-corpus pretrain (BASELINE config 5): '
+                                 'repeat once per corpus; each value is a shard '
+                                 'directory, glob, or file (cli export-shards output). '
+                                 'Batches mix across corpora by --stream-weights; each '
+                                 'corpus is preprocessed on the GPU at its own native '
+                                 'rate (shard metadata)')
+            sp.add_argument('--stream-steps', type=int, default=1000,
+                            help='total optimizer steps of the streaming job '
+                                 '(the LR schedule spans exactly this)')
+            sp.add_argument('--stream-weights', default=None,
+                            help='comma-separated per-corpus mixing weights '
+                                 '(default: uniform)')
+            sp.add_argument('--stream-raw-fqs', default=None,
+                            help='comma-separated per-corpus native sampling '
+                                 'rates; default: read from shard metadata')
+            sp.add_argument('--stream-wire-scale', default=None,
+                            help="comma-separated per-corpus int16 wire scales "
+                                 "('none' = float shards); default: shard metadata")
+            sp.add_argument('--ckpt-every', type=int, default=0,
+                            help='save a step-tagged checkpoint every N stream steps '
+                                 '(exact resume)')
+            sp.add_argument('--resume', action='store_true',
+                            help='resume the streaming job from the newest committed '
+                                 'checkpoint under --output-dir (bit-identical to an '
+                                 'uninterrupted run over the deterministic stream)')
+            sp.add_argument('--log-every', type=int, default=50)
         if name == 'evaluate':
             sp.add_argument('--checkpoint', default=None)
             sp.add_argument('--out', default='eval')
@@ -390,6 +520,23 @@ def build_parser() -> argparse.ArgumentParser:
                          'amplitudes, confounders, long-tailed prevalence')
     ps.add_argument('--out', default='data')
     ps.set_defaults(fn=cmd_synth)
+    pe = sub.add_parser('export', help='raw corpora -> unified 250 Hz HDF5')
+    pe.add_argument('--dataset', default=None)
+    pe.add_argument('--data-root', required=True)
+    pe.add_argument('--out', required=True)
+    pe.set_defaults(fn=cmd_export)
+    pes = sub.add_parser('export-shards', help='raw corpus -> native-rate int16 pretrain '
+                                               'shards (cli pretrain --stream input)')
+    pes.add_argument('--dataset', required=True)
+    pes.add_argument('--data-root', required=True)
+    pes.add_argument('--out', required=True)
+    pes.add_argument('--records-per-shard', type=int, default=256)
+    pes.add_argument('--wire', default='int16', choices=['int16', 'float32'],
+                     help='shard storage dtype (int16 counts halve the host -> GPU '
+                          'wire; decoded on the GPU)')
+    pes.add_argument('--wire-scale', type=float, default=1000.0,
+                     help='counts per physical unit for int16 shards')
+    pes.set_defaults(fn=cmd_export_shards)
     pd_ = sub.add_parser('denoise', help='combined HDF5 -> denoised HDF5')
     pd_.add_argument('--input', required=True)
     pd_.add_argument('--out', default=None)

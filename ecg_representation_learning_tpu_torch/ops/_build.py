@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, and its host C++ libraries with
+the host compiler, and load them with ctypes.
 
 Each source ``ops/csrc/<name>.cu`` exposes a plain C interface and compiles,
 at first use, into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of
@@ -8,6 +9,12 @@ kernel or header is rebuilt and a stale library is never loaded.
 ptxas's register and shared-memory report for each kernel is kept beside
 the library as ``<library>.log``.  Nothing here runs when the module is
 imported: the CPU tests import every module, and there is no nvcc there.
+
+``build_host`` does the same for a C++ source of the host data plane
+(``data/csrc/wfdb_native.cpp``) with ``g++`` (or ``$CXX``) and the flags
+``CXX_FLAGS``; its hash also covers the compiler and the CPU that
+``-march=native`` resolves to, so a library built on another machine is
+never loaded.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
@@ -26,6 +33,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 # (flash_bwd.cu has 32 kernel instantiations)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v', '--split-compile=0')
+
+# the JAX package's native/Makefile flags
+CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-shared', '-std=c++17', '-pthread')
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -86,3 +96,43 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def host_compiler() -> Optional[str]:
+    """The C++ compiler (``$CXX``, else ``g++``) on PATH, or None."""
+    return shutil.which(os.environ.get('CXX') or 'g++')
+
+
+def _host_target(cxx: str) -> bytes:
+    """What ``-march=native`` means on the host, as the compiler says."""
+    res = subprocess.run([cxx, '-march=native', '-Q', '--help=target'], capture_output=True)
+    return res.stdout + res.stderr
+
+
+def host_library_path(source: Path, cxx: str) -> Path:
+    """Where the library built from the C++ ``source`` with ``cxx`` lives."""
+    digest = hashlib.sha1(source.read_bytes())
+    digest.update(' '.join((cxx, *CXX_FLAGS)).encode())
+    digest.update(_host_target(cxx))
+    return BUILD_DIR / f'lib{source.stem}-{digest.hexdigest()[:12]}.so'
+
+
+def build_host(source: Path) -> Optional[Path]:
+    """The library built from the C++ ``source`` (compiled now unless it is
+    built already), or None when there is no host compiler.  Raises with the
+    compiler's output if the compile fails."""
+    cxx = host_compiler()
+    if cxx is None:
+        return None
+    out = host_library_path(source, cxx)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    res = subprocess.run([cxx, *CXX_FLAGS, '-o', str(tmp), str(source)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'host build of {source.name} failed: {cxx} exited '
+                           f'{res.returncode}\n{res.stdout}')
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    return out

@@ -1,15 +1,18 @@
-"""PTB-XL code tables, grid constants and normalization statistics.
+"""PTB-XL code tables, the corpus table, grid constants and normalization
+statistics.
 
 A copy of the tables in the JAX package's ``registry.py`` (the port imports
 nothing of that package): the 71-code id order, the per-code descriptions,
-the 250 Hz 12-lead grid, the Zheng denoise constants and the train-split
-per-lead statistics.  ``tests/test_torch_imports.py`` and
-``tests/test_torch_serving.py`` hold the copy equal to the original.
+the public 12-lead corpora (``DatasetMeta``, ``DATASETS``, the export and
+WFDB lists), the 250 Hz 12-lead grid, the Zheng denoise constants and the
+train-split per-lead statistics.  ``tests/test_torch_imports.py``,
+``tests/test_torch_serving.py`` and ``tests/test_torch_ingest.py`` hold the
+copy equal to the original.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # id -> SCP code, 71 entries (order of scp_statements.csv restricted to the
 # diagnostic/form/rhythm aspects)
@@ -28,6 +31,72 @@ assert PTBXL_N_CLASS == 71
 
 TARGET_FQS = 250  # common grid every corpus is resampled to (reference data_export.py:241)
 N_LEADS = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetMeta:
+    """Metadata for one public 12-lead corpus (reference config.json ``datasets.*``)."""
+    key: str                       # registry key, e.g. 'PTB-XL'
+    name: str                      # human-readable name
+    dir_name: str                  # directory name under the datasets root
+    rec_fmt: Optional[str] = None  # glob pattern for record files
+    rec_ext: Optional[str] = None  # record file extension
+    fqs: Optional[int] = None      # native sampling frequency (Hz)
+    n_rec: Optional[int] = None    # number of records
+    n_pat: Optional[object] = None  # number of patients ('?' when unknown upstream)
+    reader: str = 'wfdb'           # one of {'wfdb', 'csv', 'hdf5_bulk'} (util/ecg.py:202-217)
+
+
+DATASETS: Dict[str, DatasetMeta] = {m.key: m for m in [
+    DatasetMeta(
+        key='BIH-MVED', name='MIT-BIH Malignant Ventricular Ectopy Database',
+        dir_name='MIT-BIH-MVED'),
+    DatasetMeta(
+        key='INCART', name="St Petersburg INCART 12-lead Arrhythmia Database",
+        dir_name='St-Petersburg-INCART', rec_fmt='*.dat', rec_ext='.dat',
+        fqs=257, n_rec=75, n_pat=32),
+    DatasetMeta(
+        key='PTB-XL', name='PTB-XL, a large publicly available electrocardiography dataset',
+        dir_name='PTB-XL', rec_fmt='records500/**/*.dat', rec_ext='.dat',
+        fqs=500, n_rec=21837, n_pat=18885),
+    DatasetMeta(
+        key='PTB-Diagnostic', name='PTB Diagnostic ECG Database',
+        dir_name='PTB-Diagnostic', rec_fmt='*/*.dat', rec_ext='.dat',
+        fqs=1000, n_rec=549, n_pat=290),
+    DatasetMeta(
+        key='CSPC', name='China Physiological Signal Challenge 2018',
+        dir_name='CSPC-2018', rec_fmt='*.mat', rec_ext='.mat', fqs=500),
+    DatasetMeta(
+        key='CSPC-CinC', name='China Physiological Signal Challenge 2018 - from CinC',
+        dir_name='CSPC-2018-CinC', rec_fmt='*.mat', rec_ext='.mat',
+        fqs=500, n_rec=6877, n_pat=6877),
+    DatasetMeta(
+        key='CSPC-Extra-CinC',
+        name='China Physiological Signal Challenge 2018, unused/extra - from CinC',
+        dir_name='CSPC-2018-Extra-CinC', rec_fmt='*.mat', rec_ext='.mat',
+        fqs=500, n_rec=3453, n_pat='?'),
+    DatasetMeta(
+        key='G12EC', name='Georgia 12-lead ECG Challenge (G12EC) Database',
+        dir_name='Georgia-12-Lead', rec_fmt='*.mat', rec_ext='.mat',
+        fqs=500, n_rec=10344, n_pat='?'),
+    DatasetMeta(
+        key='CHAP-SHAO', name='Chapman University, Shaoxing People''s Hospital 12-lead ECG Database',
+        dir_name='Chapman-Shaoxing', rec_fmt='ECGData/*.csv', rec_ext='.csv',
+        fqs=500, n_rec=10646, n_pat=10646, reader='csv'),
+    DatasetMeta(
+        key='CODE-TEST', name='CODE-test: An annotated 12-lead ECG dataset',
+        dir_name='CODE-test', rec_fmt='ecg_tracings.hdf5', rec_ext='.hdf5',
+        fqs=400, n_rec=827, n_pat=827, reader='hdf5_bulk'),
+]}
+
+# Corpora exported to the unified 250 Hz grid (reference config.py:83-86)
+EXPORT_DATASETS: Tuple[str, ...] = (
+    'INCART', 'PTB-XL', 'PTB-Diagnostic', 'CSPC-CinC', 'CSPC-Extra-CinC',
+    'G12EC', 'CHAP-SHAO', 'CODE-TEST',
+)
+WFDB_DATASETS: Tuple[str, ...] = (
+    'INCART', 'PTB-XL', 'PTB-Diagnostic', 'CSPC-CinC', 'CSPC-Extra-CinC', 'G12EC',
+)
 
 
 # Zheng et al. denoising constants (reference config.json ``pre_processing.zheng``)

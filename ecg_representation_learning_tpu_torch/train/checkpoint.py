@@ -10,8 +10,9 @@ under the final name is always a committed checkpoint; a save killed midway
 leaves only a tmp directory, which the listings skip.  The files need no
 template to be read, so ``pretrain_params`` hands a pretrain checkpoint's
 parameters to the SSL -> supervised handoff (train/contrastive.py) whatever
-its decoder or projection head.  Importing orbax checkpoints of the JAX
-package is not ported.
+its decoder or projection head.  ``prune_checkpoints`` keeps the newest
+step-tagged checkpoints of a streaming run.  Importing orbax checkpoints of
+the JAX package is not ported.
 """
 from __future__ import annotations
 
@@ -95,3 +96,14 @@ def latest_committed_checkpoint(output_dir: str) -> Optional[str]:
     """Newest committed ``ckpt-*`` directory (the crash-recovery target)."""
     cands = committed_checkpoints(output_dir)
     return cands[-1] if cands else None
+
+
+def prune_checkpoints(output_dir: str, keep: int = 2) -> None:
+    """Drop all but the newest ``keep`` committed step-tagged checkpoints.
+    Only ``ckpt-step{N}`` names are pruned (best/final/epoch tags are
+    user-facing artifacts); a save in flight is tmp-named, hence never a
+    deletion target."""
+    steps = [p for p in committed_checkpoints(output_dir)
+             if re.match(r'ckpt-step\d+$', os.path.basename(p))]
+    for p in steps[:-keep] if keep else steps:
+        shutil.rmtree(p, ignore_errors=True)

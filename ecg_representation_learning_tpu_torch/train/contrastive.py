@@ -6,7 +6,9 @@ JAX ``train/contrastive.py``).
 generator), each normalized, padded and cropped, laid out [views_a;
 views_b] and run through the shared ``EcgVitEncoder`` trunk in one forward;
 NT-Xent contrasts each anchor against the whole batch.  The loop mechanics
-are ``MaeTrainer``'s; the model, the step and the eval protocol differ.
+are ``MaeTrainer``'s, its streaming pair too (``build_stream_step`` runs
+the views on the decoded batch at its native rate, each through the fused
+preprocess); the model, the step and the eval protocol differ.
 
 The handoff: ``load_any_encoder`` reads a pretrain checkpoint of either
 kind (its EMA when one was saved), tells the kind from the top-level names
@@ -58,20 +60,26 @@ class ContrastiveTrainer(MaeTrainer):
         return EcgContrastive(model_cfg, self.con_cfg)
 
     def _views(self, sig: torch.Tensor, generator: torch.Generator,
-               draws=(None, None)) -> torch.Tensor:
-        """Two views of a raw (B, C, L) batch -> normalized, padded, cropped
-        model inputs laid out [views_a; views_b] (row i pairs with row i + B).
-        ``draws`` may give each view's draws (see ``contrastive_view``)."""
+               draws=(None, None), prep=None) -> torch.Tensor:
+        """Two views of a raw (B, C, L) batch -> model inputs (``prep``,
+        default ``_model_input``: normalized, padded, cropped) laid out
+        [views_a; views_b] (row i pairs with row i + B).  ``draws`` may give
+        each view's draws (see ``contrastive_view``)."""
         cc = self.con_cfg
-        views = [self._model_input(contrastive_view(
+        prep = prep or self._model_input
+        views = [prep(contrastive_view(
             sig.float(), scale_lo=cc.scale_lo, scale_hi=cc.scale_hi,
             jitter_sigma=cc.jitter_sigma, lead_dropout=cc.lead_dropout,
             shift_frac=cc.shift_frac, timeout_hi=cc.timeout_hi,
             generator=generator, draws=d)) for d in draws]
         return torch.cat(views, dim=0)
 
-    def _micro_loss(self, sig: torch.Tensor):
-        z = self.model(self._views(sig, self.rng.device), rng=self.rng)
+    def _micro_loss(self, sig: torch.Tensor, prep=None):
+        """The NT-Xent of two views of ``sig``, each through ``prep``.  As
+        the stream step (``build_stream_step``, inherited): two views of the
+        decoded batch at its native rate, each through the fused preprocess
+        (JAX ``train/contrastive.py:213-268``)."""
+        z = self.model(self._views(sig, self.rng.device, prep=prep), rng=self.rng)
         loss, acc = nt_xent(z, self.con_cfg.temperature, with_accuracy=True)
         return {'loss': loss.detach(), 'contrast_acc': acc}, loss
 

@@ -8,8 +8,16 @@ gathered by index, normalize + pad + crop, forward with dropout, backward
 ``loop.finish_update`` (fused AdamW, non-finite counter, EMA), eval epochs
 with a fixed mask generator, early stopping, best / periodic / final
 checkpoints and resume.  The mask noise comes from the trainer's device
-generator, so a checkpoint resumes exactly.  The streaming pair
-(``build_stream_step``, ``train_stream``) is not ported and raises.
+generator, so a checkpoint resumes exactly.
+
+Streaming pretraining (``build_stream_step``, ``train_stream``): raw batches
+(B, C, L) at a corpus's native rate, int16 counts or float32, from an
+iterator (``data.pipeline.MixedRecordStream`` behind ``prefetch_to_device``)
+-> wire decode ``counts / scale`` -> ``ops.preprocess.fused_train_path``
+(resample + FIR low-pass + z-norm + pad) on the device -> crop -> the
+masked forward and backward -> the update tail.  One step per
+(native rate, wire scale) key; periodic ``ckpt-step{N}`` checkpoints and a
+resume that continues a deterministic stream bit for bit.
 
 Then the handoff into ``EcgVit``: ``transfer_encoder`` copies the trunk,
 ``linear_probe_mask`` / ``make_probe_optimizer`` train the head alone.
@@ -19,13 +27,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..configs import MaeConfig, TrainConfig, VitConfig
 from ..models.mae import EcgMae
+from ..ops.preprocess import fused_train_path
 from .loop import grad_accum
 from .optim import AdamChain, Schedule, make_optimizer
 from .trainer import SplitData, TrainerBase, _prep_batch
@@ -72,9 +81,10 @@ class MaeTrainer(TrainerBase):
         sig = _prep_batch(sig.float(), self.mean, self.std, self.model_cfg.patch_size)
         return sig[..., :self.model_cfg.max_signal_length]
 
-    def _micro_loss(self, sig: torch.Tensor):
-        """(metrics of one microbatch, its loss) in train mode."""
-        out = self.model(self._model_input(sig), rng=self.rng)
+    def _micro_loss(self, sig: torch.Tensor, prep: Optional[Callable] = None):
+        """(metrics of one microbatch, its loss) in train mode; ``prep`` makes
+        the model input of ``sig`` (default ``_model_input``)."""
+        out = self.model((prep or self._model_input)(sig), rng=self.rng)
         return {'loss': out.loss.detach()}, out.loss
 
     def train_step(self, data: SplitData, take: np.ndarray) -> Dict[str, Any]:
@@ -119,11 +129,131 @@ class MaeTrainer(TrainerBase):
             losses.append(out.per_sample_loss[:n_real].cpu().numpy())
         return float(np.concatenate(losses).mean())
 
-    def build_stream_step(self, *args, **kwargs):
-        raise NotImplementedError('not ported: streaming pretraining (build_stream_step)')
+    # ---------------------------------------------------------------- stream
+    def _stream_prep(self, raw_fqs: Optional[int]) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The model input of a decoded stream batch: at a native rate other
+        than 250 Hz the fused resample + low-pass + normalize + pad, else
+        normalize + pad; then the crop to ``max_signal_length``."""
+        if raw_fqs is None or raw_fqs == 250:
+            return self._model_input
+        cfg = self.model_cfg
 
-    def train_stream(self, *args, **kwargs):
-        raise NotImplementedError('not ported: streaming pretraining (train_stream)')
+        def prep(sig: torch.Tensor) -> torch.Tensor:
+            x = fused_train_path(sig.float(), self.mean, self.std, fqs=raw_fqs, target_fqs=250,
+                                 patch_size=cfg.patch_size)
+            return x[..., :cfg.max_signal_length]
+        return prep
+
+    def build_stream_step(self, raw_fqs: Optional[int] = None,
+                          wire_scale: Optional[float] = None
+                          ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+        """The streaming-pretrain step for one corpus spec: ``step(sig)``
+        takes a raw (B, C, L) device batch (int16 counts when ``wire_scale``
+        is set, decoded as ``counts / wire_scale`` in f32), runs the
+        preprocess of ``_stream_prep(raw_fqs)``, the forward and backward on
+        the whole batch, and the update tail; returns the metrics as 0-d
+        device tensors (no host sync).  Exposed so ``train_stream`` and a
+        benchmark time the same step."""
+        prep = self._stream_prep(raw_fqs)
+        scale = (None if wire_scale is None else
+                 torch.tensor(wire_scale, dtype=torch.float32, device=self.device))
+
+        def stream_step(sig: torch.Tensor) -> Dict[str, torch.Tensor]:
+            if not self.initialized:
+                raise RuntimeError('call init_state() or set_params() first')
+            if scale is not None:
+                sig = sig.float() / scale          # a true f32 division, as JAX's
+            for p in self.params().values():
+                p.grad = None
+            self.model.train()
+            metrics, loss = self._micro_loss(sig, prep)
+            loss.backward()
+            self.model.eval()
+            grad_norm = self._update({k: p.grad for k, p in self.params().items()})
+            return {**metrics, 'grad_norm': grad_norm}
+        return stream_step
+
+    def train_stream(self, batches: Iterable, total_steps: int,
+                     raw_fqs: Union[None, int, Sequence[Optional[int]]] = None,
+                     log_every: int = 50,
+                     wire_scale: Union[None, float, Sequence[Optional[float]]] = None,
+                     ckpt_every: int = 0, resume: Union[bool, str] = False) -> Dict[str, Any]:
+        """Streaming pretraining over an iterator of raw (B, C, L) batches
+        (host arrays or device tensors, e.g. ``prefetch_to_device`` over a
+        :class:`data.pipeline.MixedRecordStream`), up to ``total_steps``
+        optimizer steps.
+
+        Items may be ``(corpus_idx, batch)`` pairs; ``raw_fqs`` and
+        ``wire_scale`` are then per-corpus sequences, and each distinct
+        (rate, scale) key gets its own step (``build_stream_step``): the key,
+        not the batch shape, chooses the preprocess.  ``raw_fqs`` None: the
+        batches are on the 250 Hz grid already.  ``wire_scale``: the batches
+        are integer counts, decoded on the device.
+
+        ``ckpt_every``: save ``ckpt-step{N}`` every N steps and keep the
+        newest two, plus a final save when the last step was not saved.
+        ``resume``: True restores the newest checkpoint under output_dir (a
+        string: that checkpoint) -- parameters, moments, EMA, step and the
+        generators -- and skips the batches already consumed, so a
+        deterministic stream continues bit for bit.  Returns ``{'loss',
+        'steps', 'mix_counts', 'timer'}``.
+        """
+        import itertools
+
+        from ..utils.misc import StepTimer
+        from .checkpoint import prune_checkpoints
+        start_step = 0
+        if resume:
+            path = resume if isinstance(resume, str) else self.latest_checkpoint()
+            if path:
+                self.load_checkpoint(path)
+                start_step = self.step
+                self._info(f'Resumed streaming pretrain from {path} (step {start_step})')
+        if not self.initialized:
+            self.init_state()
+        if ckpt_every:
+            os.makedirs(self.output_dir, exist_ok=True)
+
+        def per_corpus(v, ci):
+            return v[ci] if isinstance(v, (list, tuple)) else v
+
+        step_fns: Dict[Any, Callable] = {}
+
+        def step_for(ci: int):
+            key = (per_corpus(raw_fqs, ci), per_corpus(wire_scale, ci))
+            if key not in step_fns:
+                step_fns[key] = self.build_stream_step(raw_fqs=key[0], wire_scale=key[1])
+            return step_fns[key]
+
+        timer = StepTimer()
+        last_loss = float('nan')
+        host_step = start_step
+        saved_at = -1
+        mix_counts: Dict[int, int] = {}
+        for item in itertools.islice(batches, start_step, total_steps):
+            ci, batch = item if isinstance(item, tuple) else (0, item)
+            sig = torch.as_tensor(batch, device=self.device)
+            timer.input_done()
+            metrics = step_for(ci)(sig)
+            timer.step_done()
+            mix_counts[ci] = mix_counts.get(ci, 0) + 1
+            host_step += 1
+            if host_step % log_every == 0 or host_step == total_steps:
+                last_loss = float(metrics['loss'])
+                self._info(str({'pretrain/loss': last_loss, 'step': host_step,
+                                **timer.summary()}))
+            if ckpt_every and host_step % ckpt_every == 0:
+                # step-tagged: each save targets a fresh path, so a crash
+                # mid-write never deletes the previous committed checkpoint
+                self.save_checkpoint(tag=f'step{host_step}')
+                prune_checkpoints(self.output_dir, keep=2)
+                saved_at = host_step
+        if ckpt_every and host_step != saved_at:
+            self.save_checkpoint(tag=f'step{host_step}')
+            prune_checkpoints(self.output_dir, keep=2)
+        return {'loss': last_loss, 'steps': host_step,
+                'mix_counts': {int(k): v for k, v in sorted(mix_counts.items())},
+                'timer': timer.summary()}
 
     # ------------------------------------------------------------------ loop
     def train(self, resume: Union[bool, str] = False) -> Dict[str, Any]:

@@ -1,5 +1,7 @@
 """The port loads with JAX and the JAX package blocked, and without h5py
-and pandas (the GPU machine has neither).
+and pandas (the GPU machine has neither): every module, the ingest and
+stream modules (``data.readers``, ``data.native``, ``data.export``,
+``data.pipeline``, ``cli``) among them.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas`` and
@@ -64,6 +66,10 @@ def test_port_and_chip_smoke_import_without_jax():
     corpus = {f'{port.__name__}.{m}' for m in ('models.quantize', 'models.port',
                                                  'data.datasets', 'train.evaluate', 'cli')}
     assert corpus <= set(modules), corpus - set(modules)
+    ingest = {f'{port.__name__}.{m}' for m in (
+        'data.readers', 'data.native', 'data.export', 'data.pipeline', 'data.torch_adapter',
+        'utils.misc', 'cli')}
+    assert ingest <= set(modules), ingest - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)

@@ -375,8 +375,8 @@ def test_contrastive_trainer_steps_match_jax(corpus):
                             device='cpu')
 
     def feed(draws):
-        return _Patch(tr, '_views', lambda sig, gen: ContrastiveTrainer._views(
-            tr, sig, gen, draws=draws))
+        return _Patch(tr, '_views', lambda sig, gen, prep=None: ContrastiveTrainer._views(
+            tr, sig, gen, draws=draws, prep=prep))
     _check_steps(tr, SplitData(data.signals, data.labels), steps, feed)
 
 
@@ -475,7 +475,10 @@ def test_cli_pretrain_flags_are_the_jax_names_and_defaults():
     for flag, default in (('--synth-n', 512), ('--stats', None), ('--resume-from', None),
                           ('--hdf5', None), ('--labels-csv', None),
                           ('--objective', 'mae'), ('--mask-ratio', 0.75),
-                          ('--temperature', 0.1), ('--stream', None)):
+                          ('--temperature', 0.1), ('--stream', None),
+                          ('--stream-steps', 1000), ('--stream-weights', None),
+                          ('--stream-raw-fqs', None), ('--stream-wire-scale', None),
+                          ('--ckpt-every', 0), ('--resume', False), ('--log-every', 50)):
         p.add_argument(flag, default=default)
     want = {a.option_strings[-1]: a.default for a in p._actions if a.option_strings}
     sub = next(a for a in cli.build_parser()._actions if a.dest == 'cmd').choices
@@ -516,11 +519,6 @@ def test_cli_pretrain_then_probe_handoff(objective, monkeypatch, tmp_path, capsy
         mae_params = load_pretrained_encoder(res['checkpoint'], cfg)
         assert torch.equal(trained['encoder.blocks.0.attn.qkv.weight'],
                            mae_params['encoder_blocks.0.attn.qkv.weight'])
-
-
-def test_cli_pretrain_stream_is_refused(capsys):
-    with pytest.raises(SystemExit, match='not ported'):
-        cli.main(['pretrain', '--stream', 'shards/'])
 
 
 def test_mae_evaluate_split_smaller_than_batch(tmp_path):
@@ -643,10 +641,3 @@ def test_accum_and_ema_train_and_the_handoff_takes_the_ema(kind, tmp_path):
     moved = load_any_encoder(path, vit.model.state_dict())
     src = 'encoder_patch_embed.proj.weight' if kind == 'mae' else 'encoder.patch_embed.proj.weight'
     assert torch.equal(moved['encoder.patch_embed.proj.weight'], tr.ema[src])   # EMA, not raw
-
-
-def test_stream_methods_raise():
-    tr = MaeTrainer(CFG, MAE, TrainConfig(), device='cpu')
-    for fn in (tr.build_stream_step, tr.train_stream):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            fn()
