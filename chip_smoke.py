@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream]
+    python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
+                                    scale]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -82,7 +83,16 @@ process per source started together (into ``build/torch_kernels/``), then:
    bf16 (steps/s, samples/s, the input fraction, H2D bytes per step, a
    profiled step, launches of #2-#5 per step, the mixture's counts against
    a numpy replay); 6 steps with a checkpoint every 3 against 3 steps and a
-   resume to 6, bit for bit; 4 contrastive stream steps (2B = 128 rows).
+   resume to 6, bit for bit; 4 contrastive stream steps (2B = 128 rows);
+8. scale phase (the one-card model options): ViT-base with Switch-MoE blocks (4 experts on
+   every second block, capacity factor 1.25: 820 slots per expert at bs 64), three f32
+   steps against a plain twin, samples/s in f32 and bf16, the aux loss and the share of
+   tokens past capacity, a profiled bf16 step; one bf16 MAE and one contrastive step on the
+   MoE trunk; the ViT-base forward with ``scan_blocks`` on stacked copies of an unrolled
+   model's weights against the unrolled logits; ViT-large f32 training with dropout, three
+   steps with and without ``remat`` from one init (parameters, peak device memory,
+   samples/s); the step loop's stall in a sync and an async save of the full ViT-base
+   state, each restored bit for bit.
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
@@ -119,9 +129,11 @@ from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
 from ecg_representation_learning_tpu_torch.data.pipeline import (MixedRecordStream,
                                                                  ShardedRecordStream,
                                                                  prefetch_to_device)
+from ecg_representation_learning_tpu_torch.models.moe import MoeMlp
+from ecg_representation_learning_tpu_torch.models.moe import capacity as moe_capacity
 from ecg_representation_learning_tpu_torch.models.port import (
     export_vit_pytorch_state_dict, reference_vit_config)
-from ecg_representation_learning_tpu_torch.models.vit import EcgVit
+from ecg_representation_learning_tpu_torch.models.vit import EcgVit, stack_unrolled_state_dict
 from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
@@ -134,8 +146,10 @@ from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
 from ecg_representation_learning_tpu_torch.train import SplitData, Trainer, checkpoint
 from ecg_representation_learning_tpu_torch.train.contrastive import (ContrastiveTrainer,
                                                                      load_any_encoder)
+from ecg_representation_learning_tpu_torch.train.checkpoint import wait_for_checkpoints
 from ecg_representation_learning_tpu_torch.train.pretrain import MaeTrainer
-from ecg_representation_learning_tpu_torch.train.trainer import RESIDENT_DTYPES
+from ecg_representation_learning_tpu_torch.train.trainer import (RESIDENT_DTYPES, _prep_batch,
+                                                                 flax_init_)
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
 # (f32 on the CUDA cores, bf16 on the tensor cores)
@@ -223,6 +237,12 @@ STREAM_WIRE_SCALE, STREAM_GAIN = 1000.0, 200.0
 STREAM_WEIGHTS, STREAM_SEED = (0.5, 0.5), 77
 STREAM_BS, STREAM_STEPS, RESUME_STEPS, RESUME_EVERY, CON_STREAM_STEPS = 64, 30, 6, 3, 4
 EXPORT_LIMIT = 1e-5
+# the scale phase: ViT-base with 4 experts on every second block at the JAX
+# defaults (cf 1.25: ceil(1.25 * 64 * 41 / 4) = 820 slots per expert at bs
+# 64); the scanned forward against the unrolled one, f32, over the largest
+# logit (the same operations on slices of a stack)
+SCALE_MOE = dict(moe_num_experts=4, moe_every=2, moe_capacity_factor=1.25)
+SCAN_RTOL = 1e-5
 # (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
 KERNELS = [
     ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
@@ -1891,7 +1911,298 @@ def stream_phase(smi: str) -> dict:
     return total
 
 
-PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream')
+def _parity_batch(seed: int, n: int, n_class: int = 71) -> SplitData:
+    rng = np.random.default_rng(seed)
+    return SplitData(signals=(0.2 * rng.standard_normal((n, 12, 2500))).astype(np.float32),
+                     labels=(rng.uniform(size=(n, n_class)) < 0.1).astype(np.float32))
+
+
+def _max_param_err(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    return max((x - y).abs().max().item()
+               for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+
+
+def _moe_routing(model: torch.nn.Module, x: torch.Tensor) -> dict:
+    """The MoE blocks' aux loss and the share of tokens past capacity, from
+    one eval forward of ``x``."""
+    blocks = [m for m in model.modules() if isinstance(m, MoeMlp)]
+    dropped = []
+
+    def hook(mod, args):
+        slot = mod.route(args[0].reshape(-1, args[0].shape[-1]))[3]
+        dropped.append((slot < 0).float().mean().item())
+    handles = [m.register_forward_pre_hook(hook) for m in blocks]
+    try:
+        with torch.no_grad():
+            out = model.eval()(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return {'moe_blocks': len(blocks), 'aux_loss': out.aux_loss.item(),
+            'dropped_share_per_block': dropped,
+            'capacity_per_expert': moe_capacity(model.cfg.moe_capacity_factor,
+                                                x.shape[0] * (model.cfg.num_patches + 1),
+                                                model.cfg.moe_num_experts)}
+
+
+def _scale_moe(stats, smi: str) -> dict:
+    """ViT-base with Switch-MoE blocks: three f32 steps against a plain twin
+    (plain attention, plain AdamW), then samples/s in f32 and bf16, the
+    routing, and a profiled bf16 step.  Returns the launches of the kernel
+    run's steps."""
+    batch = _parity_batch(3, PARITY_STEPS * 64)
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0, **SCALE_MOE)
+    tcfg = TrainConfig(train_batch_size=64, log_to_console=False, save_final=False)
+    tr = Trainer(cfg, tcfg, train_data=batch, norm_stats=stats)
+    tr.init_state()
+    twin = Trainer(dataclasses.replace(cfg, use_flash_attention=False), tcfg,
+                   train_data=batch, norm_stats=stats)
+    twin.set_params(tr.model.state_dict())
+    twin.optimizer.update = adamw.adamw_update_reference
+    per_step, losses, total = [], [], {}
+    for k in range(PARITY_STEPS):
+        take = np.arange(64 * k, 64 * (k + 1))
+        _zero_counts()
+        got = float(tr.train_step(batch, take)['loss'])
+        counts = _counts()
+        _zero_counts()
+        want = float(twin.train_step(batch, take)['loss'])
+        per_step.append(counts)
+        losses.append((got, want))
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    layers = cfg.num_hidden_layers
+    expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
+              'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
+    param_err = _max_param_err(tr.model, twin.model)
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    x = _prep_batch(torch.from_numpy(batch.signals[:64]).to(DEV), tr.mean, tr.std,
+                    cfg.patch_size)
+    routing = _moe_routing(tr.model, x)
+    del twin
+    f32_rate = _steps_per_s(tr, batch, 5)
+    del tr
+    torch.cuda.empty_cache()
+    tr16 = Trainer(dataclasses.replace(cfg, dtype='bfloat16'), tcfg, train_data=batch,
+                   norm_stats=stats)
+    tr16.init_state()
+    bf16_rate = _steps_per_s(tr16, batch, 10)
+    profile = profile_train_step(tr16, batch, kind='Switch-MoE train')
+    row = {'phase': 'scale_moe', 'model': 'ecg-vit-base', 'nvidia_smi': smi, **SCALE_MOE,
+           'params': sum(p.numel() for p in tr16.model.parameters()), 'batch': 64,
+           'steps': PARITY_STEPS, 'losses_kernel_plain': losses,
+           'max_loss_rel_err': loss_err, 'loss_limit': LOSS_RTOL,
+           'max_param_abs_err': param_err, 'param_limit': PARAM_TOL,
+           'launches_per_step': per_step, 'expected_per_step': expect, **routing,
+           'dropped_share': float(np.mean(routing['dropped_share_per_block'])),
+           'train_samples_per_s_f32': f32_rate, 'train_samples_per_s_bf16': bf16_rate,
+           'device_busy_share_bf16': profile['device_busy_share']}
+    emit(row)
+    emit(profile)
+    if any(c != expect for c in per_step):
+        raise AssertionError(f'MoE steps launched {per_step}, expected {expect} each')
+    if not (loss_err <= LOSS_RTOL and param_err <= PARAM_TOL
+            and routing['moe_blocks'] == cfg.num_hidden_layers // cfg.moe_every
+            and np.isfinite(routing['aux_loss']) and routing['aux_loss'] > 0
+            and routing['capacity_per_expert'] == 820):
+        raise AssertionError(f'MoE training differs from the plain twin: {row}')
+    return total
+
+
+def _scale_moe_pretrain(stats, smi: str) -> dict:
+    """One bf16 MAE step and one contrastive step on the ViT-base Switch-MoE
+    trunk; the aux loss is read from the step's own objective."""
+    batch = _parity_batch(4, 64, n_class=1)
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16', **SCALE_MOE)
+    total = {}
+    for objective in ('mae', 'contrastive'):
+        tr = _pretrainer(objective, cfg16, TrainConfig(train_batch_size=64,
+                                                       log_to_console=False),
+                         train_data=batch, norm_stats=stats)
+        tr.init_state()
+        auxes = []
+        objective_fn = tr._objective
+        tr._objective = lambda loss, aux: (auxes.append(aux.detach()),
+                                           objective_fn(loss, aux))[1]
+        _zero_counts()
+        metrics = {k: float(v) for k, v in tr.train_step(batch, np.arange(64)).items()}
+        counts = _counts()
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        expect = _pretrain_expect(objective, cfg16)
+        row = {'phase': 'scale_moe_pretrain', 'objective': objective, 'nvidia_smi': smi,
+               'model': 'ecg-vit-base', 'dtype': 'bfloat16', **SCALE_MOE, **metrics,
+               'aux_loss': float(auxes[-1]), 'launches': counts, 'expected': expect}
+        emit(row)
+        if not (counts == expect and all(np.isfinite(v) for v in metrics.values())
+                and np.isfinite(row['aux_loss']) and row['aux_loss'] > 0):
+            raise AssertionError(f'MoE {objective} step failed: {row}')
+        del tr
+        torch.cuda.empty_cache()
+    return total
+
+
+def _scale_scan(stats, smi: str) -> dict:
+    """The ViT-base forward with ``scan_blocks`` on stacked copies of an
+    unrolled model's weights, against the unrolled logits."""
+    cfg = VitConfig.from_defined('base', flash_min_seq=0)
+    flat = EcgVit(cfg)
+    flax_init_(flat, 5)
+    scanned = EcgVit(dataclasses.replace(cfg, scan_blocks=True))
+    scanned.load_state_dict(stack_unrolled_state_dict(flat.state_dict(),
+                                                      cfg.num_hidden_layers))
+    flat, scanned = flat.to(DEV).eval(), scanned.to(DEV).eval()
+    mean, std = (torch.tensor(stats[k], device=DEV) for k in ('mean', 'std'))
+    x = _prep_batch(torch.from_numpy(_parity_batch(5, 64).signals).to(DEV), mean, std,
+                    cfg.patch_size)
+    with torch.inference_mode():
+        want = flat(x).logits
+        _zero_counts()
+        got = scanned(x).logits
+        counts = _counts()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        row = {'phase': 'scale_scan', 'model': 'ecg-vit-base', 'dtype': 'float32',
+               'nvidia_smi': smi, 'batch': 64, 'max_rel_err': err, 'limit': SCAN_RTOL,
+               'same_bits': bool(torch.equal(got, want)), 'launches': counts,
+               'forward_ms_unrolled': time_ms(lambda: flat(x), reps=10, warmup=2),
+               'forward_ms_scanned': time_ms(lambda: scanned(x), reps=10, warmup=2)}
+    emit(row)
+    if not (err <= SCAN_RTOL and counts['flash_fwd'] == cfg.num_hidden_layers):
+        raise AssertionError(f'scanned forward differs from the unrolled one: {row}')
+    return counts
+
+
+def _scale_remat(stats, smi: str) -> dict:
+    """ViT-large f32 training, dropout on, with and without remat from one
+    init: three steps each, the parameters against each other, the peak
+    device memory of each, and the samples/s of each."""
+    batch = _parity_batch(6, PARITY_STEPS * 64)
+    cfg = VitConfig.from_defined('large', flash_min_seq=0)
+    tcfg = TrainConfig(train_batch_size=64, log_to_console=False, save_final=False)
+    init, results, total = None, {}, {}
+    for remat in (False, True):
+        tr = Trainer(dataclasses.replace(cfg, remat=remat), tcfg, train_data=batch,
+                     norm_stats=stats)
+        if init is None:
+            tr.init_state()
+            init = {k: v.to('cpu', copy=True) for k, v in tr.model.state_dict().items()}
+        else:
+            tr.set_params(init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses = [float(tr.train_step(batch, np.arange(64 * k, 64 * (k + 1)))['loss'])
+                  for k in range(PARITY_STEPS)]
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        state = {k: v.to('cpu', copy=True) for k, v in tr.model.state_dict().items()}
+        rate = _steps_per_s(tr, batch, 3)
+        results[remat] = (losses, state, peak, rate, counts)
+        if remat:
+            total = counts
+        del tr
+        torch.cuda.empty_cache()
+    (l0, s0, p0, r0, c0), (l1, s1, p1, r1, c1) = results[False], results[True]
+    param_err = max((s0[k] - s1[k]).abs().max().item() for k in s0)
+    row = {'phase': 'scale_remat', 'model': 'ecg-vit-large', 'dtype': 'float32',
+           'nvidia_smi': smi, 'batch': 64, 'dropout': cfg.hidden_dropout_prob,
+           'steps': PARITY_STEPS, 'losses': l0, 'losses_remat': l1,
+           'max_param_abs_err': param_err, 'param_limit': PARAM_TOL,
+           'same_bits': all(torch.equal(s0[k], s1[k]) for k in s0),
+           'peak_bytes': p0, 'peak_bytes_remat': p1,
+           'train_samples_per_s': r0, 'train_samples_per_s_remat': r1,
+           'launches': c0, 'launches_remat': c1}
+    emit(row)
+    # remat recomputes each block's forward, its lse kernel included, in the
+    # backward
+    layers = cfg.num_hidden_layers * PARITY_STEPS
+    expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
+              'flash_bwd_dkv': layers, 'adamw': PARITY_STEPS, 'nlm_rows': 0,
+              'nlm_variant': 0}
+    if not (param_err <= PARAM_TOL and p1 < p0 and c0 == expect
+            and c1 == {**expect, 'flash_fwd_lse': 2 * layers}):
+        raise AssertionError(f'remat run failed (launches expected {expect}, the lse '
+                             f'forward twice with remat): {row}')
+    return total
+
+
+def _scale_async_ckpt(stats, smi: str) -> dict:
+    """ViT-base bf16 with an EMA: how long the step loop stalls in a sync
+    save and in an async save of the full state (and how long three steps
+    then take, and the wait after them), each checkpoint restored bit for
+    bit after ``wait_for_checkpoints``; then an async save waited on at
+    once, the writer's whole time."""
+    batch = _parity_batch(7, 64)
+    cfg16 = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    out_dir = 'runs/chip_smoke_async'
+    shutil.rmtree(out_dir, ignore_errors=True)
+    row = {'phase': 'scale_async_ckpt', 'model': 'ecg-vit-base', 'dtype': 'bfloat16',
+           'nvidia_smi': smi}
+    total = {}
+    for mode in ('sync', 'async'):
+        tr = Trainer(cfg16, TrainConfig(train_batch_size=64, ema_decay=0.999,
+                                        async_checkpoint=mode == 'async',
+                                        log_to_console=False, save_final=False),
+                     train_data=batch, norm_stats=stats, output_dir=out_dir)
+        tr.init_state()
+        _zero_counts()
+        for _ in range(2):
+            float(tr.train_step(batch, np.arange(64))['loss'])
+        t0 = time.perf_counter()
+        path = tr.save_checkpoint(tag=mode)
+        row[f'{mode}_save_stall_s'] = time.perf_counter() - t0
+        saved = {name: {k: v.to('cpu', copy=True) for k, v in tree.items()}
+                 for name, tree in (('params', tr.model.state_dict()),
+                                    ('mu', tr.opt_state.mu), ('ema', tr.ema))}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m = tr.train_step(batch, np.arange(64))
+        float(m['loss'])
+        row[f'{mode}_steps_after_save_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wait_for_checkpoints()
+        row[f'{mode}_wait_s'] = time.perf_counter() - t0
+        for name, n in _counts().items():
+            total[name] = total.get(name, 0) + n
+        raw = checkpoint.restore_checkpoint(path)
+        row[f'{mode}_restored_bits_equal'] = (
+            all(torch.equal(raw['params'][k], v) for k, v in saved['params'].items())
+            and all(torch.equal(raw['opt_state']['mu'][k], v) for k, v in saved['mu'].items())
+            and all(torch.equal(raw['ema_params'][k], v) for k, v in saved['ema'].items()))
+        row['checkpoint_bytes'] = os.path.getsize(os.path.join(path, checkpoint.STATE_FILE))
+        if mode == 'async':        # the writer alone: a save waited on at once
+            t0 = time.perf_counter()
+            tr.save_checkpoint(tag='async2')
+            wait_for_checkpoints()
+            row['async_save_to_commit_s'] = time.perf_counter() - t0
+        del tr
+        torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit(row)
+    if not (row['sync_restored_bits_equal'] and row['async_restored_bits_equal']):
+        raise AssertionError(f'async checkpoint restore failed: {row}')
+    return total
+
+
+def scale_phase(smi: str) -> dict:
+    """The one-card model options on the port's kernels: Switch-MoE ViT-base
+    training against a plain twin, MoE pretraining steps, the scanned stack,
+    remat at ViT-large, and async checkpoints.  Returns the kernel launches."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    total = {}
+    for part in (_scale_moe, _scale_moe_pretrain, _scale_scan, _scale_remat,
+                 _scale_async_ckpt):
+        for name, n in part(stats, smi).items():
+            total[name] = total.get(name, 0) + n
+        torch.cuda.empty_cache()
+    emit({'phase': 'scale', 'launches': total})
+    return total
+
+
+PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
+          'scale')
 
 
 def main(argv=None) -> int:
@@ -1944,6 +2255,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'stream' in args.phases:
         for name, count in stream_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'scale' in args.phases:
+        for name, count in scale_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

@@ -27,7 +27,10 @@ the JAX CLI does.  ``infer`` scores an unlabeled combined HDF5 (top-k codes
 per record to JSON); ``--port-checkpoint`` starts ``train``, ``evaluate``,
 ``serve`` and ``infer`` from a reference vit-pytorch 0.33.2 ``.pt``, and
 ``port`` converts one into the port's checkpoint format once.  ``--int8``
-serves weight-only int8 Linear weights.  The flags are the JAX CLI's, with
+serves weight-only int8 Linear weights (and MoE expert stacks).
+``--moe-experts E --moe-every k`` (train, pretrain with or without
+``--stream``, evaluate, infer, serve, port) makes every k-th block a
+Switch-MoE block with E experts.  The flags are the JAX CLI's, with
 its names and defaults, for the features the port has; ``--checkpoint``,
 ``--resume-from`` and ``--init-encoder`` take the port's checkpoints
 (``train/checkpoint.py``).  ``denoise`` is the JAX CLI's (combined HDF5 ->
@@ -47,6 +50,7 @@ runs the plain versions of the kernels on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -74,6 +78,10 @@ def _add_common_train_flags(p):
     p.add_argument('--ema-decay', type=float, default=0.0,
                    help='>0: keep an EMA of the params (e.g. 0.999); '
                         'eval/inference then run on the EMA weights')
+    p.add_argument('--moe-experts', type=int, default=0,
+                   help="Switch-MoE: replace every --moe-every-th block's MLP with this "
+                        'many expert FFNs behind a top-1 router (models/moe.py)')
+    p.add_argument('--moe-every', type=int, default=2)
     p.add_argument('--seed', type=int, default=77)
     p.add_argument('--output-dir', default=None)
     p.add_argument('--n-sample', type=int, default=None)
@@ -93,15 +101,21 @@ def _add_stats_flag(p):
 
 def _model_cfg_for(args):
     """VitConfig for the run; --port-checkpoint implies the reference
-    vit-pytorch-0.33.2 layout (patch_norm=False)."""
+    vit-pytorch-0.33.2 layout (patch_norm=False); --moe-experts E makes every
+    --moe-every-th block a Switch-MoE block."""
     from .configs import VitConfig
     from .models.port import reference_vit_config
     from .utils.check_args import ca
     ca(model_size=args.size)
     dtype = 'bfloat16' if args.bf16 else 'float32'
     if getattr(args, 'port_checkpoint', None) or not args.patch_norm:
-        return reference_vit_config(args.size, dtype=dtype)
-    return VitConfig.from_defined(args.size, dtype=dtype)
+        cfg = reference_vit_config(args.size, dtype=dtype)
+    else:
+        cfg = VitConfig.from_defined(args.size, dtype=dtype)
+    if args.moe_experts:
+        cfg = dataclasses.replace(cfg, moe_num_experts=args.moe_experts,
+                                  moe_every=args.moe_every)
+    return cfg
 
 
 def _load_splits(args):

@@ -2,11 +2,13 @@
 
 ``VitConfig``, ``MaeConfig``, ``ContrastiveConfig`` and ``TrainConfig`` are
 field-for-field copies of the JAX package's, so a configuration carries over
-with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  Fields
-whose feature the port has not reached yet keep their defaults: the model
-raises on a ``VitConfig`` value it cannot honour (MoE, ``scan_blocks``,
-``ring_axis``, ``remat``), and ``TrainConfig`` raises on construction for
-its own (meshes, FSDP, multi-step dispatch, async checkpoints).
+with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  The
+one-device model options are ported (Switch-MoE, ``remat``, ``scan_blocks``;
+MoE with ``scan_blocks`` is refused, as in JAX), and so is
+``async_checkpoint``.  Fields whose feature the port has not reached yet
+keep their defaults: the model raises on ``ring_axis``, and ``TrainConfig``
+raises on construction for meshes and FSDP (ROADMAP queue 1 item 10) and
+for multi-step dispatch (item 3).
 ``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
 unread, so that a JAX configuration still loads.
 ``PreprocessConfig`` is a whole copy.
@@ -50,10 +52,13 @@ class VitConfig:
                                     # Bernoulli mask from the trainer's device
                                     # generator; 'hash' is the counter-hash
                                     # mask of ops/dropout.py (bit-equal to JAX)
-    remat: bool = False             # activation recompute (not ported)
-    scan_blocks: bool = False       # JAX only: stacked-parameter layer scan
+    remat: bool = False             # recompute each block's activations in the
+                                    # backward (models/vit.py)
+    scan_blocks: bool = False       # the blocks' parameters stacked (L, ...)
+                                    # under one module (JAX's nn.scan tree)
     size: Optional[str] = None      # name from the ladder, if built via from_defined
-    moe_num_experts: int = 0        # Switch-MoE MLPs (not ported yet)
+    moe_num_experts: int = 0        # >0: Switch-MoE MLPs with this many
+                                    # experts (models/moe.py)
     moe_every: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -157,8 +162,8 @@ class TrainConfig:
                                     # plain PyTorch (train/optim.AdamChain)
     log_per_epoch: bool = False     # log the train metrics once per epoch
                                     # (each logged step syncs the device)
-    epoch_scan: bool = False        # not ported
-    steps_per_dispatch: int = 1     # not ported (1 only)
+    epoch_scan: bool = False        # not ported (ROADMAP item 3)
+    steps_per_dispatch: int = 1     # not ported (1 only; ROADMAP item 3)
     resident_dtype: Optional[str] = None  # storage dtype of a resident split's
                                     # signals: None (f32) | 'float16' |
                                     # 'bfloat16'; cast to f32 after the gather
@@ -168,7 +173,8 @@ class TrainConfig:
     log_to_console: bool = True
     save_every_n_epoch: int = 0     # 0 = only save at the end
     save_final: bool = True         # save ckpt-final when train() returns
-    async_checkpoint: bool = False  # not ported
+    async_checkpoint: bool = False  # write checkpoints on a writer thread
+                                    # (train/checkpoint.py)
     seed: int = 77                  # init, dropout and shuffle seed
                                     # (reference config.json 'random-seed')
     debug_nans: bool = True         # zero a step whose gradient norm is not
@@ -182,22 +188,23 @@ class TrainConfig:
                                     # gather batches by index; None = when it
                                     # fits hbm_split_max_bytes
     hbm_split_max_bytes: int = 4 << 30
-    mesh_data: Optional[int] = None  # not ported (one device)
-    mesh_model: int = 1             # not ported (1 only)
-    mesh_stage: int = 1             # not ported (1 only)
-    fsdp: bool = False              # not ported
+    mesh_data: Optional[int] = None  # not ported (one device; ROADMAP item 10)
+    mesh_model: int = 1             # not ported (1 only; ROADMAP item 10)
+    mesh_stage: int = 1             # not ported (1 only; ROADMAP item 10)
+    fsdp: bool = False              # not ported (ROADMAP item 10)
 
     def __post_init__(self):
-        unported = {'mesh_data': self.mesh_data not in (None, 1),
-                    'mesh_model': self.mesh_model != 1,
-                    'mesh_stage': self.mesh_stage != 1,
-                    'fsdp': self.fsdp,
-                    'epoch_scan': self.epoch_scan,
-                    'steps_per_dispatch': self.steps_per_dispatch != 1,
-                    'async_checkpoint': self.async_checkpoint}
-        if any(unported.values()):
-            raise NotImplementedError(
-                f'not ported: {[k for k, v in unported.items() if v]}')
+        # field -> (set to something the port cannot run, its ROADMAP queue-1 item)
+        unported = {'mesh_data': (self.mesh_data not in (None, 1), 10),
+                    'mesh_model': (self.mesh_model != 1, 10),
+                    'mesh_stage': (self.mesh_stage != 1, 10),
+                    'fsdp': (self.fsdp, 10),
+                    'epoch_scan': (self.epoch_scan, 3),
+                    'steps_per_dispatch': (self.steps_per_dispatch != 1, 3)}
+        bad = [f'{k} (ROADMAP queue 1 item {item})'
+               for k, (on, item) in unported.items() if on]
+        if bad:
+            raise NotImplementedError(f'not ported: {bad}')
 
     def steps_per_epoch(self, n_train: int) -> int:
         # floor: the trainer drops the last partial batch (the reference's

@@ -5,7 +5,9 @@ The trunk is the same ``EcgVitEncoder`` the classifier uses, under the same
 name ``encoder``, so the transfer into ``EcgVit`` copies it as it is
 (train/contrastive.py).  The projection head is a 2-layer MLP: ``proj_fc1``
 in the model dtype with the exact GELU, ``proj_fc2`` and the L2
-normalisation in f32.  NT-Xent takes the (2B, 2B) similarity as one f32
+normalisation in f32.  The trunk takes the encoder's options (MoE blocks,
+``remat``, ``scan_blocks``); ``forward(..., return_aux=True)`` also returns
+its mean MoE aux loss.  NT-Xent takes the (2B, 2B) similarity as one f32
 product (JAX computes it outside Pallas, at HIGHEST precision).
 """
 from __future__ import annotations
@@ -27,20 +29,21 @@ class EcgContrastive(nn.Module):
 
     def __init__(self, cfg: VitConfig, con_cfg: ContrastiveConfig):
         super().__init__()
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError('not ported: moe_num_experts')
         self.cfg, self.con_cfg = cfg, con_cfg
         self.encoder = EcgVitEncoder(cfg)
         self.proj_fc1 = Dense(cfg.hidden_size, con_cfg.proj_hidden_size, dtype=_dtype(cfg))
         self.proj_fc2 = Dense(con_cfg.proj_hidden_size, con_cfg.proj_dim,
                               dtype=torch.float32)
 
-    def forward(self, x, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        h = self.encoder(x, rng)
+    def forward(self, x, rng: Optional[DropoutRng] = None, return_aux: bool = False):
+        """The unit-norm projections (2B, proj_dim); with ``return_aux``
+        also the trunk's mean MoE aux loss (0 when dense)."""
+        h, _, aux = self.encoder(x, rng)
         pooled = h[:, 0] if self.cfg.pool == 'cls' else h.mean(dim=1)
         z = F.gelu(self.proj_fc1(pooled), approximate='none')
         z = self.proj_fc2(z.float())
-        return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp(min=1e-8)
+        z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp(min=1e-8)
+        return (z, aux) if return_aux else z
 
 
 def nt_xent(z: torch.Tensor, temperature: float = 0.1, with_accuracy: bool = False):

@@ -12,6 +12,13 @@ Module names keep the flax tree's: a flat ``encoder_*`` trunk
 ``mask_token``, ``pos_embed``, ``blocks.i``, ``norm``, ``pred``), so
 ``models/port.py`` maps the weights by path and a checkpoint's top-level
 names tell an MAE trunk from a contrastive one (train/contrastive.py).
+
+With ``moe_num_experts > 0`` the encoder blocks follow the trunk's MoE
+placement rule (``encoder_block_i`` is a Switch-MoE block when (i + 1) %
+``moe_every`` == 0), so a Switch trunk pretrains with its experts live and
+transfers layer for layer; the decoder stays dense, and ``MaeOutput.aux_loss``
+carries the encoder's mean aux loss.  As in JAX, the MAE's own stack takes
+neither ``remat`` nor ``scan_blocks``.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.nn as nn
 
 from ..configs import MaeConfig, VitConfig
 from ..ops.dropout import DropoutRng
+from .moe import mean_aux, moe_layer
 from .vit import Block, Dense, LayerNorm, PatchEmbed1D, _dtype
 
 
@@ -33,6 +41,7 @@ class MaeOutput:
     mask: torch.Tensor               # (B, P) 1 = masked (reconstructed), 0 = visible
     ids_restore: torch.Tensor
     per_sample_loss: Optional[torch.Tensor] = None  # (B,) masked MSE per sample
+    aux_loss: Optional[torch.Tensor] = None   # mean MoE aux loss of the encoder (0 when dense)
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -108,7 +117,7 @@ class MaeDecoder(nn.Module):
         h_full = _gather_rows(torch.cat([h, mask_tokens], dim=1), ids_restore)
         h_full = h_full + self.pos_embed[:, :p].to(h_full.dtype)
         for block in self.blocks:
-            h_full, _ = block(h_full, rng)
+            h_full, _, _ = block(h_full, rng)
         return self.pred(self.norm(h_full).float())
 
 
@@ -117,13 +126,12 @@ class EcgMae(nn.Module):
 
     def __init__(self, cfg: VitConfig, mae: MaeConfig = MaeConfig()):
         super().__init__()
-        if cfg.moe_num_experts > 0:
-            raise NotImplementedError('not ported: moe_num_experts')
         self.cfg, self.mae = cfg, mae
         self.encoder_patch_embed = PatchEmbed1D(cfg)
         self.encoder_pos_embed = nn.Parameter(
             torch.zeros(1, cfg.max_signal_length // cfg.patch_size, cfg.hidden_size))
-        self.encoder_blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_hidden_layers))
+        self.encoder_blocks = nn.ModuleList(Block(cfg, use_moe=moe_layer(cfg, i))
+                                            for i in range(cfg.num_hidden_layers))
         self.encoder_norm = LayerNorm(cfg.hidden_size)
         self.decoder = MaeDecoder(cfg, mae)
 
@@ -144,8 +152,11 @@ class EcgMae(nn.Module):
         h = self.encoder_patch_embed(sample_values)                 # (B, P, H)
         h = h + self.encoder_pos_embed[:, :n_patch].to(h.dtype)
         h = _gather_rows(h, ids_keep)                               # (B, V, H)
+        auxes = []
         for block in self.encoder_blocks:
-            h, _ = block(h, rng)
+            h, _, aux = block(h, rng)
+            if aux is not None:
+                auxes.append(aux)
         h = self.encoder_norm(h)
 
         pred = self.decoder(h, ids_restore, rng)
@@ -159,4 +170,4 @@ class EcgMae(nn.Module):
         loss = (per_patch * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         per_sample = (per_patch * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
         return MaeOutput(loss=loss, pred=pred, mask=mask, ids_restore=ids_restore,
-                         per_sample_loss=per_sample)
+                         per_sample_loss=per_sample, aux_loss=mean_aux(auxes, h.device))

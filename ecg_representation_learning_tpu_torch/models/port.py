@@ -1,14 +1,18 @@
 """Weights between the JAX package's flax models and the port's.
 
-The flax trees (``{'params': {...}}``, unrolled ``block_i`` layout, numpy
-leaves) and the port's ``state_dict``s name the same modules, so the mapping
-is by path, for ``EcgVit``, ``EcgMae`` and ``EcgContrastive`` alike:
+The flax trees (``{'params': {...}}``, numpy leaves) and the port's
+``state_dict``s name the same modules, so the mapping is by path, for
+``EcgVit``, ``EcgMae`` and ``EcgContrastive`` alike:
 
   * ``block_i`` <-> ``blocks.i`` and ``encoder_block_i`` <->
-    ``encoder_blocks.i`` (``nn.ModuleList``s);
-  * a Dense ``kernel`` (in, out) <-> a Linear ``weight`` (out, in), transposed;
-  * a LayerNorm ``scale`` <-> ``weight``; biases, tokens and position
-    embeddings carry over as they are (``qkv`` has no bias).
+    ``encoder_blocks.i`` (``nn.ModuleList``s); the ``scan_blocks`` tree's
+    stacked ``blocks`` <-> the port's ``blocks`` (``ScannedBlocks``), the
+    leading (L,) axis kept;
+  * a Dense ``kernel`` (..., in, out) <-> a Linear ``weight`` (..., out,
+    in), its last two axes swapped (the MoE router's included);
+  * a LayerNorm ``scale`` <-> ``weight``; biases, tokens, position
+    embeddings and the MoE expert stacks ``moe/{w1, b1, w2, b2}`` carry over
+    as they are, in the JAX layout (``qkv`` has no bias).
 
 Both directions copy values exactly, so flax -> torch -> flax is bit-exact.
 ``fused_adamw_state_from_flax`` maps the JAX ``FusedAdamWState`` (count, mu
@@ -101,7 +105,7 @@ def state_dict_from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.T
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
         if path[-1] == 'kernel':
-            arr = arr.T
+            arr = np.swapaxes(arr, -1, -2)
         key = _torch_key(path)
         if key not in want:
             raise KeyError(f'flax param {"/".join(path)} maps to {key}, '
@@ -123,10 +127,12 @@ def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch
     return state_dict_from_flax(params, model)
 
 
-def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
-    """The flax path of the port's parameter ``key`` (of ``ndim`` dims):
-    ``blocks.i`` -> ``block_i``; a 2-D ``weight`` is a Linear's (a Dense
-    ``kernel``), a 1-D one a LayerNorm's ``scale``."""
+def flax_path(key: str) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``key``: ``blocks.i`` ->
+    ``block_i``; a ``weight`` is a LayerNorm's ``scale`` when its module is a
+    norm (every LayerNorm of the port is named ``*norm*``), else a Dense
+    ``kernel`` -- whatever its dims: a stacked ``scan_blocks`` LayerNorm
+    scale is 2-D, a stacked kernel 3-D."""
     parts = key.split('.')
     path = []
     i = 0
@@ -138,7 +144,7 @@ def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
             path.append(parts[i])
             i += 1
     if path[-1] == 'weight':
-        path[-1] = 'kernel' if ndim == 2 else 'scale'
+        path[-1] = 'scale' if 'norm' in path[-2] else 'kernel'
     return tuple(path)
 
 
@@ -149,9 +155,9 @@ def flax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     tree: Dict = {}
     for key, val in state_dict.items():
         arr = val.detach().cpu().numpy()
-        path = flax_path(key, arr.ndim)
+        path = flax_path(key)
         if path[-1] == 'kernel':
-            arr = arr.T
+            arr = np.swapaxes(arr, -1, -2)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})

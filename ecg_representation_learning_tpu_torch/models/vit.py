@@ -19,22 +19,42 @@ other.  Numerics kept from the flax model:
   * ``return_attention`` runs the plain probabilities path and returns the
     per-layer attention maps (L, B, H, T, T) for rollout.
 
-``remat`` (activation recompute) is not ported and raises: recomputing a
-block would redraw its dropout seeds from the generators.
+The model options of the JAX encoder:
+
+  * ``moe_num_experts > 0``: block i is a Switch-MoE block when
+    (i + 1) % ``moe_every`` == 0 (``models/moe.py``); the model output
+    carries the mean aux loss of those blocks (``VitOutput.aux_loss``, 0 for
+    a dense model);
+  * ``remat``: each block runs under ``torch.utils.checkpoint`` and is
+    recomputed in the backward; the recompute puts the generators of the
+    block's ``DropoutRng`` back in their state before the block, so it draws
+    the same seeds and masks, and then restores them, so a step with remat
+    gives the bits of a step without (``return_attention`` turns it off, as
+    in JAX);
+  * ``scan_blocks``: the blocks' parameters stacked (L, ...) under one
+    ``blocks`` module, in the leaf order of JAX's ``encoder/blocks``, with
+    the one block function applied layer by layer
+    (``stack_unrolled_state_dict`` and ``unstack_scanned_state_dict``
+    convert between the layouts).  MoE blocks differ per layer, so MoE with
+    ``scan_blocks`` is refused, as in JAX.
+
+``ring_axis`` (context parallelism) is not ported and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import VitConfig
 from ..ops.attention import attention
 from ..ops.dropout import DropoutRng, make_dropout
+from .moe import MoeMlp, mean_aux, moe_layer
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -109,6 +129,9 @@ class PatchEmbed1D(nn.Module):
 class SelfAttention(nn.Module):
     def __init__(self, cfg: VitConfig):
         super().__init__()
+        if cfg.ring_axis is not None:
+            raise NotImplementedError('not ported: ring_axis (context parallelism, '
+                                      'ROADMAP queue 1 item 10)')
         self.cfg = cfg
         dt = _dtype(cfg)
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size, bias=False, dtype=dt)
@@ -152,19 +175,85 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; its MLP is a ``MoeMlp`` when ``use_moe``.
+    ``forward`` returns (x, attention probabilities or None, MoE aux loss or
+    None)."""
 
-    def __init__(self, cfg: VitConfig):
+    def __init__(self, cfg: VitConfig, use_moe: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(cfg.hidden_size)
         self.attn = SelfAttention(cfg)
         self.norm2 = LayerNorm(cfg.hidden_size)
-        self.mlp = Mlp(cfg)
+        if use_moe:
+            self.moe = MoeMlp(cfg, _dtype(cfg))
+        else:
+            self.mlp = Mlp(cfg)
 
     def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
         attn_out, probs = self.attn(self.norm1(x), rng, return_probs)
         x = x + attn_out
-        return x + self.mlp(self.norm2(x), rng), probs
+        if hasattr(self, 'moe'):
+            y, aux = self.moe(self.norm2(x), rng)
+            return x + y, probs, aux
+        return x + self.mlp(self.norm2(x), rng), probs, None
+
+
+class ScannedBlocks(Block):
+    """``num_hidden_layers`` dense blocks with their parameters stacked on a
+    leading (L,) axis, under a ``Block``'s names (the JAX ``nn.scan`` tree
+    ``encoder/blocks``); layer l runs the block function on the l-th slices
+    through a parameterless template (a Linear's int8 stack, when one is
+    set, dequantized slice by slice)."""
+
+    def __init__(self, cfg: VitConfig):
+        super().__init__(cfg)
+        self.layers = cfg.num_hidden_layers
+        for name, p in list(self.named_parameters()):
+            owner, _, leaf = name.rpartition('.')
+            setattr(self.get_submodule(owner), leaf,
+                    nn.Parameter(p.new_zeros((self.layers, *p.shape))))
+        with torch.device('meta'):
+            template = Block(cfg)
+        object.__setattr__(self, 'template', template)   # not a submodule
+
+    def layer(self, i: int) -> Callable:
+        """Block ``i`` as a function ``(x, rng, return_probs) -> Block's
+        outputs``."""
+        params = {}
+        for name, p in self.named_parameters():
+            owner, _, leaf = name.rpartition('.')
+            q = getattr(self.get_submodule(owner), 'int8', None) if leaf == 'weight' else None
+            params[name] = p[i] if q is None else q[0][i].float() * q[1][i]
+
+        def run(x, rng=None, return_probs=False):
+            self.template.train(self.training)
+            return torch.func.functional_call(self.template, params, (x, rng, return_probs))
+        return run
+
+
+def _replaying(fn: Callable, rng: Optional[DropoutRng]) -> Callable:
+    """``fn`` for ``torch.utils.checkpoint``: its first call runs as it is;
+    a recompute runs with the generators of ``rng`` in their state before
+    the first call, then gives them back the state it found them in, even
+    when the checkpoint stops the recompute early."""
+    if rng is None:
+        return fn
+    before = (rng.host.get_state(), rng.device.get_state())
+    calls = []
+
+    def run(*args):
+        if not calls:
+            calls.append(1)
+            return fn(*args)
+        now = (rng.host.get_state(), rng.device.get_state())
+        rng.host.set_state(before[0])
+        rng.device.set_state(before[1])
+        try:
+            return fn(*args)
+        finally:
+            rng.host.set_state(now[0])
+            rng.device.set_state(now[1])
+    return run
 
 
 class EcgVitEncoder(nn.Module):
@@ -172,6 +261,9 @@ class EcgVitEncoder(nn.Module):
 
     def __init__(self, cfg: VitConfig):
         super().__init__()
+        if cfg.moe_num_experts > 0 and cfg.scan_blocks:
+            raise ValueError('MoE blocks differ per layer and scan_blocks needs identical '
+                             'layers: use the unrolled stack for MoE models')
         self.cfg = cfg
         self.patch_embed = PatchEmbed1D(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
@@ -179,25 +271,41 @@ class EcgVitEncoder(nn.Module):
             torch.zeros(1, cfg.num_patches + 1, cfg.hidden_size))
         self.emb_drop = make_dropout(cfg.dropout_impl, cfg.attention_probs_dropout_prob,
                                      salt=5)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_hidden_layers))
+        if cfg.scan_blocks:
+            self.blocks = ScannedBlocks(cfg)
+        else:
+            self.blocks = nn.ModuleList(Block(cfg, use_moe=moe_layer(cfg, i))
+                                        for i in range(cfg.num_hidden_layers))
         self.final_norm = LayerNorm(cfg.hidden_size)
 
     def forward(self, x, rng: Optional[DropoutRng] = None,
                 return_attention: bool = False):
+        """(h, the attention maps (L, B, H, T, T) when ``return_attention``
+        else None, the mean MoE aux loss).  Each block runs under remat when
+        ``cfg.remat`` and gradients are on."""
         h = self.patch_embed(x)
         b, n_patch, hidden = h.shape
         cls = self.cls_token.expand(b, 1, hidden).to(h.dtype)
         h = torch.cat([cls, h], dim=1)
         h = h + self.pos_embed[:, :n_patch + 1].to(h.dtype)
         h = self.emb_drop(h, rng)
-        maps = []
-        for block in self.blocks:
-            h, probs = block(h, rng, return_attention)
+        blocks = self.blocks
+        layers = ([blocks.layer(i) for i in range(blocks.layers)]
+                  if isinstance(blocks, ScannedBlocks) else list(blocks))
+        remat = self.cfg.remat and not return_attention and torch.is_grad_enabled()
+        maps, auxes = [], []
+        for block in layers:
+            if remat:
+                h, probs, aux = checkpoint(_replaying(block, rng), h, rng,
+                                           use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, probs, aux = block(h, rng, return_attention)
             maps.append(probs)
+            if aux is not None:
+                auxes.append(aux)
         h = self.final_norm(h)
-        if return_attention:
-            return h, torch.stack(maps, dim=0)   # (L, B, H, T, T)
-        return h
+        return (h, torch.stack(maps, dim=0) if return_attention else None,
+                mean_aux(auxes, h.device))
 
 
 @dataclasses.dataclass
@@ -206,6 +314,7 @@ class VitOutput:
     logits: torch.Tensor
     loss: Optional[torch.Tensor] = None
     attention: Optional[torch.Tensor] = None
+    aux_loss: Optional[torch.Tensor] = None   # mean MoE aux loss (0 when dense)
 
 
 class EcgVit(nn.Module):
@@ -213,13 +322,6 @@ class EcgVit(nn.Module):
 
     def __init__(self, cfg: VitConfig):
         super().__init__()
-        unported = {'moe_num_experts': cfg.moe_num_experts > 0,
-                    'scan_blocks': cfg.scan_blocks,
-                    'ring_axis': cfg.ring_axis is not None,
-                    'remat': cfg.remat}
-        if any(unported.values()):
-            raise NotImplementedError(
-                f'not ported: {[k for k, v in unported.items() if v]}')
         if cfg.pool not in ('cls', 'mean'):
             raise ValueError(f"pool must be 'cls' or 'mean', got {cfg.pool!r}")
         self.cfg = cfg
@@ -235,18 +337,14 @@ class EcgVit(nn.Module):
         if (self.training and rng is None
                 and max(cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob) > 0):
             raise ValueError('a training forward with dropout needs rng=DropoutRng(...)')
-        attn = None
-        if return_attention:
-            h, attn = self.encoder(sample_values, rng, return_attention=True)
-        else:
-            h = self.encoder(sample_values, rng)
+        h, attn, aux = self.encoder(sample_values, rng, return_attention)
         pooled = h[:, 0] if cfg.pool == 'cls' else h.mean(dim=1)
         logits = self.head(pooled.float())
         loss = None
         if labels is not None:
             loss = bce_with_logits(logits, labels, reduction=loss_reduction,
                                    weight=loss_weight)
-        return VitOutput(logits=logits, loss=loss, attention=attn)
+        return VitOutput(logits=logits, loss=loss, attention=attn, aux_loss=aux)
 
 
 def bce_with_logits(logits, labels, reduction: str = 'mean', weight=None):
@@ -286,3 +384,30 @@ def forward_flops_per_sample(cfg: VitConfig) -> float:
     )
     head = 2 * h * cfg.num_class
     return float(patch_embed + cfg.num_hidden_layers * per_layer + head)
+
+
+def stack_unrolled_state_dict(state_dict: Mapping[str, torch.Tensor],
+                              num_layers: int) -> Dict[str, torch.Tensor]:
+    """An unrolled ``EcgVit`` state_dict (``encoder.blocks.i.*``) -> the
+    ``scan_blocks=True`` layout (``encoder.blocks.*`` with a leading (L,)
+    axis); the JAX ``stack_unrolled_params``."""
+    pre = 'encoder.blocks.'
+    out = {k: v for k, v in state_dict.items() if not k.startswith(pre)}
+    names = [k[len(f'{pre}0.'):] for k in state_dict if k.startswith(f'{pre}0.')]
+    for name in names:
+        out[pre + name] = torch.stack([state_dict[f'{pre}{i}.{name}']
+                                       for i in range(num_layers)])
+    return out
+
+
+def unstack_scanned_state_dict(state_dict: Mapping[str, torch.Tensor],
+                               num_layers: int) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`stack_unrolled_state_dict`: a ``scan_blocks=True``
+    state_dict -> the unrolled layout; the JAX ``unstack_scanned_params``."""
+    pre = 'encoder.blocks.'
+    out = {k: v for k, v in state_dict.items() if not k.startswith(pre)}
+    for key, val in state_dict.items():
+        if key.startswith(pre):
+            for i in range(num_layers):
+                out[f'{pre}{i}.{key[len(pre):]}'] = val[i]
+    return out

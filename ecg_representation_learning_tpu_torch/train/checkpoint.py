@@ -13,6 +13,14 @@ parameters to the SSL -> supervised handoff (train/contrastive.py) whatever
 its decoder or projection head.  ``prune_checkpoints`` keeps the newest
 step-tagged checkpoints of a streaming run.  Importing orbax checkpoints of
 the JAX package is not ported.
+
+``save_checkpoint(..., async_save=True)`` (``TrainConfig.async_checkpoint``)
+copies the state to host memory on the caller's thread and returns; a
+writer thread then writes and renames it.  One save is in flight at a time:
+every save first waits for the one before.  ``wait_for_checkpoints`` blocks
+until it has committed, and ``restore_checkpoint`` and
+``latest_committed_checkpoint`` wait for it first.  A write that fails on the
+thread raises at the next save or wait.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import glob
 import os
 import re
 import shutil
+import threading
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch
@@ -35,23 +44,75 @@ def _to_cpu(tree):
     return tree
 
 
-def save_checkpoint(path: str, state: Dict[str, Any]) -> str:
-    """Write ``state`` (its tensors copied to the host) as the checkpoint
-    directory ``path``, replacing one already there.  Returns the absolute
-    path."""
-    path = os.path.abspath(path)
+def _write(path: str, host_state: Dict[str, Any]) -> None:
     tmp = f'{path}.tmp-{os.getpid()}'
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_to_cpu(state), os.path.join(tmp, STATE_FILE))
+    torch.save(host_state, os.path.join(tmp, STATE_FILE))
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
+
+
+class _Writer:
+    """The process's one checkpoint writer thread and its last error."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+
+    def _run(self, path: str, host_state: Dict[str, Any]) -> None:
+        try:
+            _write(path, host_state)
+        except Exception as e:   # handed to the caller at the next save or wait
+            self.error = e
+
+    def start(self, path: str, host_state: Dict[str, Any]) -> None:
+        with self.lock:
+            self.thread = threading.Thread(target=self._run, args=(path, host_state),
+                                           name=f'checkpoint {os.path.basename(path)}')
+            self.thread.start()
+
+    def wait(self) -> None:
+        with self.lock:
+            thread, self.thread = self.thread, None
+        if thread is not None:
+            thread.join()
+        error, self.error = self.error, None
+        if error is not None:
+            raise RuntimeError(f'a checkpoint write failed on the writer thread: '
+                               f'{error!r}') from error
+
+
+_WRITER = _Writer()
+
+
+def wait_for_checkpoints() -> None:
+    """Block until the save in flight (if any) has committed; raise if its
+    write failed."""
+    _WRITER.wait()
+
+
+def save_checkpoint(path: str, state: Dict[str, Any], async_save: bool = False) -> str:
+    """Write ``state`` (its tensors copied to the host) as the checkpoint
+    directory ``path``, replacing one already there.  ``async_save``: copy
+    to the host here, write on the writer thread, return at once.  Returns
+    the absolute path."""
+    path = os.path.abspath(path)
+    wait_for_checkpoints()
+    host_state = _to_cpu(state)
+    if async_save:
+        _WRITER.start(path, host_state)
+    else:
+        _write(path, host_state)
     return path
 
 
 def restore_checkpoint(path: str) -> Dict[str, Any]:
-    """The state dict saved at ``path``, with its tensors on the host."""
+    """The state dict saved at ``path``, with its tensors on the host (after
+    the save in flight, if any, has committed)."""
+    wait_for_checkpoints()
     file = os.path.join(os.path.abspath(path), STATE_FILE)
     if not os.path.isfile(file):
         raise FileNotFoundError(f'no committed checkpoint at {path} (missing {STATE_FILE})')
@@ -93,7 +154,9 @@ def committed_checkpoints(output_dir: str) -> List[str]:
 
 
 def latest_committed_checkpoint(output_dir: str) -> Optional[str]:
-    """Newest committed ``ckpt-*`` directory (the crash-recovery target)."""
+    """Newest committed ``ckpt-*`` directory (the crash-recovery target),
+    after the save in flight, if any, has committed."""
+    wait_for_checkpoints()
     cands = committed_checkpoints(output_dir)
     return cands[-1] if cands else None
 

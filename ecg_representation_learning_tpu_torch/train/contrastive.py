@@ -75,13 +75,16 @@ class ContrastiveTrainer(MaeTrainer):
         return torch.cat(views, dim=0)
 
     def _micro_loss(self, sig: torch.Tensor, prep=None):
-        """The NT-Xent of two views of ``sig``, each through ``prep``.  As
+        """The NT-Xent of two views of ``sig``, each through ``prep`` (plus
+        the weighted MoE aux loss for a MoE trunk; the metrics keep the
+        NT-Xent).  As
         the stream step (``build_stream_step``, inherited): two views of the
         decoded batch at its native rate, each through the fused preprocess
         (JAX ``train/contrastive.py:213-268``)."""
-        z = self.model(self._views(sig, self.rng.device, prep=prep), rng=self.rng)
+        z, aux = self.model(self._views(sig, self.rng.device, prep=prep), rng=self.rng,
+                            return_aux=True)
         loss, acc = nt_xent(z, self.con_cfg.temperature, with_accuracy=True)
-        return {'loss': loss.detach(), 'contrast_acc': acc}, loss
+        return {'loss': loss.detach(), 'contrast_acc': acc}, self._objective(loss, aux)
 
     @torch.inference_mode()
     def eval_batch(self, sig: torch.Tensor, generator: torch.Generator):

@@ -36,6 +36,7 @@ from ..configs import MaeConfig, TrainConfig, VitConfig
 from ..models.mae import EcgMae
 from ..ops.preprocess import fused_train_path
 from .loop import grad_accum
+from .checkpoint import wait_for_checkpoints
 from .optim import AdamChain, Schedule, make_optimizer
 from .trainer import SplitData, TrainerBase, _prep_batch
 
@@ -82,10 +83,13 @@ class MaeTrainer(TrainerBase):
         return sig[..., :self.model_cfg.max_signal_length]
 
     def _micro_loss(self, sig: torch.Tensor, prep: Optional[Callable] = None):
-        """(metrics of one microbatch, its loss) in train mode; ``prep`` makes
-        the model input of ``sig`` (default ``_model_input``)."""
+        """(metrics of one microbatch, its objective) in train mode: the
+        masked MSE, plus the weighted MoE aux loss for a MoE trunk (the
+        metrics keep the MSE); ``prep`` makes the model input of ``sig``
+        (default ``_model_input``).  The train step and the stream step both
+        run it."""
         out = self.model((prep or self._model_input)(sig), rng=self.rng)
-        return {'loss': out.loss.detach()}, out.loss
+        return {'loss': out.loss.detach()}, self._objective(out.loss, out.aux_loss)
 
     def train_step(self, data: SplitData, take: np.ndarray) -> Dict[str, Any]:
         """One optimizer step on the rows ``take`` of ``data``.  Returns the
@@ -251,6 +255,7 @@ class MaeTrainer(TrainerBase):
         if ckpt_every and host_step != saved_at:
             self.save_checkpoint(tag=f'step{host_step}')
             prune_checkpoints(self.output_dir, keep=2)
+        wait_for_checkpoints()   # every save committed before returning
         return {'loss': last_loss, 'steps': host_step,
                 'mix_counts': {int(k): v for k, v in sorted(mix_counts.items())},
                 'timer': timer.summary()}
@@ -314,6 +319,7 @@ class MaeTrainer(TrainerBase):
                     break
         self.tb.close()
         path = self.save_checkpoint(tag='final') if cfg.save_final else None
+        wait_for_checkpoints()   # every save committed before returning
         return {'loss': float('nan') if last_loss is None else last_loss,
                 'epochs': self.epoch, 'eval_history': eval_history,
                 'best_eval_loss': best_eval_loss if eval_history else None,

@@ -55,6 +55,7 @@ from ..ops.normalize import normalize_fixed
 from ..ops.pad import time_end_pad
 from ..runtime import default_device
 from ..utils.logging import TbWriter, get_logger, pretty_log_dict
+from .checkpoint import wait_for_checkpoints
 from .loop import finish_update, grad_accum
 from .metrics import binary_stats, classification_report, multilabel_auroc, per_class_recall
 from .optim import FusedAdamWState, make_optimizer
@@ -88,10 +89,10 @@ def _prep_batch(sig: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
     return sig
 
 
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     """flax's default Dense kernel init: truncated normal (at +-2 std) with
     variance 1/fan_in after truncation."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
@@ -99,16 +100,28 @@ def flax_init_(model: torch.nn.Module, seed: int) -> None:
     """Seeded init with flax's distributions: lecun-normal Linear weights,
     zero biases, unit LayerNorm scales, normal(0.02) tokens and position
     embeddings.  Drawn on the CPU from one ``torch.Generator`` in parameter
-    order, so the weights do not depend on the device."""
+    order, so the weights do not depend on the device.
+
+    The fan-in depends on the kind of leaf: a Linear weight (out, in) has
+    ``in``, and so does each layer of a ``scan_blocks`` stack (L, out, in),
+    since ``nn.scan`` initialises its layers one by one; a MoE expert stack
+    is one flax ``lecun_normal`` leaf in the JAX layout, whose leading
+    expert axis counts in the fan-in: E * d for ``w1`` (E, d, f), E * f for
+    ``w2`` (E, f, d).  The MoE router is a Linear; ``b1`` and ``b2`` are
+    biases (zero)."""
+    from ..models.port import flax_path
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            path = flax_path(name)
             if name.endswith(('cls_token', 'pos_embed', 'mask_token')):
                 torch.nn.init.normal_(p, 0.0, 0.02, generator=gen)
-            elif name.endswith('bias'):
+            elif path[-1] in ('bias', 'b1', 'b2'):
                 p.zero_()
-            elif p.dim() == 2:
-                _lecun_normal_(p, gen)
+            elif path[-1] in ('w1', 'w2'):
+                _lecun_normal_(p, p.shape[0] * p.shape[1], gen)
+            elif path[-1] == 'kernel':
+                _lecun_normal_(p, p.shape[-1], gen)
             else:
                 p.fill_(1.0)
 
@@ -206,6 +219,14 @@ class TrainerBase:
         self._info(f'loaded weights into {self.model_cfg.meta} on {self.device}')
         return self.model.state_dict()
 
+    def _objective(self, loss: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        """What a step minimises: the task ``loss``, plus ``moe_aux_weight``
+        times the MoE aux loss ``aux`` for a MoE model (metrics keep the task
+        loss, as in JAX)."""
+        if self.model_cfg.moe_num_experts > 0:
+            return loss + self.model_cfg.moe_aux_weight * aux
+        return loss
+
     def _info(self, msg: str) -> None:
         if self.cfg.log_to_console:
             self.logger.info(msg)
@@ -295,6 +316,8 @@ class TrainerBase:
         return latest_committed_checkpoint(self.output_dir)
 
     def save_checkpoint(self, tag: str = 'final') -> str:
+        """Save the full train state as ``ckpt-<tag>`` under output_dir; with
+        ``cfg.async_checkpoint`` the write finishes on the writer thread."""
         from .checkpoint import save_checkpoint
         path = os.path.join(os.path.abspath(self.output_dir), f'ckpt-{tag}')
         state = {'step': self.step, 'epoch': self.epoch,
@@ -305,8 +328,9 @@ class TrainerBase:
                          'device': self.rng.device.get_state()}}
         if self.ema is not None:
             state['ema_params'] = self.ema
-        save_checkpoint(path, state)
-        self._info(f'Checkpoint saved to {path}')
+        save_checkpoint(path, state, async_save=self.cfg.async_checkpoint)
+        self._info(f'Checkpoint saved to {path}'
+                   + (' (async)' if self.cfg.async_checkpoint else ''))
         return path
 
     def load_checkpoint(self, path: str):
@@ -436,7 +460,8 @@ class Trainer(TrainerBase):
             sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size,
                               train=cfg.augment_timeout, generator=self.rng.device)
             out = self.model(sig, labels=lab, loss_weight=cfg.loss_weight, rng=self.rng)
-            return (out.loss.detach(), out.logits.detach(), lab), out.loss
+            return ((out.loss.detach(), out.logits.detach(), lab),
+                    self._objective(out.loss, out.aux_loss))
 
         aux, grads = grad_accum(micro, params, idx, max(1, cfg.grad_accum))
         self.model.eval()
@@ -516,6 +541,7 @@ class Trainer(TrainerBase):
                     break
         if cfg.save_final:
             self.save_checkpoint(tag='final')
+        wait_for_checkpoints()   # every save committed before train() returns
         dt = time.time() - t_start
         self._info(f'Training completed in {dt:.1f}s')
         self.tb.close()

@@ -159,5 +159,11 @@ def test_mask_comes_from_the_device_generator_when_no_noise_is_given():
 
 
 def test_moe_raises():
-    with pytest.raises(NotImplementedError, match='moe'):
-        mae.EcgMae(dataclasses.replace(CFG, moe_num_experts=4), MAE)
+    # MoE builds (tests/test_torch_moe.py holds it to JAX): the encoder blocks
+    # follow the trunk's placement rule, the decoder stays dense
+    model = mae.EcgMae(dataclasses.replace(CFG, moe_num_experts=4), MAE)
+    assert [hasattr(b, 'moe') for b in model.encoder_blocks] == [False, True, False, True]
+    assert not any(hasattr(b, 'moe') for b in model.decoder.blocks)
+    # context parallelism stays refused
+    with pytest.raises(NotImplementedError, match='ring_axis'):
+        mae.EcgMae(dataclasses.replace(CFG, ring_axis='seq'), MAE)

@@ -47,7 +47,7 @@ def test_quantized_leaves_values_and_scales_equal_jax(size, patch_norm):
     qweights, scales = quantize.quantize_int8(sd)
     jtree = jax.tree.map(jnp.asarray, flax_params_from_state_dict(sd))
     jq, jscales = jquant.quantize_params_int8(jtree)
-    paths = {k: '/'.join(('params',) + flax_path(k, v.dim())) for k, v in sd.items()}
+    paths = {k: '/'.join(('params',) + flax_path(k)) for k, v in sd.items()}
     assert {paths[k] for k in qweights} == set(jscales)
     assert len(qweights) == 4 * model.cfg.num_hidden_layers + 2   # + patch proj, head
     if size == 'tiny':     # a 3-D leaf >= MIN_QUANT_SIZE that is no kernel stays f32

@@ -129,11 +129,18 @@ def test_port_mapping_rejects_partial_or_misshapen_params():
 
 
 def test_model_rejects_unported_features():
-    with pytest.raises(NotImplementedError, match='moe_num_experts'):
-        tvit.EcgVit(VitConfig.from_defined('debug', moe_num_experts=4))
-    # remat would redraw the dropout seeds on recompute: it stays unported
-    with pytest.raises(NotImplementedError, match='remat'):
-        tvit.EcgVit(VitConfig.from_defined('debug', remat=True))
+    # the one-device options build (tests/test_torch_moe.py and
+    # tests/test_torch_remat_scan.py hold them to JAX)
+    moe = tvit.EcgVit(VitConfig.from_defined('debug', moe_num_experts=4))
+    assert [hasattr(b, 'moe') for b in moe.encoder.blocks] == [False, True, False, True]
+    assert isinstance(tvit.EcgVit(VitConfig.from_defined('debug', scan_blocks=True))
+                      .encoder.blocks, tvit.ScannedBlocks)
+    assert tvit.EcgVit(VitConfig.from_defined('debug', remat=True)).cfg.remat
+    # what stays refused: context parallelism, and MoE with a scanned stack
+    with pytest.raises(NotImplementedError, match='ring_axis'):
+        tvit.EcgVit(VitConfig.from_defined('debug', ring_axis='seq'))
+    with pytest.raises(ValueError, match='scan_blocks'):
+        tvit.EcgVit(VitConfig.from_defined('debug', moe_num_experts=4, scan_blocks=True))
     # the training forward runs, but a dropout site needs its generators
     m = tvit.EcgVit(VitConfig.from_defined('debug', max_signal_length=320))
     with pytest.raises(ValueError, match='rng'):
