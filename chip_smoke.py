@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
-                                    scale]
+                                    scale artifacts]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -92,7 +92,21 @@ process per source started together (into ``build/torch_kernels/``), then:
    model's weights against the unrolled logits; ViT-large f32 training with dropout, three
    steps with and without ``remat`` from one init (parameters, peak device memory,
    samples/s); the step loop's stall in a sync and an async save of the full ViT-base
-   state, each restored bit for bit.
+   state, each restored bit for bit;
+9. artifacts phase (the one-card tools): ``export_model`` of a seeded ViT-base
+   (``flash_min_seq=0``) on the card at the 10 s wire length, loaded back
+   through ``ExportedModel.load``: one ``ecg_tpu_torch::flash_fwd`` node per
+   layer and 12 launches of #1 per exported bs-64 forward; the f32
+   probabilities against ``Trainer.predict``, a plain-attention twin, the
+   program moved to the CPU and a program traced on the CPU and moved to the
+   card; bf16 and int8 artifacts (int8 bytes against f32's); the artifact's
+   batch-1 ms and bs-64 samples/s beside ``Trainer.predict``'s; the op
+   against the direct binding at the serving shape; the served model's
+   ``return_attention`` maps and their rollout, card vs CPU;
+   ``EcgTokenizer.fit`` at PTB-XL scale (21,837 x 12 x 2500, k 8, 'shift':
+   82,019,772 segments; 256 clusters, 16 iterations) twice for the same bits,
+   ``nearest_centroid`` over every segment, card vs CPU ids on a 1M-segment
+   sample (only near-ties may differ) and the encode/decode round trip.
 
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
@@ -129,15 +143,20 @@ from ecg_representation_learning_tpu_torch.data.export import denoise_chunk
 from ecg_representation_learning_tpu_torch.data.pipeline import (MixedRecordStream,
                                                                  ShardedRecordStream,
                                                                  prefetch_to_device)
+from ecg_representation_learning_tpu_torch.models.export_artifact import (ExportedModel,
+                                                                          export_model)
 from ecg_representation_learning_tpu_torch.models.moe import MoeMlp
 from ecg_representation_learning_tpu_torch.models.moe import capacity as moe_capacity
 from ecg_representation_learning_tpu_torch.models.port import (
     export_vit_pytorch_state_dict, reference_vit_config)
+from ecg_representation_learning_tpu_torch.models.tokenizer import (EcgTokenizer,
+                                                                    nearest_centroid)
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit, stack_unrolled_state_dict
 from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
 from ecg_representation_learning_tpu_torch.ops.loess import rloess
+from ecg_representation_learning_tpu_torch.ops.pad import pad_to_multiple
 from ecg_representation_learning_tpu_torch.ops.preprocess import (fused_train_path,
                                                                   zheng_denoise, zheng_detrend)
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
@@ -150,6 +169,7 @@ from ecg_representation_learning_tpu_torch.train.checkpoint import wait_for_chec
 from ecg_representation_learning_tpu_torch.train.pretrain import MaeTrainer
 from ecg_representation_learning_tpu_torch.train.trainer import (RESIDENT_DTYPES, _prep_batch,
                                                                  flax_init_)
+from ecg_representation_learning_tpu_torch.utils.rollout import attention_rollout
 
 # H100 SXM data sheet: HBM rate, and the dense peak for each input type
 # (f32 on the CUDA cores, bf16 on the tensor cores)
@@ -243,6 +263,21 @@ EXPORT_LIMIT = 1e-5
 # logit (the same operations on slices of a stack)
 SCALE_MOE = dict(moe_num_experts=4, moe_every=2, moe_capacity_factor=1.25)
 SCAN_RTOL = 1e-5
+# the artifacts phase: ViT-base exported at the 10 s wire length (2500
+# samples, which the program pads to the 2560 input); the artifact against
+# Trainer.predict (f32: the same operations, so the bits or 1e-6), against the
+# plain twin and across devices (SERVING_TOL); the int8 artifact's bytes
+# against f32's (the JAX case's 0.55, tests/test_export_artifact.py:107) and
+# its distance from f32 (INT8_TOL); the tokenizer at PTB-XL scale at the CLI
+# defaults (k 8, 'shift', 256 clusters) but 16 of the 64 Lloyd iterations: a
+# 64-iteration fit took 29.4 s on an H100 80GB HBM3 at 700 W, and the phase
+# fits twice; card vs CPU ids on a 1M-segment sample, where only near-ties
+# (two distances within TIE_RTOL in f64) may differ; return_attention maps and
+# their rollout, card vs CPU
+ARTIFACT_LEN, EXPORT_F32_TOL, INT8_BYTES_RATIO = 2500, 1e-6, 0.55
+TOKENIZE_N, TOKENIZE_K, TOKENIZE_CLUSTERS, TOKENIZE_ITERS = 21837, 8, 256, 16
+TIE_SAMPLE, TIE_RTOL, ROLLOUT_TOL = 1 << 20, 1e-5, 1e-5
+ARTIFACT_DIR = 'runs/chip_smoke_artifacts'
 # (name in the kernels line, source under ops/csrc, the TPU kernel it replaces)
 KERNELS = [
     ('flash_fwd', 'flash_fwd', 'ecg_representation_learning_tpu/ops/attention.py:87'),
@@ -2201,8 +2236,234 @@ def scale_phase(smi: str) -> dict:
     return total
 
 
+def _flash_nodes(program) -> int:
+    return sum(str(n.target) == 'ecg_tpu_torch.flash_fwd.default' for n in program.graph.nodes)
+
+
+def _max_err(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _export(tr: Trainer, name: str, **kw):
+    """``export_model`` of ``tr`` at the wire length into ``ARTIFACT_DIR/name``:
+    (metadata, seconds)."""
+    t0 = time.perf_counter()
+    meta = export_model(tr, os.path.join(ARTIFACT_DIR, name), signal_length=ARTIFACT_LEN, **kw)
+    return meta, time.perf_counter() - t0
+
+
+def _op_vs_binding(smi: str) -> dict:
+    """The op ``ecg_tpu_torch::flash_fwd`` against the direct binding of #1 at
+    the serving shape, per call back to back (the dispatcher's host cost)
+    and in device time, in the order op, binding, binding, op."""
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q, k, v = (torch.randn(SERVING_SHAPE, generator=gen, device=DEV) for _ in range(3))
+    scale = 1.0 / math.sqrt(SERVING_SHAPE[-1])
+    calls = {'op': lambda: attn.flash_fwd_op(q, k, v, 0, scale, 0.0),
+             'binding': lambda: attn.flash_fwd_kernel(q, k, v, 0, scale, 0.0)}
+    row = {'phase': 'artifacts_op_vs_binding', 'nvidia_smi': smi,
+           'shape': list(SERVING_SHAPE), 'dtype': 'float32',
+           'same_bits': bool(torch.equal(calls['op'](), calls['binding']())),
+           'op_ms': 0.0, 'binding_ms': 0.0, 'op_device_ms': 0.0, 'binding_device_ms': 0.0}
+    for name in ('op', 'binding', 'binding', 'op'):
+        row[f'{name}_ms'] += time_ms(calls[name]) / 2
+        row[f'{name}_device_ms'] += (device_ms(calls[name]) or float('nan')) / 2
+    row['dispatcher_us_per_call'] = 1e3 * (row['op_ms'] - row['binding_ms'])
+    emit(row)
+    if not row['same_bits']:
+        raise AssertionError(f'the op and the binding differ: {row}')
+    return row
+
+
+def _artifacts_export(stats, smi: str):
+    """``export_model`` of a seeded ViT-base (f32, bf16, int8) on the card,
+    each artifact loaded back through ``ExportedModel.load``: the kernel's
+    launches per exported bs-64 forward, the probabilities against
+    ``Trainer.predict``, a plain-attention twin, the program on the CPU and a
+    program traced on the CPU and moved to the card; the artifact's batch-1
+    ms and bs-64 samples/s beside ``Trainer.predict``'s.  Returns (the f32
+    trainer, #1's launches on the main path)."""
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    cfg = VitConfig.from_defined('base', flash_min_seq=0)          # f32 (--no-bf16)
+    tr = Trainer(cfg, TrainConfig(), norm_stats=stats)
+    tr.init_state()
+    x = (0.2 * np.random.default_rng(3).standard_normal((64, 12, ARTIFACT_LEN))
+         ).astype(np.float32)
+    meta, export_s = _export(tr, 'f32', platforms=['cuda', 'cpu'])
+    t0 = time.perf_counter()
+    art = ExportedModel.load(os.path.join(ARTIFACT_DIR, 'f32'))
+    load_s = time.perf_counter() - t0
+    art.predict(x[:2])                                              # warm-up
+    attn.flash_fwd_kernel.launches = 0
+    probs = art.predict(x)                                          # the main path
+    launches = attn.flash_fwd_kernel.launches
+    want = tr.predict(x)
+    plain = _twin(tr, flash=False)
+    on_cpu = ExportedModel.load(os.path.join(ARTIFACT_DIR, 'f32'), device='cpu')
+    # the same weights exported on the CPU, then moved to the card at load
+    tr_cpu = Trainer(cfg, TrainConfig(), norm_stats=stats, device='cpu')
+    tr_cpu.set_params(tr.model.state_dict())
+    _, export_cpu_s = _export(tr_cpu, 'f32-traced-on-cpu', platforms=['cpu', 'cuda'])
+    moved = ExportedModel.load(os.path.join(ARTIFACT_DIR, 'f32-traced-on-cpu'))
+    # bf16 Linear layers, and int8 weights
+    tr16 = Trainer(dataclasses.replace(cfg, dtype='bfloat16'), TrainConfig(),
+                   norm_stats=stats)
+    tr16.set_params(tr.model.state_dict())
+    _export(tr16, 'bf16')
+    art16 = ExportedModel.load(os.path.join(ARTIFACT_DIR, 'bf16'))
+    p16 = art16.predict(x)
+    meta8, _ = _export(tr, 'int8', int8=True)
+    art8 = ExportedModel.load(os.path.join(ARTIFACT_DIR, 'int8'))
+    p8 = art8.predict(x)
+    q8 = _twin(tr, flash=True)
+    q8.enable_int8_inference()
+
+    rate = {'artifact': 0.0, 'trainer': 0.0}
+    for name, fn in (('artifact', art.predict), ('trainer', tr.predict),
+                     ('trainer', tr.predict), ('artifact', art.predict)):
+        rate[name] += _samples_per_s(lambda: fn(x), len(x)) / 2
+    one = {name: 1e3 * min(_wall(lambda: fn(x[:1])) for _ in range(5))
+           for name, fn in (('artifact', art.predict), ('trainer', tr.predict))}
+    row = {'phase': 'artifacts_export', 'nvidia_smi': smi, 'model': 'ecg-vit-base',
+           'wire': [12, ARTIFACT_LEN], 'flash_min_seq': 0,
+           'export_s': export_s, 'export_traced_on_cpu_s': export_cpu_s, 'load_s': load_s,
+           'bytes_f32': meta['bytes'], 'bytes_int8': meta8['bytes'],
+           'int8_bytes_ratio': meta8['bytes'] / meta['bytes'],
+           'int8_bytes_limit': INT8_BYTES_RATIO, 'platforms': meta['platforms'],
+           'flash_nodes': _flash_nodes(art.program), 'flash_launches_bs64': launches,
+           'f32_bits_equal_trainer': bool(np.array_equal(probs, want)),
+           'f32_vs_trainer': _max_err(probs, want), 'f32_trainer_limit': EXPORT_F32_TOL,
+           'f32_vs_plain_attention': _max_err(probs, plain.predict(x)),
+           'f32_cpu_vs_card': _max_err(on_cpu.predict(x[:8]), probs[:8]),
+           'f32_traced_on_cpu_vs_card': _max_err(moved.predict(x), probs),
+           'limit': SERVING_TOL,
+           'bf16_vs_trainer': _max_err(p16, tr16.predict(x)),
+           'bf16_vs_plain_attention': _max_err(p16, _twin(tr16, flash=False).predict(x)),
+           'bf16_limit': BF16_TOL,
+           'int8_vs_trainer_int8': _max_err(p8, q8.predict(x)),
+           'int8_vs_f32': _max_err(p8, probs), 'int8_f32_limit': INT8_TOL,
+           'bs64_samples_per_s_artifact': rate['artifact'],
+           'bs64_samples_per_s_trainer': rate['trainer'],
+           'batch1_ms_artifact': one['artifact'], 'batch1_ms_trainer': one['trainer']}
+    emit(row)
+    layers = cfg.num_hidden_layers
+    if not (probs.shape == (64, cfg.num_class) and np.isfinite(probs).all()
+            and launches == layers and row['flash_nodes'] == layers
+            and _flash_nodes(art8.program) == layers
+            and row['f32_vs_trainer'] <= EXPORT_F32_TOL
+            and max(row['f32_vs_plain_attention'], row['f32_cpu_vs_card'],
+                    row['f32_traced_on_cpu_vs_card'], row['int8_vs_trainer_int8']) <= SERVING_TOL
+            and max(row['bf16_vs_trainer'], row['bf16_vs_plain_attention']) <= BF16_TOL
+            and row['int8_bytes_ratio'] < INT8_BYTES_RATIO and row['int8_vs_f32'] < INT8_TOL
+            and meta['platforms'] == ['cuda', 'cpu']):
+        raise AssertionError(f'the exported artifact failed: {row}')
+    del plain, on_cpu, tr_cpu, moved, tr16, art16, art8, q8
+    shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    return tr, launches
+
+
+def _artifacts_tokenize(smi: str) -> None:
+    """``EcgTokenizer.fit`` at PTB-XL scale on the card, twice from one seed
+    (the same bits), ``nearest_centroid`` over every segment, card vs CPU ids
+    on a sample, and the encode/decode round trip."""
+    signals, _, _ = synth_ptbxl_device(n=TOKENIZE_N)
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = EcgTokenizer(k=TOKENIZE_K, pad='shift').fit(
+            signals, n_clusters=TOKENIZE_CLUSTERS, n_iter=TOKENIZE_ITERS, seed=77)
+        fits.append((time.perf_counter() - t0, tok))
+    (fit_s, tok), (fit2_s, tok2) = fits
+    same = bool(np.array_equal(tok.centers, tok2.centers)
+                and np.array_equal(tok.lens, tok2.lens))
+    segs, _, _ = tok._segment(signals)
+    centers = torch.as_tensor(tok.centers, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _ = nearest_centroid(segs, centers)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    n_seg = segs.shape[0]
+    # the card's ids against the CPU's on a sample, with the same centers
+    sample = segs[:TIE_SAMPLE].cpu()
+    on_card = ids[:TIE_SAMPLE].cpu()
+    on_cpu, _ = nearest_centroid(sample, centers.cpu())
+    diff = torch.nonzero(on_card != on_cpu).flatten()
+    c64, x64 = centers.cpu().double(), sample[diff].double()
+    d_card = ((x64 - c64[on_card[diff]]) ** 2).sum(1)
+    d_cpu = ((x64 - c64[on_cpu[diff]]) ** 2).sum(1)
+    near = (d_card - d_cpu).abs() <= TIE_RTOL * torch.maximum(d_card, d_cpu)
+    # the encode/decode round trip on 4 records
+    ids4, means4 = tok(signals[:4])
+    dec = tok.decode(ids4, means=means4)
+    padded = pad_to_multiple(signals[:4], TOKENIZE_K, 'shift').cpu().numpy()
+    row = {'phase': 'artifacts_tokenize', 'nvidia_smi': smi, 'records': TOKENIZE_N,
+           'segments': n_seg, 'segment_bytes': n_seg * TOKENIZE_K * 4,
+           'k': TOKENIZE_K, 'pad': 'shift', 'clusters': TOKENIZE_CLUSTERS,
+           'iterations': TOKENIZE_ITERS, 'fit_s': [fit_s, fit2_s],
+           'fit_segments_per_s': n_seg / fit_s,
+           'fit_segment_iterations_per_s': n_seg * TOKENIZE_ITERS / fit_s,
+           'same_bits_twice': same, 'lens_sum': int(tok.lens.sum()),
+           'largest_cluster': int(tok.lens[0]), 'smallest_cluster': int(tok.lens[-1]),
+           'nearest_centroid_s': encode_s, 'nearest_centroid_segments_per_s': n_seg / encode_s,
+           'cpu_sample': TIE_SAMPLE, 'ids_differ': int(diff.numel()),
+           'near_ties': int(near.sum()), 'tie_rtol': TIE_RTOL,
+           'roundtrip_shapes': [list(ids4.shape), list(dec.shape)],
+           'roundtrip_mean_abs_err': float(np.abs(dec - padded).mean()),
+           'padded_mean_abs': float(np.abs(padded).mean())}
+    emit(row)
+    if not (same and row['lens_sum'] == n_seg and bool(near.all())
+            and ids4.shape == (4, 12, padded.shape[-1] // TOKENIZE_K)
+            and dec.shape == padded.shape
+            and row['roundtrip_mean_abs_err'] < row['padded_mean_abs']):
+        raise AssertionError(f'the tokenizer failed: {row}')
+
+
+def _artifacts_rollout(tr: Trainer, smi: str) -> None:
+    """``return_attention`` maps of the served ViT-base on the card against
+    the CPU, then ``attention_rollout`` of both (the math of ``cli
+    visualize``; the figure needs matplotlib, which the card's machine lacks)."""
+    model = tr.served_model()
+    rec = (0.2 * np.random.default_rng(4).standard_normal((12, ARTIFACT_LEN))).astype(np.float32)
+    mean, std = tr.mean.cpu().numpy()[:, None], tr.std.cpu().numpy()[:, None]
+    sig = (rec - mean) / std
+    patch = tr.model_cfg.patch_size
+    sig = np.pad(sig, [(0, 0), (0, patch - sig.shape[-1] % patch)])
+    sig = torch.from_numpy(sig[None, :, :tr.model_cfg.max_signal_length])
+    with torch.no_grad():
+        maps = model(sig.to(DEV), return_attention=True).attention.cpu()
+        maps_cpu = model.cpu()(sig, return_attention=True).attention
+    scores = attention_rollout(maps.numpy())
+    row = {'phase': 'artifacts_rollout', 'nvidia_smi': smi, 'maps_shape': list(maps.shape),
+           'maps_card_vs_cpu': _max_err(maps, maps_cpu),
+           'rollout_card_vs_cpu': _max_err(scores, attention_rollout(maps_cpu.numpy())),
+           'limit': ROLLOUT_TOL, 'rollout_shape': list(scores.shape)}
+    emit(row)
+    if not (max(row['maps_card_vs_cpu'], row['rollout_card_vs_cpu']) <= ROLLOUT_TOL
+            and np.isfinite(scores).all()):
+        raise AssertionError(f'attention maps differ between the card and the CPU: {row}')
+
+
+def artifacts_phase(smi: str) -> dict:
+    """The one-card tools: the exported serving artifact (kernel #1 through
+    the op ``ecg_tpu_torch::flash_fwd``), the op against the binding, the
+    tokenizer at PTB-XL scale and the rollout maps.  Returns #1's launches on
+    the exported forward."""
+    stats = PTBXL_TRAIN_STATS['original']
+    tr, launches = _artifacts_export(stats, smi)
+    _op_vs_binding(smi)
+    _artifacts_rollout(tr, smi)
+    del tr
+    torch.cuda.empty_cache()
+    _artifacts_tokenize(smi)
+    torch.cuda.empty_cache()
+    emit({'phase': 'artifacts', 'launches': {'flash_fwd': launches}})
+    return {'flash_fwd': launches}
+
+
 PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
-          'scale')
+          'scale', 'artifacts')
 
 
 def main(argv=None) -> int:
@@ -2258,6 +2519,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'scale' in args.phases:
         for name, count in scale_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'artifacts' in args.phases:
+        for name, count in artifacts_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

@@ -19,6 +19,11 @@
     python -m ecg_representation_learning_tpu_torch.cli pretrain --stream shards/ptbxl \
         --stream shards/code-test --stream-weights 0.75,0.25 --stream-steps 1000 \
         --ckpt-every 100 [--resume]
+    python -m ecg_representation_learning_tpu_torch.cli export-model --checkpoint \
+        runs/x/ckpt-final [--int8] [--platforms cuda,cpu] --out exported_model
+    python -m ecg_representation_learning_tpu_torch.cli tokenize --hdf5 x-combined.hdf5 --k 8
+    python -m ecg_representation_learning_tpu_torch.cli visualize --checkpoint \
+        runs/x/ckpt-final --split test --index 0
 
 ``train``, ``pretrain`` and ``evaluate`` read a combined HDF5 and its label
 index (``--hdf5``, ``--labels-csv``; ``cli synth`` writes both), else they
@@ -46,6 +51,13 @@ each corpus preprocessed on the GPU at its own rate (shard metadata), with
 contrastive`` is refused with ``--stream``, as in the JAX CLI.  The HDF5
 paths need h5py; everything runs on the GPU, and ``denoise --device cpu``
 runs the plain versions of the kernels on the CPU.
+
+Tools: ``export-model`` writes the served model as a ``torch.export``
+artifact (``models/export_artifact.py``: ``model.pt2`` + ``metadata.json``;
+``ExportedModel.load`` runs it with only the port's op module imported);
+``tokenize`` fits the segment tokenizer (``models/tokenizer.py``) and pickles
+it; ``visualize`` renders the attention rollout of one record on the served
+weights (matplotlib and seaborn, imported when used).
 """
 from __future__ import annotations
 
@@ -319,6 +331,35 @@ def cmd_evaluate(args):
                       if isinstance(v, dict)}))
 
 
+def cmd_visualize(args):
+    """Render an attention-rollout figure for one record (reference
+    EcgVitVisualizer workflow, ecg_vit.py:164-265), from the served weights
+    (the EMA with --ema-decay)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import numpy as np
+    from .configs import TrainConfig
+    from .train import Trainer
+    from .utils import EcgVitVisualizer
+    splits = _load_splits(args)
+    model_cfg = _model_cfg_for(args)
+    tr = Trainer(model_cfg, TrainConfig(ema_decay=args.ema_decay), eval_data=splits.eval,
+                 norm_stats=_stats(args))
+    tr.init_state()
+    if args.checkpoint:
+        _load_ckpt(tr, args)
+    data = {'eval': splits.eval, 'test': splits.test}[args.split]
+    sig = np.asarray(data.signals[args.index], np.float32)
+    # the normalize + always-pad the model expects, then its input length
+    mean = tr.mean.cpu().numpy().reshape(-1, 1)
+    std = tr.std.cpu().numpy().reshape(-1, 1)
+    sig = (sig - mean) / std
+    n_pad = model_cfg.patch_size - (sig.shape[-1] % model_cfg.patch_size)
+    sig = np.pad(sig, [(0, 0), (0, n_pad)])[:, :model_cfg.max_signal_length]
+    path = EcgVitVisualizer(tr.served_model())(sig, data.labels[args.index], save=True)
+    print(json.dumps({'figure': path}))
+
+
 def infer_records(tr, signals, top_k: int = 5):
     """Per-record top-k PTB-XL codes of ``signals`` (N, 12, L) through
     ``tr.predict_long`` (records longer than the model input are windowed,
@@ -368,6 +409,52 @@ def cmd_serve(args):
     finally:
         httpd.server_close()
         httpd.service.close()
+
+
+def cmd_export_model(args):
+    """Export the served model as a ``torch.export`` serving artifact
+    (models/export_artifact.py): normalization + pad + forward + sigmoid in
+    one program, weights inside, symbolic batch."""
+    from .configs import TrainConfig
+    from .models.export_artifact import export_model
+    from .train import Trainer
+    tr = Trainer(_model_cfg_for(args), TrainConfig(ema_decay=args.ema_decay),
+                 norm_stats=_stats(args))
+    tr.init_state()
+    _maybe_port(args, tr)
+    if args.checkpoint:
+        _load_ckpt(tr, args)
+    platforms = args.platforms.split(',') if args.platforms else None
+    meta = export_model(tr, args.out, signal_length=args.signal_length,
+                        int8=args.int8, platforms=platforms)
+    print(json.dumps({'out': args.out, 'bytes': meta['bytes'],
+                      'platforms': meta['platforms'],
+                      'signal_length': meta['wire']['signal_length'],
+                      'int8': meta['int8']}))
+
+
+def cmd_tokenize(args):
+    """Fit the segment tokenizer (models/tokenizer.py) on a combined HDF5 or
+    the synthetic corpus and pickle it."""
+    from .models.tokenizer import EcgTokenizer
+    from .utils.check_args import ca
+    ca(pad_mode=args.pad)
+    if args.hdf5:
+        from .data import EcgDataset
+        ds = EcgDataset(args.hdf5)
+        try:
+            sigs = ds.load()
+        finally:
+            ds.close()
+    else:
+        from .data import synth_ptbxl
+        sigs, _, _ = synth_ptbxl(n=args.synth_n)
+    tok = EcgTokenizer(k=args.k, pad=args.pad).fit(
+        sigs, n_clusters=args.clusters, n_iter=args.iters, seed=args.seed)
+    path = tok.save(args.out)
+    rf = tok.rank_frequency()
+    print(json.dumps({'tokenizer': path, 'n_clusters': int(tok.centers.shape[0]),
+                      'power_law_exponent': rf['exponent']}))
 
 
 def cmd_port(args):
@@ -430,7 +517,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog='ecg-torch')
     sub = p.add_subparsers(dest='cmd', required=True)
     for name, fn in (('train', cmd_train), ('pretrain', cmd_pretrain),
-                     ('evaluate', cmd_evaluate)):
+                     ('evaluate', cmd_evaluate), ('visualize', cmd_visualize)):
         sp = sub.add_parser(name)
         _add_common_train_flags(sp)
         sp.add_argument('--hdf5', default=None)
@@ -485,11 +572,15 @@ def build_parser() -> argparse.ArgumentParser:
                                  'checkpoint under --output-dir (bit-identical to an '
                                  'uninterrupted run over the deterministic stream)')
             sp.add_argument('--log-every', type=int, default=50)
-        if name == 'evaluate':
+        if name in ('evaluate', 'visualize'):
             sp.add_argument('--checkpoint', default=None)
+        if name == 'evaluate':
             sp.add_argument('--out', default='eval')
             sp.add_argument('--pick-edge-samples', action='store_true',
                             help='also dump low/median/high-loss sample indices')
+        if name == 'visualize':
+            sp.add_argument('--split', default='test', choices=['eval', 'test'])
+            sp.add_argument('--index', type=int, default=0)
         sp.set_defaults(fn=fn)
     pi = sub.add_parser('infer', help='unlabeled HDF5 -> per-record top-k '
                                       'code probabilities (JSON)')
@@ -517,6 +608,35 @@ def build_parser() -> argparse.ArgumentParser:
     psv.add_argument('--host', default='127.0.0.1')
     psv.add_argument('--port', type=int, default=8000)
     psv.set_defaults(fn=cmd_serve)
+    pem = sub.add_parser('export-model',
+                         help='trained checkpoint -> self-contained torch.export serving '
+                              'artifact (weights inside; loads with only the '
+                              "port's op module imported)")
+    _add_common_train_flags(pem)
+    _add_stats_flag(pem)
+    pem.add_argument('--checkpoint', default=None)
+    pem.add_argument('--port-checkpoint', default=None, metavar='PT_FILE')
+    pem.add_argument('--int8', action='store_true',
+                     help='store weight-only int8 tensors with the dequantization in '
+                          'the program (~4x smaller artifact)')
+    pem.add_argument('--signal-length', type=int, default=None,
+                     help='wire length L of requests (default: model input minus one '
+                          'patch)')
+    pem.add_argument('--platforms', default=None,
+                     help="comma-separated devices to check the program on and allow "
+                          "at load, e.g. 'cuda,cpu' (default: this machine's GPU)")
+    pem.add_argument('--out', default='exported_model')
+    pem.set_defaults(fn=cmd_export_model)
+    pt = sub.add_parser('tokenize')
+    pt.add_argument('--hdf5', default=None)
+    pt.add_argument('--synth-n', type=int, default=128)
+    pt.add_argument('--k', type=int, default=8)
+    pt.add_argument('--pad', default='shift', choices=['zero', 'shift'])
+    pt.add_argument('--clusters', type=int, default=256)
+    pt.add_argument('--iters', type=int, default=64)
+    pt.add_argument('--seed', type=int, default=77)
+    pt.add_argument('--out', default='tokenizer.pickle')
+    pt.set_defaults(fn=cmd_tokenize)
     pp = sub.add_parser('port', help='reference vit-pytorch EcgVit .pt -> a port '
                                      'checkpoint')
     _add_common_train_flags(pp)

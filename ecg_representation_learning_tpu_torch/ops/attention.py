@@ -10,7 +10,10 @@ dispatcher ``attention``.  Layout is the JAX package's: (B, H, T, D).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its
 plain PyTorch version (``*_reference``) for a CPU tensor; there is no
-fallback from one to the other.
+fallback from one to the other.  Kernel #1 is also the registered op
+``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``), which the forward calls
+while ``torch.export`` traces it, so an exported program keeps the kernel as
+one node (``models/export_artifact.py``).
 """
 from __future__ import annotations
 
@@ -174,10 +177,11 @@ def flash_backward_recompute(q, k, v, g, seed: int = 0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_qkv(name: str, q, others, seed: int, dropout_rate: float):
+def _check_qkv(name: str, q, others, seed: int, dropout_rate: float,
+               device_type: str = 'cuda'):
     """The input checks shared by the kernel wrappers: ``others`` (name,
     tensor) must match q; q is (B, H, T, D) f32 or bf16 with D <= 128, all
-    contiguous CUDA tensors."""
+    contiguous tensors on a ``device_type`` device."""
     for other, x in others:
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
@@ -198,8 +202,8 @@ def _check_qkv(name: str, q, others, seed: int, dropout_rate: float):
         raise ValueError(f'dropout seed must be a non-negative int32, got {seed}')
     if not (0.0 <= dropout_rate < 1.0):
         raise ValueError(f'dropout_rate must be in [0, 1), got {dropout_rate}')
-    if q.device.type != 'cuda':
-        raise ValueError(f'{name} kernel takes CUDA tensors, got {q.device}')
+    if q.device.type != device_type:
+        raise ValueError(f'{name} kernel takes {device_type.upper()} tensors, got {q.device}')
 
 
 def _check_rows(q, **rows):
@@ -305,6 +309,32 @@ def _on(x, cuda, cpu):
     raise RuntimeError(f'no flash attention for device {x.device}')
 
 
+@torch.library.custom_op('ecg_tpu_torch::flash_fwd', mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed: int,
+                 scale: float, dropout_rate: float) -> torch.Tensor:
+    """Kernel #1 as a registered op, so that ``torch.export`` keeps it as one
+    node of the graph (the ctypes binding cannot be traced).  Its CUDA kernel
+    is ``flash_fwd_kernel``, its CPU kernel the plain version behind the
+    binding's input checks; any other device raises."""
+    raise RuntimeError(f'ecg_tpu_torch::flash_fwd has no kernel for {q.device}')
+
+
+@flash_fwd_op.register_kernel('cuda')
+def _(q, k, v, seed, scale, dropout_rate):
+    return flash_fwd_kernel(q, k, v, seed, scale, dropout_rate)
+
+
+@flash_fwd_op.register_kernel('cpu')
+def _(q, k, v, seed, scale, dropout_rate):
+    _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate, device_type='cpu')
+    return flash_attention_forward_reference(q, k, v, seed, scale, dropout_rate)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, seed, scale, dropout_rate):
+    return torch.empty_like(q)
+
+
 def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = None,
                             dropout_rate: float = 0.0, return_lse: bool = False):
     """Flash attention forward, (B, H, T, D) -> (B, H, T, D), and with
@@ -312,8 +342,13 @@ def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = Non
 
     ``scale`` defaults to 1/sqrt(D).  ``dropout_rate`` > 0 drops attention
     probabilities with the hashed keep mask of ``seed``.  A CUDA tensor runs
-    the kernel (#1, or #2 for the lse); a CPU tensor the plain version."""
+    the kernel (#1, or #2 for the lse); a CPU tensor the plain version.
+    Under ``torch.export`` the forward without lse is the op
+    ``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``); eager calls use the
+    binding directly and skip the dispatcher."""
     scale = _scale(q, scale)
+    if not return_lse and torch.compiler.is_exporting():
+        return flash_fwd_op(q, k, v, int(seed), scale, float(dropout_rate))
     kernel = flash_fwd_lse_kernel if return_lse else flash_fwd_kernel
     return _on(q, lambda: kernel(q, k, v, int(seed), scale, float(dropout_rate)),
                lambda: flash_attention_forward_reference(

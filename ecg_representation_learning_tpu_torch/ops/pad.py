@@ -1,4 +1,5 @@
-"""Time-axis padding (reference ``TimeEndPad``, transform.py:140-154)."""
+"""Time-axis padding (reference ``TimeEndPad``, transform.py:140-154) and the
+tokenizer's segment padder (``EcgPadder``, ecg_tokenizer.py:88-137)."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,18 @@ def time_end_pad(x: torch.Tensor, k: int, value: float = 0.0) -> torch.Tensor:
     """
     n_pad = k - (x.shape[-1] % k)
     return F.pad(x, (0, n_pad), value=value)
+
+
+def pad_to_multiple(x: torch.Tensor, k: int, mode: str = 'zero') -> torch.Tensor:
+    """Tokenizer segment padding (reference ``EcgPadder``,
+    ecg_tokenizer.py:88-137), with the same always-pad quirk
+    (``n_pad = k - L % k``, never 0).  'zero' pads with zeros; 'shift'
+    repeats the last ``n_pad`` real samples (ecg_tokenizer.py:121), keeping
+    the morphology at the boundary."""
+    length = x.shape[-1]
+    n_pad = k - (length % k)
+    if mode == 'zero':
+        return F.pad(x, (0, n_pad))
+    if mode == 'shift':
+        return torch.cat([x, x[..., length - n_pad:length]], dim=-1)
+    raise ValueError(f'Unknown pad mode {mode!r}')

@@ -3,16 +3,18 @@ statistics.
 
 A copy of the tables in the JAX package's ``registry.py`` (the port imports
 nothing of that package): the 71-code id order, the per-code descriptions,
-the public 12-lead corpora (``DatasetMeta``, ``DATASETS``, the export and
-WFDB lists), the 250 Hz 12-lead grid, the Zheng denoise constants and the
-train-split per-lead statistics.  ``tests/test_torch_imports.py``,
-``tests/test_torch_serving.py`` and ``tests/test_torch_ingest.py`` hold the
-copy equal to the original.
+the taxonomy (aspects, the diagnostic class -> subclass -> code map, the
+subclass descriptions), the public 12-lead corpora (``DatasetMeta``,
+``DATASETS``, the export and WFDB lists), the 250 Hz 12-lead grid and lead
+order, the Zheng denoise constants, the train-split per-lead statistics and
+the ``config('a.b.c')`` accessor.  ``tests/test_torch_imports.py``,
+``tests/test_torch_serving.py``, ``tests/test_torch_ingest.py`` and
+``tests/test_torch_utils.py`` hold the copy equal to the original.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # id -> SCP code, 71 entries (order of scp_statements.csv restricted to the
 # diagnostic/form/rhythm aspects)
@@ -26,10 +28,92 @@ PTBXL_ID2CODE: Tuple[str, ...] = (
     'AFIB', 'STACH', 'SARRH', 'SBRAD', 'PACE', 'SVARR', 'BIGU', 'AFLT', 'SVTAC', 'PSVT',
     'TRIGU',
 )
+PTBXL_CODE2ID: Dict[str, int] = {c: i for i, c in enumerate(PTBXL_ID2CODE)}
 PTBXL_N_CLASS = len(PTBXL_ID2CODE)
 assert PTBXL_N_CLASS == 71
 
+# Aspect membership (reference config.json form-codes / rhythm-codes; codes may
+# belong to several aspects, e.g. NDT is diagnostic+form)
+PTBXL_FORM_CODES: Tuple[str, ...] = (
+    'NDT', 'NST_', 'DIG', 'LNGQT', 'ABQRS', 'PVC', 'STD_', 'VCLVH', 'QWAVE', 'LOWT',
+    'NT_', 'PAC', 'LPR', 'INVT', 'LVOLT', 'HVOLT', 'TAB_', 'STE_', 'PRC(S)',
+)
+PTBXL_RHYTHM_CODES: Tuple[str, ...] = (
+    'SR', 'AFIB', 'STACH', 'SARRH', 'SBRAD', 'PACE', 'SVARR', 'BIGU', 'AFLT', 'SVTAC',
+    'PSVT', 'TRIGU',
+)
+
+# diagnostic superclass -> subclass -> codes (reference config.json
+# ``diagnostic-class2sub-class2code``; used by the AUROC report plots)
+PTBXL_DIAGNOSTIC_TAXONOMY: Dict[str, Dict[str, Tuple[str, ...]]] = {
+    'CD': {
+        'LAFB/LPFB': ('LAFB', 'LPFB'),
+        'IRBBB': ('IRBBB',),
+        'ILBBB': ('ILBBB',),
+        'CLBBB': ('CLBBB',),
+        'CRBBB': ('CRBBB',),
+        '_AVB': ('1AVB', '2AVB', '3AVB'),
+        'IVCD': ('IVCD',),
+        'WPW': ('WPW',),
+    },
+    'HYP': {
+        'LVH': ('LVH',),
+        'RVH': ('RVH',),
+        'LAO/LAE': ('LAO/LAE',),
+        'RAO/RAE': ('RAO/RAE',),
+        'SEHYP': ('SEHYP',),
+    },
+    'MI': {
+        'AMI': ('AMI', 'ALMI', 'ASMI'),
+        'IMI': ('IMI', 'ILMI', 'IPLMI', 'IPMI', 'INJIN', 'INJIL'),
+        'LMI': ('LMI', 'INJLA', 'ISCLA'),
+        'PMI': ('PMI',),
+    },
+    'NORM': {
+        'NORM': ('NORM',),
+    },
+    'STTC': {
+        'ISCA': ('ISCAL', 'ISCAS', 'ISCAN', 'INJAS', 'INJAL'),
+        'ISCI': ('ISCIN', 'ISCIL'),
+        'ISC_': ('ISC_',),
+        'STTC': ('NDT', 'DIG', 'LNGQT', 'EL', 'ANEUR'),
+        'NST_': ('NST_',),
+    },
+}
+
+# Subclass descriptions for reporting (reference config.json
+# ``diagnostic-sub-class2description``)
+PTBXL_SUBCLASS_DESCRIPTION: Dict[str, str] = {
+    'LAFB/LPFB': 'left anterior/posterior fascicular block',
+    'IRBBB': 'incomplete right bundle branch block',
+    'ILBBB': 'incomplete left bundle branch block',
+    'CLBBB': 'complete left bundle branch block',
+    'CRBBB': 'complete right bundle branch block',
+    '_AVB': 'AV block',
+    'IVCD': 'non-specific intraventricular conduction disturbance (block)',
+    'WPW': 'Wolf-Parkinson-White syndrome',
+    'LVH': 'left ventricular hypertrophy',
+    'RVH': 'right ventricular hypertrophy',
+    'LAO/LAE': 'left atrial overload/enlargement',
+    'RAO/RAE': 'right atrial overload/enlargement',
+    'SEHYP': 'septal hypertrophy',
+    'AMI': 'anterior myocardial infarction',
+    'IMI': 'inferior myocardial infarction',
+    'LMI': 'lateral myocardial infarction',
+    'PMI': 'posterior myocardial infarction',
+    'NORM': 'normal ECG',
+    'ISCA': 'ischemic in anterior leads',
+    'ISCI': 'ischemic in inferior leads',
+    'ISC_': 'non-specific ischemic',
+    'STTC': 'ST-T changes',
+    'NST_': 'non-specific ST changes',
+}
+
 TARGET_FQS = 250  # common grid every corpus is resampled to (reference data_export.py:241)
+# Standard 12-lead order used throughout (reference util/ecg.py:69)
+LEAD_NAMES: Tuple[str, ...] = (
+    'I', 'II', 'III', 'avR', 'avL', 'avF', 'V1', 'V2', 'V3', 'V4', 'V5', 'V6'
+)
 N_LEADS = 12
 
 
@@ -97,6 +181,8 @@ EXPORT_DATASETS: Tuple[str, ...] = (
 WFDB_DATASETS: Tuple[str, ...] = (
     'INCART', 'PTB-XL', 'PTB-Diagnostic', 'CSPC-CinC', 'CSPC-Extra-CinC', 'G12EC',
 )
+
+RANDOM_SEED = 77  # reference config.json 'random-seed'
 
 
 # Zheng et al. denoising constants (reference config.json ``pre_processing.zheng``)
@@ -192,6 +278,33 @@ PTBXL_CODE2DESCRIPTION: Dict[str, str] = {
 }
 assert set(PTBXL_CODE2DESCRIPTION) == set(PTBXL_ID2CODE)
 
+
+def ptbxl_code_aspects(code: str) -> List[str]:
+    """Aspects ('diagnostic' / 'form' / 'rhythm') a code belongs to."""
+    aspects = []
+    for cls in PTBXL_DIAGNOSTIC_TAXONOMY.values():
+        for codes in cls.values():
+            if code in codes:
+                aspects.append('diagnostic')
+                break
+        if aspects:
+            break
+    if code in PTBXL_FORM_CODES:
+        aspects.append('form')
+    if code in PTBXL_RHYTHM_CODES:
+        aspects.append('rhythm')
+    return aspects
+
+
+def ptbxl_diagnostic_class(code: str) -> Optional[Tuple[str, str]]:
+    """(superclass, subclass) of a diagnostic code, or None."""
+    for sup, sub2codes in PTBXL_DIAGNOSTIC_TAXONOMY.items():
+        for sub, codes in sub2codes.items():
+            if code in codes:
+                return sup, sub
+    return None
+
+
 # PTB-XL train-split (strat_fold 1-8) per-lead statistics, for the 'original'
 # (resampled only) and 'denoised' (full Zheng chain) exports
 PTBXL_TRAIN_STATS: Dict[str, Dict[str, Tuple[float, ...]]] = {
@@ -216,3 +329,54 @@ PTBXL_TRAIN_STATS: Dict[str, Dict[str, Tuple[float, ...]]] = {
                 0.2784479260444641, 0.24767889082431793, 0.19650913774967194),
     },
 }
+
+
+def config(dotted_key: str):
+    """Dot-path accessor over the registry, mirroring the reference's
+    ``config('a.b.c')`` API (util/util.py:87-96) for drop-in familiarity.
+
+    Supported roots: ``datasets.<KEY>.<field>``, ``datasets.PTB-XL.code.*``,
+    ``datasets.PTB-XL.train-stats.*``, ``pre_processing.zheng.*``,
+    ``datasets-export.*``, ``random-seed``.
+    """
+    parts = dotted_key.split('.')
+    root = {
+        'datasets': _config_datasets,
+        'datasets-export': lambda: {'total': list(EXPORT_DATASETS),
+                                    'support_wfdb': list(WFDB_DATASETS)},
+        'pre_processing': lambda: {'zheng': {
+            'low_pass': dataclasses.asdict(LOW_PASS),
+            'nlm': {'smooth_factor': NLM.smooth_factor,
+                    'window_size': NLM.window_size}}},
+        'random-seed': lambda: RANDOM_SEED,
+    }
+    if parts[0] not in root:
+        raise KeyError(dotted_key)
+    node = root[parts[0]]()
+    for p in parts[1:]:
+        node = node[p]
+    return node
+
+
+def _config_datasets():
+    out = {}
+    for key, meta in DATASETS.items():
+        d = {k: v for k, v in dataclasses.asdict(meta).items() if v is not None}
+        d['nm'] = d.pop('name')
+        d['dir_nm'] = d.pop('dir_name')
+        out[key] = d
+    out['PTB-XL']['code'] = {
+        'id2code': list(PTBXL_ID2CODE),
+        'code2id': dict(PTBXL_CODE2ID),
+        'form-codes': list(PTBXL_FORM_CODES),
+        'rhythm-codes': list(PTBXL_RHYTHM_CODES),
+        'diagnostic-class2sub-class2code': {
+            sup: {sub: list(cs) for sub, cs in subs.items()}
+            for sup, subs in PTBXL_DIAGNOSTIC_TAXONOMY.items()},
+        'diagnostic-sub-class2description': dict(PTBXL_SUBCLASS_DESCRIPTION),
+        'code2description': dict(PTBXL_CODE2DESCRIPTION),
+    }
+    out['PTB-XL']['train-stats'] = {
+        t: {k: list(v) for k, v in d.items()}
+        for t, d in PTBXL_TRAIN_STATS.items()}
+    return out

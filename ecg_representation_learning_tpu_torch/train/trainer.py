@@ -35,6 +35,7 @@ seeded init, checkpoints and logging.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import logging
@@ -289,6 +290,16 @@ class TrainerBase:
         if self.ema is not None:
             return self.ema
         return {k: p.detach() for k, p in self.params().items()}
+
+    def served_model(self) -> torch.nn.Module:
+        """A copy of the model holding the served weights
+        (``_served_state``), in eval mode (``cli visualize`` and
+        ``models.export_artifact`` read it)."""
+        model = copy.deepcopy(self.model).eval()
+        with torch.no_grad():
+            for key, val in self._served_state().items():
+                model.get_parameter(key).copy_(val)
+        return model
 
     def _eval_forward(self, *args, **kw):
         """The eval-mode forward on the served weights (``_served_state``),

@@ -17,6 +17,7 @@ class CheckArg:
                             [f'ecg-vit-{s}' for s in VitConfig._SIZES])
         self.cache_mismatch('model_size', list(VitConfig._SIZES))
         self.cache_mismatch('ptbxl_type', list(PTBXL_TRAIN_STATS))
+        self.cache_mismatch('pad_mode', ['zero', 'shift'])
         self.cache_mismatch('loss_reduction', ['mean', 'none'])
         self.cache_mismatch('optimizer', ['AdamW', 'Adam'])
         self.cache_mismatch('schedule', ['constant', 'cosine'])

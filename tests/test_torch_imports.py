@@ -1,11 +1,14 @@
-"""The port loads with JAX and the JAX package blocked, and without h5py
-and pandas (the GPU machine has neither): every module, the ingest and
-stream modules (``data.readers``, ``data.native``, ``data.export``,
-``data.pipeline``, ``cli``) among them.
+"""The port loads with JAX and the JAX package blocked, and without h5py,
+pandas, matplotlib, seaborn and scikit-learn (the GPU machine has none of
+them): every module, the ingest and stream modules (``data.readers``,
+``data.native``, ``data.export``, ``data.pipeline``, ``cli``) and the tools
+(``models.export_artifact``, ``models.tokenizer``, ``utils.viz``,
+``utils.rollout``, ``utils.auc_plot``, ``utils.ecg_domain``,
+``registry_gen``) among them.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
-``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas`` and
-``ecg_representation_learning_tpu`` (the name itself or
+``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas``, ``matplotlib``,
+``seaborn``, ``sklearn`` and ``ecg_representation_learning_tpu`` (the name itself or
 ``ecg_representation_learning_tpu.``-prefixed, so the port
 ``ecg_representation_learning_tpu_torch`` is not caught), then imports every
 module of the port and ``chip_smoke.py``.
@@ -24,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BLOCKER = '''
 import importlib, importlib.abc, importlib.util, sys
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'h5py', 'pandas',
-           'ecg_representation_learning_tpu')
+           'matplotlib', 'seaborn', 'sklearn', 'ecg_representation_learning_tpu')
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -70,6 +73,10 @@ def test_port_and_chip_smoke_import_without_jax():
         'data.readers', 'data.native', 'data.export', 'data.pipeline', 'data.torch_adapter',
         'utils.misc', 'cli')}
     assert ingest <= set(modules), ingest - set(modules)
+    tools = {f'{port.__name__}.{m}' for m in (
+        'models.export_artifact', 'models.tokenizer', 'utils.viz', 'utils.rollout',
+        'utils.auc_plot', 'utils.ecg_domain', 'registry_gen', 'cli')}
+    assert tools <= set(modules), tools - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)
@@ -79,7 +86,7 @@ def test_port_and_chip_smoke_import_without_jax():
 
 @pytest.mark.parametrize('name', ['jax', 'ecg_representation_learning_tpu',
                                   'ecg_representation_learning_tpu.registry', 'h5py',
-                                  'pandas'])
+                                  'pandas', 'matplotlib', 'seaborn', 'sklearn'])
 def test_blocker_blocks_the_jax_side(name):
     code = f'MODULES = [{name!r}]\nCHIP_SMOKE = ""\n' + BLOCKER
     res = _run(code)

@@ -246,12 +246,19 @@ REQUIRED = {
               '--out', '--size', '--no-bf16', '--batch-size', '--ema-decay'},
     'port': {'--port-checkpoint', '--out', '--size', '--no-bf16'},
     'synth': {'--n', '--seed', '--marker-classes', '--hard', '--out'},
+    'export-model': {'--stats', '--checkpoint', '--port-checkpoint', '--int8',
+                     '--signal-length', '--platforms', '--out', '--ema-decay'},
+    'tokenize': {'--hdf5', '--synth-n', '--k', '--pad', '--clusters', '--iters', '--seed',
+                 '--out'},
+    'visualize': {'--hdf5', '--labels-csv', '--synth-n', '--stats', '--checkpoint', '--split',
+                  '--index', '--ema-decay'},
 }
 
 
 def test_cli_flags_are_the_jax_names_and_defaults(monkeypatch):
-    """Every flag of every port subcommand is the JAX CLI's, with its default
-    (and whether it is required); the disk-corpus flags are all there."""
+    """Every JAX subcommand is in the port, and every flag of every port
+    subcommand is the JAX CLI's, with its default (and whether it is
+    required); the disk-corpus and tools flags are all there."""
     def capture(self, *args, **kw):
         raise _Parsed(self)
     with monkeypatch.context() as m:
@@ -260,7 +267,7 @@ def test_cli_flags_are_the_jax_names_and_defaults(monkeypatch):
             jcli.main([])
     jsub = _subcommands(parsed.value.args[0])
     sub = _subcommands(cli.build_parser())
-    assert set(REQUIRED) | {'denoise'} <= set(sub) <= set(jsub)
+    assert set(REQUIRED) | {'denoise'} <= set(sub) == set(jsub)
     for name, sp in sub.items():
         got, want = _flags(sp), _flags(jsub[name])
         assert set(got) - set(want) == PORT_ONLY.get(name, set()), name
