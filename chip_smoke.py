@@ -18,10 +18,16 @@ process per source started together (into ``build/torch_kernels/``), then:
    dropout 0 and 0.1,
    and the dropout masks of #1 to #4 checked entry by entry against
    ``keep_full``; #3 and #4 also as one backward (with the delta reduction)
-   beside SDPA's backward and the plain recompute, in device time; AdamW (#5)
-   over every
-   ViT-base leaf for three steps (plain, clip engaged, non-finite), f32 and
-   bf16 mu, against ``torch.optim.AdamW(fused=True)``; the NLM kernel (#6)
+   beside SDPA's backward and the plain recompute, in device time; #5's
+   FusedAdamW tail (``adamw.cu``: the norm launch with the clip and
+   non-finite scalars and the counter, then the update) over every ViT-base
+   leaf with f32 and bf16 mu and over the Switch-MoE ViT-base tree, three
+   steps (no clip, clip engaged, non-finite): the norm within 1e-6 of
+   ``global_norm`` and the same bits twice, the scalars and counter equal to
+   the plain version's from the same norm, the update bit for bit; device ms,
+   ms per call and host us per call beside
+   ``torch.optim.AdamW(fused=True)``'s, the norm launch against its bound;
+   the NLM kernel (#6)
    on the denoise chain's rows of 64 records at full and bounded search (in
    device time too, with the cluster size the kernel chose, and twice for
    the same bits), of 16 records, with QRS-sized spikes, on ragged rows with
@@ -40,15 +46,17 @@ process per source started together (into ``build/torch_kernels/``), then:
    Linear layers;
 3. training phase: ViT-base with ``flash_min_seq=0`` and a blocked-backward
    threshold of 0, so every step runs 12 lse forwards, 12 dQ, 12 dK/dV and
-   one AdamW launch: three f32 steps against a plain twin (plain attention,
-   plain AdamW) from one init, then ``Trainer.train()`` in bf16 with dropout
-   0.1 and TimeOut over 2 epochs of the hard synthetic corpus, with its
-   train samples/s, eval macro-AUROC and a profile of one step;
+   #5's two launches (norm, update): three f32 steps against a plain twin
+   (plain attention, the plain AdamW tail) from one init, then
+   ``Trainer.train()`` in bf16 with dropout 0.1 and TimeOut over 2 epochs of
+   the hard synthetic corpus, with its train samples/s, eval macro-AUROC,
+   #5's block-table rebuilds, a profile of one step and one of its update
+   tail alone (at most 2 launches and 1 copy);
 4. pretrain phase: the same for self-supervised pretraining, MAE (default
    ``MaeConfig``: each step 14 lse forwards, dQ and dK/dV -- 12 encoder
    layers at 10 visible tokens, 2 decoder layers at 40 tokens over 4 heads
-   -- and one AdamW) then contrastive (12 layers at 2B = 128 rows): three f32
-   steps of each against a plain twin fed the same mask noise or views,
+   -- and #5's two launches) then contrastive (12 layers at 2B = 128 rows):
+   three f32 steps of each against a plain twin fed the same mask noise or views,
    ``train()`` in bf16 with dropout 0.1 for one epoch with eval, a profile of
    one step, then the handoff: ``load_any_encoder`` of the final checkpoint
    into a fresh ViT-base (the trunk's bits checked) and one epoch of the
@@ -161,6 +169,7 @@ from ecg_representation_learning_tpu_torch.ops.preprocess import (fused_train_pa
                                                                   zheng_denoise, zheng_detrend)
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
 from ecg_representation_learning_tpu_torch.serving import serve
+from ecg_representation_learning_tpu_torch.tools import adamw_probe
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
 from ecg_representation_learning_tpu_torch.train import SplitData, Trainer, checkpoint
 from ecg_representation_learning_tpu_torch.train.contrastive import (ContrastiveTrainer,
@@ -205,6 +214,12 @@ BWD_LIMITS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LSE_LIMIT = 1e-5                     # row log-sum-exp, f32 in both dtypes
 ADAMW_LIMIT = 0.0                    # the kernel repeats the plain version's
                                      # IEEE operations in order: bit for bit
+# #5's three steps (clip_norm, finite gradients): no clip, the clip engaged
+# (||g|| ~ 9e3 at ViT-base), a NaN gradient; the norm launch against
+# global_norm, relative: the kernel sums squares in f64, the plain version in
+# f32 per leaf (tests/test_torch_optim.py's bar against optax)
+ADAMW_STEPS = [(None, True), (1.0, True), (1.0, False)]
+NORM_RTOL = 1e-6
 SERVING_TOL = 1e-4                   # probabilities, kernel vs plain attention, f32
 BF16_TOL = 2e-2                      # the same in bf16: 8 significant bits
 N_CLIENTS = 16
@@ -285,6 +300,7 @@ KERNELS = [
     ('flash_bwd_dq', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:235'),
     ('flash_bwd_dkv', 'flash_bwd', 'ecg_representation_learning_tpu/ops/attention.py:277'),
     ('adamw', 'adamw', 'ecg_representation_learning_tpu/ops/adamw_pallas.py:41'),
+    ('adamw_norm', 'adamw', 'ecg_representation_learning_tpu/ops/adamw_pallas.py:41'),
     ('nlm_rows', 'nlm', 'ecg_representation_learning_tpu/ops/nlm_pallas.py:48'),
     ('nlm_variant', 'nlm', 'tools/nlm_sol_probe.py:36'),
 ]
@@ -600,63 +616,115 @@ def flash_grad_phase():
     return rows
 
 
-def adamw_phase():
-    """Kernel #5 against its plain version on every ViT-base leaf over three
-    steps (plain, clip engaged, non-finite), with f32 and with bf16 mu; its
-    time beside the plain version's and ``torch.optim.AdamW(fused=True)``'s
-    on the same tensors.  Returns the f32-mu row."""
-    with torch.device('meta'):
-        shapes = [p.shape for p in EcgVit(VitConfig.from_defined('base')).parameters()]
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
+    """Kernel #5's tail on one tree over ADAMW_STEPS: launch 1 (norm, clip
+    and non-finite scalars, counter) against the plain version from the
+    same gradients -- the norm within NORM_RTOL of ``global_norm`` and the
+    same bits on a second launch, the scalars and the counter equal to
+    ``tail_scalars_reference`` from the kernel's norm -- then launch 2 (the
+    update, with launch 1's scalars) bit for bit against the plain update;
+    then the times of both beside the plain versions' and
+    ``torch.optim.AdamW(fused=True)``'s on the same tensors."""
+    shapes = adamw_probe.tree_shapes(moe)
     n_params = sum(s.numel() for s in shapes)
     gen = torch.Generator(device='cuda').manual_seed(2)
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
-    steps = [(1.0, 1.0), (0.37, 1.0), (1.0, 0.0)]      # (clip scale, finite)
-    out = None
-    for mu_dtype in (torch.float32, torch.bfloat16):
-        def leaves(fn):
-            return [fn(s) for s in shapes]
-        params = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
-        mus = leaves(lambda s: torch.zeros(s, device='cuda', dtype=mu_dtype))
-        nus = leaves(lambda s: torch.zeros(s, device='cuda'))
-        twin = [[x.clone() for x in xs] for xs in (params, mus, nus)]
-        errs = []
-        for count, (scale, finite) in enumerate(steps, start=1):
-            grads = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
-            if not finite:
-                grads[0].view(-1)[0] = float('nan')
-            scalars = torch.tensor([scale, 3e-4, 1 - 0.9 ** count, 1 - 0.999 ** count,
-                                    finite], dtype=torch.float32, device='cuda')
-            adamw.adamw_update(params, grads, mus, nus, scalars, **hyper)
-            torch.cuda.synchronize()
-            adamw.adamw_update_reference(*twin[:1], grads, *twin[1:], scalars, **hyper)
-            errs.append(max((a.float() - b.float()).abs().max().item()
-                            for xs, ys in zip((params, mus, nus), twin)
-                            for a, b in zip(xs, ys)))
-        finite_ok = all(bool(torch.isfinite(p).all()) for p in params)
-        mu_bytes = torch.finfo(mu_dtype).bits // 8
-        b_ms, b_by = bound(n_params * (4 * 5 + 2 * mu_bytes), 15 * n_params, torch.float32)
-        row = {'phase': 'kernel', 'kernel': 'adamw', 'leaves': len(shapes),
-               'params': n_params, 'mu_dtype': str(mu_dtype), 'max_abs_err': max(errs),
-               'errs_per_step': errs, 'finite': finite_ok, 'bound_ms': b_ms,
-               'bound_by': b_by, 'kernel_ms': time_ms(
-                   lambda: adamw.adamw_update(params, grads, mus, nus, scalars, **hyper),
-                   reps=20),
-               'plain_ms': time_ms(lambda: adamw.adamw_update_reference(
-                   *twin[:1], grads, *twin[1:], scalars, **hyper), reps=5)}
-        if mu_dtype == torch.float32:
-            lib = [torch.nn.Parameter(p.clone()) for p in params]
-            for p, g in zip(lib, grads):
-                p.grad = g
-            opt = torch.optim.AdamW(lib, lr=3e-4, weight_decay=1e-2, fused=True)
-            row['library_ms'] = time_ms(opt.step, reps=20)
-            del lib, opt
-            out = row
-        emit(row)
-        if not (finite_ok and max(errs) <= ADAMW_LIMIT):
-            raise AssertionError(f'adamw kernel disagrees with its plain version: {row}')
-        del params, mus, nus, twin, grads
-        torch.cuda.empty_cache()
-    return out
+    kern = adamw.adamw_kernel
+
+    def leaves(fn):
+        return [fn(s) for s in shapes]
+    params = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
+    mus = leaves(lambda s: torch.zeros(s, device='cuda', dtype=mu_dtype))
+    nus = leaves(lambda s: torch.zeros(s, device='cuda'))
+    twin = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+    count = torch.zeros((), dtype=torch.int32, device='cuda')
+    errs, norm_errs, checks = [], [], []
+    for step, (clip, finite) in enumerate(ADAMW_STEPS, start=1):
+        grads = leaves(lambda s: torch.randn(s, generator=gen, device='cuda'))
+        if not finite:
+            grads[0].view(-1)[0] = float('nan')
+        lr_bc = (3e-4, 1 - 0.9 ** step, 1 - 0.999 ** step)
+        kw = dict(clip_norm=clip, zero_nonfinite=True)
+        scal, norm, count_k = kern.norm_scalars(params, grads, mus, nus, lr_bc, count, **kw)
+        scal2, norm2, _ = kern.norm_scalars(params, grads, mus, nus, lr_bc, count, **kw)
+        want_norm = adamw.global_norm(grads)
+        want_scal = adamw.tail_scalars_reference(norm, lr_bc, **kw)
+        want_count = count + (~torch.isfinite(norm)).to(torch.int32)
+        kern(params, grads, mus, nus, scal, **hyper)
+        torch.cuda.synchronize()
+        adamw.adamw_update_reference(*twin[:1], grads, *twin[1:], scal, **hyper)
+        both_nan = bool(torch.isnan(norm)) and bool(torch.isnan(want_norm))
+        norm_errs.append(0.0 if both_nan else abs(norm.item() - want_norm.item()))
+        checks.append({'clip_norm': clip, 'finite_grads': bool(finite), 'norm': norm.item(),
+                       'plain_norm': want_norm.item(),
+                       'norm_rel_err': 0.0 if both_nan else
+                       abs(norm.item() / want_norm.item() - 1),
+                       'same_bits_twice': _same_bits(scal2, scal) and _same_bits(norm2, norm),
+                       'scalars': scal.tolist(),
+                       'scalars_equal_plain': _same_bits(scal, want_scal),
+                       'count': int(count_k), 'count_equal_plain': int(count_k) == int(want_count)})
+        errs.append(max((a.float() - b.float()).abs().max().item()
+                        for xs, ys in zip((params, mus, nus), twin)
+                        for a, b in zip(xs, ys)))
+        count = count_k
+    finite_ok = all(bool(torch.isfinite(p).all()) for p in params)
+    mu_bytes = torch.finfo(mu_dtype).bits // 8
+    b_ms, b_by = bound(n_params * (4 * 5 + 2 * mu_bytes), 15 * n_params, torch.float32)
+    nb_ms, nb_by = bound(4 * n_params, 2 * n_params, torch.float32)
+    scalars = adamw_probe.scalars_for(1, 0.5)
+    call = lambda: adamw.adamw_update(params, grads, mus, nus, scalars, **hyper)
+    norm_call = lambda: kern.norm_scalars(params, grads, mus, nus, (3e-4, 0.1, 0.001),
+                                          clip_norm=1.0, zero_nonfinite=True)
+    tail_call = lambda: adamw.adamw_tail(params, grads, mus, nus, (3e-4, 0.1, 0.001),
+                                         clip_norm=1.0, zero_nonfinite=True, **hyper)
+    row = {'phase': 'kernel', 'kernel': 'adamw', 'tree': tree, 'leaves': len(shapes),
+           'params': n_params, 'mu_dtype': str(mu_dtype), 'max_abs_err': max(errs),
+           'errs_per_step': errs, 'finite': finite_ok, 'steps': checks,
+           'bound_ms': b_ms, 'bound_by': b_by, 'kernel_ms': time_ms(call, reps=20),
+           'plain_ms': time_ms(lambda: adamw.adamw_update_reference(
+               *twin[:1], grads, *twin[1:], scalars, **hyper), reps=5)}
+    row['kernel_device_ms'], row['host_us_per_call'] = adamw_probe.device_and_host(call)
+    row['bound_share'] = b_ms / row['kernel_device_ms'] if row['kernel_device_ms'] else None
+    row['norm'] = {'max_abs_err': max(norm_errs), 'bound_ms': nb_ms, 'bound_by': nb_by,
+                   'kernel_ms': time_ms(norm_call, reps=20),
+                   'plain_ms': time_ms(lambda: adamw.global_norm(grads), reps=20),
+                   'library_ms': None}
+    row['norm']['kernel_device_ms'], row['norm']['host_us_per_call'] = \
+        adamw_probe.device_and_host(norm_call)
+    row['tail_ms'] = time_ms(tail_call, reps=20)
+    row['tail_device_ms'], row['tail_host_us_per_call'] = adamw_probe.device_and_host(tail_call)
+    del twin
+    torch.cuda.empty_cache()
+    lib = [torch.nn.Parameter(p) for p in params]
+    for p, g in zip(lib, grads):
+        p.grad = g
+    opt = torch.optim.AdamW(lib, lr=3e-4, weight_decay=1e-2, fused=True)
+    row['library_ms'] = time_ms(opt.step, reps=20)
+    row['library_device_ms'], row['library_host_us_per_call'] = \
+        adamw_probe.device_and_host(opt.step)
+    del lib, opt, params, mus, nus, grads
+    torch.cuda.empty_cache()
+    emit(row)
+    bad = [c for c in checks if not (c['norm_rel_err'] <= NORM_RTOL and c['same_bits_twice']
+                                     and c['scalars_equal_plain'] and c['count_equal_plain'])]
+    if not (finite_ok and max(errs) <= ADAMW_LIMIT and not bad and checks[-1]['count'] == 1):
+        raise AssertionError(f'adamw kernels disagree with their plain versions: {row}')
+    return row
+
+
+def adamw_phase():
+    """Kernel #5's tail (both launches of ``ops/csrc/adamw.cu``) on every
+    ViT-base leaf with f32 and with bf16 mu, and on the Switch-MoE ViT-base
+    tree (``SCALE_MOE``) with f32 mu (``adamw_tree_row``).  Returns the
+    ViT-base f32-mu row and its norm launch's, for the kernels line."""
+    rows = [adamw_tree_row('vit_base', False, torch.float32),
+            adamw_tree_row('vit_base', False, torch.bfloat16),
+            adamw_tree_row('vit_base_moe', True, torch.float32)]
+    return rows[0], rows[0]['norm']
 
 
 def nlm_bound(rows: int, n: int, sch: int, pw: int):
@@ -929,6 +997,7 @@ def _counts():
             'flash_bwd_dq': attn.flash_bwd_dq_kernel.launches,
             'flash_bwd_dkv': attn.flash_bwd_dkv_kernel.launches,
             'adamw': adamw.adamw_kernel.launches,
+            'adamw_norm': adamw.adamw_kernel.norm_launches,
             'nlm_rows': nlm_fused.nlm_rows_kernel.launches,
             'nlm_variant': probe.variant_kernel.launches}
 
@@ -938,6 +1007,7 @@ def _zero_counts():
               attn.flash_bwd_dkv_kernel, adamw.adamw_kernel, nlm_fused.nlm_rows_kernel,
               probe.variant_kernel):
         k.launches = 0
+    adamw.adamw_kernel.norm_launches = 0
 
 
 def _steps_per_s(tr: Trainer, data: SplitData, n_steps: int) -> float:
@@ -986,7 +1056,7 @@ def training_phase():
     twin = Trainer(dataclasses.replace(cfg, use_flash_attention=False), tcfg,
                    train_data=batch, norm_stats=stats)
     twin.set_params(tr.model.state_dict())
-    twin.optimizer.update = adamw.adamw_update_reference
+    twin.optimizer.tail = adamw.adamw_tail_reference
     per_step, losses = [], []
     for k in range(PARITY_STEPS):
         take = np.arange(64 * k, 64 * (k + 1))
@@ -999,7 +1069,8 @@ def training_phase():
         losses.append((got, want))
     layers = cfg.num_hidden_layers
     expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
-              'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
+              'flash_bwd_dkv': layers, 'adamw': 1, 'adamw_norm': 1, 'nlm_rows': 0,
+              'nlm_variant': 0}
     param_err = max((a - b).abs().max().item() for a, b in
                     zip(tr.model.state_dict().values(), twin.model.state_dict().values()))
     loss_err = max(abs(a - b) / abs(b) for a, b in losses)
@@ -1035,10 +1106,12 @@ def training_phase():
     log = tr._log
     tr._log = lambda payload: (payloads.append(payload), log(payload))
     _zero_counts()
+    builds = adamw.adamw_kernel.table_builds
     t0 = time.perf_counter()
     result = tr.train()
     train_s = time.perf_counter() - t0
     launches = _counts()     # the eval forwards add flash_fwd launches
+    builds = adamw.adamw_kernel.table_builds - builds
     shutil.rmtree(out_dir, ignore_errors=True)
     train_losses = [p['train/loss'] for p in payloads if 'train/loss' in p]
     aucs = [h['macro_auc'] for h in result['history']]
@@ -1048,19 +1121,27 @@ def training_phase():
                'corpus_seconds': synth_s, 'train_rows': len(splits.train),
                'eval_rows': len(splits.eval), 'epochs': result['epochs'],
                'steps': steps, 'train_seconds': train_s, 'launches': launches,
-               'train_losses': train_losses,
+               'adamw_table_builds': builds, 'train_losses': train_losses,
                'eval_losses': [h['loss'] for h in result['history']],
                'eval_macro_auc': aucs,
                'train_samples_per_s_bf16': _steps_per_s(tr, splits.train, 10)}
     emit(summary)
     want = {'flash_fwd_lse': layers * steps, 'flash_bwd_dq': layers * steps,
-            'flash_bwd_dkv': layers * steps, 'adamw': steps}
+            'flash_bwd_dkv': layers * steps, 'adamw': steps, 'adamw_norm': steps}
     if not (len(train_losses) == steps == 2 * tr.steps_per_epoch
             and all(np.isfinite(train_losses)) and aucs[-1] is not None
             and np.isfinite(aucs[-1])
             and all(launches[k] == v for k, v in want.items())):
         raise AssertionError(f'training run failed (launches expected {want}): {summary}')
     emit(profile_train_step(tr, splits.train))
+    # the update tail of one step alone: FusedAdamW's norm and update
+    # launches and the copy of [lr, bc1, bc2], nothing else
+    tail = {'phase': 'train_tail', 'model': 'ecg-vit-base', 'dtype': 'bfloat16',
+            **adamw_probe.tail_profile(tr, splits.train, np.arange(64)),
+            'adamw_table_builds_in_train': builds}
+    emit(tail)
+    if not (1 <= tail['tail_kernel_launches'] <= 2 and tail['tail_copies'] <= 1):
+        raise AssertionError(f'the update tail is more than 2 launches and 1 copy: {tail}')
     return {k: launches[k] for k in want}
 
 
@@ -1072,11 +1153,13 @@ def _pretrainer(objective: str, cfg: VitConfig, tcfg: TrainConfig, **kw):
 
 def _pretrain_expect(objective: str, cfg: VitConfig) -> dict:
     """Launches of one step: a forward (lse), dQ and dK/dV per attention
-    layer -- the encoder's, and for MAE the decoder's -- and one AdamW."""
+    layer -- the encoder's, and for MAE the decoder's -- and #5's norm and
+    update launches."""
     layers = cfg.num_hidden_layers + (MaeConfig().decoder_num_layers
                                       if objective == 'mae' else 0)
     return {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
-            'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
+            'flash_bwd_dkv': layers, 'adamw': 1, 'adamw_norm': 1, 'nlm_rows': 0,
+              'nlm_variant': 0}
 
 
 def pretrain_parity(objective: str, stats) -> None:
@@ -1096,7 +1179,7 @@ def pretrain_parity(objective: str, stats) -> None:
     twin = _pretrainer(objective, dataclasses.replace(cfg, use_flash_attention=False), tcfg,
                        train_data=batch, norm_stats=stats)
     twin.set_params(tr.model.state_dict())
-    twin.optimizer.update = adamw.adamw_update_reference
+    twin.optimizer.tail = adamw.adamw_tail_reference
     per_step, losses, same_draws = [], [], []
     for k in range(PARITY_STEPS):
         same_draws.append(bool(torch.equal(tr.rng.device.get_state(),
@@ -1174,7 +1257,8 @@ def _handoff(objective: str, ckpt: str, splits, stats) -> dict:
            'probe_test_macro_auc_smoke': test['macro_auc']}
     emit(row)
     if not (trunk_ok and frozen and head_moved and launches['flash_bwd_dq'] > 0
-            and launches['adamw'] == 0 and np.isfinite(test['loss'])):
+            and launches['adamw'] == launches['adamw_norm'] == 0
+            and np.isfinite(test['loss'])):
         raise AssertionError(f'{objective} handoff failed: {row}')
     return launches
 
@@ -1262,7 +1346,7 @@ def _wall(fn) -> float:
 
 PROFILE_MARGIN_S = 0.02   # idle seconds before and after a profiled run
 # substrings of the port's kernel symbols, for the profiles' ``port_kernels``
-PORT_KERNEL_SYMBOLS = ('flash_fwd_', 'bwd_dq_', 'bwd_dkv_', 'adamw_kernel', 'nlm_')
+PORT_KERNEL_SYMBOLS = ('flash_fwd_', 'bwd_dq_', 'bwd_dkv_', 'adamw_', 'nlm_')
 
 
 def _profile(what: str, unit: str, n: int, run) -> dict:
@@ -1621,7 +1705,8 @@ def corpus_phase(smi: str):
     launches = _counts()
     per_layer = 3 * RESIDENT_STEPS * cfg16.num_hidden_layers     # three storage dtypes
     expect = {'flash_fwd_lse': per_layer, 'flash_bwd_dq': per_layer,
-              'flash_bwd_dkv': per_layer, 'adamw': 3 * RESIDENT_STEPS}
+              'flash_bwd_dkv': per_layer, 'adamw': 3 * RESIDENT_STEPS,
+              'adamw_norm': 3 * RESIDENT_STEPS}
     emit({'phase': 'corpus', 'launches': launches, 'expected_training': expect})
     if not (all(launches[k] == v for k, v in expect.items()) and launches['flash_fwd'] > 0):
         raise AssertionError(f'corpus phase launched {launches}, expected {expect} and #1')
@@ -1994,7 +2079,7 @@ def _scale_moe(stats, smi: str) -> dict:
     twin = Trainer(dataclasses.replace(cfg, use_flash_attention=False), tcfg,
                    train_data=batch, norm_stats=stats)
     twin.set_params(tr.model.state_dict())
-    twin.optimizer.update = adamw.adamw_update_reference
+    twin.optimizer.tail = adamw.adamw_tail_reference
     per_step, losses, total = [], [], {}
     for k in range(PARITY_STEPS):
         take = np.arange(64 * k, 64 * (k + 1))
@@ -2009,7 +2094,8 @@ def _scale_moe(stats, smi: str) -> dict:
             total[name] = total.get(name, 0) + n
     layers = cfg.num_hidden_layers
     expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
-              'flash_bwd_dkv': layers, 'adamw': 1, 'nlm_rows': 0, 'nlm_variant': 0}
+              'flash_bwd_dkv': layers, 'adamw': 1, 'adamw_norm': 1, 'nlm_rows': 0,
+              'nlm_variant': 0}
     param_err = _max_param_err(tr.model, twin.model)
     loss_err = max(abs(a - b) / abs(b) for a, b in losses)
     x = _prep_batch(torch.from_numpy(batch.signals[:64]).to(DEV), tr.mean, tr.std,
@@ -2153,8 +2239,8 @@ def _scale_remat(stats, smi: str) -> dict:
     # backward
     layers = cfg.num_hidden_layers * PARITY_STEPS
     expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
-              'flash_bwd_dkv': layers, 'adamw': PARITY_STEPS, 'nlm_rows': 0,
-              'nlm_variant': 0}
+              'flash_bwd_dkv': layers, 'adamw': PARITY_STEPS, 'adamw_norm': PARITY_STEPS,
+              'nlm_rows': 0, 'nlm_variant': 0}
     if not (param_err <= PARAM_TOL and p1 < p0 and c0 == expect
             and c1 == {**expect, 'flash_fwd_lse': 2 * layers}):
         raise AssertionError(f'remat run failed (launches expected {expect}, the lse '
@@ -2498,7 +2584,7 @@ def main(argv=None) -> int:
         dropout_mask_phase()
         bwd_dropout_mask_phase()
         rows.update(flash_grad_phase())
-        rows['adamw'] = adamw_phase()
+        rows['adamw'], rows['adamw_norm'] = adamw_phase()
         rows['nlm_rows'] = nlm_phase(*chain_rows())
         rows['nlm_variant'] = nlm_variant_phase()
         launches['nlm_variant'] = rows['nlm_variant']['launches']

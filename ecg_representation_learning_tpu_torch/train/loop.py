@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``train/loop.py``.  ``grad_accum`` runs the
 microbatches one after another (JAX scans them), summing their gradients in
 the parameters' ``.grad`` and taking the mean; ``finish_update`` is the
 update tail -- global norm and the device-side non-finite counter, the
-optimizer step, the parameter EMA.
+optimizer step (for ``FusedAdamW`` all three in one fused step), the
+parameter EMA.
 """
 from __future__ import annotations
 
@@ -47,18 +48,25 @@ def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: Fused
     A non-finite global gradient norm adds one to ``nonfinite_count`` on the
     device (the host raises at its next sync), and with ``cfg.debug_nans``
     that step's gradients are zeroed by select, so the parameters are never
-    poisoned: inside the fused step, or here before the optax chain (whose
-    clip then sees a norm of 0, the norm of the zeroed gradients)."""
-    grad_norm = global_norm(list(grads.values()))
-    finite = torch.isfinite(grad_norm)
-    nonfinite_count = nonfinite_count + (~finite).to(torch.int32)
-    clip_norm = grad_norm
-    if cfg.debug_nans and not isinstance(optimizer, FusedAdamW):
-        with torch.no_grad():
-            grads = {k: torch.where(finite, g, torch.zeros((), dtype=g.dtype, device=g.device))
-                     for k, g in grads.items()}
-        clip_norm = torch.where(finite, grad_norm, 0.0)
-    opt_state = optimizer.apply(grads, opt_state, params, g_norm=clip_norm)
+    poisoned: inside the fused step (``FusedAdamW.step``: norm, scalars,
+    counter and update, on the GPU two kernel launches), or here before the
+    optax chain (whose clip then sees a norm of 0, the norm of the zeroed
+    gradients)."""
+    if isinstance(optimizer, FusedAdamW):
+        opt_state, grad_norm, nonfinite_count = optimizer.step(grads, opt_state, params,
+                                                               nonfinite_count)
+    else:
+        grad_norm = global_norm(list(grads.values()))
+        finite = torch.isfinite(grad_norm)
+        nonfinite_count = nonfinite_count + (~finite).to(torch.int32)
+        clip_norm = grad_norm
+        if cfg.debug_nans:
+            with torch.no_grad():
+                grads = {k: torch.where(finite, g, torch.zeros((), dtype=g.dtype,
+                                                               device=g.device))
+                         for k, g in grads.items()}
+            clip_norm = torch.where(finite, grad_norm, 0.0)
+        opt_state = optimizer.apply(grads, opt_state, params, g_norm=clip_norm)
     if cfg.ema_decay > 0:   # e * d + p * (1 - d), d and 1 - d in f32 as in JAX
         d = np.float32(cfg.ema_decay)
         e, p = list(ema.values()), [params[k] for k in ema]

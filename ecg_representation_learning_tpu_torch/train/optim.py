@@ -6,23 +6,24 @@ in plain PyTorch: XLA in JAX, so it has no kernel), ``make_schedule``
 (optax's warmup-cosine, cosine, linear warmup + constant, computed in f32 as
 optax does) and ``make_optimizer``.
 
-``FusedAdamW.apply`` takes the global gradient norm (a PyTorch reduction,
-as it was XLA outside Pallas), folds the clip and the non-finite select into
-the scalars ``[scale, lr, bc1, bc2, finite]`` on the device, and runs
-``ops/adamw.adamw_update``: on the GPU one kernel launch over every leaf
-(``ops/csrc/adamw.cu``), in place.  Nothing in a step waits for the device.
+``FusedAdamW.step`` (and ``apply``) runs ``ops/adamw.adamw_tail``: the
+global gradient norm, the clip and non-finite select folded into the scalars
+``[scale, lr, bc1, bc2, finite]`` on the device, the non-finite counter and
+the update of every leaf in place -- on the GPU two kernel launches of
+``ops/csrc/adamw.cu`` and one pinned copy of [lr, bc1, bc2] and the
+gradients' addresses.  Nothing in a step waits for the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..configs import TrainConfig
-from ..ops.adamw import adamw_update
+from ..ops.adamw import adamw_tail, global_norm
 from ..utils.check_args import ca
 
 Schedule = Callable[[int], float]
@@ -37,13 +38,6 @@ class FusedAdamWState:
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
-
-
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares over every element of every tensor), f32, on the
-    tensors' device."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 class FusedAdamW:
@@ -68,9 +62,9 @@ class FusedAdamW:
         if isinstance(mu_dtype, str):
             mu_dtype = {'float32': torch.float32, 'bfloat16': torch.bfloat16}[mu_dtype]
         self.mu_dtype = mu_dtype
-        # the in-place update; ops.adamw.adamw_update_reference runs the plain
-        # version on any device (chip_smoke.py's twin uses it on the card)
-        self.update = adamw_update
+        # the tail; ops.adamw.adamw_tail_reference runs the plain version on
+        # any device (chip_smoke.py's twin uses it on the card)
+        self.tail = adamw_tail
 
     def init(self, params: Dict[str, torch.Tensor]) -> FusedAdamWState:
         return FusedAdamWState(
@@ -82,24 +76,29 @@ class FusedAdamW:
         lr = self.learning_rate
         return float(_F32(lr(count) if callable(lr) else lr))
 
-    def scalars(self, g_norm: torch.Tensor, count: int) -> torch.Tensor:
-        """[scale, lr, bc1, bc2, finite] as 5 f32 on g_norm's device for the
-        step that takes the count from ``count`` to ``count + 1``."""
-        dev = g_norm.device
-        scale = torch.ones((), device=dev)
-        finite = torch.ones((), device=dev)
-        if self.clip_norm is not None:
-            scale = torch.clamp(self.clip_norm / torch.clamp(g_norm, min=1e-16), max=1.0)
-        if self.zero_nonfinite:
-            ok = torch.isfinite(g_norm)
-            scale = torch.where(ok, scale, 1.0)
-            finite = ok.float()
+    def lr_bc(self, count: int) -> Tuple[float, float, float]:
+        """(lr, bc1, bc2) in f32 for the step that takes the count from
+        ``count`` to ``count + 1``."""
         c = _F32(count + 1)
-        host = torch.tensor([self.lr_at(count), _F32(1) - _F32(self.b1) ** c,
-                             _F32(1) - _F32(self.b2) ** c], dtype=torch.float32)
-        if dev.type == 'cuda':   # pinned + async: the step never waits
-            host = host.pin_memory().to(dev, non_blocking=True)
-        return torch.cat([scale.reshape(1).float(), host, finite.reshape(1)])
+        return (self.lr_at(count), float(_F32(1) - _F32(self.b1) ** c),
+                float(_F32(1) - _F32(self.b2) ** c))
+
+    def step(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
+             params: Dict[str, torch.Tensor], nonfinite_count: Optional[torch.Tensor] = None,
+             g_norm: Optional[torch.Tensor] = None
+             ) -> Tuple[FusedAdamWState, torch.Tensor, Optional[torch.Tensor]]:
+        """One step from the gradients: updates ``params`` and the moments in
+        place and returns ``(state with its count advanced, grad_norm,
+        nonfinite_count + !isfinite(grad_norm))``.  ``g_norm`` may be passed
+        when the caller has it already."""
+        names = list(params)
+        grad_norm, nonfinite_count = self.tail(
+            [params[k] for k in names], [grads[k] for k in names],
+            [state.mu[k] for k in names], [state.nu[k] for k in names],
+            self.lr_bc(state.count), nonfinite_count, clip_norm=self.clip_norm,
+            zero_nonfinite=self.zero_nonfinite, b1=self.b1, b2=self.b2, eps=self.eps,
+            wd=self.weight_decay, g_norm=g_norm)
+        return dataclasses.replace(state, count=state.count + 1), grad_norm, nonfinite_count
 
     def apply(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
               params: Dict[str, torch.Tensor],
@@ -107,14 +106,7 @@ class FusedAdamW:
         """One step: updates ``params`` and the moments in place and returns
         the state with its count advanced.  ``g_norm`` may be passed when the
         caller has it already."""
-        names = list(params)
-        if g_norm is None:
-            g_norm = global_norm([grads[k] for k in names])
-        self.update([params[k] for k in names], [grads[k] for k in names],
-                     [state.mu[k] for k in names], [state.nu[k] for k in names],
-                     self.scalars(g_norm, state.count), b1=self.b1, b2=self.b2,
-                     eps=self.eps, wd=self.weight_decay)
-        return dataclasses.replace(state, count=state.count + 1)
+        return self.step(grads, state, params, g_norm=g_norm)[0]
 
 
 class AdamChain:

@@ -266,12 +266,14 @@ class TrainerBase:
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The update tail of a step (``loop.finish_update``) on the
-        accumulated ``grads``; returns the gradient norm."""
-        params = {k: p.detach() for k, p in self.params().items()}
+        accumulated ``grads``; returns the gradient norm.  The parameters go
+        in as they are: every in-place write of the tail runs under
+        ``no_grad`` or in the kernels."""
+        params = self.params()
         self.opt_state, grad_norm, self._nonfinite = finish_update(
             self.optimizer, self.cfg, self.opt_state, params, grads, self._nonfinite,
             self.ema)
-        for p in self.params().values():
+        for p in params.values():
             p.grad = None
         self.step += 1
         return grad_norm

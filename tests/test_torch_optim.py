@@ -4,9 +4,12 @@ The plain AdamW update against the Pallas ``adamw_update_leaf`` in interpret
 mode; ``FusedAdamW`` against the JAX ``FusedAdamW`` over 5 steps with the
 clip engaged, a non-finite step and a bf16 first moment, and continuing from
 a JAX mid-run state carried over by ``fused_adamw_state_from_flax``;
-``make_schedule`` against optax at every step.  The CUDA kernel runs only on
-the GPU (chip_smoke.py holds it against the plain version there, bit for
-bit); here its wrapper's input checks are covered.
+``make_schedule`` against optax at every step; the update tail (norm,
+scalars, non-finite counter, update) through ``loop.finish_update`` against
+the JAX package's over 5 steps.  The CUDA kernels run only on the GPU
+(chip_smoke.py holds them against the plain version there, the update bit
+for bit); here their wrapper's input checks are covered, and
+tests/test_torch_adamw_tiling.py models their work plan.
 
 Tolerances: the update as tests/test_fused_optim.py holds the JAX paths to
 each other (rtol 2e-5, atol 1e-7: XLA may contract a multiply-add into an
@@ -28,12 +31,14 @@ from ecg_representation_learning_tpu.configs import TrainConfig as JaxTrainConfi
 from ecg_representation_learning_tpu.configs import VitConfig as JaxVitConfig
 from ecg_representation_learning_tpu.models import vit as jvit
 from ecg_representation_learning_tpu.ops.adamw_pallas import adamw_update_leaf
+from ecg_representation_learning_tpu.train import loop as jloop
 from ecg_representation_learning_tpu.train import optim as joptim
+from ecg_representation_learning_tpu.train.trainer import TrainState
 from ecg_representation_learning_tpu_torch.configs import TrainConfig, VitConfig
 from ecg_representation_learning_tpu_torch.models.port import (
     fused_adamw_state_from_flax, vit_state_dict_from_flax)
 from ecg_representation_learning_tpu_torch.ops import adamw
-from ecg_representation_learning_tpu_torch.train import optim
+from ecg_representation_learning_tpu_torch.train import loop, optim
 
 torch.set_num_threads(2)
 HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
@@ -245,3 +250,72 @@ def test_adamw_on_cpu_runs_the_plain_version():
                        torch.tensor([1.0, 0.1, 0.1, 0.001, 1.0]), **HYPER)
     assert adamw.adamw_kernel.launches == before
     assert all(torch.allclose(p, torch.full_like(p, -0.1)) for p in a['params'])
+
+
+@pytest.mark.parametrize('mu_dtype', [None, 'bfloat16'])
+def test_finish_update_fused_tail_matches_jax_over_five_steps(mu_dtype):
+    """The tail's plain version (global_norm + tail_scalars_reference +
+    adamw_update_reference, what the kernels compute) through
+    ``loop.finish_update`` against the JAX package's ``finish_update``:
+    step 1 under the clip, steps 2-5 above it (||g|| > 1, the clip engaged),
+    step 3 with a NaN gradient (zeroed, counted, params unpoisoned)."""
+    rng = np.random.default_rng(21)
+    kw = dict(learning_rate=1e-3, warmup_ratio=0.2, adam_mu_dtype=mu_dtype, debug_nans=True)
+    jcfg, tcfg = JaxTrainConfig(**kw), TrainConfig(**kw)
+    jopt, _ = joptim.make_optimizer(jcfg, 10)
+    topt, _ = optim.make_optimizer(tcfg, 10)
+    assert isinstance(topt, optim.FusedAdamW) and topt.zero_nonfinite and topt.clip_norm == 1.0
+    params = jax.tree.map(jnp.asarray, _tree(rng))
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       opt_state=jopt.init(params), rng=jax.random.PRNGKey(0), ema_params=None)
+    tp = _flat(params)
+    ts = topt.init(tp)
+    j_bad, t_bad = jnp.zeros((), jnp.int32), torch.zeros((), dtype=torch.int32)
+    finish = jax.jit(lambda st, g, bad: jloop.finish_update(jopt, jcfg, st, g, st.rng, bad))
+    for step in range(5):
+        grads = _tree(rng, 0.05 if step == 0 else 10.0)
+        if step == 2:
+            grads['dense']['kernel'][0, 0] = np.nan
+        state, j_norm, j_bad = finish(state, jax.tree.map(jnp.asarray, grads), j_bad)
+        ts, t_norm, t_bad = loop.finish_update(topt, tcfg, ts, tp, _flat(grads), t_bad)
+        assert (float(j_norm) < 1.0) == (step == 0) or step == 2
+        if step == 2:
+            assert np.isnan(float(j_norm)) and np.isnan(float(t_norm))
+        else:
+            np.testing.assert_allclose(float(t_norm), float(j_norm), rtol=1e-6)
+        assert int(t_bad) == int(j_bad) == (1 if step >= 2 else 0)
+        for k, v in _flat(jax.tree.map(np.asarray, state.params)).items():
+            _close(tp[k].numpy(), v.numpy())
+            assert torch.isfinite(tp[k]).all()
+    assert ts.count == int(state.opt_state.count) == 5
+    mu_tol = 2 ** -7 if mu_dtype else 2e-5
+    js = state.opt_state
+    for k, v in _flat(jax.tree.map(lambda a: np.asarray(a, np.float32), js.mu)).items():
+        _close(ts.mu[k].float().numpy(), v.numpy(), rtol=mu_tol, atol=1e-9)
+    for k, v in _flat(jax.tree.map(np.asarray, js.nu)).items():
+        _close(ts.nu[k].numpy(), v.numpy())
+
+
+def test_fused_tail_on_cpu_runs_the_plain_version():
+    before = (adamw.adamw_kernel.launches, adamw.adamw_kernel.norm_launches,
+              adamw.adamw_kernel.table_builds)
+    a = _leaves(grads=[torch.full((3, 4), 3.0), torch.full((71,), 3.0)])
+    norm, bad = adamw.adamw_tail(a['params'], a['grads'], a['mus'], a['nus'], (0.1, 0.1, 0.001),
+                                 torch.zeros((), dtype=torch.int32), clip_norm=1.0,
+                                 zero_nonfinite=True, **HYPER)
+    assert (adamw.adamw_kernel.launches, adamw.adamw_kernel.norm_launches,
+            adamw.adamw_kernel.table_builds) == before
+    np.testing.assert_allclose(float(norm), 3.0 * np.sqrt(83), rtol=1e-6)
+    assert int(bad) == 0
+    assert all(torch.allclose(p, torch.full_like(p, -0.1)) for p in a['params'])
+
+
+@pytest.mark.parametrize('call', ['tail', 'norm_scalars'])
+def test_fused_tail_kernel_refuses_cpu_tensors(call):
+    """No fallback: the kernels' entries raise on what they cannot take."""
+    a = _leaves()
+    with pytest.raises(ValueError, match='CUDA'):
+        getattr(adamw.adamw_kernel, call)(a['params'], a['grads'], a['mus'], a['nus'],
+                                          (0.1, 0.1, 0.001), clip_norm=1.0,
+                                          zero_nonfinite=True,
+                                          **(HYPER if call == 'tail' else {}))
