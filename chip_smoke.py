@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
-                                    scale artifacts]
+                                    scale artifacts parallel]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -114,8 +114,20 @@ process per source started together (into ``build/torch_kernels/``), then:
    ``EcgTokenizer.fit`` at PTB-XL scale (21,837 x 12 x 2500, k 8, 'shift':
    82,019,772 segments; 256 clusters, 16 iterations) twice for the same bits,
    ``nearest_centroid`` over every segment, card vs CPU ids on a 1M-segment
-   sample (only near-ties may differ) and the encode/decode round trip.
+   sample (only near-ties may differ) and the encode/decode round trip;
+10. parallel phase (the ('data', 'model') mesh, ``parallel/``): (a) a one-rank NCCL group
+   on cuda:0 (a ``FileStore`` in a temp dir), ViT-base f32 with hashed dropout 0.1 and
+   TimeOut at bs 64: the one-card ``Trainer`` against ``mesh 1 x 1`` with DDP, with FSDP2 and
+   with the Megatron plan on a model axis of 1, three steps each (losses and parameters equal,
+   ||a - b|| / ||b|| <= 1e-6), their launches (12/12/12/1/1 of #2/#3/#4/#5 update/#5 norm a
+   step, #1 in the mesh evaluation); one Switch-MoE step with expert parallelism, one MAE step
+   with ``grad_accum=2`` and an EMA under FSDP, one contrastive step (2B = 128), each against
+   its one-card step; bf16 samples/s and peak memory of each wrapper beside the one-card
+   step's (at one rank: the wrappers' cost, not scaling); the norm's all-reduce in device ms;
+   (b) two gloo ranks sharing the card with DDP, 32 of each 64 rows, three steps within 2e-5
+   of the one-card steps: the kernels' masks with a non-zero ``bh_offset``.
 
+The kernel phase's dropout-mask checks run at ``bh_offset`` 0 and at a rank's offset.
 Every phase raises on a failed check.  Prints one JSON object per line; the
 line before the last lists the kernels, the last is the result (printed only
 when every phase ran).  Exits non-zero, printing no result, when no GPU is
@@ -207,6 +219,7 @@ KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
                     for dtype in (torch.float32, torch.bfloat16)]
 # the dropout mask check: sequence lengths, (B, H), rate
 MASK_TS, MASK_BH, MASK_RATE = (41, 256), (2, 6), 0.1
+MASK_BH_OFFSETS = (0, 3 * 2 * 6)      # and the bh_offset of rank 3 with 2 rows of 6 heads
 # backward kernels vs plain version, max abs error over max(1, max |plain|):
 # f32 sums in another order (the CPU tests hold the plain version to JAX at
 # 2e-5 the same way); bf16 rounds ds and the outputs to 8 significant bits
@@ -431,11 +444,12 @@ def dropout_mask_phase():
     score is 0 and p = 1/T, and with v one-hot over a 64-key window
     (v[w + c, c] = 1) output column c is nonzero iff key w + c is kept.  The
     nonzero pattern must equal ``keep_full``'s at every (bh, query, key), so
-    a wrong fragment -> (qpos, kpos) map cannot hide inside a tolerance."""
+    a wrong fragment -> (qpos, kpos) map cannot hide inside a tolerance; at
+    ``bh_offset`` 0 and at a rank's offset into a larger batch."""
     b, h = MASK_BH
     rows = []
-    for t in MASK_TS:
-        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device='cuda')
+    for t, off in [(t, o) for t in MASK_TS for o in MASK_BH_OFFSETS]:
+        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device='cuda', bh_offset=off)
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.zeros((b, h, t, 64), device='cuda', dtype=dtype)
             mismatches = {'flash_fwd': 0, 'flash_fwd_lse': 0}
@@ -447,11 +461,11 @@ def dropout_mask_phase():
                 want[..., :n] = keep[..., w:w + n]
                 for name, lse in (('flash_fwd', False), ('flash_fwd_lse', True)):
                     got = attn.flash_attention_forward(q, q, v, 4321, None, MASK_RATE,
-                                                       return_lse=lse)
+                                                       return_lse=lse, bh_offset=off)
                     got = got[0] if lse else got
                     mismatches[name] += int(((got != 0) != want).sum().item())
             row = {'phase': 'kernel_dropout_mask', 'shape': [b, h, t, 64],
-                   'dtype': str(dtype), 'dropout_rate': MASK_RATE,
+                   'dtype': str(dtype), 'dropout_rate': MASK_RATE, 'bh_offset': off,
                    'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
             emit(row)
             rows.append(row)
@@ -476,11 +490,12 @@ def bwd_dropout_mask_phase():
       dV: q = k = v = 0, dO one-hot over a window of queries: dV[j, c] =
           p_eff[w + c, j], nonzero iff query w + c keeps key j.
     Each nonzero pattern must equal ``keep_full``'s, so a wrong fragment ->
-    (qpos, kpos) map cannot hide inside a tolerance."""
+    (qpos, kpos) map cannot hide inside a tolerance; at ``bh_offset`` 0 and at
+    a rank's offset into a larger batch."""
     b, h = MASK_BH
     rows = []
-    for t in MASK_TS:
-        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device=DEV)
+    for t, off in [(t, o) for t in MASK_TS for o in MASK_BH_OFFSETS]:
+        keep = attn.keep_full(4321, b, h, t, MASK_RATE, device=DEV, bh_offset=off)
         lse = torch.full((b, h, t), math.log(t), device=DEV)
         delta = torch.zeros((b, h, t), device=DEV)
         for dtype in (torch.float32, torch.bfloat16):
@@ -495,7 +510,7 @@ def bwd_dropout_mask_phase():
                 window[:, :, w + idx, idx] = 1
 
                 def run(kernel, q, k, v, do):
-                    return kernel(q, k, v, do, lse, delta, 4321, 0.125, MASK_RATE)
+                    return kernel(q, k, v, do, lse, delta, 4321, 0.125, MASK_RATE, off)
                 got = {'flash_bwd_dq': run(attn.flash_bwd_dq_kernel, zero, window, e0, e0),
                        'flash_bwd_dk': run(attn.flash_bwd_dkv_kernel, window, zero, e0, e0)[0],
                        'flash_bwd_dv': run(attn.flash_bwd_dkv_kernel, zero, zero, zero, window)[1]}
@@ -507,7 +522,7 @@ def bwd_dropout_mask_phase():
                     want = want_q if name == 'flash_bwd_dq' else want_kv
                     mismatches[name] += int(((x != 0) != want).sum().item())
             row = {'phase': 'kernel_bwd_dropout_mask', 'shape': [b, h, t, 64],
-                   'dtype': str(dtype), 'dropout_rate': MASK_RATE,
+                   'dtype': str(dtype), 'dropout_rate': MASK_RATE, 'bh_offset': off,
                    'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
             emit(row)
             rows.append(row)
@@ -2548,8 +2563,241 @@ def artifacts_phase(smi: str) -> dict:
     return {'flash_fwd': launches}
 
 
+
+# --------------------------------------------------------------- parallel
+PARALLEL_STEPS = 3
+PARALLEL_RTOL = 1e-6      # a wrapper at world 1 against the one-card step
+PARALLEL_DP2_RTOL = 2e-5  # two ranks on the one card against the one-card step
+# a CPU rehearsal of the phase sets these (the ranks of part (b) read them too)
+PARALLEL_DEVICE = os.environ.get('CHIP_SMOKE_PARALLEL_DEVICE', 'cuda:0')
+PARALLEL_BACKEND = 'nccl' if PARALLEL_DEVICE.startswith('cuda') else 'gloo'
+PARALLEL_SIZE = os.environ.get('CHIP_SMOKE_PARALLEL_SIZE', 'base')
+
+
+def _parallel_setup(dtype: str = 'float32', **cfg_kw):
+    """ViT-base at full width with dropout 0.1 (hashed), TimeOut on, bs 64,
+    and the parity rows: the configuration of every run of the phase."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    cfg = VitConfig.from_defined(PARALLEL_SIZE, flash_min_seq=0, dtype=dtype, dropout_impl='hash',
+                                 hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                                 **cfg_kw)
+    tcfg = TrainConfig(train_batch_size=64, eval_batch_size=64, augment_timeout=True,
+                       log_to_console=False, save_final=False)
+    return cfg, tcfg, _parity_batch(11, PARALLEL_STEPS * 64)
+
+
+def _parallel_steps(tr, batch, steps: int = PARALLEL_STEPS):
+    """(per-step global losses, per-step launch counts) of ``steps`` steps."""
+    tr.init_state()
+    losses, counts = [], []
+    for k in range(steps):
+        _zero_counts()
+        losses.append(float(tr.train_step(batch, np.arange(64 * k, 64 * (k + 1)))['loss']))
+        counts.append(_counts())
+    return losses, counts
+
+
+def _rel(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every parameter (a few elements whose gradient
+    is at rounding level and changes sign move by 2 lr under Adam; this
+    weighs them by their share of the model)."""
+    num = sum(float((a[k].cpu().double() - b[k].cpu().double()).square().sum()) for k in b)
+    den = sum(float(b[k].cpu().double().square().sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].cpu().float() - b[k].cpu().float()).abs().max()) for k in b)
+
+
+def _parallel_rank(out_dir: str) -> dict:
+    """Part (b) on one of two ranks sharing the card over gloo: DDP, each rank
+    32 rows of every 64-row batch, dropout and TimeOut on, f32."""
+    import torch.distributed as dist
+    from ecg_representation_learning_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ['LOCAL_RANK'] = '0'     # both ranks on the one card
+    if PARALLEL_DEVICE.startswith('cuda'):
+        torch.cuda.set_device(0)
+    cfg, tcfg, batch = _parallel_setup()
+    tr = Trainer(cfg, tcfg, norm_stats=PTBXL_TRAIN_STATS['original'],
+                 mesh=make_mesh(2, 1, device=PARALLEL_DEVICE))
+    losses, counts = _parallel_steps(tr, batch)
+    state = tr.state_dict()
+    if dist.get_rank() == 0:
+        torch.save(state, os.path.join(out_dir, 'params.pt'))
+    return {'losses': losses, 'launches': counts,
+            'local_rows': int(tr._local_take(np.arange(64)).size)}
+
+
+def parallel_phase(smi: str) -> dict:
+    """The ('data', 'model') mesh on the card.  (a) One NCCL rank on cuda:0:
+    the one-card ``Trainer`` against ``mesh 1 x 1`` with DDP, with
+    ``fsdp=True`` (FSDP2) and with the Megatron plan on a model axis of 1
+    (``tensor_parallel=True``), three f32 steps each from one init; one
+    Switch-MoE step with expert parallelism, one MAE step with
+    ``grad_accum=2`` and an EMA under FSDP, one contrastive step (2B = 128)
+    with the all-gathered negatives, each against its one-card step; bf16
+    samples/s and peak memory of every wrapper against the one-card step;
+    the device time of the norm's all-reduce.  At world 1 these measure the
+    wrappers' overhead, not scaling.  (b) Two ranks on the one card over gloo
+    with DDP, 32 rows each: three steps against the one-card steps on the
+    same 64 rows, so the kernels run with a non-zero ``bh_offset``.  Returns
+    the launches of the mesh trainers' steps and evaluation (the main path
+    of the phase)."""
+    import tempfile
+    import torch.distributed as dist
+    from ecg_representation_learning_tpu_torch.parallel import (init_local_group, make_mesh,
+                                                                spawn_ranks)
+    t_phase = time.perf_counter()
+    stats = PTBXL_TRAIN_STATS['original']
+    store = tempfile.mkdtemp(prefix='chip-smoke-nccl-')
+    dev = PARALLEL_DEVICE
+    if dev.startswith('cuda'):
+        torch.cuda.set_device(0)
+    init_local_group(0, 1, store, backend=PARALLEL_BACKEND)
+    try:
+        cfg, tcfg, batch = _parallel_setup()
+        one = Trainer(cfg, tcfg, norm_stats=stats, device=dev)
+        ref_losses, ref_counts = _parallel_steps(one, batch)
+        ref_state = {k: v.detach().clone() for k, v in one.model.state_dict().items()}
+        del one
+        wrappers = {'ddp': dict(fsdp=False), 'fsdp': dict(fsdp=True),
+                    'tp': dict(fsdp=False, tensor_parallel=True)}
+        main_path = {k: 0 for k in _counts()}
+        rows = {}
+        for name, kw in wrappers.items():
+            mesh = make_mesh(1, 1, device=dev, tensor_parallel=kw.get('tensor_parallel'))
+            tr = Trainer(cfg, dataclasses.replace(tcfg, fsdp=kw['fsdp']), norm_stats=stats,
+                         mesh=mesh)
+            losses, counts = _parallel_steps(tr, batch)
+            _zero_counts()
+            ev = tr.evaluate(SplitData(batch.signals[:64], batch.labels[:64]))
+            counts.append(_counts())
+            for c in counts:
+                for k, v in c.items():
+                    main_path[k] += v
+            state = tr.state_dict()
+            rows[name] = {'losses': losses,
+                          'same_bits': losses == ref_losses and all(
+                              torch.equal(state[k].cpu(), ref_state[k].cpu()) for k in state),
+                          'loss_rel_err': max(abs(a - b) / abs(b)
+                                              for a, b in zip(losses, ref_losses)),
+                          'param_rel_err': _rel(state, ref_state),
+                          'param_max_abs_err': _max_abs(state, ref_state),
+                          'launches_per_step': counts[0], 'eval_loss': ev['loss']}
+            del tr
+            torch.cuda.empty_cache()
+        layers = cfg.num_hidden_layers
+        expect = {'flash_fwd': 0, 'flash_fwd_lse': layers, 'flash_bwd_dq': layers,
+                  'flash_bwd_dkv': layers, 'adamw': 1, 'adamw_norm': 1, 'nlm_rows': 0,
+                  'nlm_variant': 0}
+        emit({'phase': 'parallel_world1', 'nvidia_smi': smi, 'model': 'ecg-vit-base',
+              'dtype': 'float32', 'dropout': 0.1, 'dropout_impl': 'hash', 'timeout': True,
+              'batch': 64, 'one_card_losses': ref_losses, 'wrappers': rows,
+              'expected_per_step': expect, 'limit': PARALLEL_RTOL,
+              'param_rel_err': '||a - b|| / ||b|| over all parameters',
+              'reordered': 'the norm: each table row\'s f64 squares summed, then the rows '
+                           '(the mesh tail)'})
+        for name, row in rows.items():
+            if row['launches_per_step'] != expect:
+                raise AssertionError(f'{name}: a step launched {row["launches_per_step"]}, '
+                                     f'expected {expect}')
+            if not (row['loss_rel_err'] <= PARALLEL_RTOL
+                    and row['param_rel_err'] <= PARALLEL_RTOL):
+                raise AssertionError(f'{name} differs from the one-card steps: {row}')
+        if main_path['flash_fwd'] == 0:
+            raise AssertionError('the mesh evaluation launched no flash forward')
+
+        # one step of each objective on its wrapper against its one-card step
+        objectives = {}
+        for name, build, kw in (
+                ('moe_ep', lambda c, t, m: Trainer(c, t, norm_stats=stats, mesh=m, device=dev),
+                 dict(cfg=dict(moe_num_experts=4, moe_every=2), tp=True, fsdp=False)),
+                ('mae_accum_ema_fsdp', lambda c, t, m: MaeTrainer(
+                    c, MaeConfig(), t, norm_stats=stats, mesh=m, device=dev),
+                 dict(cfg={}, tp=False, fsdp=True, train=dict(grad_accum=2, ema_decay=0.9))),
+                ('contrastive_ddp', lambda c, t, m: ContrastiveTrainer(
+                    c, ContrastiveConfig(), t, norm_stats=stats, mesh=m, device=dev),
+                 dict(cfg={}, tp=False, fsdp=False))):
+            ocfg, otcfg, obatch = _parallel_setup(**kw['cfg'])
+            otcfg = dataclasses.replace(otcfg, **kw.get('train', {}))
+            want, _ = _parallel_steps(build(ocfg, otcfg, None), obatch, 1)
+            mesh = make_mesh(1, 1, device=dev, tensor_parallel=kw['tp'])
+            tr = build(ocfg, dataclasses.replace(otcfg, fsdp=kw['fsdp']), mesh)
+            got, counts = _parallel_steps(tr, obatch, 1)
+            for k, v in counts[0].items():
+                main_path[k] += v
+            objectives[name] = {'loss': got[0], 'one_card_loss': want[0],
+                                'loss_rel_err': abs(got[0] - want[0]) / abs(want[0]),
+                                'launches': counts[0]}
+            if name == 'moe_ep':
+                objectives[name]['experts_per_rank'] = int(
+                    tr.params()['encoder.blocks.1.moe.w1'].shape[0])
+            del tr
+            torch.cuda.empty_cache()
+        emit({'phase': 'parallel_objectives', 'nvidia_smi': smi, 'rows': objectives,
+              'limit': PARALLEL_RTOL})
+        for name, row in objectives.items():
+            if not (row['loss_rel_err'] <= PARALLEL_RTOL and row['launches']['adamw'] == 1
+                    and row['launches']['flash_bwd_dkv'] > 0):
+                raise AssertionError(f'{name} on the mesh differs from one card: {row}')
+
+        # bf16 throughput and peak memory of each wrapper at world 1
+        cfg16, tcfg16, batch16 = _parallel_setup('bfloat16')
+        rates = {}
+        for name, kw in {'one_card': None, **wrappers}.items():
+            torch.cuda.reset_peak_memory_stats()
+            mesh = None if kw is None else make_mesh(
+                1, 1, device=dev, tensor_parallel=kw.get('tensor_parallel'))
+            tr = Trainer(cfg16, dataclasses.replace(tcfg16, fsdp=bool(kw and kw['fsdp'])),
+                         norm_stats=stats, mesh=mesh, device=dev)
+            tr.init_state()
+            float(tr.train_step(batch16, np.arange(64))['loss'])
+            rates[name] = {'train_samples_per_s_bf16': _steps_per_s(tr, batch16, 8),
+                           'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}
+            del tr
+            torch.cuda.empty_cache()
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        coll_ms = device_ms(lambda: dist.all_reduce(total), reps=50)
+        emit({'phase': 'parallel_rates', 'nvidia_smi': smi, 'world': 1,
+              'note': 'world 1: the wrappers\' overhead, not scaling', 'rows': rates,
+              'norm_all_reduce_device_ms': coll_ms})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    # (b) two ranks on the one card over gloo, against the one-card steps
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix='chip-smoke-dp2-')
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, _parallel_rank, out_dir, timeout=300)
+        dp2_s = time.perf_counter() - t0
+        state = torch.load(os.path.join(out_dir, 'params.pt'), map_location='cpu',
+                           weights_only=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = ranks[0]['losses']
+    row = {'phase': 'parallel_dp2_one_card', 'nvidia_smi': smi, 'ranks': 2,
+           'backend': 'gloo', 'rows_per_rank': ranks[0]['local_rows'], 'losses': losses,
+           'one_card_losses': ref_losses,
+           'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+           'param_rel_err': _rel(state, {k: v.cpu() for k, v in ref_state.items()}),
+           'param_max_abs_err': _max_abs(state, {k: v.cpu() for k, v in ref_state.items()}),
+           'launches_per_step_rank0': ranks[0]['launches'][0], 'seconds': dp2_s,
+           'limit': PARALLEL_DP2_RTOL, 'phase_seconds': time.perf_counter() - t_phase}
+    emit(row)
+    if not (row['loss_rel_err'] <= PARALLEL_DP2_RTOL
+            and row['param_rel_err'] <= PARALLEL_DP2_RTOL
+            and ranks[1]['losses'] == losses
+            and all(c == expect for r in ranks for c in r['launches'])):
+        raise AssertionError(f'two ranks on the card differ from the one-card steps: {row}')
+    return main_path
+
 PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
-          'scale', 'artifacts')
+          'scale', 'artifacts', 'parallel')
 
 
 def main(argv=None) -> int:
@@ -2608,6 +2856,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'artifacts' in args.phases:
         for name, count in artifacts_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'parallel' in args.phases:
+        for name, count in parallel_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

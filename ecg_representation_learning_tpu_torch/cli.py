@@ -52,6 +52,19 @@ contrastive`` is refused with ``--stream``, as in the JAX CLI.  The HDF5
 paths need h5py; everything runs on the GPU, and ``denoise --device cpu``
 runs the plain versions of the kernels on the CPU.
 
+Meshes: ``train`` and ``pretrain`` take ``--mesh-model M`` (Megatron tensor
+parallelism and expert parallelism over M ranks; the data axis takes the
+rest) and ``--fsdp`` (ZeRO storage sharding over the data axis), on every
+rank of the process group: on cards under ``torchrun --nproc-per-node N``
+(NCCL, one card per rank), on the CPU with ``--platform cpu --host-devices
+N`` (N gloo ranks started here; the JAX CLI's N virtual CPU devices).  Rank
+0 writes the checkpoints and prints the result.
+
+    torchrun --nproc-per-node 4 -m ecg_representation_learning_tpu_torch.cli train \
+        --mesh-model 2 --fsdp
+    python -m ecg_representation_learning_tpu_torch.cli --platform cpu --host-devices 4 \
+        train --size debug --mesh-model 2 --fsdp
+
 Tools: ``export-model`` writes the served model as a ``torch.export``
 artifact (``models/export_artifact.py``: ``model.pt2`` + ``metadata.json``;
 ``ExportedModel.load`` runs it with only the port's op module imported);
@@ -79,6 +92,11 @@ def _add_common_train_flags(p):
     p.add_argument('--warmup-ratio', type=float, default=0.05)
     p.add_argument('--patience', type=int, default=8)
     p.add_argument('--timeout-augment', action='store_true')
+    p.add_argument('--mesh-model', type=int, default=1,
+                   help='tensor-parallel axis size (data axis = ranks / this)')
+    p.add_argument('--fsdp', action='store_true',
+                   help='ZeRO-style storage sharding of params + Adam moments '
+                        'over the data axis')
     p.add_argument('--resident-dtype', default=None,
                    choices=[None, 'float16', 'bfloat16'],
                    help='storage dtype of the device-resident signals (halves '
@@ -169,7 +187,7 @@ def _serving_trainer(args):
     from .train import Trainer
     tr = Trainer(_model_cfg_for(args), TrainConfig(eval_batch_size=args.batch_size,
                                                    ema_decay=args.ema_decay),
-                 norm_stats=_stats(args))
+                 norm_stats=_stats(args), device=args.device)
     tr.init_state()
     _maybe_port(args, tr)
     if args.checkpoint:
@@ -190,24 +208,25 @@ def cmd_train(args):
         warmup_ratio=args.warmup_ratio, patience=args.patience,
         augment_timeout=args.timeout_augment, seed=args.seed, n_sample=args.n_sample,
         resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
-        ema_decay=args.ema_decay, linear_probe=args.probe)
+        ema_decay=args.ema_decay, linear_probe=args.probe, mesh_model=args.mesh_model,
+        fsdp=args.fsdp)
     tr = Trainer(_model_cfg_for(args), cfg, train_data=splits.train,
                  eval_data=splits.eval, norm_stats=_stats(args),
-                 output_dir=args.output_dir)
+                 output_dir=args.output_dir, device=args.device)
     _maybe_port(args, tr)
     if args.init_encoder:
         # the SSL -> supervised handoff: a pretrained trunk (MAE or
         # contrastive, detected) into the classifier; --probe freezes it
         from .train.contrastive import load_any_encoder
         tr.init_state()
-        tr.set_params(load_any_encoder(args.init_encoder, tr.model.state_dict()))
+        tr.set_params(load_any_encoder(args.init_encoder, tr.state_dict()))
     if args.resume_from:
         tr.load_checkpoint(args.resume_from)
     result = tr.train()
     test_metrics = tr.evaluate(splits.test)
-    print(json.dumps({'best_eval_loss': result['best_eval_loss'],
-                      'test_macro_auc': test_metrics['macro_auc'],
-                      'epochs': result['epochs']}))
+    _result({'best_eval_loss': result['best_eval_loss'],
+             'test_macro_auc': test_metrics['macro_auc'],
+             'epochs': result['epochs']})
 
 
 def _expand_corpus(spec: str):
@@ -265,21 +284,23 @@ def _cmd_pretrain_stream(args):
         eval_batch_size=args.batch_size, learning_rate=args.lr,
         weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_ratio=args.warmup_ratio, grad_accum=args.grad_accum,
-        ema_decay=args.ema_decay, seed=args.seed)
+        ema_decay=args.ema_decay, seed=args.seed, mesh_model=args.mesh_model,
+        fsdp=args.fsdp)
     tr = MaeTrainer(_model_cfg_for(args), MaeConfig(mask_ratio=args.mask_ratio), cfg,
-                    norm_stats=_stats(args), output_dir=args.output_dir or 'runs/mae-stream')
+                    norm_stats=_stats(args), output_dir=args.output_dir or 'runs/mae-stream',
+                    device=args.device)
     stream = MixedRecordStream(corpora, batch_size=args.batch_size, weights=weights,
                                seed=args.seed, dtype=None)
+    # on a mesh each rank moves its rows of every batch only
     res = tr.train_stream(
-        prefetch_to_device(iter(stream), depth=2, device=tr.device),
+        prefetch_to_device(iter(stream), depth=2, device=tr.device, sharding=tr.mesh),
         total_steps=args.stream_steps, raw_fqs=raw_fqs, wire_scale=wire_scale,
         log_every=args.log_every, ckpt_every=args.ckpt_every,
-        resume=args.resume_from or args.resume)
+        resume=args.resume_from or args.resume, local_batches=tr.mesh is not None)
     ckpt = tr.latest_checkpoint() or tr.save_checkpoint(tag='final')
-    print(json.dumps({'pretrain_loss': res['loss'], 'steps': res['steps'],
-                      'mix_counts': res['mix_counts'],
-                      'corpora': [len(c) for c in corpora],
-                      'checkpoint': ckpt}))
+    _result({'pretrain_loss': res['loss'], 'steps': res['steps'],
+             'mix_counts': res['mix_counts'], 'corpora': [len(c) for c in corpora],
+             'checkpoint': ckpt})
 
 
 def cmd_pretrain(args):
@@ -295,8 +316,9 @@ def cmd_pretrain(args):
         weight_decay=args.weight_decay, schedule=args.schedule,
         warmup_ratio=args.warmup_ratio, patience=args.patience,
         resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
-        ema_decay=args.ema_decay, seed=args.seed)
-    kw = dict(train_data=splits.train, eval_data=splits.eval, norm_stats=_stats(args))
+        ema_decay=args.ema_decay, seed=args.seed, mesh_model=args.mesh_model, fsdp=args.fsdp)
+    kw = dict(train_data=splits.train, eval_data=splits.eval, norm_stats=_stats(args),
+              device=args.device)
     if args.objective == 'contrastive':
         tr = ContrastiveTrainer(_model_cfg_for(args),
                                 ContrastiveConfig(temperature=args.temperature), cfg,
@@ -305,9 +327,8 @@ def cmd_pretrain(args):
         tr = MaeTrainer(_model_cfg_for(args), MaeConfig(mask_ratio=args.mask_ratio), cfg,
                         output_dir=args.output_dir or 'runs/mae', **kw)
     result = tr.train(resume=args.resume_from or False)
-    print(json.dumps({'pretrain_loss': result['loss'],
-                      'best_eval_loss': result['best_eval_loss'],
-                      'checkpoint': result['checkpoint']}))
+    _result({'pretrain_loss': result['loss'], 'best_eval_loss': result['best_eval_loss'],
+             'checkpoint': result['checkpoint']})
 
 
 def cmd_evaluate(args):
@@ -317,7 +338,7 @@ def cmd_evaluate(args):
     splits = _load_splits(args)
     tr = Trainer(_model_cfg_for(args), TrainConfig(ema_decay=args.ema_decay,
                                                    eval_batch_size=args.batch_size),
-                 eval_data=splits.eval, norm_stats=_stats(args))
+                 eval_data=splits.eval, norm_stats=_stats(args), device=args.device)
     tr.init_state()
     _maybe_port(args, tr)
     if args.checkpoint:
@@ -344,7 +365,7 @@ def cmd_visualize(args):
     splits = _load_splits(args)
     model_cfg = _model_cfg_for(args)
     tr = Trainer(model_cfg, TrainConfig(ema_decay=args.ema_decay), eval_data=splits.eval,
-                 norm_stats=_stats(args))
+                 norm_stats=_stats(args), device=args.device)
     tr.init_state()
     if args.checkpoint:
         _load_ckpt(tr, args)
@@ -419,7 +440,7 @@ def cmd_export_model(args):
     from .models.export_artifact import export_model
     from .train import Trainer
     tr = Trainer(_model_cfg_for(args), TrainConfig(ema_decay=args.ema_decay),
-                 norm_stats=_stats(args))
+                 norm_stats=_stats(args), device=args.device)
     tr.init_state()
     _maybe_port(args, tr)
     if args.checkpoint:
@@ -463,7 +484,7 @@ def cmd_port(args):
     ``--resume-from`` take it)."""
     from .configs import TrainConfig
     from .train import Trainer
-    tr = Trainer(_model_cfg_for(args), TrainConfig(), output_dir=args.out)
+    tr = Trainer(_model_cfg_for(args), TrainConfig(), output_dir=args.out, device=args.device)
     tr.init_state()
     _maybe_port(args, tr)
     path = tr.save_checkpoint(tag='ported')
@@ -515,6 +536,12 @@ def cmd_denoise(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog='ecg-torch')
+    p.add_argument('--platform', default=None, choices=['cuda', 'cpu'],
+                   help='run the trainers on this device (default: the GPU); cpu runs '
+                        'the plain versions of the kernels')
+    p.add_argument('--host-devices', type=int, default=None,
+                   help='with --platform cpu: start this many gloo CPU ranks on this '
+                        'host (multi-rank dry runs of --mesh-model / --fsdp)')
     sub = p.add_subparsers(dest='cmd', required=True)
     for name, fn in (('train', cmd_train), ('pretrain', cmd_pretrain),
                      ('evaluate', cmd_evaluate), ('visualize', cmd_visualize)):
@@ -687,8 +714,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def _result(obj) -> None:
+    """Print a command's JSON result (on a mesh, rank 0 alone)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(obj), flush=True)
+
+
+def _rank_main(argv):
+    """One CPU rank of ``--platform cpu --host-devices N``."""
     args = build_parser().parse_args(argv)
+    args.device = 'cpu'
+    args.fn(args)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if getattr(args, 'device', None) is None:   # denoise has a --device of its own
+        args.device = args.platform
+    if args.host_devices and args.host_devices > 1:
+        if args.platform != 'cpu':
+            raise SystemExit('--host-devices N starts N CPU ranks: add --platform cpu '
+                             '(on cards run under torchrun)')
+        from .parallel.distributed import spawn_ranks
+        spawn_ranks(args.host_devices, _rank_main, argv)
+        return
+    from .parallel.distributed import initialize_distributed
+    initialize_distributed(device=args.platform)   # a no-op for one process
     args.fn(args)
 
 

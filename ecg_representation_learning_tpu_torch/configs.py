@@ -6,9 +6,11 @@ with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  The
 one-device model options are ported (Switch-MoE, ``remat``, ``scan_blocks``;
 MoE with ``scan_blocks`` is refused, as in JAX), and so is
 ``async_checkpoint``.  Fields whose feature the port has not reached yet
-keep their defaults: the model raises on ``ring_axis``, and ``TrainConfig``
-raises on construction for meshes and FSDP (ROADMAP queue 1 item 10) and
-for multi-step dispatch (item 3).
+keep their defaults: the model raises on ``ring_axis`` (ring context
+parallelism), and ``TrainConfig`` raises on construction for ``mesh_stage``
+(GPipe) -- both ROADMAP queue 1 item 10, slice 14 -- and for multi-step
+dispatch (item 3).  The ('data', 'model') mesh is ported: ``mesh_data``,
+``mesh_model`` and ``fsdp`` build one (``parallel/``).
 ``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
 unread, so that a JAX configuration still loads.
 ``PreprocessConfig`` is a whole copy.
@@ -188,17 +190,15 @@ class TrainConfig:
                                     # gather batches by index; None = when it
                                     # fits hbm_split_max_bytes
     hbm_split_max_bytes: int = 4 << 30
-    mesh_data: Optional[int] = None  # not ported (one device; ROADMAP item 10)
-    mesh_model: int = 1             # not ported (1 only; ROADMAP item 10)
-    mesh_stage: int = 1             # not ported (1 only; ROADMAP item 10)
-    fsdp: bool = False              # not ported (ROADMAP item 10)
+    mesh_data: Optional[int] = None  # ranks on the mesh's 'data' axis (None: the
+                                    # ranks left after 'model'); parallel/mesh.py
+    mesh_model: int = 1             # ranks on 'model' (Megatron TP, expert parallelism)
+    mesh_stage: int = 1             # not ported (1 only; ROADMAP item 10, slice 14)
+    fsdp: bool = False              # ZeRO storage sharding over 'data' (FSDP2)
 
     def __post_init__(self):
         # field -> (set to something the port cannot run, its ROADMAP queue-1 item)
-        unported = {'mesh_data': (self.mesh_data not in (None, 1), 10),
-                    'mesh_model': (self.mesh_model != 1, 10),
-                    'mesh_stage': (self.mesh_stage != 1, 10),
-                    'fsdp': (self.fsdp, 10),
+        unported = {'mesh_stage': (self.mesh_stage != 1, '10, slice 14'),
                     'epoch_scan': (self.epoch_scan, 3),
                     'steps_per_dispatch': (self.steps_per_dispatch != 1, 3)}
         bad = [f'{k} (ROADMAP queue 1 item {item})'

@@ -103,10 +103,22 @@ def prefetch_to_device(iterator: Iterator, depth: int = 2, sharding=None,
                        device: Optional[Union[str, torch.device]] = None) -> Iterator:
     """Keep ``depth`` device-resident batches in flight ahead of the consumer
     (``device``: default the GPU; on the CPU the items pass through as they
-    are).  ``sharding`` waits for the parallelism slice: only None."""
+    are).  ``sharding``: a ``parallel.Mesh``, whose rank keeps and moves only
+    its rows of each batch (``process_local_batch_slice`` over 'data'; a
+    ``(corpus, batch)`` item keeps its corpus index), onto the mesh's device
+    unless ``device`` says otherwise."""
     if sharding is not None:
-        raise NotImplementedError('not ported: prefetch_to_device(sharding=...) '
-                                  '(multi-device placement)')
+        from ..parallel.distributed import process_local_batch_slice
+        from ..parallel.mesh import Mesh
+        if not isinstance(sharding, Mesh):
+            raise TypeError(f'sharding must be a parallel.Mesh, got {type(sharding).__name__}')
+        device = sharding.device if device is None else device
+
+        def rows(x):   # an array's rows; a corpus index passes
+            if getattr(x, 'ndim', 0):
+                return x[process_local_batch_slice(x.shape[0], sharding)]
+            return x
+        iterator = (_tree_map(rows, item) for item in iterator)
     dev = default_device(device)
     if dev.type != 'cuda':
         return iter(iterator)

@@ -30,6 +30,7 @@ import torch.nn as nn
 
 from ..configs import MaeConfig, VitConfig
 from ..ops.dropout import DropoutRng
+from ..parallel import spmd
 from .moe import mean_aux, moe_layer
 from .vit import Block, Dense, LayerNorm, PatchEmbed1D, _dtype
 
@@ -145,6 +146,9 @@ class EcgMae(nn.Module):
         n_patch = length // cfg.patch_size
         if noise is None and rng is None:
             raise ValueError('EcgMae needs noise= or rng= for the mask')
+        if noise is None:   # on a mesh: the global batch's draw, this rank's rows
+            noise = spmd.global_draw(b, lambda n: torch.rand(
+                (n, n_patch), generator=rng.device, device=sample_values.device))
         ids_keep, ids_restore, mask = random_masking(
             b, n_patch, mae.mask_ratio, noise=noise,
             generator=None if rng is None else rng.device, device=sample_values.device)

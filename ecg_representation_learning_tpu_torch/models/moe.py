@@ -26,8 +26,26 @@ FFNs run as ``torch.bmm``, and the outputs are gathered back and scaled by
 the gate: the same values without the 2 * S * E * C * d multiply-adds of
 each einsum.  The shapes stay static too (a dropped token is copied to a
 spare row and gathers a zero row), so the forward never waits for the
-device.  Expert parallelism (the stacks sharded over a mesh axis) is not
-ported.
+device.
+
+On a mesh (``parallel/mesh.py``) the semantics stay those of the global
+batch, as GSPMD keeps them in JAX:
+
+  * data parallelism: S, the capacity and each token's slot are the global
+    batch's -- every rank routes its rows, the data ranks' per-expert
+    counts (one all-gather of E integers) give each rank the slots before
+    its own, and the aux loss takes its fractions and mean probabilities
+    over the global batch (sums all-reduced over 'data', with gradient).
+    A rank's experts compute the global (C, d) slot buffer with only its
+    own tokens' rows filled;
+  * expert parallelism (``ep``, set by ``ShardedModel``): the stacks are
+    sharded on E over 'model', each rank holding E / n_model experts.  The
+    block's input is replicated over 'model', so every rank routes every
+    token with the replicated router and runs its experts' slots; a token's
+    expert output is summed over 'model' (one all-reduce: its expert is on
+    one rank, the others add zeros -- a dropped token is 0 on every rank)
+    and then scaled by its gate.  The aux loss comes from the replicated
+    router on every rank and is never summed over 'model'.
 """
 from __future__ import annotations
 
@@ -41,6 +59,7 @@ import torch.nn.functional as F
 
 from ..configs import VitConfig
 from ..ops.dropout import DropoutRng, make_dropout
+from ..parallel import spmd
 
 
 def moe_layer(cfg: VitConfig, i: int) -> bool:
@@ -72,6 +91,7 @@ class MoeMlp(nn.Module):
         self.drop1 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=6)
         self.drop2 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=7)
         self.int8: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.ep = False   # the expert stacks split over 'model' (expert parallelism)
 
     def _stack(self, name: str) -> torch.Tensor:
         if name in self.int8:
@@ -82,16 +102,21 @@ class MoeMlp(nn.Module):
     def route(self, xs: torch.Tensor):
         """(probs (S, E) f32, gate (S,), the (E, S) one-hot of each token's
         expert, slot (S,) or -1 when dropped, capacity) of the tokens ``xs``
-        (S, d)."""
+        (S, d); on a mesh with several data ranks S, the capacity and the
+        slots are the global batch's."""
         e = self.cfg.moe_num_experts
         s = xs.shape[0]
         probs = torch.softmax(self.router(xs.float()), dim=-1)
         gate = probs.amax(dim=-1)
         expert = probs.argmax(dim=-1)
-        cap = capacity(self.cfg.moe_capacity_factor, s, e)
         # (E, S): the running count runs along the contiguous token axis
         chosen = expert[None, :] == torch.arange(e, device=xs.device)[:, None]
         pos = chosen.cumsum(dim=1).gather(0, expert[None, :]).squeeze(0) - 1
+        rank, n_data = spmd.data_index()
+        if n_data > 1:   # the tokens of the data ranks before this one come first
+            counts = spmd.data_counts(chosen.sum(dim=1))          # (n_data, E)
+            pos = pos + counts[:rank].sum(dim=0).index_select(0, expert)
+        cap = capacity(self.cfg.moe_capacity_factor, s * n_data, e)
         slot = torch.where(pos < cap, expert * cap + pos, -1)
         return probs, gate, chosen, slot, cap
 
@@ -101,19 +126,33 @@ class MoeMlp(nn.Module):
         b, t, d = x.shape
         xs = x.reshape(b * t, d)
         probs, gate, chosen, slot, cap = self.route(xs)
-        frac = chosen.float().mean(dim=1)
-        aux = e * torch.sum(frac * probs.mean(dim=0))
+        if spmd.data_index()[1] == 1:
+            frac = chosen.float().mean(dim=1)
+            aux = e * torch.sum(frac * probs.mean(dim=0))
+        else:            # over the global batch
+            n_tok = xs.shape[0] * spmd.data_index()[1]
+            frac = spmd.mean_over_data(chosen.float().mean(dim=1))
+            aux = e * torch.sum(frac * (spmd.all_reduce_data(probs.sum(dim=0)) / n_tok))
 
-        # every shape is known on the host: a dropped token goes to a spare
-        # row e * cap, which the experts never read, and reads back zeros
-        dest = torch.where(slot >= 0, slot, e * cap)
-        xe = xs.new_zeros((e * cap + 1, d), dtype=dt).index_copy(0, dest, xs.to(dt))
-        h = torch.bmm(xe[:-1].reshape(e, cap, d), self._stack('w1').to(dt))
-        h = self.drop1(F.gelu(h + self.b1[:, None, :].to(dt), approximate='none'), rng)
+        # every shape is known on the host: a dropped token (or, under
+        # expert parallelism, one of another rank's experts) goes to a spare
+        # row, which the experts never read, and reads back zeros
+        e0, e_loc = spmd.model_slice(e) if self.ep else (0, e)
+        local = (slot >= e0 * cap) & (slot < (e0 + e_loc) * cap)
+        dest = torch.where(local, slot - e0 * cap, e_loc * cap)
+        xin = spmd.copy_to_model(xs) if self.ep else xs
+        xe = xs.new_zeros((e_loc * cap + 1, d), dtype=dt).index_copy(0, dest, xin.to(dt))
+        h = torch.bmm(xe[:-1].reshape(e_loc, cap, d), self._stack('w1').to(dt))
+        h = F.gelu(h + self.b1[:, None, :].to(dt), approximate='none')
+        h = self.drop1(h, rng, spmd.frame(h.shape, batch_dim=None,
+                                          model_dim=0 if self.ep else None))
         ye = torch.bmm(h, self._stack('w2').to(dt)) + self.b2[:, None, :].to(dt)
-        ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
-        ys = ye.index_select(0, dest) * gate.to(dt)[:, None]
-        return self.drop2(ys, rng).reshape(b, t, d), aux
+        ye = torch.cat([ye.reshape(e_loc * cap, d), ye.new_zeros((1, d))])
+        yt = ye.index_select(0, dest)
+        if self.ep:
+            yt = spmd.reduce_from_model(yt)
+        ys = yt * gate.to(dt)[:, None]
+        return self.drop2(ys, rng, spmd.frame(ys.shape)).reshape(b, t, d), aux
 
 
 def mean_aux(auxes, device) -> torch.Tensor:

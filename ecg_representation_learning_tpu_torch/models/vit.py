@@ -38,7 +38,15 @@ The model options of the JAX encoder:
     convert between the layouts).  MoE blocks differ per layer, so MoE with
     ``scan_blocks`` is refused, as in JAX.
 
-``ring_axis`` (context parallelism) is not ported and raises.
+On a mesh (``parallel/mesh.py``) the modules run the Megatron plan that
+``ShardedModel`` gives them: a ``Dense`` with ``tp`` 'col' / 'row' /
+'gather' is column-parallel, row-parallel (its bias added after the sum over
+'model'), or column-parallel with its output gathered; ``SelfAttention``
+runs its ``heads`` (H / n_model); every dropout site passes where its
+tensor sits in the global one (``parallel.spmd.frame``), and the attention
+kernel the first global bh of the rank's rows.
+
+``ring_axis`` (context parallelism) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import VitConfig
 from ..ops.attention import attention
 from ..ops.dropout import DropoutRng, make_dropout
+from ..parallel import spmd
 from .moe import MoeMlp, mean_aux, moe_layer
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -69,19 +78,32 @@ class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype`` (input, weight and bias cast).
     While ``int8`` holds an (int8 weight, scales) pair (set by
     ``models.quantize.int8_weights``), the layer computes with that weight
-    dequantized in place of its own."""
+    dequantized in place of its own.  ``tp`` (set by
+    ``parallel.mesh.ShardedModel``): None, or the Megatron role of the rank's
+    slice of the weight -- 'col' (output features), 'row' (input features:
+    the partial products summed over 'model', then the bias) or 'gather'
+    (output features, gathered after the product, then the bias)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.int8 = None
+        self.tp = None
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         w = self.weight if self.int8 is None else self.int8[0].float() * self.int8[1]
-        return F.linear(x.to(dt), w.to(dt), bias)
+        if self.tp is None or spmd.model_index()[1] == 1:   # one model rank: one product
+            return F.linear(x.to(dt), w.to(dt), bias)
+        if self.tp == 'col':
+            return F.linear(spmd.copy_to_model(x).to(dt), w.to(dt), bias)
+        if self.tp == 'row':
+            y = spmd.reduce_from_model(F.linear(x.to(dt), w.to(dt)))
+        else:
+            y = spmd.gather_from_model(F.linear(spmd.copy_to_model(x).to(dt), w.to(dt)))
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.LayerNorm):
@@ -130,9 +152,10 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: VitConfig):
         super().__init__()
         if cfg.ring_axis is not None:
-            raise NotImplementedError('not ported: ring_axis (context parallelism, '
-                                      'ROADMAP queue 1 item 10)')
+            raise NotImplementedError('not ported: ring_axis (ring context parallelism, '
+                                      'ROADMAP queue 1 item 10, slice 14)')
         self.cfg = cfg
+        self.heads = cfg.num_attention_heads   # the rank's heads under the Megatron plan
         dt = _dtype(cfg)
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size, bias=False, dtype=dt)
         self.out = Dense(cfg.hidden_size, cfg.hidden_size, dtype=dt)
@@ -141,7 +164,7 @@ class SelfAttention(nn.Module):
     def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
         cfg = self.cfg
         b, t, _ = x.shape
-        qkv = self.qkv(x).reshape(b, t, 3, cfg.num_attention_heads, cfg.head_dim)
+        qkv = self.qkv(x).reshape(b, t, 3, self.heads, cfg.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)   # (B,H,T,D)
         probs = None
         if return_probs:
@@ -152,12 +175,15 @@ class SelfAttention(nn.Module):
         else:
             rate = cfg.attention_probs_dropout_prob
             active = self.training and rate > 0.0
+            batch = spmd.batch_frame(b)
             out = attention(q, k, v, dropout_rate=rate, deterministic=not self.training,
                             seed=rng.seed() if active else 0,
                             use_flash=cfg.use_flash_attention, min_seq=cfg.flash_min_seq,
-                            generator=rng.device if active else None)
-        out = out.permute(0, 2, 1, 3).reshape(b, t, cfg.hidden_size)
-        return self.drop(self.out(out), rng), probs
+                            generator=rng.masks if active else None,
+                            bh_offset=0 if batch is None else batch[0] * self.heads)
+        out = out.permute(0, 2, 1, 3).reshape(b, t, self.heads * cfg.head_dim)
+        y = self.out(out)
+        return self.drop(y, rng, spmd.frame(y.shape)), probs
 
 
 class Mlp(nn.Module):
@@ -168,10 +194,13 @@ class Mlp(nn.Module):
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dt)
         self.drop1 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=3)
         self.drop2 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=4)
+        self.tp = False   # the hidden units split over 'model' (Megatron plan)
 
     def forward(self, x, rng: Optional[DropoutRng] = None):
-        h = self.drop1(F.gelu(self.fc1(x), approximate='none'), rng)
-        return self.drop2(self.fc2(h), rng)
+        h = F.gelu(self.fc1(x), approximate='none')
+        h = self.drop1(h, rng, spmd.frame(h.shape, model_dim=-1 if self.tp else None))
+        y = self.fc2(h)
+        return self.drop2(y, rng, spmd.frame(y.shape))
 
 
 class Block(nn.Module):
@@ -288,7 +317,7 @@ class EcgVitEncoder(nn.Module):
         cls = self.cls_token.expand(b, 1, hidden).to(h.dtype)
         h = torch.cat([cls, h], dim=1)
         h = h + self.pos_embed[:, :n_patch + 1].to(h.dtype)
-        h = self.emb_drop(h, rng)
+        h = self.emb_drop(h, rng, spmd.frame(h.shape))
         blocks = self.blocks
         layers = ([blocks.layer(i) for i in range(blocks.layers)]
                   if isinstance(blocks, ScannedBlocks) else list(blocks))

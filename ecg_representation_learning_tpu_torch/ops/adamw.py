@@ -22,12 +22,23 @@ plain version (``global_norm`` + ``tail_scalars_reference`` +
 ``adamw_update_reference``) runs the same math leaf by leaf.  The port
 updates in place where JAX returns new arrays (JAX aliases them with
 ``input_output_aliases``, to the same effect).
+
+On a mesh each rank holds its shards of the leaves; ``reduce``
+(:class:`NormReduce`) makes the norm the mesh-wide one: each leaf's sum of
+squares times 1 / its number of copies on the mesh, summed in f64 and
+all-reduced, so a sharded leaf counts its shards once each and a replicated
+one once in all -- every rank then takes the same scale, the same
+non-finite decision and the same counter.  On CUDA that is launch 1 with
+the leaf weights, one all-reduce of its f64 sum, and launch 2 taking the
+scalars from the sum (``_AdamWKernel.tail``); on the CPU the plain version
+(``mesh_norm_reference``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import operator
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +53,29 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     tensors' device."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@dataclasses.dataclass
+class NormReduce:
+    """The mesh-wide gradient norm: ``weights`` (one per leaf, 1 / the
+    leaf's number of identical copies on the mesh) and the process ``group``
+    whose ranks hold all of them (None: the default group)."""
+    weights: Sequence[float]
+    group: Any = None
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+def mesh_norm_reference(grads: Sequence[torch.Tensor], reduce: NormReduce) -> torch.Tensor:
+    """Plain version of the mesh-wide norm: sqrt of the all-reduced f64
+    sum of each leaf's squares times its weight, as an f32."""
+    total = torch.zeros((), dtype=torch.float64, device=grads[0].device)
+    for g, w in zip(grads, reduce.weights):
+        total = total + w * g.double().square().sum()
+    return torch.sqrt(reduce.all_reduce(total)).float()
 
 
 def tail_scalars_reference(g_norm: torch.Tensor, lr_bc: Sequence[float], *,
@@ -190,6 +224,8 @@ class _AdamWKernel:
         self._partials = None    # the norm's f64 partials, one per block of launch 1
         self._ticket = None      # the norm's last-block counter
         self._n_blocks = 0
+        self._weights = None     # (key, f64 device tensor) of a NormReduce's leaf weights
+        self._sum = None         # launch 1's f64 sum of squares under a NormReduce
 
     def _library(self):
         if self._lib is None:
@@ -201,11 +237,12 @@ class _AdamWKernel:
             lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                                        + [ctypes.c_void_p] * 3
                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                                       + [ctypes.c_void_p] * 5)
+                                       + [ctypes.c_void_p] * 7)
             lib.adamw_norm.restype = ctypes.c_int
             lib.adamw_update.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6
-                                         + [ctypes.c_void_p])
+                                         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int] + [ctypes.c_void_p] * 4)
             lib.adamw_update.restype = ctypes.c_int
             self._lib = lib
         return self._lib
@@ -247,10 +284,21 @@ class _AdamWKernel:
         return host, torch.empty(head + n, dtype=torch.int64, device=self._dev)
 
     def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, stream: int, *,
-                       b1: float, b2: float, eps: float, wd: float) -> None:
+                       b1: float, b2: float, eps: float, wd: float, mesh_tail=None) -> None:
+        """Launch 2; ``mesh_tail`` = (sum, clip_norm, zero_nonfinite,
+        norm_out, count_in, count_out) takes the scalars from the mesh-wide
+        sum."""
+        ptr = lambda t: None if t is None else t.data_ptr()
+        if mesh_tail is None:
+            tail = (None, 0.0, 0, 0, None, None, None)
+        else:
+            total, clip, zero_nonfinite, norm_out, count_in, count_out = mesh_tail
+            tail = (total.data_ptr(), 0.0 if clip is None else float(clip),
+                    int(clip is not None), int(zero_nonfinite), norm_out.data_ptr(),
+                    ptr(count_in), ptr(count_out))
         err = self._lib.adamw_update(self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
                                      scalars.data_ptr(), self._mu_bf16, b1, 1.0 - b1, b2,
-                                     1.0 - b2, eps, wd, stream)
+                                     1.0 - b2, eps, wd, *tail, stream)
         if err != 0:
             raise RuntimeError(f'adamw_update launch failed: CUDA error {err}')
         self.launches += 1
@@ -292,7 +340,7 @@ class _AdamWKernel:
             self._partials.data_ptr(), self._ticket.data_ptr(), ptr(g_norm),
             0.0 if clip_norm is None else float(clip_norm), int(clip_norm is not None),
             int(zero_nonfinite), f32.data_ptr(), ptr(None if g_norm is not None else grad_norm),
-            ptr(nonfinite_count), ptr(count_out), stream)
+            ptr(nonfinite_count), ptr(count_out), None, None, stream)
         if err != 0:
             raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
         self.norm_launches += 1
@@ -314,14 +362,58 @@ class _AdamWKernel:
                                       zero_nonfinite, g_norm,
                                       torch.cuda.current_stream().cuda_stream)[:3]
 
+    def _mesh_tail(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
+                   reduce: NormReduce, stream, **kw):
+        """Under a ``NormReduce``: launch 1 with the leaf weights (its f64
+        sum of squares), the all-reduce of the sum, launch 2 from it."""
+        dev = self._dev
+        wkey = (self._key, tuple(reduce.weights))
+        if self._weights is None or self._weights[0] != wkey:
+            w = torch.tensor(list(reduce.weights), dtype=torch.float64)
+            if w.numel() != len(self._shapes):
+                raise ValueError(f'NormReduce has {w.numel()} weights for '
+                                 f'{len(self._shapes)} leaves')
+            self._weights = (wkey, w.to(dev))
+            self._sum = torch.empty((), dtype=torch.float64, device=dev)
+        if nonfinite_count is not None and (nonfinite_count.numel() != 1
+                                            or nonfinite_count.dtype != torch.int32
+                                            or nonfinite_count.device != dev):
+            raise ValueError(f'nonfinite_count must be one int32 on {dev}')
+        host.numpy()[:4].view(np.float32)[1:4] = lr_bc
+        ws.copy_(host, non_blocking=True)
+        f32 = ws[:4].view(torch.float32)
+        gptrs = ws[4:]
+        err = self._lib.adamw_norm(
+            self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
+            self._partials.data_ptr(), self._ticket.data_ptr(), None, 0.0, 0, 0,
+            f32.data_ptr(), None, None, None, self._weights[1].data_ptr(),
+            self._sum.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
+        self.norm_launches += 1
+        reduce.all_reduce(self._sum)
+        grad_norm = f32[5]
+        count_out = None if nonfinite_count is None else torch.empty_like(nonfinite_count)
+        self._launch_update(gptrs, f32[:5], stream, mesh_tail=(
+            self._sum, clip_norm, zero_nonfinite, grad_norm, nonfinite_count, count_out), **kw)
+        return grad_norm, count_out
+
     def tail(self, params, grads, mus, nus, lr_bc: Sequence[float],
              nonfinite_count: Optional[torch.Tensor] = None, *, clip_norm: Optional[float],
              zero_nonfinite: bool, b1: float, b2: float, eps: float, wd: float,
-             g_norm: Optional[torch.Tensor] = None
+             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The whole tail in two launches and one pinned H2D copy; returns
-        ``(grad_norm, nonfinite_count)`` as ``adamw_tail_reference``."""
+        ``(grad_norm, nonfinite_count)`` as ``adamw_tail_reference``.  With
+        ``reduce`` the norm is the mesh-wide one (one all-reduce between the
+        launches)."""
         host, ws = self._prepare(params, grads, mus, nus, 4)
+        if reduce is not None and g_norm is None:
+            with torch.cuda.device(self._dev):
+                return self._mesh_tail(host, ws, lr_bc, nonfinite_count, clip_norm,
+                                       zero_nonfinite, reduce,
+                                       torch.cuda.current_stream().cuda_stream,
+                                       b1=b1, b2=b2, eps=eps, wd=wd)
         with torch.cuda.device(self._dev):
             stream = torch.cuda.current_stream().cuda_stream
             scalars, grad_norm, count, gptrs = self._norm_scalars(
@@ -358,13 +450,18 @@ def adamw_tail(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
                lr_bc: Sequence[float], nonfinite_count: Optional[torch.Tensor] = None, *,
                clip_norm: Optional[float], zero_nonfinite: bool, b1: float, b2: float,
-               eps: float, wd: float, g_norm: Optional[torch.Tensor] = None
+               eps: float, wd: float, g_norm: Optional[torch.Tensor] = None,
+               reduce: Optional[NormReduce] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FusedAdamW step from the gradients: norm, scalars, counter and
     update, in place; returns ``(grad_norm, nonfinite_count)``.  CUDA
-    tensors: two kernel launches; CPU tensors: the plain version."""
+    tensors: two kernel launches; CPU tensors: the plain version.  ``reduce``
+    makes the norm the mesh-wide one (:class:`NormReduce`)."""
     kw = dict(clip_norm=clip_norm, zero_nonfinite=zero_nonfinite, b1=b1, b2=b2, eps=eps,
               wd=wd, g_norm=g_norm)
     if _device_type(params) == 'cuda':
-        return adamw_kernel.tail(params, grads, mus, nus, lr_bc, nonfinite_count, **kw)
+        return adamw_kernel.tail(params, grads, mus, nus, lr_bc, nonfinite_count, **kw,
+                                 reduce=reduce)
+    if reduce is not None and g_norm is None:
+        kw['g_norm'] = mesh_norm_reference(grads, reduce)
     return adamw_tail_reference(params, grads, mus, nus, lr_bc, nonfinite_count, **kw)

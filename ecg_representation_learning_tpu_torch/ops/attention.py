@@ -70,10 +70,12 @@ def dropout_keep(seed, bh, qpos, kpos, rate: float) -> torch.Tensor:
 
 
 def keep_full(seed: int, b: int, h: int, t: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, bh_offset: int = 0) -> torch.Tensor:
     """(B, H, T, T) keep mask over every (bh, query, key) position (the JAX
-    ``_keep_full``)."""
-    bh = torch.arange(b * h, device=device)[:, None, None]
+    ``_keep_full``); head bh hashes ``bh_offset + bh``, so rows of a larger
+    batch held from row r on take that batch's masks with ``bh_offset =
+    r * H``."""
+    bh = torch.arange(bh_offset, bh_offset + b * h, device=device)[:, None, None]
     qpos = torch.arange(t, device=device)[None, :, None]
     kpos = torch.arange(t, device=device)[None, None, :]
     return dropout_keep(seed, bh, qpos, kpos, rate).reshape(b, h, t, t)
@@ -86,18 +88,19 @@ def _scale(q, scale):
 def flash_attention_forward_reference(q, k, v, seed: int = 0,
                                       scale: Optional[float] = None,
                                       dropout_rate: float = 0.0,
-                                      return_lse: bool = False):
+                                      return_lse: bool = False, bh_offset: int = 0):
     """Plain PyTorch version of the flash forward kernels: f32 scores and
     softmax, the hashed keep mask applied to the normalized probabilities,
     probabilities rounded to the input dtype before the PV product (f32
     accumulation), output in the input dtype.  ``return_lse`` also returns
-    the row log-sum-exp m + log(max(l, 1e-30)), (B, H, T) f32."""
+    the row log-sum-exp m + log(max(l, 1e-30)), (B, H, T) f32.  The masks
+    are ``keep_full``'s with ``bh_offset``."""
     scale = _scale(q, scale)
     b, h, t, _ = q.shape
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0.0:
-        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device)
+        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device, bh_offset=bh_offset)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     out = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
     if not return_lse:
@@ -107,7 +110,7 @@ def flash_attention_forward_reference(q, k, v, seed: int = 0,
     return out, lse
 
 
-def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate):
+def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset):
     """p (recomputed from lse), the dropped-and-rescaled p and
     ds = p * (dpv - delta), all (B, H, T, T) f32."""
     b, h, t, _ = q.shape
@@ -116,7 +119,7 @@ def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate):
     dpv = torch.matmul(do.float(), v.float().transpose(-1, -2))
     p_eff = p
     if dropout_rate > 0.0:
-        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device)
+        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device, bh_offset=bh_offset)
         inv = 1.0 / (1.0 - dropout_rate)
         p_eff = torch.where(keep, p, 0.0) * inv
         dpv = torch.where(keep, dpv, 0.0) * inv
@@ -125,20 +128,21 @@ def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate):
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, seed: int = 0,
                            scale: Optional[float] = None,
-                           dropout_rate: float = 0.0) -> torch.Tensor:
+                           dropout_rate: float = 0.0, bh_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the dQ kernel: dQ = scale * ds.K with ds
     rounded to K's dtype, in Q's dtype."""
     scale = _scale(q, scale)
-    _, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate)
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
     return (torch.matmul(ds.to(k.dtype).float(), k.float()) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, seed: int = 0,
-                            scale: Optional[float] = None, dropout_rate: float = 0.0):
+                            scale: Optional[float] = None, dropout_rate: float = 0.0,
+                            bh_offset: int = 0):
     """Plain PyTorch version of the dK/dV kernel: dK = scale * ds^T.Q with ds
     rounded to Q's dtype, dV = (kept, rescaled p)^T.dO in f32."""
     scale = _scale(q, scale)
-    p_eff, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate)
+    p_eff, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
     dv = torch.matmul(p_eff.transpose(-1, -2), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -146,16 +150,16 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, seed: int = 0,
 
 def flash_backward_blocked_reference(q, k, v, do, lse, delta, seed: int = 0,
                                      scale: Optional[float] = None,
-                                     dropout_rate: float = 0.0):
+                                     dropout_rate: float = 0.0, bh_offset: int = 0):
     """Plain PyTorch version of the blocked backward kernels: (dQ, dK, dV)
     from p recomputed with the forward's lse, the keep mask regenerated."""
-    args = (q, k, v, do, lse, delta, seed, scale, dropout_rate)
+    args = (q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
     return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
 
 
 def flash_backward_recompute(q, k, v, g, seed: int = 0,
                              scale: Optional[float] = None,
-                             dropout_rate: float = 0.0):
+                             dropout_rate: float = 0.0, bh_offset: int = 0):
     """The gradient below ``BLOCKED_BWD_MIN_SEQ`` (the JAX ``_flash_bwd``
     recompute, which JAX leaves to XLA and the port to plain PyTorch): the
     T x T probabilities recomputed in f32, the keep mask regenerated."""
@@ -165,7 +169,7 @@ def flash_backward_recompute(q, k, v, g, seed: int = 0,
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
     dp = torch.matmul(g32, vf.transpose(-1, -2))
     if dropout_rate > 0.0:
-        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device)
+        keep = keep_full(seed, b, h, t, dropout_rate, device=q.device, bh_offset=bh_offset)
         inv = 1.0 / (1.0 - dropout_rate)
         dv = torch.matmul((torch.where(keep, p, 0.0) * inv).transpose(-1, -2), g32)
         dp = torch.where(keep, dp, 0.0) * inv
@@ -178,7 +182,7 @@ def flash_backward_recompute(q, k, v, g, seed: int = 0,
 
 
 def _check_qkv(name: str, q, others, seed: int, dropout_rate: float,
-               device_type: str = 'cuda'):
+               device_type: str = 'cuda', bh_offset: int = 0):
     """The input checks shared by the kernel wrappers: ``others`` (name,
     tensor) must match q; q is (B, H, T, D) f32 or bf16 with D <= 128, all
     contiguous tensors on a ``device_type`` device."""
@@ -200,6 +204,8 @@ def _check_qkv(name: str, q, others, seed: int, dropout_rate: float,
         raise ValueError(f'{name} kernel needs contiguous inputs')
     if not (0 <= seed < 2 ** 31):
         raise ValueError(f'dropout seed must be a non-negative int32, got {seed}')
+    if not (0 <= bh_offset < 2 ** 31):
+        raise ValueError(f'bh_offset must be a non-negative int32, got {bh_offset}')
     if not (0.0 <= dropout_rate < 1.0):
         raise ValueError(f'dropout_rate must be in [0, 1), got {dropout_rate}')
     if q.device.type != device_type:
@@ -244,11 +250,11 @@ class _Binding:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, use_dropout,
-#           thresh, inv_keep, stream)
-_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _F, _P]
+# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, bh_offset,
+#           use_dropout, thresh, inv_keep, stream)
+_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _I, _F, _P]
 # flash_bwd_dq(q, k, v, do, lse, delta, dq, ...) / flash_bwd_dkv(..., dk, dv, ...)
-_BWD_TAIL = [_I] * 4 + [_F, _I, _I, _I, _F, _P]
+_BWD_TAIL = [_I] * 4 + [_F, _I, _I, _I, _I, _F, _P]
 
 
 class _FlashForward(_Binding):
@@ -259,15 +265,16 @@ class _FlashForward(_Binding):
         super().__init__('flash_fwd', 'flash_fwd', _FWD_ARGS)
         self.with_lse = with_lse
 
-    def __call__(self, q, k, v, seed: int, scale: float, dropout_rate: float):
-        _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate)
+    def __call__(self, q, k, v, seed: int, scale: float, dropout_rate: float,
+                 bh_offset: int = 0):
+        _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate, bh_offset=bh_offset)
         b, h, t, d = q.shape
         out = torch.empty_like(q)
         lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
                if self.with_lse else None)
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(), b * h, t, d,
-                     int(q.dtype == torch.bfloat16), scale, seed,
+                     int(q.dtype == torch.bfloat16), scale, seed, bh_offset,
                      *_dropout_args(dropout_rate))
         return (out, lse) if self.with_lse else out
 
@@ -281,15 +288,15 @@ class _FlashBackward(_Binding):
         self.n_out = n_out
 
     def __call__(self, q, k, v, do, lse, delta, seed: int, scale: float,
-                 dropout_rate: float):
+                 dropout_rate: float, bh_offset: int = 0):
         _check_qkv('flash backward', q, [('k', k), ('v', v), ('do', do)], seed,
-                   dropout_rate)
+                   dropout_rate, bh_offset=bh_offset)
         _check_rows(q, lse=lse, delta=delta)
         b, h, t, d = q.shape
         outs = [torch.empty_like(q) for _ in range(self.n_out)]
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-                     b * h, t, d, int(q.dtype == torch.bfloat16), scale, seed,
+                     b * h, t, d, int(q.dtype == torch.bfloat16), scale, seed, bh_offset,
                      *_dropout_args(dropout_rate))
         return outs[0] if self.n_out == 1 else tuple(outs)
 
@@ -336,13 +343,15 @@ def _(q, k, v, seed, scale, dropout_rate):
 
 
 def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = None,
-                            dropout_rate: float = 0.0, return_lse: bool = False):
+                            dropout_rate: float = 0.0, return_lse: bool = False,
+                            bh_offset: int = 0):
     """Flash attention forward, (B, H, T, D) -> (B, H, T, D), and with
     ``return_lse`` also the row log-sum-exp (B, H, T) f32.
 
     ``scale`` defaults to 1/sqrt(D).  ``dropout_rate`` > 0 drops attention
-    probabilities with the hashed keep mask of ``seed``.  A CUDA tensor runs
-    the kernel (#1, or #2 for the lse); a CPU tensor the plain version.
+    probabilities with the hashed keep mask of ``seed`` (head bh hashing
+    ``bh_offset + bh``).  A CUDA tensor runs the kernel (#1, or #2 for the
+    lse); a CPU tensor the plain version.
     Under ``torch.export`` the forward without lse is the op
     ``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``); eager calls use the
     binding directly and skip the dispatcher."""
@@ -350,14 +359,15 @@ def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = Non
     if not return_lse and torch.compiler.is_exporting():
         return flash_fwd_op(q, k, v, int(seed), scale, float(dropout_rate))
     kernel = flash_fwd_lse_kernel if return_lse else flash_fwd_kernel
-    return _on(q, lambda: kernel(q, k, v, int(seed), scale, float(dropout_rate)),
+    return _on(q, lambda: kernel(q, k, v, int(seed), scale, float(dropout_rate),
+                                 int(bh_offset)),
                lambda: flash_attention_forward_reference(
-                   q, k, v, seed, scale, dropout_rate, return_lse))
+                   q, k, v, seed, scale, dropout_rate, return_lse, bh_offset))
 
 
 def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
                                      scale: Optional[float] = None,
-                                     dropout_rate: float = 0.0):
+                                     dropout_rate: float = 0.0, bh_offset: int = 0):
     """Gradient of flash attention from the forward's ``out`` and ``lse``,
     never forming the T x T probabilities in device memory: (dQ, dK, dV).
 
@@ -371,10 +381,10 @@ def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
     delta = (g.float() * out).sum(-1)
 
     def cuda():
-        args = (q, k, v, g, lse, delta, int(seed), scale, float(dropout_rate))
+        args = (q, k, v, g, lse, delta, int(seed), scale, float(dropout_rate), int(bh_offset))
         return (flash_bwd_dq_kernel(*args), *flash_bwd_dkv_kernel(*args))
     return _on(q, cuda, lambda: flash_backward_blocked_reference(
-        q, k, v, g, lse, delta, seed, scale, dropout_rate))
+        q, k, v, g, lse, delta, seed, scale, dropout_rate, bh_offset))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -385,14 +395,15 @@ class FlashAttention(torch.autograd.Function):
     the f32 recompute.  Both backwards regenerate the hashed keep mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, dropout_rate):
-        ctx.args = (seed, scale, dropout_rate)
+    def forward(ctx, q, k, v, seed, scale, dropout_rate, bh_offset):
+        ctx.args = (seed, scale, dropout_rate, bh_offset)
         if q.shape[2] >= BLOCKED_BWD_MIN_SEQ:
             out, lse = flash_attention_forward(q, k, v, seed, scale, dropout_rate,
-                                               return_lse=True)
+                                               return_lse=True, bh_offset=bh_offset)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
-            out = flash_attention_forward(q, k, v, seed, scale, dropout_rate)
+            out = flash_attention_forward(q, k, v, seed, scale, dropout_rate,
+                                          bh_offset=bh_offset)
             ctx.save_for_backward(q, k, v)
         return out
 
@@ -403,36 +414,96 @@ class FlashAttention(torch.autograd.Function):
             grads = flash_attention_backward_blocked(*saved, g, *ctx.args)
         else:
             grads = flash_backward_recompute(*saved, g, *ctx.args)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q, k, v, seed: int = 0, scale: Optional[float] = None,
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, bh_offset: int = 0) -> torch.Tensor:
     """Multi-head attention, (B, H, T, D) -> (B, H, T, D), differentiable.
 
     Without a gradient to record (inference, or no input requiring grad)
     this is the flash forward alone, as the JAX primal is; otherwise the
-    :class:`FlashAttention` function."""
+    :class:`FlashAttention` function.  Head bh's dropout mask hashes
+    ``bh_offset + bh``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, int(seed), _scale(q, scale),
-                                    float(dropout_rate))
-    return flash_attention_forward(q, k, v, seed, scale, dropout_rate)
+                                    float(dropout_rate), int(bh_offset))
+    return flash_attention_forward(q, k, v, seed, scale, dropout_rate, bh_offset=bh_offset)
+
+
+# --- the mesh's flash wrapping (the JAX flash_tp_context) -----------------
+# Under tensor parallelism a rank holds a (batch shard, head shard) of q/k/v
+# (parallel/mesh.py); JAX shard_map-wraps the Pallas kernel over the mesh, and
+# the kernel indexes its LOCAL bh with the seed folded by the shard's
+# coordinates.  The trainers set the context around a forward when the mesh's
+# model axis is > 1.
+_TP_CTX = None
+
+
+class flash_tp_context:
+    """Route :func:`attention` through :func:`flash_attention_sharded` over
+    ``mesh`` (q/k/v local: batch over ``batch_axis``, heads over
+    ``head_axis``).  Megatron activation layout, so the wrap runs no
+    collective."""
+
+    def __init__(self, mesh, batch_axis: str = 'data', head_axis: str = 'model'):
+        self.ctx = (mesh, batch_axis, head_axis)
+
+    def __enter__(self):
+        global _TP_CTX
+        self._old, _TP_CTX = _TP_CTX, self.ctx
+        return self
+
+    def __exit__(self, *exc):
+        global _TP_CTX
+        _TP_CTX = self._old
+        return False
+
+
+def fold_seed(seed: int, shard: int) -> int:
+    """The JAX shard wrap's per-shard seed: (seed + (shard + 1) * 0x3C6EF3)
+    & 0x7FFFFFFF (int32 arithmetic; the wrap-around does not change the low
+    31 bits)."""
+    return (int(seed) + (int(shard) + 1) * 0x3C6EF3) & 0x7FFFFFFF
+
+
+def flash_attention_sharded(q, k, v, mesh, batch_axis: str = 'data',
+                            head_axis: str = 'model', seed: int = 0,
+                            dropout_rate: float = 0.0) -> torch.Tensor:
+    """The JAX ``flash_attention_sharded`` on this rank: ``q``, ``k``, ``v``
+    are the rank's (B / n_data, H / n_model, T, D) block and go through the
+    flash kernels as they are, indexed by their local bh, with the dropout
+    seed folded by the shard index i_data * n_model + i_model, so masks stay
+    decorrelated across shards.  No communication."""
+    if dropout_rate > 0.0:
+        shard = mesh.index(batch_axis) * mesh.shape[head_axis] + mesh.index(head_axis)
+        seed = fold_seed(seed, shard)
+    return flash_attention(q, k, v, seed, None, dropout_rate)
 
 
 def attention(q, k, v, dropout_rate: float = 0.0, deterministic: bool = True,
               seed: int = 0, use_flash: bool = True, min_seq: int = 0,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              bh_offset: int = 0) -> torch.Tensor:
     """Dispatch: flash attention whenever flash is enabled and
     T >= ``min_seq`` (with the hashed dropout mask of ``seed`` when dropout
-    is active); otherwise plain attention.  Its dropout, as in JAX, compares
+    is active, head bh hashing ``bh_offset + bh``: a data-parallel rank's
+    rows take the global batch's masks), through
+    :func:`flash_attention_sharded` inside :class:`flash_tp_context`;
+    otherwise plain attention.  Its dropout, as in JAX, compares
     raw 32-bit draws from ``generator`` (on q's device) against
     round((1 - rate) * (2^32 - 1)) and multiplies after the cast to v's
     dtype."""
     active = (not deterministic) and dropout_rate > 0.0
     if use_flash and q.shape[2] >= min_seq:
-        return flash_attention(q, k, v, seed if active else 0, None,
-                               float(dropout_rate) if active else 0.0)
+        rate = float(dropout_rate) if active else 0.0
+        if _TP_CTX is not None:
+            mesh, batch_axis, head_axis = _TP_CTX
+            return flash_attention_sharded(q, k, v, mesh, batch_axis, head_axis,
+                                           seed if active else 0, rate)
+        return flash_attention(q, k, v, seed if active else 0, None, rate,
+                               bh_offset if active else 0)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

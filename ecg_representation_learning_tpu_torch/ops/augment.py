@@ -14,7 +14,7 @@ JAX draw's shape and range.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -27,6 +27,14 @@ def _uniform(shape, lo: float, hi: float, generator, device) -> torch.Tensor:
     return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
 
 
+def timeout_draws(batch_shape, lo: float = 0.0, hi: float = 0.5,
+                  generator: Optional[torch.Generator] = None, device=None):
+    """(span_draw, start_draw) of :func:`timeout` for ``batch_shape``, drawn
+    from ``generator`` as ``timeout`` draws them."""
+    span = _uniform(batch_shape, lo, hi, generator, device)
+    return span, torch.rand(batch_shape, generator=generator, device=device)
+
+
 def timeout(x: torch.Tensor, lo: float = 0.0, hi: float = 0.5,
             generator: Optional[torch.Generator] = None,
             span_draw: Optional[torch.Tensor] = None,
@@ -37,11 +45,10 @@ def timeout(x: torch.Tensor, lo: float = 0.0, hi: float = 0.5,
     ``start_draw`` (in [0, 1)) have the batch shape x.shape[:-2].  As in JAX:
     span = round(span_draw * L), start = floor(start_draw * (L - span))."""
     length = x.shape[-1]
-    batch_shape = _batch_shape(x)
-    if span_draw is None:
-        span_draw = _uniform(batch_shape, lo, hi, generator, x.device)
-    if start_draw is None:
-        start_draw = torch.rand(batch_shape, generator=generator, device=x.device)
+    if span_draw is None or start_draw is None:
+        span, start = timeout_draws(_batch_shape(x), lo, hi, generator, x.device)
+        span_draw = span if span_draw is None else span_draw
+        start_draw = start if start_draw is None else start_draw
     span = torch.round(span_draw * length).to(torch.int32)
     start = torch.floor(start_draw * (length - span)).to(torch.int32)
     pos = torch.arange(length, device=x.device)
@@ -98,6 +105,30 @@ def time_shift(x: torch.Tensor, max_frac: float = 0.5,
     pos = torch.arange(length, device=x.device)
     idx = (pos + shift[..., None].long()) % length                  # (..., L)
     return torch.gather(x, -1, idx[..., None, :].expand(x.shape))
+
+
+def view_draws(shape, *, scale_lo: float = 0.8, scale_hi: float = 1.25,
+               jitter_sigma: float = 0.05, lead_dropout: float = 0.2,
+               shift_frac: float = 0.5, timeout_hi: float = 0.25,
+               generator: Optional[torch.Generator] = None, device=None,
+               dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The draws :func:`contrastive_view` makes from ``generator`` for an
+    input of ``shape`` (B, C, L), in its order, as its ``draws``: the
+    trainers on a mesh draw them for the global batch and keep their rows."""
+    b, c, length = shape
+    g, d = generator, {}
+    if shift_frac > 0:
+        max_shift = max(int(round(shift_frac * length)), 1)
+        d['shift'] = torch.randint(0, max_shift, (b,), generator=g, device=device)
+    if scale_lo != 1.0 or scale_hi != 1.0:
+        d['gain'] = _uniform((b,), scale_lo, scale_hi, g, device)
+    if lead_dropout > 0:
+        d['keep_draw'] = torch.rand((b, c), generator=g, device=device)
+    if jitter_sigma > 0:
+        d['noise'] = torch.randn((b, c, length), generator=g, device=device, dtype=dtype)
+    if timeout_hi > 0:
+        d['span_draw'], d['start_draw'] = timeout_draws((b,), 0.0, timeout_hi, g, device)
+    return d
 
 
 def contrastive_view(x: torch.Tensor, *, scale_lo: float = 0.8, scale_hi: float = 1.25,

@@ -29,6 +29,17 @@
 // With a norm given by the caller, launch 1 is one thread that only writes
 // the scalars (adamw_scalars_kernel).
 //
+// Across the ranks of a mesh (ops/adamw.py's NormReduce) launch 1 takes a
+// weight per leaf, 1 / the leaf's number of copies on the mesh (exact for
+// meshes of powers of two), adds each table row's squares times its leaf's
+// weight, and its last block writes the f64 sum instead of the scalars; the
+// caller all-reduces that sum over the ranks, and launch 2 reads it: every
+// block takes the norm and the clip and non-finite scalars from it at its
+// start (the same code as launch 1's last block, so every rank and block
+// agrees), and block 0 writes grad_norm, scalars 0 and 4 and the counter.
+// Two launches and one collective a step, no host sync; on one rank the
+// launches are the ones above, unchanged.
+//
 // Bound on the H100 (SXM, 3.35 TB/s), ViT-base's 85.7 M parameters: the
 // update reads g, mu, nu, p and writes mu, nu, p, 28 bytes per parameter
 // with f32 mu (24 with bf16), 2.40 GB, 0.716 ms, against about 15
@@ -100,6 +111,22 @@ struct Tail {
 
 __device__ __forceinline__ Step load_step(const float* __restrict__ s) {
   return Step{s[0], s[1], s[2], s[3], s[4] > 0.f};
+}
+
+// the clip scale and the finite flag from the f32 norm
+__device__ __forceinline__ void clip_scalars(float norm, const Tail& t, float& scale,
+                                             float& flag) {
+  const bool finite = isfinite(norm);
+  scale = 1.f;
+  if (t.has_clip) {   // NaN passes through both selects, as in clamp / jnp.minimum
+    const float r = __fdiv_rn(t.clip, norm < 1e-16f ? 1e-16f : norm);
+    scale = r > 1.f ? 1.f : r;
+  }
+  flag = 1.f;
+  if (t.zero_nonfinite) {
+    if (!finite) scale = 1.f;
+    flag = finite ? 1.f : 0.f;
+  }
 }
 
 // the plain version's operations, in its order
@@ -175,10 +202,14 @@ __device__ __forceinline__ float4 load_g4(const float* __restrict__ g, int q, bo
                      __ldcs(g + 4 * q + 3));
 }
 
+// sum: null to read the scale and finite flag from scalars[0] and [4];
+// else the mesh-wide f64 sum of squares, from which every block takes them
+// (and block 0 writes t's norm and counter; scalars are then only read)
 template <typename MuT>
 __global__ void __launch_bounds__(kThreads)
 adamw_update_kernel(const Block* __restrict__ blocks, const long long* __restrict__ gptrs,
-                    const float* __restrict__ scalars, Consts c) {
+                    const float* __restrict__ scalars, Consts c,
+                    const double* __restrict__ sum, Tail t) {
   const Block b = blocks[blockIdx.x];
   float* __restrict__ p = reinterpret_cast<float*>(b.p);
   MuT* __restrict__ mu = reinterpret_cast<MuT*>(b.mu);
@@ -186,7 +217,19 @@ adamw_update_kernel(const Block* __restrict__ blocks, const long long* __restric
   const long long g_addr = gptrs[b.leaf];
   const float* __restrict__ g = reinterpret_cast<const float*>(g_addr) + b.start;
   const int count = b.count;
-  const Step s = load_step(scalars);
+  Step s;
+  if (sum) {
+    const float norm = static_cast<float>(sqrt(*sum));
+    float scale, flag;
+    clip_scalars(norm, t, scale, flag);
+    s = Step{scale, scalars[1], scalars[2], scalars[3], flag > 0.f};
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      if (t.norm_out) *t.norm_out = norm;
+      if (t.count_out) *t.count_out = *t.count_in + (isfinite(norm) ? 0 : 1);
+    }
+  } else {
+    s = load_step(scalars);
+  }
   if (!b.vec) {   // a leaf with an unaligned p, mu or nu: one element per thread
     for (int e = threadIdx.x; e < count; e += kThreads) update_one(p, g, mu, nu, e, s, c);
     return;
@@ -253,27 +296,21 @@ __device__ __forceinline__ double sq(float x) {
 
 // clip scale, finite flag, norm and counter from the f32 norm; one thread
 __device__ __forceinline__ void finish(float norm, const Tail& t) {
-  const bool finite = isfinite(norm);
-  float scale = 1.f;
-  if (t.has_clip) {   // NaN passes through both selects, as in clamp / jnp.minimum
-    const float r = __fdiv_rn(t.clip, norm < 1e-16f ? 1e-16f : norm);
-    scale = r > 1.f ? 1.f : r;
-  }
-  float flag = 1.f;
-  if (t.zero_nonfinite) {
-    if (!finite) scale = 1.f;
-    flag = finite ? 1.f : 0.f;
-  }
+  float scale, flag;
+  clip_scalars(norm, t, scale, flag);
   t.scalars[0] = scale;
   t.scalars[4] = flag;
   if (t.norm_out) *t.norm_out = norm;
-  if (t.count_out) *t.count_out = *t.count_in + (finite ? 0 : 1);
+  if (t.count_out) *t.count_out = *t.count_in + (isfinite(norm) ? 0 : 1);
 }
 
+// kWeighted: each row's squares times leaf_weight[its leaf], and the last
+// block writes the total to sum_out instead of finishing
+template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 adamw_norm_kernel(const Block* __restrict__ blocks, const long long* __restrict__ gptrs,
                   int n_rows, double* __restrict__ partials, unsigned int* __restrict__ ticket,
-                  Tail t) {
+                  Tail t, const double* __restrict__ leaf_weight, double* __restrict__ sum_out) {
   __shared__ double warp_sums[kWarps];
   __shared__ bool last;
   // kNormRows rows of the block table: every row's vector loads first, then
@@ -283,18 +320,21 @@ adamw_norm_kernel(const Block* __restrict__ blocks, const long long* __restrict_
   const float* g[kNormRows];
   int count[kNormRows];
   bool vec[kNormRows];
+  double w[kNormRows];
 #pragma unroll
   for (int r = 0; r < kNormRows; ++r) {
     const int row = blockIdx.x * kNormRows + r;
     g[r] = nullptr;
     count[r] = 0;
     vec[r] = true;
+    w[r] = 0.0;
     if (row < n_rows) {
       const Block b = blocks[row];
       const long long g_addr = gptrs[b.leaf];
       g[r] = reinterpret_cast<const float*>(g_addr) + b.start;
       count[r] = b.count;
       vec[r] = (g_addr & 15) == 0;
+      if (kWeighted) w[r] = leaf_weight[b.leaf];
     }
     const int n4 = vec[r] ? count[r] >> 2 : 0;
 #pragma unroll
@@ -305,25 +345,48 @@ adamw_norm_kernel(const Block* __restrict__ blocks, const long long* __restrict_
     }
   }
   double acc = 0.0;
+  if constexpr (!kWeighted) {
 #pragma unroll
-  for (int r = 0; r < kNormRows; ++r) {
+    for (int r = 0; r < kNormRows; ++r) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      acc = __dadd_rn(acc, sq(gv[r][u].x));
-      acc = __dadd_rn(acc, sq(gv[r][u].y));
-      acc = __dadd_rn(acc, sq(gv[r][u].z));
-      acc = __dadd_rn(acc, sq(gv[r][u].w));
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kNormRows; ++r) {
-    if (vec[r]) {
-      const int e = 4 * (count[r] >> 2) + threadIdx.x;
-      if (e < count[r]) acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
-    } else {
-      for (int e = threadIdx.x; e < count[r]; e += kThreads) {
-        acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
+      for (int u = 0; u < kUnroll; ++u) {
+        acc = __dadd_rn(acc, sq(gv[r][u].x));
+        acc = __dadd_rn(acc, sq(gv[r][u].y));
+        acc = __dadd_rn(acc, sq(gv[r][u].z));
+        acc = __dadd_rn(acc, sq(gv[r][u].w));
       }
+    }
+#pragma unroll
+    for (int r = 0; r < kNormRows; ++r) {
+      if (vec[r]) {
+        const int e = 4 * (count[r] >> 2) + threadIdx.x;
+        if (e < count[r]) acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
+      } else {
+        for (int e = threadIdx.x; e < count[r]; e += kThreads) {
+          acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
+        }
+      }
+    }
+  } else {   // a row's squares, then times its leaf's weight
+#pragma unroll
+    for (int r = 0; r < kNormRows; ++r) {
+      double row_acc = 0.0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        row_acc = __dadd_rn(row_acc, sq(gv[r][u].x));
+        row_acc = __dadd_rn(row_acc, sq(gv[r][u].y));
+        row_acc = __dadd_rn(row_acc, sq(gv[r][u].z));
+        row_acc = __dadd_rn(row_acc, sq(gv[r][u].w));
+      }
+      if (vec[r]) {
+        const int e = 4 * (count[r] >> 2) + threadIdx.x;
+        if (e < count[r]) row_acc = __dadd_rn(row_acc, sq(__ldcs(g[r] + e)));
+      } else {
+        for (int e = threadIdx.x; e < count[r]; e += kThreads) {
+          row_acc = __dadd_rn(row_acc, sq(__ldcs(g[r] + e)));
+        }
+      }
+      acc = __dadd_rn(acc, __dmul_rn(w[r], row_acc));
     }
   }
   acc = block_sum(acc, warp_sums);
@@ -351,7 +414,11 @@ adamw_norm_kernel(const Block* __restrict__ blocks, const long long* __restrict_
   __syncthreads();   // warp_sums is reused
   total = block_sum(total, warp_sums);
   if (threadIdx.x == 0) {
-    finish(static_cast<float>(sqrt(total)), t);
+    if (kWeighted) {
+      *sum_out = total;
+    } else {
+      finish(static_cast<float>(sqrt(total)), t);
+    }
     *ticket = 0;   // ready for the next launch
   }
 }
@@ -375,11 +442,14 @@ extern "C" int adamw_norm_rows() { return kNormRows; }
 // given_norm: null to take the norm of every block's g, else one f32 on the
 // device (then blocks, gptrs, partials and ticket are not read).  scalars: 5
 // f32 on the device, of which 0 and 4 are written.  norm_out (f32), count_in
-// and count_out (int32) may be null.  Returns cudaGetLastError().
+// and count_out (int32) may be null.  leaf_weight: null, or one f64 per leaf
+// on the device; then the weighted sum of squares goes to sum_out (one f64
+// on the device) and nothing else is written.  Returns cudaGetLastError().
 extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, void* partials,
                           void* ticket, const void* given_norm, float clip, int has_clip,
                           int zero_nonfinite, void* scalars, void* norm_out,
-                          const void* count_in, void* count_out, void* stream) {
+                          const void* count_in, void* count_out, const void* leaf_weight,
+                          void* sum_out, void* stream) {
   const Tail t{clip, has_clip, zero_nonfinite, static_cast<float*>(scalars),
                static_cast<float*>(norm_out), static_cast<const int*>(count_in),
                static_cast<int*>(count_out)};
@@ -387,10 +457,22 @@ extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, voi
   if (given_norm) {
     adamw_scalars_kernel<<<1, 1, 0, s>>>(static_cast<const float*>(given_norm), t);
   } else {
-    if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-    adamw_norm_kernel<<<(n_rows + kNormRows - 1) / kNormRows, kThreads, 0, s>>>(
-        static_cast<const Block*>(blocks), static_cast<const long long*>(gptrs), n_rows,
-        static_cast<double*>(partials), static_cast<unsigned int*>(ticket), t);
+    if (n_rows < 1 || (leaf_weight != nullptr) != (sum_out != nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const auto* bl = static_cast<const Block*>(blocks);
+    const auto* gp = static_cast<const long long*>(gptrs);
+    auto* parts = static_cast<double*>(partials);
+    auto* tk = static_cast<unsigned int*>(ticket);
+    const int grid = (n_rows + kNormRows - 1) / kNormRows;
+    if (leaf_weight) {
+      adamw_norm_kernel<true><<<grid, kThreads, 0, s>>>(
+          bl, gp, n_rows, parts, tk, t, static_cast<const double*>(leaf_weight),
+          static_cast<double*>(sum_out));
+    } else {
+      adamw_norm_kernel<false><<<grid, kThreads, 0, s>>>(bl, gp, n_rows, parts, tk, t,
+                                                         nullptr, nullptr);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -398,20 +480,29 @@ extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, voi
 // Launch 2.  blocks and gptrs as above; scalars: 5 f32 on the device
 // [scale, lr, bc1, bc2, finite].  mu_bf16 says whether every mu is bf16 (1)
 // or f32 (0).  one_minus_b1/b2 are 1 - b1 and 1 - b2 as the caller rounds
-// them.  Returns cudaGetLastError().
+// them.  sum: null, or the mesh-wide f64 sum of squares (launch 1 with leaf
+// weights, then the caller's all-reduce): the scale and finite flag come from
+// it with clip, has_clip and zero_nonfinite, and block 0 writes norm_out and
+// count_out (each may be null; count_in with count_out).  Returns
+// cudaGetLastError().
 extern "C" int adamw_update(const void* blocks, const void* gptrs, int n_blocks,
                             const void* scalars, int mu_bf16, float b1, float one_minus_b1,
-                            float b2, float one_minus_b2, float eps, float wd, void* stream) {
+                            float b2, float one_minus_b2, float eps, float wd, const void* sum,
+                            float clip, int has_clip, int zero_nonfinite, void* norm_out,
+                            const void* count_in, void* count_out, void* stream) {
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{b1, one_minus_b1, b2, one_minus_b2, eps, wd};
+  const Tail t{clip, has_clip, zero_nonfinite, nullptr, static_cast<float*>(norm_out),
+               static_cast<const int*>(count_in), static_cast<int*>(count_out)};
+  const auto* su = static_cast<const double*>(sum);
   const auto* bl = static_cast<const Block*>(blocks);
   const auto* gp = static_cast<const long long*>(gptrs);
   const auto* sc = static_cast<const float*>(scalars);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mu_bf16) {
-    adamw_update_kernel<__nv_bfloat16><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c);
+    adamw_update_kernel<__nv_bfloat16><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c, su, t);
   } else {
-    adamw_update_kernel<float><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c);
+    adamw_update_kernel<float><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c, su, t);
   }
   return static_cast<int>(cudaGetLastError());
 }

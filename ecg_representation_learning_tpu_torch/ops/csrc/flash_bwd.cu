@@ -94,13 +94,14 @@ struct Params {
   int t, d;
   float scale;
   uint32_t seed;
+  uint32_t bh_offset;                     // added to bh in the dropout hash
   int use_dropout;
   uint32_t thresh;
   float inv_keep;
 };
 
 __device__ __forceinline__ bool kept(const Params& p, int bh, int qpos, int kpos) {
-  return (dropout_hash(p.seed, bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
+  return (dropout_hash(p.seed, p.bh_offset + bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
 }
 
 // 4-byte global -> shared copy; src_bytes 0 writes a zero and reads nothing
@@ -825,24 +826,27 @@ int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool wa
 // arrays on the device, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1);
 // 1 <= d <= 128.  lse and delta: contiguous (bh, t) f32.  seed >= 0; thresh
 // and inv_keep are dropout_keep's threshold on the low 24 hash bits and
-// 1/(1-rate).  Each launches on `stream` and returns the launch's CUDA error
-// code (0: none).
+// 1/(1-rate); the masks hash bh_offset + bh, as the forward's.  Each launches
+// on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int t,
-                            int d, int is_bf16, float scale, int seed, int use_dropout,
-                            int thresh, float inv_keep, void* stream) {
+                            int d, int is_bf16, float scale, int seed, int bh_offset,
+                            int use_dropout, int thresh, float inv_keep, void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                 dq, nullptr, nullptr, t, d, scale, static_cast<uint32_t>(seed), use_dropout,
-                 static_cast<uint32_t>(thresh), inv_keep};
+                 dq, nullptr, nullptr, t, d, scale, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(bh_offset), use_dropout, static_cast<uint32_t>(thresh),
+                 inv_keep};
   return dispatch(p, bh, is_bf16, seed, thresh, true, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int t, int d, int is_bf16, float scale, int seed,
-                             int use_dropout, int thresh, float inv_keep, void* stream) {
+                             int bh_offset, int use_dropout, int thresh, float inv_keep,
+                             void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                 nullptr, dk, dv, t, d, scale, static_cast<uint32_t>(seed), use_dropout,
-                 static_cast<uint32_t>(thresh), inv_keep};
+                 nullptr, dk, dv, t, d, scale, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(bh_offset), use_dropout, static_cast<uint32_t>(thresh),
+                 inv_keep};
   return dispatch(p, bh, is_bf16, seed, thresh, false, stream);
 }

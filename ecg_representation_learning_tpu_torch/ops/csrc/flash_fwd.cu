@@ -73,6 +73,7 @@ struct Params {
   int t, d;
   float scale;
   uint32_t seed;
+  uint32_t bh_offset;                     // added to bh in the dropout hash
   int use_dropout;
   uint32_t thresh;
   float inv_keep;
@@ -81,7 +82,8 @@ struct Params {
 // p after dropout (kept entries scaled by inv_keep); l has summed the raw p
 __device__ __forceinline__ float drop(const Params& p, float x, int bh, int qpos,
                                       int kpos) {
-  const bool keep = (dropout_hash(p.seed, bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
+  const uint32_t hash = dropout_hash(p.seed, p.bh_offset + bh, qpos, kpos);
+  const bool keep = (hash & 0xFFFFFFu) >= p.thresh;
   return keep ? x * p.inv_keep : 0.f;
 }
 
@@ -487,19 +489,22 @@ cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
 // q, k, v, o: contiguous (bh, t, d) arrays on the device, all f32 (is_bf16 = 0)
 // or all bf16 (is_bf16 = 1); 1 <= d <= 128.  lse: null, or a contiguous
 // (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0; thresh and inv_keep
-// are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate).
+// are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate); the mask
+// of the launch's head bh hashes bh_offset + bh (mod 2^32), so a rank holding
+// rows of a larger batch draws that batch's masks.
 // Launches on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int t, int d, int is_bf16, float scale, int seed,
-                         int use_dropout, int thresh, float inv_keep, void* stream) {
+                         int bh_offset, int use_dropout, int thresh, float inv_keep,
+                         void* stream) {
   const long long n_qtiles = (t + kBlockK - 1) / kBlockK;
   if (bh < 1 || t < 1 || d < 1 || d > 128 || seed < 0 || thresh < 0 ||
       static_cast<long long>(bh) * n_qtiles > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{q, k, v, o, static_cast<float*>(lse), t, d, scale,
-                 static_cast<uint32_t>(seed), use_dropout, static_cast<uint32_t>(thresh),
-                 inv_keep};
+                 static_cast<uint32_t>(seed), static_cast<uint32_t>(bh_offset), use_dropout,
+                 static_cast<uint32_t>(thresh), inv_keep};
   // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
   // aligned arrays; anything else takes the kernels' scalar-load branch
   const size_t elem = is_bf16 ? 2 : 4;

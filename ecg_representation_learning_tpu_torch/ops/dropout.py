@@ -17,10 +17,20 @@ A training forward draws its randomness from a :class:`DropoutRng`: 31-bit
 seeds for the hashed masks (this module's and the attention kernel's) from a
 host generator, so drawing one never waits for the device, and Bernoulli
 masks from a generator on the activations' device.
+
+On a mesh (``parallel/``) a rank holds a slice of each activation.  A hashed
+mask is a function of the element's index in the GLOBAL array, so a rank
+passes ``frame`` -- where its slice sits, ``parallel.spmd.frame`` -- and
+draws the global array's mask for its elements, as GSPMD does in JAX.
+Bernoulli masks come from ``DropoutRng.mask``, a generator seeded per data
+rank, so ranks draw decorrelated masks (the JAX masks are held by their
+distribution only); every rank of one model group draws the same ones.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,17 +41,44 @@ from .attention import dropout_keep
 @dataclasses.dataclass
 class DropoutRng:
     """The generators of one training forward: ``host`` (CPU) for seeds,
-    ``device`` (on the activations' device) for masks and raw bits."""
+    ``device`` (on the activations' device) for masks, raw bits and the
+    draws made for the whole batch; ``mask``, when set (a mesh with more
+    than one data rank), for Bernoulli masks and raw bits instead."""
     host: torch.Generator
     device: torch.Generator
+    mask: Optional[torch.Generator] = None
+
+    @property
+    def masks(self) -> torch.Generator:
+        """The generator of Bernoulli masks and raw dropout bits."""
+        return self.device if self.mask is None else self.mask
 
     def seed(self) -> int:
         """A non-negative 31-bit seed (the JAX ``bits >> 1``)."""
         return int(torch.randint(0, 1 << 31, (1,), generator=self.host))
 
 
-def _masked(x: torch.Tensor, seed: int, rate: float, salt: int) -> torch.Tensor:
-    idx = torch.arange(x.numel(), device=x.device).reshape(x.shape)
+Frame = Optional[Dict[int, Tuple[int, int]]]
+
+
+def flat_index(shape, frame: Frame, device) -> torch.Tensor:
+    """Each element's row-major index: in the tensor itself (``frame``
+    None), or in the global array where dim d of this slice starts at
+    ``frame[d][0]`` of ``frame[d][1]`` (other dims whole)."""
+    if not frame:
+        return torch.arange(math.prod(shape), device=device).reshape(shape)
+    idx = torch.zeros((1,) * len(shape), dtype=torch.int64, device=device)
+    for d, n in enumerate(shape):
+        off, total = frame.get(d, (0, n))
+        view = [1] * len(shape)
+        view[d] = n
+        idx = idx * total + (torch.arange(n, device=device) + off).reshape(view)
+    return idx.expand(*shape)
+
+
+def _masked(x: torch.Tensor, seed: int, rate: float, salt: int,
+            frame: Frame = None) -> torch.Tensor:
+    idx = flat_index(tuple(x.shape), frame, x.device)
     keep = dropout_keep(seed, salt, idx, 0, rate)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return x * (keep.to(x.dtype) * scale)
@@ -53,18 +90,20 @@ class _HashMul(torch.autograd.Function):
     regenerated from the seed."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate, salt):
-        ctx.args = (seed, rate, salt)
-        return _masked(x, seed, rate, salt)
+    def forward(ctx, x, seed, rate, salt, frame):
+        ctx.args = (seed, rate, salt, frame)
+        return _masked(x, seed, rate, salt, frame)
 
     @staticmethod
     def backward(ctx, g):
-        return _masked(g, *ctx.args), None, None, None
+        return _masked(g, *ctx.args), None, None, None, None
 
 
-def hash_mul(x: torch.Tensor, seed: int, rate: float, salt: int) -> torch.Tensor:
-    """The counter-hash dropout of ``x`` (the JAX ``_hash_mul``)."""
-    return _HashMul.apply(x, seed, rate, salt)
+def hash_mul(x: torch.Tensor, seed: int, rate: float, salt: int,
+             frame: Frame = None) -> torch.Tensor:
+    """The counter-hash dropout of ``x`` (the JAX ``_hash_mul``); ``frame``
+    places ``x`` in a global array (see :func:`flat_index`)."""
+    return _HashMul.apply(x, seed, rate, salt, frame)
 
 
 class HashDropout(nn.Module):
@@ -74,10 +113,10 @@ class HashDropout(nn.Module):
         super().__init__()
         self.rate, self.salt = rate, salt
 
-    def forward(self, x, rng: DropoutRng = None):
+    def forward(self, x, rng: DropoutRng = None, frame: Frame = None):
         if not self.training or self.rate == 0.0:
             return x
-        return hash_mul(x, rng.seed(), self.rate, self.salt)
+        return hash_mul(x, rng.seed(), self.rate, self.salt, frame)
 
 
 class BernoulliDropout(nn.Module):
@@ -88,11 +127,12 @@ class BernoulliDropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, rng: DropoutRng = None):
+    def forward(self, x, rng: DropoutRng = None, frame: Frame = None):
+        """``frame`` is not used: a Bernoulli mask has no index."""
         if not self.training or self.rate == 0.0:
             return x
         keep = torch.empty(x.shape, device=x.device).bernoulli_(
-            1.0 - self.rate, generator=rng.device)
+            1.0 - self.rate, generator=rng.masks)
         return torch.where(keep.bool(), x / (1.0 - self.rate), 0.0)
 
 

@@ -343,11 +343,12 @@ def design_rows(out: List[dict]) -> None:
             entry.restype = ctypes.c_int
         lib.adamw_update.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6
-                                     + [ctypes.c_void_p])
+                                     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_int] + [ctypes.c_void_p] * 4)
         lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                                    + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_int,
                                                               ctypes.c_int]
-                                   + [ctypes.c_void_p] * 5)
+                                   + [ctypes.c_void_p] * 7)
         rows = adamw.block_table(ptrs, sizes, 4, lib.adamw_chunk_elems())
         blocks = torch.from_numpy(rows).cuda()
         parts = torch.empty(-(-len(rows) // lib.adamw_norm_rows()), dtype=torch.float64,
@@ -355,11 +356,11 @@ def design_rows(out: List[dict]) -> None:
         ticket = torch.zeros(1, dtype=torch.int32, device='cuda')
         update = (lambda lib=lib, blocks=blocks, n=len(rows): lib.adamw_update(
             blocks.data_ptr(), gptrs.data_ptr(), n, scalars.data_ptr(), 0, b1, 1.0 - b1, b2,
-            1.0 - b2, HYPER['eps'], HYPER['wd'], stream))
+            1.0 - b2, HYPER['eps'], HYPER['wd'], None, 0.0, 0, 0, None, None, None, stream))
         norm = (lambda lib=lib, blocks=blocks, n=len(rows), parts=parts, ticket=ticket:
                 lib.adamw_norm(blocks.data_ptr(), gptrs.data_ptr(), n, parts.data_ptr(),
                                ticket.data_ptr(), None, 1.0, 1, 1, ws.data_ptr(),
-                               ws[5:].data_ptr(), None, None, stream))
+                               ws[5:].data_ptr(), None, None, None, None, stream))
         calls[name] = (update, norm, blocks, parts, ticket)
         norm()
         norm_err = abs(ws[5].item() / plain_norm - 1)

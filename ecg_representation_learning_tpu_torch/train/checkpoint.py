@@ -21,6 +21,13 @@ every save first waits for the one before.  ``wait_for_checkpoints`` blocks
 until it has committed, and ``restore_checkpoint`` and
 ``latest_committed_checkpoint`` wait for it first.  A write that fails on the
 thread raises at the next save or wait.
+
+On a mesh the file is the same: every rank takes part in gathering the full
+state (``TrainerBase.save_checkpoint``, ``parallel.mesh.ShardedModel.full_state``,
+on the main thread of each rank), rank 0 writes it (on its writer thread
+with ``async_save``), and the ranks meet at a barrier; a restore reads the
+file on every rank and cuts it to the rank's shards, onto any mesh or one
+device.
 """
 from __future__ import annotations
 

@@ -10,6 +10,13 @@ are ``MaeTrainer``'s, its streaming pair too (``build_stream_step`` runs
 the views on the decoded batch at its native rate, each through the fused
 preprocess); the model, the step and the eval protocol differ.
 
+On a mesh NT-Xent keeps the global batch's negatives: the projections are
+all-gathered over 'data' with their gradient
+(``torch.distributed.nn.functional.all_gather``) and laid out as one device
+lays them out, so every rank computes the one-device loss of the global
+batch; the views are drawn for the global batch (``ops.augment.view_draws``)
+and each rank keeps its rows.
+
 The handoff: ``load_any_encoder`` reads a pretrain checkpoint of either
 kind (its EMA when one was saved), tells the kind from the top-level names
 of its parameters (``_detect_kind``), and copies the trunk into an
@@ -25,10 +32,11 @@ import torch
 
 from ..configs import ContrastiveConfig, MaeConfig, TrainConfig, VitConfig
 from ..models.contrastive import EcgContrastive, nt_xent
-from ..ops.augment import contrastive_view
+from ..ops.augment import contrastive_view, view_draws
+from ..parallel import spmd
 from .checkpoint import check_params, pretrain_params
 from .pretrain import MaeTrainer, transfer_encoder
-from .trainer import SplitData
+from .trainer import SplitData, eval_mode
 
 
 class ContrastiveTrainer(MaeTrainer):
@@ -40,11 +48,11 @@ class ContrastiveTrainer(MaeTrainer):
     def __init__(self, model_cfg: VitConfig, con_cfg: ContrastiveConfig,
                  train_cfg: TrainConfig, train_data: Optional[SplitData] = None,
                  eval_data: Optional[SplitData] = None, norm_stats=None,
-                 output_dir: Optional[str] = None, device=None):
+                 output_dir: Optional[str] = None, device=None, mesh=None):
         self.con_cfg = con_cfg
         super().__init__(model_cfg, MaeConfig(), train_cfg, train_data=train_data,
                          eval_data=eval_data, norm_stats=norm_stats,
-                         output_dir=output_dir, device=device)
+                         output_dir=output_dir, device=device, mesh=mesh)
         accum = max(1, train_cfg.grad_accum)
         if accum > 1:
             # NT-Xent is a whole-batch objective: under accumulation each
@@ -67,6 +75,13 @@ class ContrastiveTrainer(MaeTrainer):
         each view's draws (see ``contrastive_view``)."""
         cc = self.con_cfg
         prep = prep or self._model_input
+        if draws == (None, None) and spmd.data_index()[1] > 1:
+            knobs = dict(scale_lo=cc.scale_lo, scale_hi=cc.scale_hi,
+                         jitter_sigma=cc.jitter_sigma, lead_dropout=cc.lead_dropout,
+                         shift_frac=cc.shift_frac, timeout_hi=cc.timeout_hi)
+            draws = tuple(spmd.global_draw(sig.shape[0], lambda n: view_draws(
+                (n, *sig.shape[1:]), **knobs, generator=generator, device=sig.device))
+                for _ in range(2))
         views = [prep(contrastive_view(
             sig.float(), scale_lo=cc.scale_lo, scale_hi=cc.scale_hi,
             jitter_sigma=cc.jitter_sigma, lead_dropout=cc.lead_dropout,
@@ -81,16 +96,22 @@ class ContrastiveTrainer(MaeTrainer):
         the stream step (``build_stream_step``, inherited): two views of the
         decoded batch at its native rate, each through the fused preprocess
         (JAX ``train/contrastive.py:213-268``)."""
-        z, aux = self.model(self._views(sig, self.rng.device, prep=prep), rng=self.rng,
-                            return_aux=True)
-        loss, acc = nt_xent(z, self.con_cfg.temperature, with_accuracy=True)
+        z, aux = self._net(self._views(sig, self.rng.device, prep=prep), rng=self.rng,
+                           return_aux=True)
+        loss, acc = nt_xent(_global_pairs(z, spmd.all_gather_data(z)),
+                            self.con_cfg.temperature, with_accuracy=True)
         return {'loss': loss.detach(), 'contrast_acc': acc}, self._objective(loss, aux)
 
-    @torch.inference_mode()
+    @eval_mode
     def eval_batch(self, sig: torch.Tensor, generator: torch.Generator):
         """(NT-Xent loss, top-1 accuracy) of one raw batch on the served
         weights, with views from ``generator``."""
-        z = self._eval_forward(self._views(sig, generator))
+        with self._spmd():
+            views = self._views(sig, generator)
+        z = self._eval_forward(views)
+        with self._spmd():
+            z = _global_pairs(z, [spmd.gather_rows(z[None])[i]
+                                  for i in range(spmd.data_index()[1])])
         return nt_xent(z, self.con_cfg.temperature, with_accuracy=True)
 
     def evaluate(self, data: Optional[SplitData] = None, seed: int = 0) -> float:
@@ -111,11 +132,24 @@ class ContrastiveTrainer(MaeTrainer):
                              f'{self.cfg.eval_batch_size}, split rows {len(data)}))')
         gen = torch.Generator(device=self.device).manual_seed(seed)
         losses = []
+        if bsz % (1 if self.mesh is None else self.mesh.shape['data']):
+            raise ValueError(f'contrastive eval batch {bsz} does not split over the '
+                             f'{self.mesh.shape["data"]} data ranks')
         for i in range(0, len(data) - bsz + 1, bsz):
-            sigs, idx = self._sig_inputs(data, np.arange(i, i + bsz))
+            sigs, idx = self._sig_inputs(data, self._local_take(np.arange(i, i + bsz)))
             loss, _ = self.eval_batch(sigs.index_select(0, idx), gen)
             losses.append(float(loss))
         return float(np.mean(losses))
+
+
+def _global_pairs(z: torch.Tensor, parts) -> torch.Tensor:
+    """The data ranks' projections ``parts`` (each [views_a; views_b] of its
+    rows, ``z`` this rank's) laid out as one device lays out the global
+    batch: [all views_a; all views_b]."""
+    if len(parts) == 1:
+        return z
+    b = z.shape[0] // 2
+    return torch.cat([p[:b] for p in parts] + [p[b:] for p in parts])
 
 
 # ---------------------------------------------------------------------------

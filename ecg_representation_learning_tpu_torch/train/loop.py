@@ -6,33 +6,51 @@ the parameters' ``.grad`` and taking the mean; ``finish_update`` is the
 update tail -- global norm and the device-side non-finite counter, the
 optimizer step (for ``FusedAdamW`` all three in one fused step), the
 parameter EMA.
+
+On a mesh (``parallel.mesh.ShardedModel``) the microbatches but the last run
+their backward without averaging gradients over 'data' (DDP's ``no_sync``,
+FSDP2's ``set_requires_gradient_sync(False)``), the gradients are the local
+shards, the update tail takes the mesh-wide norm (``ops.adamw.NormReduce``)
+and the EMA is laid out like the params (each rank updates its shards).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..ops.adamw import NormReduce, mesh_norm_reference
 from .optim import AdamChain, FusedAdamW, FusedAdamWState, global_norm
 
 
 def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
                params: Dict[str, torch.Tensor], idx: torch.Tensor,
-               accum: int) -> Tuple[List[Any], Dict[str, torch.Tensor]]:
+               accum: int, sharded=None) -> Tuple[List[Any], Dict[str, torch.Tensor]]:
     """Run ``micro_fn(idx_k) -> (aux, loss)`` over ``accum`` equal slices of
     ``idx`` (the JAX ``idx.reshape(accum, -1)``), back-propagating each loss,
     and return ``([aux_k], mean grads)``.  Activation memory is one
     microbatch's; the mean of the microbatch gradient means equals the
-    full-batch gradient mean."""
+    full-batch gradient mean.  ``sharded`` (a ``ShardedModel``): gradients
+    are synced over 'data' after the last microbatch only, and the local
+    shards are returned."""
     for p in params.values():
         p.grad = None
     aux = []
-    for idx_k in idx.reshape(accum, -1):
-        a, loss = micro_fn(idx_k)
-        loss.backward()
+    for k, idx_k in enumerate(idx.reshape(accum, -1)):
+        if sharded is None:
+            a, loss = micro_fn(idx_k)
+            loss.backward()
+        else:
+            with sharded.no_sync(k == accum - 1):
+                a, loss = micro_fn(idx_k)
+                loss.backward()
         aux.append(a)
-    grads = {k: p.grad for k, p in params.items()}
+    if sharded is not None:
+        sharded.sync_grads()
+        grads = sharded.grads()
+    else:
+        grads = {k: p.grad for k, p in params.items()}
     if accum > 1:
         torch._foreach_div_(list(grads.values()), float(accum))
     return aux, grads
@@ -40,7 +58,8 @@ def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
 
 def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: FusedAdamWState,
                   params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                  nonfinite_count: torch.Tensor, ema: Dict[str, torch.Tensor] = None
+                  nonfinite_count: torch.Tensor, ema: Dict[str, torch.Tensor] = None,
+                  reduce: Optional[NormReduce] = None
                   ) -> Tuple[FusedAdamWState, torch.Tensor, torch.Tensor]:
     """The update tail.  Returns ``(opt_state, grad_norm, nonfinite_count)``;
     ``params`` (and ``ema`` when ``cfg.ema_decay > 0``) change in place.
@@ -51,12 +70,14 @@ def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: Fused
     poisoned: inside the fused step (``FusedAdamW.step``: norm, scalars,
     counter and update, on the GPU two kernel launches), or here before the
     optax chain (whose clip then sees a norm of 0, the norm of the zeroed
-    gradients)."""
+    gradients).  ``reduce`` (on a mesh): the norm is the mesh-wide one, so
+    every rank clips by it and zeroes the same steps."""
     if isinstance(optimizer, FusedAdamW):
         opt_state, grad_norm, nonfinite_count = optimizer.step(grads, opt_state, params,
-                                                               nonfinite_count)
+                                                               nonfinite_count, reduce=reduce)
     else:
-        grad_norm = global_norm(list(grads.values()))
+        grad_norm = (global_norm(list(grads.values())) if reduce is None
+                     else mesh_norm_reference([grads[k] for k in params], reduce))
         finite = torch.isfinite(grad_norm)
         nonfinite_count = nonfinite_count + (~finite).to(torch.int32)
         clip_norm = grad_norm

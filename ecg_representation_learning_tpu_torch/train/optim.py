@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..configs import TrainConfig
-from ..ops.adamw import adamw_tail, global_norm
+from ..ops.adamw import NormReduce, adamw_tail, global_norm
 from ..utils.check_args import ca
 
 Schedule = Callable[[int], float]
@@ -85,19 +85,21 @@ class FusedAdamW:
 
     def step(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
              params: Dict[str, torch.Tensor], nonfinite_count: Optional[torch.Tensor] = None,
-             g_norm: Optional[torch.Tensor] = None
+             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None
              ) -> Tuple[FusedAdamWState, torch.Tensor, Optional[torch.Tensor]]:
         """One step from the gradients: updates ``params`` and the moments in
         place and returns ``(state with its count advanced, grad_norm,
         nonfinite_count + !isfinite(grad_norm))``.  ``g_norm`` may be passed
-        when the caller has it already."""
+        when the caller has it already; ``reduce`` (on a mesh, with the
+        leaves in ``params``' order) makes the norm the mesh-wide one."""
         names = list(params)
         grad_norm, nonfinite_count = self.tail(
             [params[k] for k in names], [grads[k] for k in names],
             [state.mu[k] for k in names], [state.nu[k] for k in names],
             self.lr_bc(state.count), nonfinite_count, clip_norm=self.clip_norm,
             zero_nonfinite=self.zero_nonfinite, b1=self.b1, b2=self.b2, eps=self.eps,
-            wd=self.weight_decay, g_norm=g_norm)
+            wd=self.weight_decay, g_norm=g_norm,
+            **({} if reduce is None else {'reduce': reduce}))
         return dataclasses.replace(state, count=state.count + 1), grad_norm, nonfinite_count
 
     def apply(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,

@@ -21,6 +21,10 @@ resume that continues a deterministic stream bit for bit.
 
 Then the handoff into ``EcgVit``: ``transfer_encoder`` copies the trunk,
 ``linear_probe_mask`` / ``make_probe_optimizer`` train the head alone.
+
+On a mesh (``mesh=``, as the supervised trainer) each rank takes its rows of
+every (micro)batch and of every stream batch, the mask noise is drawn for
+the global batch, and the eval losses are gathered over 'data'.
 """
 from __future__ import annotations
 
@@ -35,10 +39,11 @@ import torch
 from ..configs import MaeConfig, TrainConfig, VitConfig
 from ..models.mae import EcgMae
 from ..ops.preprocess import fused_train_path
+from ..parallel import spmd
 from .loop import grad_accum
 from .checkpoint import wait_for_checkpoints
 from .optim import AdamChain, Schedule, make_optimizer
-from .trainer import SplitData, TrainerBase, _prep_batch
+from .trainer import SplitData, TrainerBase, _prep_batch, eval_mode
 
 
 class MaeTrainer(TrainerBase):
@@ -51,12 +56,12 @@ class MaeTrainer(TrainerBase):
                  train_data: Optional[SplitData] = None,
                  eval_data: Optional[SplitData] = None,
                  norm_stats: Optional[Dict[str, Any]] = None,
-                 output_dir: Optional[str] = None, device=None):
+                 output_dir: Optional[str] = None, device=None, mesh=None):
         self.mae_cfg = mae_cfg
         super().__init__(self._build_model(model_cfg, mae_cfg), model_cfg, train_cfg,
                          train_data, eval_data, norm_stats,
                          output_dir or os.path.join('runs', self.default_dir),
-                         self.log_name, f'{self.log_name} Pretrain', device)
+                         self.log_name, f'{self.log_name} Pretrain', device, mesh)
 
     def _build_model(self, model_cfg: VitConfig, mae_cfg: MaeConfig) -> torch.nn.Module:
         return EcgMae(model_cfg, mae_cfg)
@@ -88,25 +93,28 @@ class MaeTrainer(TrainerBase):
         metrics keep the MSE); ``prep`` makes the model input of ``sig``
         (default ``_model_input``).  The train step and the stream step both
         run it."""
-        out = self.model((prep or self._model_input)(sig), rng=self.rng)
-        return {'loss': out.loss.detach()}, self._objective(out.loss, out.aux_loss)
+        out = self._net((prep or self._model_input)(sig), rng=self.rng)
+        return ({'loss': spmd.mean_over_data(out.loss.detach())},
+                self._objective(out.loss, out.aux_loss))
 
     def train_step(self, data: SplitData, take: np.ndarray) -> Dict[str, Any]:
         """One optimizer step on the rows ``take`` of ``data``.  Returns the
         metrics (0-d device tensors, and the learning rate as a float)."""
         if not self.initialized:
             raise RuntimeError('call init_state() or set_params() first')
-        sigs, idx = self._sig_inputs(data, take)
+        accum = max(1, self.cfg.grad_accum)
+        sigs, idx = self._sig_inputs(data, self._local_take(take, accum))
         self.model.train()
-        aux, grads = grad_accum(lambda idx_k: self._micro_loss(sigs.index_select(0, idx_k)),
-                                self.params(), idx, max(1, self.cfg.grad_accum))
+        with self._spmd():
+            aux, grads = grad_accum(lambda idx_k: self._micro_loss(sigs.index_select(0, idx_k)),
+                                    self.params(), idx, accum, self.sharded)
         self.model.eval()
         metrics = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
         lr = self.optimizer.lr_at(self.step)
         grad_norm = self._update(grads)
         return {**metrics, 'grad_norm': grad_norm, 'learning_rate': lr}
 
-    @torch.inference_mode()
+    @eval_mode
     def evaluate(self, data: Optional[SplitData] = None, seed: int = 0) -> float:
         """Held-out masked-reconstruction loss with a fixed mask generator
         (seeded with ``seed``), so eval numbers compare across epochs and
@@ -125,12 +133,14 @@ class MaeTrainer(TrainerBase):
             n_real = take.size
             if n_real < bsz:
                 take = np.concatenate([take, np.zeros(bsz - n_real, np.int64)])
-            sigs, idx = self._sig_inputs(data, take)
+            sigs, idx = self._sig_inputs(data, self._local_take(take))
             x = self._model_input(sigs.index_select(0, idx))
             noise = torch.rand((bsz, x.shape[-1] // self.model_cfg.patch_size), generator=gen,
                                device=self.device)
-            out = self._eval_forward(x, noise=noise)
-            losses.append(out.per_sample_loss[:n_real].cpu().numpy())
+            out = self._eval_forward(x, noise=noise[self._rows(bsz)])
+            with self._spmd():
+                per_sample = spmd.gather_rows(out.per_sample_loss)
+            losses.append(per_sample[:n_real].cpu().numpy())
         return float(np.concatenate(losses).mean())
 
     # ---------------------------------------------------------------- stream
@@ -148,6 +158,14 @@ class MaeTrainer(TrainerBase):
             return x[..., :cfg.max_signal_length]
         return prep
 
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` (all of them on one
+        device)."""
+        if self.mesh is None:
+            return slice(None)
+        from ..parallel.distributed import process_local_batch_slice
+        return process_local_batch_slice(n, self.mesh)
+
     def build_stream_step(self, raw_fqs: Optional[int] = None,
                           wire_scale: Optional[float] = None
                           ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -157,7 +175,9 @@ class MaeTrainer(TrainerBase):
         preprocess of ``_stream_prep(raw_fqs)``, the forward and backward on
         the whole batch, and the update tail; returns the metrics as 0-d
         device tensors (no host sync).  Exposed so ``train_stream`` and a
-        benchmark time the same step."""
+        benchmark time the same step.  On a mesh ``sig`` is this rank's rows
+        of the global batch (``train_stream`` cuts them, or
+        ``prefetch_to_device(sharding=mesh)`` moved only them)."""
         prep = self._stream_prep(raw_fqs)
         scale = (None if wire_scale is None else
                  torch.tensor(wire_scale, dtype=torch.float32, device=self.device))
@@ -167,21 +187,21 @@ class MaeTrainer(TrainerBase):
                 raise RuntimeError('call init_state() or set_params() first')
             if scale is not None:
                 sig = sig.float() / scale          # a true f32 division, as JAX's
-            for p in self.params().values():
-                p.grad = None
             self.model.train()
-            metrics, loss = self._micro_loss(sig, prep)
-            loss.backward()
+            with self._spmd():
+                aux, grads = grad_accum(lambda _: self._micro_loss(sig, prep), self.params(),
+                                        torch.zeros(1), 1, self.sharded)
             self.model.eval()
-            grad_norm = self._update({k: p.grad for k, p in self.params().items()})
-            return {**metrics, 'grad_norm': grad_norm}
+            grad_norm = self._update(grads)
+            return {**aux[0], 'grad_norm': grad_norm}
         return stream_step
 
     def train_stream(self, batches: Iterable, total_steps: int,
                      raw_fqs: Union[None, int, Sequence[Optional[int]]] = None,
                      log_every: int = 50,
                      wire_scale: Union[None, float, Sequence[Optional[float]]] = None,
-                     ckpt_every: int = 0, resume: Union[bool, str] = False) -> Dict[str, Any]:
+                     ckpt_every: int = 0, resume: Union[bool, str] = False,
+                     local_batches: bool = False) -> Dict[str, Any]:
         """Streaming pretraining over an iterator of raw (B, C, L) batches
         (host arrays or device tensors, e.g. ``prefetch_to_device`` over a
         :class:`data.pipeline.MixedRecordStream`), up to ``total_steps``
@@ -199,8 +219,10 @@ class MaeTrainer(TrainerBase):
         ``resume``: True restores the newest checkpoint under output_dir (a
         string: that checkpoint) -- parameters, moments, EMA, step and the
         generators -- and skips the batches already consumed, so a
-        deterministic stream continues bit for bit.  Returns ``{'loss',
-        'steps', 'mix_counts', 'timer'}``.
+        deterministic stream continues bit for bit.  On a mesh each rank takes
+        its rows of every batch, or, with ``local_batches``, the batches are
+        already its rows (``prefetch_to_device(sharding=mesh)``).  Returns
+        ``{'loss', 'steps', 'mix_counts', 'timer'}``.
         """
         import itertools
 
@@ -237,6 +259,8 @@ class MaeTrainer(TrainerBase):
         for item in itertools.islice(batches, start_step, total_steps):
             ci, batch = item if isinstance(item, tuple) else (0, item)
             sig = torch.as_tensor(batch, device=self.device)
+            if not local_batches:
+                sig = sig[self._rows(sig.shape[0])]
             timer.input_done()
             metrics = step_for(ci)(sig)
             timer.step_done()

@@ -32,12 +32,26 @@ masks and TimeOut draws from a generator on the device, both seeded from
 pretrainers (train/pretrain.py, train/contrastive.py): device and
 normalization stats, the optimizer and its state, the EMA, the generators,
 seeded init, checkpoints and logging.
+
+On a ('data', 'model') mesh (``parallel/``; ``mesh=``, or one built from
+``cfg.mesh_data`` / ``cfg.mesh_model`` / ``cfg.fsdp``, or from the process
+group when there is more than one rank) the trainers run one rank each:
+the model placed by the partition rules (``parallel.mesh.ShardedModel``:
+Megatron slices over 'model', DDP or FSDP2 over 'data'), every rank drawing
+the same host shuffle and taking its rows of each (micro)batch, randomness
+drawn as one device would draw it for the global batch
+(``parallel.spmd``), the update tail on the local shards with the mesh-wide
+norm, evaluation gathered over 'data' (metrics on the whole split), and
+checkpoints gathered into the one-device file (rank 0 writes).  The resident
+split is held whole on every rank, as JAX replicates it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import datetime
+import functools
 import logging
 import math
 import os
@@ -50,10 +64,11 @@ import torch
 
 from ..configs import TrainConfig, VitConfig
 from ..models.vit import EcgVit
-from ..ops.augment import timeout as timeout_op
+from ..ops.augment import timeout as timeout_op, timeout_draws
 from ..ops.dropout import DropoutRng
 from ..ops.normalize import normalize_fixed
 from ..ops.pad import time_end_pad
+from ..parallel import spmd
 from ..runtime import default_device
 from ..utils.logging import TbWriter, get_logger, pretty_log_dict
 from .checkpoint import wait_for_checkpoints
@@ -82,12 +97,50 @@ def _prep_batch(sig: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                 patch_size: int, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 timeout_scale=(0.0, 0.5)) -> torch.Tensor:
-    """Per-batch transform: normalize -> pad -> (``train``) TimeOut."""
+    """Per-batch transform: normalize -> pad -> (``train``) TimeOut, drawn
+    for the global batch on a mesh (``spmd.global_draw``)."""
     sig = normalize_fixed(sig, mean, std)
     sig = time_end_pad(sig, patch_size)
     if train:
-        sig = timeout_op(sig, *timeout_scale, generator=generator)
+        span, start = spmd.global_draw(sig.shape[0], lambda n: timeout_draws(
+            (n,), *timeout_scale, generator=generator, device=sig.device))
+        sig = timeout_op(sig, *timeout_scale, span_draw=span, start_draw=start)
     return sig
+
+
+def eval_mode(fn):
+    """Run ``fn`` under ``torch.inference_mode`` on one device and under
+    ``torch.no_grad`` on a mesh: FSDP2 keeps the buffers it gathers into from
+    one forward to the next, and inference tensors there would break the
+    next training step."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        with torch.no_grad() if self.mesh is not None else torch.inference_mode():
+            return fn(self, *args, **kw)
+    return run
+
+
+def _resolve_mesh(mesh, cfg: TrainConfig, device):
+    """The trainer's mesh: ``mesh``; else one from ``cfg.mesh_data`` /
+    ``cfg.mesh_model`` (``fsdp`` too) or, when the process group has more than
+    one rank, every rank on 'data' (JAX's default mesh); else None (one
+    device)."""
+    import torch.distributed as dist
+    if mesh is not None:
+        return mesh
+    many = dist.is_initialized() and dist.get_world_size() > 1
+    if not (many or cfg.mesh_data not in (None, 1) or cfg.mesh_model != 1 or cfg.fsdp):
+        return None
+    from ..parallel.mesh import make_mesh
+    return make_mesh(cfg.mesh_data, cfg.mesh_model, device=device)
+
+
+def _gather_states(gen: torch.Generator, mesh) -> list:
+    """Every data rank's state of ``gen``, by data rank (a collective)."""
+    import torch.distributed as dist
+    out = [None] * mesh.shape['data']
+    dist.all_gather_object(out, gen.get_state(), group=mesh.group('data'))
+    return out
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -136,8 +189,9 @@ class TrainerBase:
     def __init__(self, model: torch.nn.Module, model_cfg: VitConfig, train_cfg: TrainConfig,
                  train_data: Optional[SplitData], eval_data: Optional[SplitData],
                  norm_stats: Optional[Dict[str, Any]], output_dir: str, name: str,
-                 logger_name: str, device=None):
-        self.device = default_device(device)
+                 logger_name: str, device=None, mesh=None):
+        self.mesh = _resolve_mesh(mesh, train_cfg, device)
+        self.device = self.mesh.device if self.mesh is not None else default_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.name = name
@@ -152,6 +206,13 @@ class TrainerBase:
         if train_cfg.train_batch_size % max(1, train_cfg.grad_accum):
             raise ValueError(f'grad_accum {train_cfg.grad_accum} must divide '
                              f'train_batch_size {train_cfg.train_batch_size}')
+        n_data = 1 if self.mesh is None else self.mesh.shape['data']
+        if (train_cfg.train_batch_size // max(1, train_cfg.grad_accum)) % n_data or \
+                train_cfg.eval_batch_size % n_data:
+            raise ValueError(f'the {n_data} data ranks must divide each microbatch '
+                             f'({train_cfg.train_batch_size} / grad_accum '
+                             f'{train_cfg.grad_accum}) and eval_batch_size '
+                             f'{train_cfg.eval_batch_size}')
         n_train = len(train_data) if train_data is not None else 1
         self.steps_per_epoch = train_cfg.steps_per_epoch(n_train)
         self.total_steps = train_cfg.total_steps(n_train)
@@ -172,45 +233,125 @@ class TrainerBase:
         self.logger = get_logger(logger_name)
         self.logger_fl = None
         self.tb = None
+        self.sharded = None
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_params
+            from ..ops.adamw import NormReduce
+            # the unsharded model's names, shapes and init order, without storage
+            self._full_model = copy.deepcopy(model).to('meta')
+            self.sharded = shard_params(self.model, self.mesh, train_cfg.fsdp)
+            self._norm_reduce = NormReduce(self.sharded.norm_weights())
 
     # ------------------------------------------------------------------ setup
     def params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
 
+    def _leaves(self) -> Dict[str, torch.Tensor]:
+        """Each parameter's storage on this rank (the tensor the update
+        writes): the parameter itself on one device, its local shard on a
+        mesh."""
+        if self.sharded is not None:
+            return self.sharded.leaves()
+        return {k: p.detach() for k, p in self.params().items()}
+
+    @property
+    def _net(self) -> torch.nn.Module:
+        """What a training forward calls: the model, or its DDP wrapper."""
+        return self.model if self.sharded is None else self.sharded.net
+
+    def _spmd(self):
+        """The context of a step on this trainer's mesh (nothing without one)."""
+        return spmd.mesh_context(self.mesh)
+
+    def _local_take(self, take: np.ndarray, accum: int = 1) -> np.ndarray:
+        """This rank's rows of a global batch of indices: of each of its
+        ``accum`` microbatches, the slice of the rank's place on 'data' (JAX
+        shards each microbatch over 'data')."""
+        if self.mesh is None or self.mesh.shape['data'] == 1:
+            return take
+        from ..parallel.distributed import process_local_batch_slice
+        chunks = take.reshape(accum, -1)
+        return chunks[:, process_local_batch_slice(chunks.shape[1], self.mesh)].reshape(-1)
+
+    def _full_state(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors laid out like the leaves as full (unsharded) tensors; on a
+        mesh a collective of every rank."""
+        if self.sharded is None:
+            return dict(tensors)
+        return self.sharded.full_state(tensors)
+
+    def _is_writer(self) -> bool:
+        import torch.distributed as dist
+        return self.mesh is None or dist.get_rank() == 0
+
+    def _commit_barrier(self) -> None:
+        """On a mesh: rank 0's checkpoint in flight committed, then every
+        rank past this point, so any rank may read it."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+            if self._is_writer():
+                wait_for_checkpoints()
+            dist.barrier()
+
     def _reset_run_state(self, seed: int) -> None:
-        """Generators from ``seed``, step 0, fresh optimizer state and EMA."""
+        """Generators from ``seed``, step 0, fresh optimizer state and EMA.
+        On a mesh with several data ranks, Bernoulli masks come from a
+        generator seeded with (seed, data rank)."""
         host = torch.Generator().manual_seed(seed)
         dev = torch.Generator(device=self.device)
         dev.manual_seed(int(torch.randint(0, 1 << 62, (1,), generator=host)))
-        self.rng = DropoutRng(host=host, device=dev)
+        mask = None
+        if self.mesh is not None and self.mesh.shape['data'] > 1:
+            mask = torch.Generator(device=self.device)
+            mask.manual_seed(int(np.random.SeedSequence(
+                [seed, self.mesh.index('data')]).generate_state(1, np.uint64)[0] >> 2))
+        self.rng = DropoutRng(host=host, device=dev, mask=mask)
         self.step = 0
         self._reset_optimizer()
 
     def _reset_optimizer(self) -> None:
-        params = {k: p.detach() for k, p in self.params().items()}
+        params = self._leaves()
         self.opt_state = self.optimizer.init(params)
         self.ema = ({k: p.clone() for k, p in params.items()}
                     if self.cfg.ema_decay > 0 else None)
 
     def init_state(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Seeded init (``flax_init_``); resets the optimizer state, the EMA,
-        the step and the generators."""
+        the step and the generators.  On a mesh every rank draws the
+        unsharded init and keeps its shards."""
         seed = self.cfg.seed if seed is None else seed
-        self.model.to('cpu')
-        flax_init_(self.model, seed)
-        self.model.to(self.device)
+        if self.sharded is not None:
+            full = copy.deepcopy(self._full_model).to_empty(device='cpu')
+            flax_init_(full, seed)
+            self.sharded.load_full(dict(full.named_parameters()))
+        else:
+            self.model.to('cpu')
+            flax_init_(self.model, seed)
+            self.model.to(self.device)
         self._reset_run_state(seed)
         self.initialized = True
         self._info(f'initialized {self.model_cfg.meta} on {self.device}')
-        return self.model.state_dict()
+        return self.state_dict()
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the unsharded model's state_dict (on a mesh, a
+        collective of every rank)."""
+        if self.sharded is None:
+            return self.model.state_dict()
+        return self._full_state(self._leaves())
 
     def set_params(self, state_dict: Mapping[str, torch.Tensor]):
         """Install an externally built state_dict (e.g. flax params carried
         over with ``models.port.vit_state_dict_from_flax``, or a pretrained
         trunk from ``train.contrastive.load_any_encoder``), re-initializing
         the optimizer state and re-seeding the EMA from it."""
-        self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(self.device)
+        if self.sharded is not None:
+            from .checkpoint import check_params
+            check_params(state_dict, self._full_model.state_dict(), 'state_dict')
+            self.sharded.load_full(state_dict)
+        else:
+            self.model.load_state_dict(state_dict, strict=True)
+            self.model.to(self.device)
         if self.rng is None:
             self._reset_run_state(self.cfg.seed)
         else:
@@ -218,7 +359,7 @@ class TrainerBase:
         self.initialized = True
         self._refresh_int8()
         self._info(f'loaded weights into {self.model_cfg.meta} on {self.device}')
-        return self.model.state_dict()
+        return self.state_dict()
 
     def _objective(self, loss: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
         """What a step minimises: the task ``loss``, plus ``moe_aux_weight``
@@ -269,11 +410,10 @@ class TrainerBase:
         accumulated ``grads``; returns the gradient norm.  The parameters go
         in as they are: every in-place write of the tail runs under
         ``no_grad`` or in the kernels."""
-        params = self.params()
         self.opt_state, grad_norm, self._nonfinite = finish_update(
-            self.optimizer, self.cfg, self.opt_state, params, grads, self._nonfinite,
-            self.ema)
-        for p in params.values():
+            self.optimizer, self.cfg, self.opt_state, self._leaves(), grads, self._nonfinite,
+            self.ema, reduce=None if self.sharded is None else self._norm_reduce)
+        for p in self.params().values():
             p.grad = None
         self.step += 1
         return grad_norm
@@ -291,22 +431,56 @@ class TrainerBase:
         ``cfg.ema_decay > 0``, else the trained parameters."""
         if self.ema is not None:
             return self.ema
-        return {k: p.detach() for k, p in self.params().items()}
+        return self._leaves()
 
     def served_model(self) -> torch.nn.Module:
         """A copy of the model holding the served weights
         (``_served_state``), in eval mode (``cli visualize`` and
-        ``models.export_artifact`` read it)."""
+        ``models.export_artifact`` read it); on a mesh the unsharded model on
+        this rank's device (a collective of every rank)."""
+        if self.sharded is not None:
+            full = self._full_state(self._served_state())
+            model = copy.deepcopy(self._full_model).to_empty(device=self.device).eval()
+            with torch.no_grad():
+                for key, val in full.items():
+                    model.get_parameter(key).copy_(val)
+            return model
         model = copy.deepcopy(self.model).eval()
         with torch.no_grad():
             for key, val in self._served_state().items():
                 model.get_parameter(key).copy_(val)
         return model
 
+    @contextlib.contextmanager
+    def _ema_swapped(self):
+        """On a mesh: the EMA shards written into the parameters' storage
+        for the duration (FSDP2 gathers the storage itself, so the weights
+        cannot be handed over as ``functional_call`` does), then restored."""
+        leaves = self._leaves()
+        saved = {k: v.clone() for k, v in leaves.items()}
+        try:
+            with torch.no_grad():
+                for k, v in leaves.items():
+                    v.copy_(self.ema[k])
+            yield
+        finally:
+            with torch.no_grad():
+                for k, v in leaves.items():
+                    v.copy_(saved[k])
+
     def _eval_forward(self, *args, **kw):
         """The eval-mode forward on the served weights (``_served_state``),
         or on their int8 snapshot while int8 inference is enabled."""
         self.model.eval()
+        if self.sharded is not None:
+            with self._spmd(), torch.no_grad():
+                try:
+                    if self.ema is None:
+                        return self.model(*args, **kw)
+                    with self._ema_swapped():
+                        return self.model(*args, **kw)
+                finally:
+                    self.sharded.reshard()
         if self._int8 is not None:
             from ..models.quantize import int8_weights
             q = self._int8
@@ -326,6 +500,7 @@ class TrainerBase:
     def latest_checkpoint(self) -> Optional[str]:
         """Most recent committed ``ckpt-*`` under output_dir."""
         from .checkpoint import latest_committed_checkpoint
+        self._commit_barrier()
         return latest_committed_checkpoint(self.output_dir)
 
     def save_checkpoint(self, tag: str = 'final') -> str:
@@ -334,14 +509,21 @@ class TrainerBase:
         from .checkpoint import save_checkpoint
         path = os.path.join(os.path.abspath(self.output_dir), f'ckpt-{tag}')
         state = {'step': self.step, 'epoch': self.epoch,
-                 'params': self.model.state_dict(),
-                 'opt_state': {'count': self.opt_state.count, 'mu': self.opt_state.mu,
-                               'nu': self.opt_state.nu},
+                 'params': self.state_dict(),
+                 'opt_state': {'count': self.opt_state.count,
+                               'mu': self._full_state(self.opt_state.mu),
+                               'nu': self._full_state(self.opt_state.nu)},
                  'rng': {'host': self.rng.host.get_state(),
                          'device': self.rng.device.get_state()}}
         if self.ema is not None:
-            state['ema_params'] = self.ema
-        save_checkpoint(path, state, async_save=self.cfg.async_checkpoint)
+            state['ema_params'] = self._full_state(self.ema)
+        if self.rng.mask is not None:   # every data rank's mask generator
+            state['rng']['masks'] = _gather_states(self.rng.mask, self.mesh)
+        if self._is_writer():
+            save_checkpoint(path, state, async_save=self.cfg.async_checkpoint)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
         self._info(f'Checkpoint saved to {path}'
                    + (' (async)' if self.cfg.async_checkpoint else ''))
         return path
@@ -357,24 +539,41 @@ class TrainerBase:
         log = logging.getLogger(__name__)
         if not self.initialized:
             self.init_state()
+        self._commit_barrier()
         raw = restore_checkpoint(path)
-        try:
-            self.model.load_state_dict(raw['params'], strict=True)
-        except RuntimeError as e:
-            raise ValueError(f'checkpoint {path} params do not match this model '
-                             f'(wrong model size/config?): {e}') from None
-        self.model.to(self.device)
-        params = {k: p.detach() for k, p in self.params().items()}
+        if self.sharded is not None:
+            from .checkpoint import check_params
+            full_shapes = self._full_model.state_dict()
+            try:
+                check_params(raw['params'], full_shapes, f'checkpoint {path} params')
+            except ValueError as e:
+                raise ValueError(f'checkpoint {path} params do not match this model '
+                                 f'(wrong model size/config?): {e}') from None
+            self.sharded.load_full(raw['params'])
+            mine = self.sharded.local
+        else:
+            try:
+                self.model.load_state_dict(raw['params'], strict=True)
+            except RuntimeError as e:
+                raise ValueError(f'checkpoint {path} params do not match this model '
+                                 f'(wrong model size/config?): {e}') from None
+            self.model.to(self.device)
+            full_shapes = None
+            mine = dict
+        params = self._leaves()
         self._reset_optimizer()
         opt = raw['opt_state']
         fresh = self.opt_state
-        if all(k in opt[m] and opt[m][k].shape == getattr(fresh, m)[k].shape
+        want = {k: (full_shapes[k].shape if full_shapes is not None
+                    else getattr(fresh, 'mu')[k].shape) for k in params}
+        if all(k in opt[m] and opt[m][k].shape == want[k]
                and opt[m][k].dtype == getattr(fresh, m)[k].dtype
                for m in ('mu', 'nu') for k in params):
+            mu, nu = mine(opt['mu']), mine(opt['nu'])
             self.opt_state = FusedAdamWState(
                 count=int(opt['count']),
-                mu={k: opt['mu'][k].to(self.device) for k in params},
-                nu={k: opt['nu'][k].to(self.device) for k in params})
+                mu={k: mu[k].to(self.device) for k in params},
+                nu={k: nu[k].to(self.device) for k in params})
         else:
             log.warning('optimizer state in %s does not match this trainer (e.g. '
                         'another adam_mu_dtype); reinitialized it', path)
@@ -382,23 +581,29 @@ class TrainerBase:
         if self.ema is not None:
             if 'ema_params' not in raw:
                 log.warning('checkpoint %s has no EMA; seeding it from the params', path)
-            self.ema = {k: v.to(self.device).clone()
-                        for k, v in raw.get('ema_params', raw['params']).items()}
+            ema = mine(raw.get('ema_params', raw['params']))
+            self.ema = {k: ema[k].to(self.device).clone() for k in params}
         elif 'ema_params' in raw:
             log.warning('checkpoint %s carries EMA params this trainer does not '
                         'track (ema_decay=0); dropping them', path)
             extra['dropped_ema'] = True
         self.rng.host.set_state(raw['rng']['host'])
         self.rng.device.set_state(raw['rng']['device'])
+        masks = raw['rng'].get('masks')
+        if self.rng.mask is not None and masks and len(masks) == self.mesh.shape['data']:
+            self.rng.mask.set_state(masks[self.mesh.index('data')])
         self.step = int(raw['step'])
         self.epoch = int(raw['epoch'])
         self.last_restore_info = extra
         self._refresh_int8()
-        return self.model.state_dict()
+        return self.state_dict()
 
     # ----------------------------------------------------------------- logging
     def _open_sinks(self, logger_name: str, file_name: str) -> None:
         """The file log ``output_dir/file_name`` and TensorBoard ``output_dir/tb``."""
+        if not self._is_writer():   # on a mesh, rank 0 keeps the files
+            self.logger_fl, self.tb = None, TbWriter(None)
+            return
         self.logger_fl = get_logger(logger_name,
                                     file_path=os.path.join(self.output_dir, file_name))
         self.tb = TbWriter(os.path.join(self.output_dir, 'tb'))
@@ -420,11 +625,12 @@ class Trainer(TrainerBase):
                  train_data: Optional[SplitData] = None,
                  eval_data: Optional[SplitData] = None,
                  norm_stats: Optional[Dict[str, Any]] = None,
-                 output_dir: Optional[str] = None, name: str = 'EcgVit', device=None):
+                 output_dir: Optional[str] = None, name: str = 'EcgVit', device=None,
+                 mesh=None):
         self.save_time = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
         super().__init__(EcgVit(model_cfg), model_cfg, train_cfg, train_data, eval_data,
                          norm_stats, output_dir or os.path.join('runs', self.save_time),
-                         name, f'{name} Train', device)
+                         name, f'{name} Train', device, mesh)
         if train_cfg.linear_probe:
             # the head alone: the optax chain with the trunk's updates zeroed
             from .pretrain import make_probe_optimizer
@@ -463,7 +669,8 @@ class Trainer(TrainerBase):
         if not self.initialized:
             raise RuntimeError('call init_state() or set_params() first')
         cfg = self.cfg
-        sigs, labs, idx = self._step_inputs(data, take)
+        accum = max(1, cfg.grad_accum)
+        sigs, labs, idx = self._step_inputs(data, self._local_take(take, accum))
         params = self.params()
         self.model.train()
 
@@ -472,11 +679,14 @@ class Trainer(TrainerBase):
             lab = labs.index_select(0, idx_k)
             sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size,
                               train=cfg.augment_timeout, generator=self.rng.device)
-            out = self.model(sig, labels=lab, loss_weight=cfg.loss_weight, rng=self.rng)
-            return ((out.loss.detach(), out.logits.detach(), lab),
+            out = self._net(sig, labels=lab, loss_weight=cfg.loss_weight, rng=self.rng)
+            # metrics of the global (micro)batch; identities on one device
+            return ((spmd.mean_over_data(out.loss.detach()),
+                     spmd.gather_rows(out.logits.detach()), spmd.gather_rows(lab)),
                     self._objective(out.loss, out.aux_loss))
 
-        aux, grads = grad_accum(micro, params, idx, max(1, cfg.grad_accum))
+        with self._spmd():
+            aux, grads = grad_accum(micro, params, idx, accum, self.sharded)
         self.model.eval()
         loss = torch.stack([a[0] for a in aux]).mean()
         logits = torch.cat([a[1] for a in aux])
@@ -562,7 +772,7 @@ class Trainer(TrainerBase):
                 'epochs': self.epoch, 'seconds': dt}
 
     # -------------------------------------------------------------- inference
-    @torch.inference_mode()
+    @eval_mode
     def evaluate(self, data: SplitData, loss_reduction: str = 'mean',
                  return_predictions: bool = False) -> Dict[str, Any]:
         """Eval pass (reference train.py:321-378): per-sample losses, sigmoid
@@ -575,13 +785,15 @@ class Trainer(TrainerBase):
         losses, probs_all, labels_all = [], [], []
         for take, n_real in self._index_batches(data, self.cfg.eval_batch_size,
                                                 drop_last=False):
-            sigs, labs, idx = self._step_inputs(data, take)
+            sigs, labs, idx = self._step_inputs(data, self._local_take(take))
             sig = _prep_batch(sigs.index_select(0, idx).float(), self.mean, self.std,
                               self.model_cfg.patch_size)
             out = self._eval_forward(sig, labels=labs.index_select(0, idx),
                                      loss_reduction='none')
-            losses.append(out.loss[:n_real].cpu().numpy())
-            probs_all.append(torch.sigmoid(out.logits.float())[:n_real].cpu().numpy())
+            with self._spmd():   # the data ranks' rows, in batch order
+                loss, logits = spmd.gather_rows(out.loss), spmd.gather_rows(out.logits)
+            losses.append(loss[:n_real].cpu().numpy())
+            probs_all.append(torch.sigmoid(logits.float())[:n_real].cpu().numpy())
             labels_all.append(data.labels[take[:n_real]])
         losses = np.concatenate(losses)
         probs_np = np.concatenate(probs_all)
@@ -609,6 +821,8 @@ class Trainer(TrainerBase):
         from ..models.quantize import quantize_int8, quantized_bytes
         if not self.initialized:
             raise RuntimeError('call init_state() or load a checkpoint first')
+        if self.mesh is not None:
+            raise NotImplementedError('int8 inference runs on one device, not on a mesh')
         served = self._served_state()
         qweights, scales = quantize_int8(served)
         rest = {k: v.detach().clone() for k, v in served.items() if k not in qweights}
@@ -623,7 +837,7 @@ class Trainer(TrainerBase):
     def disable_int8_inference(self) -> None:
         self._int8 = None
 
-    @torch.inference_mode()
+    @eval_mode
     def predict(self, signals: np.ndarray) -> np.ndarray:
         """Batch inference: per-record sigmoid probabilities (N, num_class)."""
         if not self.initialized:
@@ -634,9 +848,11 @@ class Trainer(TrainerBase):
         probs_all = []
         for take, n_real in self._index_batches(data, self.cfg.eval_batch_size,
                                                 drop_last=False):
-            sig = torch.from_numpy(data.signals[take]).to(self.device)
+            sig = torch.from_numpy(data.signals[self._local_take(take)]).to(self.device)
             sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size)
-            probs = torch.sigmoid(self._eval_forward(sig).logits.float())
+            logits = self._eval_forward(sig).logits
+            with self._spmd():
+                probs = torch.sigmoid(spmd.gather_rows(logits).float())
             probs_all.append(probs[:n_real].cpu().numpy())
         return np.concatenate(probs_all)
 

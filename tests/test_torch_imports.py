@@ -4,7 +4,9 @@ them): every module, the ingest and stream modules (``data.readers``,
 ``data.native``, ``data.export``, ``data.pipeline``, ``cli``) and the tools
 (``models.export_artifact``, ``models.tokenizer``, ``utils.viz``,
 ``utils.rollout``, ``utils.auc_plot``, ``utils.ecg_domain``,
-``registry_gen``) among them.
+``registry_gen``, ``tools.dryrun_multichip``) and the mesh layer
+(``parallel``, ``parallel.distributed``, ``parallel.mesh``,
+``parallel.spmd``) among them.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas``, ``matplotlib``,
@@ -77,6 +79,10 @@ def test_port_and_chip_smoke_import_without_jax():
         'models.export_artifact', 'models.tokenizer', 'utils.viz', 'utils.rollout',
         'utils.auc_plot', 'utils.ecg_domain', 'registry_gen', 'cli')}
     assert tools <= set(modules), tools - set(modules)
+    parallel = {f'{port.__name__}.{m}' for m in (
+        'parallel', 'parallel.distributed', 'parallel.mesh', 'parallel.spmd',
+        'tools.dryrun_multichip')}
+    assert parallel <= set(modules), parallel - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)

@@ -146,7 +146,7 @@ def test_prefetch_on_the_cpu_passes_through_and_refuses_sharding(rng):
     items = [(0, np.arange(6, dtype=np.int16)), (1, np.ones(3, np.float32))]
     out = list(pipeline.prefetch_to_device(iter(items), depth=2, device='cpu'))
     assert all(a is b for (_, a), (_, b) in zip(out, items))
-    with pytest.raises(NotImplementedError, match='sharding'):
+    with pytest.raises(TypeError, match='sharding'):   # a Mesh, or nothing
         pipeline.prefetch_to_device(iter(items), sharding=object(), device='cpu')
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
