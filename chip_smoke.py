@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
-                                    scale artifacts parallel]
+                                    scale artifacts parallel pipeline]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -125,7 +125,20 @@ process per source started together (into ``build/torch_kernels/``), then:
    its one-card step; bf16 samples/s and peak memory of each wrapper beside the one-card
    step's (at one rank: the wrappers' cost, not scaling); the norm's all-reduce in device ms;
    (b) two gloo ranks sharing the card with DDP, 32 of each 64 rows, three steps within 2e-5
-   of the one-card steps: the kernels' masks with a non-zero ``bh_offset``.
+   of the one-card steps: the kernels' masks with a non-zero ``bh_offset``;
+11. pipeline phase (ring context parallelism and GPipe, f32, TF32 off): ``ring_attention``
+   at world 1 (one NCCL rank) and on two gloo ranks sharing the card (1,024 + 1,024 tokens)
+   against plain attention on (2, 12, 2048, 64), forward and dQ/dK/dV within 1e-5
+   (||a - b|| / ||b||); ``RingPretrainer`` at ViT-base widths on 2,048-token records
+   (131,072 samples), bs 2, the clip engaged, three steps on the two ranks against
+   ``EcgMim`` on one card (the flash kernels) on the same masks, losses, the first step's
+   summed gradients (their scale, which Adam and the clip hide) and parameters within 1e-5,
+   #5 once a step, with tokens/s, peak memory and the ppermute share; the GPipe ViT-base (``scan_blocks``, 2
+   stages x 6 layers, 4 microbatches of bs 64 at 41 tokens, the clip engaged) three steps
+   against the one-card ``Trainer`` within 1e-5 with 30/30/30/1/1 launches of #2/#3/#4/#5
+   update/#5 norm per rank and step, hashed dropout 0.1 twice for the same bits, the merged
+   parameters through ``Trainer.predict`` (#1) against a plain twin, and bf16 samples/s and
+   peak memory per rank (ranks sharing one card: a price, not scaling).
 
 The kernel phase's dropout-mask checks run at ``bh_offset`` 0 and at a rank's offset.
 Every phase raises on a failed check.  Prints one JSON object per line; the
@@ -2796,8 +2809,430 @@ def parallel_phase(smi: str) -> dict:
         raise AssertionError(f'two ranks on the card differ from the one-card steps: {row}')
     return main_path
 
+# --------------------------------------------------------------- pipeline
+# ring context parallelism and the GPipe pipeline; a CPU rehearsal (the
+# CHIP_SMOKE_PARALLEL_* variables above) shrinks the ring's tokens
+PIPE_RTOL = 1e-5
+RING_TOKENS = 2048 if PARALLEL_SIZE == 'base' else 256   # 131,072 samples at patch 64
+RING_STEPS = PIPE_STEPS = 3
+RING_LR = 1e-4
+PIPE_MICRO = 4
+PIPE_CLIP = 1e-5        # far below the gradient norm: the clip and the staged norm decide the step
+PIPE_BF16_STEPS = 5
+
+
+def _ring_tensors():
+    """q, k, v and the cotangent weights w of the ring checks, (2, 12, T, 64) f32."""
+    rng = np.random.default_rng(31)
+    return [torch.from_numpy(rng.standard_normal((2, 12, RING_TOKENS, 64)).astype(np.float32))
+            for _ in range(4)]
+
+
+def _ring_cfg(ring: bool) -> VitConfig:
+    """ViT-base widths (12 x 768, 12 heads, 12 leads, patch 64) over
+    ``RING_TOKENS`` patches, dropout off; with ``ring`` the sequence axis
+    'data'."""
+    return VitConfig.from_defined(PARALLEL_SIZE, num_channels=12, patch_size=64,
+                                  max_signal_length=64 * RING_TOKENS, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0,
+                                  ring_axis='data' if ring else None)
+
+
+def _ring_train_cfg() -> TrainConfig:
+    """The ring's TrainConfig, the clip engaged as in the pipeline's."""
+    return TrainConfig(learning_rate=RING_LR, grad_clip_norm=PIPE_CLIP)
+
+
+def _ring_batches():
+    """(the RING_STEPS batches (2, 12, 64 T), the masks drawn for them)."""
+    from ecg_representation_learning_tpu_torch.train.long_record import _exact_count_mask
+    rng = np.random.default_rng(32)
+    xs = [rng.standard_normal((2, 12, 64 * RING_TOKENS)).astype(np.float32)
+          for _ in range(RING_STEPS)]
+    gen = torch.Generator().manual_seed(33)
+    masks = [_exact_count_mask(gen, 2, RING_TOKENS, RING_TOKENS // 2) for _ in range(RING_STEPS)]
+    return xs, masks
+
+
+def _pipe_cfg(dtype: str = 'float32', dropout: float = 0.0):
+    """ViT-base with ``scan_blocks`` at 41 tokens, every layer through #2-#4,
+    and the TrainConfig of the 2-stage pipeline (bs 64, 4 microbatches, the
+    clip engaged)."""
+    cfg = VitConfig.from_defined(PARALLEL_SIZE, flash_min_seq=0, scan_blocks=True, dtype=dtype,
+                                 dropout_impl='hash', hidden_dropout_prob=dropout,
+                                 attention_probs_dropout_prob=dropout)
+    tcfg = TrainConfig(train_batch_size=64, eval_batch_size=64, mesh_stage=2, mesh_data=1,
+                       grad_clip_norm=PIPE_CLIP, log_to_console=False, save_final=False)
+    return cfg, tcfg
+
+
+def _norm_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _plain_ring_reference(dev):
+    """Plain attention of the ring tensors on the card: (out, dq, dk, dv) of
+    sum(out * w), on the host."""
+    q, k, v, w = (t.to(dev) for t in _ring_tensors())
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = attn.attention(q, k, v, use_flash=False)
+    (out * w).sum().backward()
+    return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+
+def _mim_one_card(dev):
+    """``EcgMim`` (ring_axis None: the flash kernels at T = RING_TOKENS) on
+    one card, RING_STEPS steps on the ring's batches and masks from the
+    ring's init: (losses, the first step's gradients and the final state,
+    on the host)."""
+    from ecg_representation_learning_tpu_torch.train.long_record import EcgMim
+    from ecg_representation_learning_tpu_torch.train.optim import make_optimizer
+    model = EcgMim(_ring_cfg(False))
+    flax_init_(model, 0)
+    model.to(dev).eval()
+    opt, _ = make_optimizer(_ring_train_cfg(), RING_STEPS)
+    leaves = {k: p.detach() for k, p in model.named_parameters()}
+    state = opt.init(leaves)
+    losses, first_grads = [], None
+    for x, m in zip(*_ring_batches()):
+        loss_sum, cnt = model(torch.from_numpy(x).to(dev), m.to(dev), 0)
+        loss = loss_sum / torch.clamp(cnt, min=1.0)
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        if first_grads is None:
+            first_grads = {k: g.detach().cpu() for k, g in grads.items()}
+        state = opt.apply(grads, state, leaves)
+        model.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+    return losses, first_grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _pipeline_rank(out_dir: str) -> dict:
+    """Both parts on one of two gloo ranks sharing the card: the ring
+    attention check, ``RingPretrainer`` steps, the 2-stage GPipe steps with
+    dropout off, twice with hashed dropout 0.1, and bf16 samples/s."""
+    import torch.distributed as dist
+    from ecg_representation_learning_tpu_torch.parallel import make_mesh, ring_attention, spmd
+    from ecg_representation_learning_tpu_torch.train import PipelineVitTrainer, RingPretrainer
+    hops = {'on': False, 'seconds': 0.0, 'count': 0, 'host_staged': 0}
+    hop = spmd._hop
+
+    def timed_hop(tensors, group, shift):
+        """A ring hop, timed on the host with the device synced on both
+        sides (compute queued ahead is not counted as transfer)."""
+        if not hops['on']:
+            return hop(tensors, group, shift)
+        cuda_t = tensors[0].is_cuda
+        if cuda_t:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = hop(tensors, group, shift)
+        if cuda_t:
+            torch.cuda.synchronize()
+        hops['seconds'] += time.perf_counter() - t0
+        hops['count'] += 1
+        hops['host_staged'] += int(cuda_t and dist.get_backend(group) == 'gloo')
+        return got
+    spmd._hop = timed_hop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ['LOCAL_RANK'] = '0'     # both ranks on the one card
+    cuda = PARALLEL_DEVICE.startswith('cuda')
+    if cuda:
+        torch.cuda.set_device(0)
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    dev, rank, out = PARALLEL_DEVICE, dist.get_rank(), {}
+
+    # ring attention, 1,024 + 1,024 tokens
+    mesh = make_mesh(2, 1, device=dev)
+    q, k, v, w = (t.to(dev) for t in _ring_tensors())
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    part = slice(rank * RING_TOKENS // 2, (rank + 1) * RING_TOKENS // 2)
+    o = ring_attention(q, k, v, mesh)
+    (o * w[:, :, part]).sum().backward()
+    out['ring_attention'] = [t.detach()[:, :, part].cpu() if i else t.detach().cpu()
+                             for i, t in enumerate((o, q.grad, k.grad, v.grad))]
+    del q, k, v, w, o
+
+    # RingPretrainer at ViT-base widths, RING_TOKENS tokens, bs 2
+    ring = RingPretrainer(_ring_cfg(True), _ring_train_cfg(), mesh, total_steps=RING_STEPS)
+    ring.init(0)
+    # the gradient scale, which Adam and the clip do not see: the summed
+    # gradients of the first batch, held against one card's
+    xs, masks = _ring_batches()
+    first_grads = {k: g.cpu() for k, g in ring.loss_and_grads(xs[0], masks[0])[1].items()}
+    if rank == 0:
+        torch.save(first_grads, os.path.join(out_dir, 'ring_grads.pt'))
+    del first_grads
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    hops['on'] = True
+    losses, counts, step_s, hop_s = [], [], [], []
+    for x, m in zip(xs, masks):
+        _zero_counts()
+        before, t0 = hops['seconds'], time.perf_counter()
+        losses.append(float(ring.train_step(x, m)))
+        step_s.append(time.perf_counter() - t0)
+        hop_s.append(hops['seconds'] - before)
+        counts.append(_counts())
+    hops['on'] = False
+    if rank == 0:
+        torch.save(ring.state_dict(), os.path.join(out_dir, 'ring.pt'))
+    out['ring_train'] = {
+        'losses': losses, 'launches': counts, 'step_s': step_s, 'ppermute_s': hop_s,
+        'hops': hops['count'], 'host_staged_hops': hops['host_staged'],
+        'tokens_per_s': 2 * RING_TOKENS * (RING_STEPS - 1) / sum(step_s[1:]),
+        'ppermute_share': sum(hop_s[1:]) / sum(step_s[1:]),
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    del ring
+
+    # GPipe: 2 stages x 6 layers, 4 microbatches of 16 rows, dropout off
+    stats = PTBXL_TRAIN_STATS['original']
+    cfg, tcfg = _pipe_cfg()
+    batch = _parity_batch(12, PIPE_STEPS * 64)
+    pp_mesh = None
+
+    def steps(tr, n, data=batch):
+        losses, counts = [], []
+        for i in range(n):
+            _zero_counts()
+            losses.append(float(tr.train_step(data, np.arange(64 * i, 64 * (i + 1)))))
+            counts.append(_counts())
+        return losses, counts
+    pp = PipelineVitTrainer(cfg, tcfg, norm_stats=stats, n_micro=PIPE_MICRO, device=dev)
+    pp_mesh = pp.mesh
+    pp.init_state()
+    losses, counts = steps(pp, PIPE_STEPS)
+    merged = pp.merged_params()
+    if rank == 0:
+        torch.save(merged, os.path.join(out_dir, 'pp.pt'))
+    out['gpipe'] = {'losses': losses, 'launches': counts, 'stage': pp.stage,
+                    'local_qkv': tuple(pp.model.get_parameter(
+                        'encoder.blocks.attn.qkv.weight').shape),
+                    'mu_qkv': tuple(pp.opt_state.mu['encoder.blocks.attn.qkv.weight'].shape)}
+    del pp, merged
+
+    # hashed dropout 0.1: twice from one seed
+    dcfg, _ = _pipe_cfg(dropout=0.1)
+    runs = []
+    for _ in range(2):
+        tr = PipelineVitTrainer(dcfg, tcfg, norm_stats=stats, n_micro=PIPE_MICRO, mesh=pp_mesh)
+        tr.init_state()
+        d_losses, d_counts = steps(tr, PIPE_STEPS)
+        runs.append((d_losses, d_counts, tr.merged_params()))
+        del tr
+    out['gpipe_dropout'] = {
+        'losses': runs[0][0], 'launches': runs[0][1] + runs[1][1],
+        'same_bits': runs[0][0] == runs[1][0] and all(
+            torch.equal(runs[0][2][k], runs[1][2][k]) for k in runs[0][2])}
+    del runs
+
+    # bf16 samples/s, dropout 0.1 and TimeOut on
+    bcfg, _ = _pipe_cfg('bfloat16', dropout=0.1)
+    tr = PipelineVitTrainer(bcfg, dataclasses.replace(tcfg, augment_timeout=True),
+                            norm_stats=stats, n_micro=PIPE_MICRO, mesh=pp_mesh)
+    tr.init_state()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    float(tr.train_step(batch, np.arange(64)))
+    dist.barrier()
+    t0 = time.perf_counter()
+    for i in range(PIPE_BF16_STEPS):
+        loss = tr.train_step(batch, np.arange(64 * (i % PIPE_STEPS), 64 * (i % PIPE_STEPS + 1)))
+    float(loss)
+    out['gpipe_bf16'] = {
+        'train_samples_per_s': 64 * PIPE_BF16_STEPS / (time.perf_counter() - t0),
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    return out
+
+
+def pipeline_phase(smi: str) -> dict:
+    """Ring context parallelism and the GPipe pipeline on the card, f32 with
+    TF32 off.  (a) Ring: one NCCL rank, ``ring_attention`` at world 1
+    against plain attention on (2, 12, 2048, 64), forward and gradients;
+    two gloo ranks sharing the card, the same tensors split 1,024 + 1,024;
+    ``RingPretrainer`` at ViT-base widths on 2,048-token records (131,072
+    samples, 8.7 min at 250 Hz), bs 2, the clip engaged, three steps on the
+    two ranks against ``EcgMim`` on one card (the flash kernels) on the same
+    masks, the first step's summed gradients held against one card's, with
+    its tokens/s, peak memory and ppermute share.  (b) GPipe: ViT-base
+    ``scan_blocks``, 2 stages x 6 layers on the two ranks, 4 microbatches of
+    bs 64 at 41 tokens, dropout and TimeOut off, the clip engaged: three
+    steps against the one-card ``Trainer`` on the same rows, with each
+    rank's launches; hashed dropout 0.1 twice from one seed (the same bits);
+    the merged parameters through the one-card ``Trainer.predict`` (#1)
+    against a plain twin; bf16 samples/s and peak memory per rank (two
+    ranks sharing one card: a price, not scaling).  Returns the launches of
+    the ranks' steps and of the predict (the main path)."""
+    import tempfile
+    import torch.distributed as dist
+    from ecg_representation_learning_tpu_torch.parallel import (init_local_group, make_mesh,
+                                                                ring_attention, spawn_ranks)
+    t_phase = time.perf_counter()
+    dev = PARALLEL_DEVICE
+    cuda = dev.startswith('cuda')
+    if cuda:
+        torch.cuda.set_device(0)
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    stats = PTBXL_TRAIN_STATS['original']
+    main_path = {k: 0 for k in _counts()}
+
+    # (a) ring attention at world 1 (one NCCL rank) against plain attention
+    plain = _plain_ring_reference(dev)
+    store = tempfile.mkdtemp(prefix='chip-smoke-ring-')
+    init_local_group(0, 1, store, backend=PARALLEL_BACKEND)
+    try:
+        q, k, v, w = (t.to(dev) for t in _ring_tensors())
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        o = ring_attention(q, k, v, make_mesh(1, 1, device=dev))
+        (o * w).sum().backward()
+        world1 = {n: _norm_rel_err(a, b) for n, a, b in zip(('out', 'dq', 'dk', 'dv'),
+                                                       (o, q.grad, k.grad, v.grad), plain)}
+        del q, k, v, w, o
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    emit({'phase': 'pipeline_ring_world1', 'nvidia_smi': smi, 'shape': [2, 12, RING_TOKENS, 64],
+          'dtype': 'float32', 'rel_err': world1, 'limit': PIPE_RTOL,
+          'rel_err_is': '||a - b|| / ||b|| against plain attention'})
+    if not all(e <= PIPE_RTOL for e in world1.values()):
+        raise AssertionError(f'ring attention at world 1 differs from plain attention: {world1}')
+
+    # the one-card references: EcgMim at RING_TOKENS, the scanned ViT-base Trainer
+    mim_losses, mim_grads, mim_state = _mim_one_card(dev)
+    cfg, tcfg = _pipe_cfg()
+    one = Trainer(cfg, dataclasses.replace(tcfg, mesh_stage=1, mesh_data=None), norm_stats=stats,
+                  device=dev)
+    one.init_state()
+    batch = _parity_batch(12, PIPE_STEPS * 64)
+    one_losses, one_counts = [], []
+    for i in range(PIPE_STEPS):
+        _zero_counts()
+        one_losses.append(float(one.train_step(batch, np.arange(64 * i, 64 * (i + 1)))['loss']))
+        one_counts.append(_counts())
+    one_state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+    del one
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (a) and (b) on two gloo ranks sharing the card
+    out_dir = tempfile.mkdtemp(prefix='chip-smoke-pipeline-')
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, _pipeline_rank, out_dir, timeout=600)
+        ranks_s = time.perf_counter() - t0
+        ring_state = torch.load(os.path.join(out_dir, 'ring.pt'), map_location='cpu',
+                                weights_only=True)
+        ring_grads = torch.load(os.path.join(out_dir, 'ring_grads.pt'), map_location='cpu',
+                                weights_only=True)
+        merged = torch.load(os.path.join(out_dir, 'pp.pt'), map_location='cpu',
+                            weights_only=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    two = {n: _norm_rel_err(torch.cat([r['ring_attention'][j] for r in ranks], dim=2),
+                            plain[j])
+           for j, n in enumerate(('out', 'dq', 'dk', 'dv'))}
+    rt = [r['ring_train'] for r in ranks]
+    ring_row = {
+        'phase': 'pipeline_ring', 'nvidia_smi': smi, 'ranks': 2, 'backend': 'gloo',
+        'sharing': 'two ranks on one card', 'attention_rel_err': two,
+        'model': f'{PARALLEL_SIZE} widths, 12 leads, patch 64', 'tokens': RING_TOKENS,
+        'samples': 64 * RING_TOKENS, 'batch': 2, 'losses': rt[0]['losses'],
+        'one_card_losses': mim_losses,
+        'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(rt[0]['losses'], mim_losses)),
+        'grad_rel_err': _rel(ring_grads, mim_grads), 'grad_clip_norm': PIPE_CLIP,
+        'param_rel_err': _rel(ring_state, mim_state),
+        'param_max_abs_err': _max_abs(ring_state, mim_state),
+        'launches_per_step': [r['launches'] for r in rt],
+        'tokens_per_s': [r['tokens_per_s'] for r in rt],
+        'ppermute_share': [r['ppermute_share'] for r in rt],
+        'ppermute_hops': rt[0]['hops'], 'host_staged_hops': rt[0]['host_staged_hops'],
+        'step_s': [r['step_s'] for r in rt],
+        'peak_memory_gb_per_rank': [r['peak_memory_gb'] for r in rt], 'limit': PIPE_RTOL,
+        'ppermute_share_is': 'host seconds in ring hops (device synced around each) over the '
+                             'step, steps 2-3'}
+    emit(ring_row)
+    ring_ok = (all(e <= PIPE_RTOL for e in two.values())
+               and ring_row['loss_rel_err'] <= PIPE_RTOL
+               and ring_row['grad_rel_err'] <= PIPE_RTOL
+               and ring_row['param_rel_err'] <= PIPE_RTOL
+               and rt[1]['losses'] == rt[0]['losses']
+               and all(c['adamw'] == 1 and c['adamw_norm'] == 1
+                       for r in rt for c in r['launches']))
+    if not ring_ok:
+        raise AssertionError(f'ring context parallelism differs from one card: {ring_row}')
+
+    gp = [r['gpipe'] for r in ranks]
+    layers = cfg.num_hidden_layers // 2
+    per_rank = (PIPE_MICRO + 2 - 1) * layers
+    expect = {'flash_fwd': 0, 'flash_fwd_lse': per_rank, 'flash_bwd_dq': per_rank,
+              'flash_bwd_dkv': per_rank, 'adamw': 1, 'adamw_norm': 1, 'nlm_rows': 0,
+              'nlm_variant': 0}
+    drop = [r['gpipe_dropout'] for r in ranks]
+    gp_row = {
+        'phase': 'pipeline_gpipe', 'nvidia_smi': smi, 'ranks': 2, 'backend': 'gloo',
+        'sharing': 'two ranks on one card', 'model': f'ecg-vit-{PARALLEL_SIZE} scan_blocks',
+        'stages': 2, 'layers_per_stage': layers, 'n_micro': PIPE_MICRO, 'batch': 64,
+        'grad_clip_norm': PIPE_CLIP, 'losses': gp[0]['losses'], 'one_card_losses': one_losses,
+        'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(gp[0]['losses'], one_losses)),
+        'param_rel_err': _rel(merged, one_state), 'param_max_abs_err': _max_abs(merged, one_state),
+        'launches_per_step_per_rank': [r['launches'] for r in gp],
+        'one_card_launches_per_step': one_counts[0], 'expected_per_rank_step': expect,
+        'stage_of_rank': [r['stage'] for r in gp],
+        'local_qkv': [r['local_qkv'] for r in gp], 'mu_qkv': [r['mu_qkv'] for r in gp],
+        'dropout_losses': drop[0]['losses'], 'dropout_same_bits': [r['same_bits'] for r in drop],
+        'bf16_train_samples_per_s': [r['gpipe_bf16']['train_samples_per_s'] for r in ranks],
+        'bf16_peak_memory_gb_per_rank': [r['gpipe_bf16']['peak_memory_gb'] for r in ranks],
+        'limit': PIPE_RTOL}
+    emit(gp_row)
+    gp_ok = (gp_row['loss_rel_err'] <= PIPE_RTOL and gp_row['param_rel_err'] <= PIPE_RTOL
+             and gp[1]['losses'] == gp[0]['losses']
+             and all(c == expect for r in gp for c in r['launches'])
+             and all(c == expect for r in drop for c in r['launches'])
+             and all(math.isfinite(v) for v in drop[0]['losses'])
+             and all(r['same_bits'] for r in drop)
+             and [r['stage'] for r in gp] == [0, 1]
+             and all(r['local_qkv'] == r['mu_qkv'] and r['local_qkv'][0] == layers for r in gp))
+    if not gp_ok:
+        raise AssertionError(f'the GPipe pipeline differs from one card: {gp_row}')
+    for r in ranks:
+        for c in (*r['ring_train']['launches'], *r['gpipe']['launches'],
+                  *r['gpipe_dropout']['launches']):
+            for k2, v2 in c.items():
+                main_path[k2] += v2
+
+    # the merged parameters on one device: Trainer.predict (#1) vs a plain twin
+    ev = Trainer(cfg, TrainConfig(eval_batch_size=64, log_to_console=False), norm_stats=stats,
+                 device=dev)
+    ev.init_state()
+    ev.set_params(merged)
+    records = batch.signals[:64]
+    _zero_counts()
+    probs = ev.predict(records)
+    predict_counts = _counts()
+    twin = _twin(ev, flash=False)
+    want = twin.predict(records)
+    pred_row = {'phase': 'pipeline_predict', 'nvidia_smi': smi, 'records': 64,
+                'launches': predict_counts, 'max_abs_err_vs_plain_twin':
+                    float(np.abs(probs - want).max()), 'limit': SERVING_TOL,
+                'ranks_s': ranks_s, 'phase_seconds': time.perf_counter() - t_phase}
+    emit(pred_row)
+    if not (predict_counts['flash_fwd'] > 0
+            and pred_row['max_abs_err_vs_plain_twin'] <= SERVING_TOL):
+        raise AssertionError(f'the merged parameters serve other answers: {pred_row}')
+    for k2, v2 in predict_counts.items():
+        main_path[k2] += v2
+    del ev, twin
+    if cuda:
+        torch.cuda.empty_cache()
+    return main_path
+
+
 PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
-          'scale', 'artifacts', 'parallel')
+          'scale', 'artifacts', 'parallel', 'pipeline')
 
 
 def main(argv=None) -> int:
@@ -2859,6 +3294,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'parallel' in args.phases:
         for name, count in parallel_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'pipeline' in args.phases:
+        for name, count in pipeline_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

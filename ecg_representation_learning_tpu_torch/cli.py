@@ -57,13 +57,19 @@ parallelism and expert parallelism over M ranks; the data axis takes the
 rest) and ``--fsdp`` (ZeRO storage sharding over the data axis), on every
 rank of the process group: on cards under ``torchrun --nproc-per-node N``
 (NCCL, one card per rank), on the CPU with ``--platform cpu --host-devices
-N`` (N gloo ranks started here; the JAX CLI's N virtual CPU devices).  Rank
-0 writes the checkpoints and prints the result.
+N`` (N gloo ranks started here; the JAX CLI's N virtual CPU devices).
+``train --mesh-stage S`` trains the GPipe pipeline instead (the block stack
+over S stages, the data axis the ranks left; ``--port-checkpoint``,
+``--init-encoder`` and ``--resume-from`` apply, and the merged parameters
+are evaluated on one device; it prints ``train_loss``, ``test_macro_auc``
+and ``mesh``).  Rank 0 writes the checkpoints and prints the result.
 
     torchrun --nproc-per-node 4 -m ecg_representation_learning_tpu_torch.cli train \
         --mesh-model 2 --fsdp
     python -m ecg_representation_learning_tpu_torch.cli --platform cpu --host-devices 4 \
         train --size debug --mesh-model 2 --fsdp
+    python -m ecg_representation_learning_tpu_torch.cli --platform cpu --host-devices 4 \
+        train --size debug --mesh-stage 2
 
 Tools: ``export-model`` writes the served model as a ``torch.export``
 artifact (``models/export_artifact.py``: ``model.pt2`` + ``metadata.json``;
@@ -209,7 +215,9 @@ def cmd_train(args):
         augment_timeout=args.timeout_augment, seed=args.seed, n_sample=args.n_sample,
         resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
         ema_decay=args.ema_decay, linear_probe=args.probe, mesh_model=args.mesh_model,
-        fsdp=args.fsdp)
+        fsdp=args.fsdp, mesh_stage=args.mesh_stage)
+    if cfg.mesh_stage > 1:
+        return _train_pipeline(args, cfg, splits)
     tr = Trainer(_model_cfg_for(args), cfg, train_data=splits.train,
                  eval_data=splits.eval, norm_stats=_stats(args),
                  output_dir=args.output_dir, device=args.device)
@@ -227,6 +235,49 @@ def cmd_train(args):
     _result({'best_eval_loss': result['best_eval_loss'],
              'test_macro_auc': test_metrics['macro_auc'],
              'epochs': result['epochs']})
+
+
+def _train_pipeline(args, cfg, splits):
+    """``train --mesh-stage S``: the block stack staged over S ranks of every
+    data group (``train/pipeline_vit.py``; n_data = ranks / S), then the
+    merged parameters evaluated on one device."""
+    import torch.distributed as dist
+
+    from .configs import TrainConfig
+    from .models.vit import stack_unrolled_state_dict, unstack_scanned_state_dict
+    from .train import Trainer
+    from .train.pipeline_vit import PipelineVitTrainer
+    model_cfg = dataclasses.replace(_model_cfg_for(args), scan_blocks=True)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = world // cfg.mesh_stage
+    pp = PipelineVitTrainer(model_cfg, dataclasses.replace(cfg, mesh_data=n_data),
+                            train_data=splits.train, norm_stats=_stats(args),
+                            output_dir=args.output_dir, device=args.device)
+    layers = model_cfg.num_hidden_layers
+    pp.init_state()
+    if getattr(args, 'port_checkpoint', None):
+        # the reference .pt -> the unrolled layout -> stacked -> staged
+        from .models.port import port_vit_pytorch_state_dict, read_reference_state_dict
+        ported = port_vit_pytorch_state_dict(read_reference_state_dict(args.port_checkpoint),
+                                             dataclasses.replace(model_cfg, scan_blocks=False))
+        pp.set_merged_params(stack_unrolled_state_dict(ported, layers))
+    if args.init_encoder:
+        # an SSL trunk (MAE or contrastive, detected) into the unrolled view
+        from .train.contrastive import load_any_encoder
+        unrolled = unstack_scanned_state_dict(pp.merged_params(), layers)
+        pp.set_merged_params(stack_unrolled_state_dict(
+            load_any_encoder(args.init_encoder, unrolled), layers))
+    if args.resume_from:
+        pp.load_checkpoint(args.resume_from)
+    result = pp.train()
+    ev = Trainer(model_cfg, TrainConfig(eval_batch_size=args.batch_size, log_to_console=False),
+                 norm_stats=_stats(args), output_dir=args.output_dir, device=pp.device,
+                 mesh=False)
+    ev.init_state()
+    ev.set_params(pp.merged_params())
+    test_metrics = ev.evaluate(splits.test)
+    _result({'train_loss': result['loss'], 'test_macro_auc': test_metrics['macro_auc'],
+             'mesh': f'{n_data} data x {cfg.mesh_stage} stage'})
 
 
 def _expand_corpus(spec: str):
@@ -541,7 +592,7 @@ def build_parser() -> argparse.ArgumentParser:
                         'the plain versions of the kernels')
     p.add_argument('--host-devices', type=int, default=None,
                    help='with --platform cpu: start this many gloo CPU ranks on this '
-                        'host (multi-rank dry runs of --mesh-model / --fsdp)')
+                        'host (multi-rank runs of --mesh-model / --fsdp / --mesh-stage)')
     sub = p.add_subparsers(dest='cmd', required=True)
     for name, fn in (('train', cmd_train), ('pretrain', cmd_pretrain),
                      ('evaluate', cmd_evaluate), ('visualize', cmd_visualize)):
@@ -558,6 +609,10 @@ def build_parser() -> argparse.ArgumentParser:
         if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
         if name == 'train':
+            sp.add_argument('--mesh-stage', type=int, default=1,
+                            help='pipeline-parallel stage count (>1 stages the transformer '
+                                 'stack over a stage mesh axis; GPipe microbatches; the '
+                                 'data axis takes the ranks left)')
             sp.add_argument('--init-encoder', default=None, metavar='SSL_CKPT',
                             help='initialize the encoder trunk from a pretrain '
                                  'checkpoint (cli pretrain output; MAE or '

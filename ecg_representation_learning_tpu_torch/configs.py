@@ -6,11 +6,12 @@ with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  The
 one-device model options are ported (Switch-MoE, ``remat``, ``scan_blocks``;
 MoE with ``scan_blocks`` is refused, as in JAX), and so is
 ``async_checkpoint``.  Fields whose feature the port has not reached yet
-keep their defaults: the model raises on ``ring_axis`` (ring context
-parallelism), and ``TrainConfig`` raises on construction for ``mesh_stage``
-(GPipe) -- both ROADMAP queue 1 item 10, slice 14 -- and for multi-step
-dispatch (item 3).  The ('data', 'model') mesh is ported: ``mesh_data``,
-``mesh_model`` and ``fsdp`` build one (``parallel/``).
+keep their defaults: ``TrainConfig`` raises on construction for multi-step
+dispatch (``epoch_scan``, ``steps_per_dispatch``: ROADMAP queue 1 item 3).
+The parallel layouts are ported: ``mesh_data``, ``mesh_model`` and ``fsdp``
+build the ('data', 'model') mesh (``parallel/``), ``mesh_stage`` the GPipe
+pipeline (``train/pipeline_vit.py``), and ``VitConfig.ring_axis`` runs ring
+context parallelism (``train/long_record.py``).
 ``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
 unread, so that a JAX configuration still loads.
 ``PreprocessConfig`` is a whole copy.
@@ -49,7 +50,8 @@ class VitConfig:
                                     # default is the JAX package's and has not
                                     # been re-measured on the GPU.
     flash_interpret: bool = False   # JAX only (Pallas interpreter); ignored
-    ring_axis: Optional[str] = None  # JAX only: context parallelism
+    ring_axis: Optional[str] = None  # context parallelism: the mesh axis the
+                                    # sequence is split over (ring attention)
     dropout_impl: str = 'flax'      # training dropout masks: 'flax' draws a
                                     # Bernoulli mask from the trainer's device
                                     # generator; 'hash' is the counter-hash
@@ -193,13 +195,12 @@ class TrainConfig:
     mesh_data: Optional[int] = None  # ranks on the mesh's 'data' axis (None: the
                                     # ranks left after 'model'); parallel/mesh.py
     mesh_model: int = 1             # ranks on 'model' (Megatron TP, expert parallelism)
-    mesh_stage: int = 1             # not ported (1 only; ROADMAP item 10, slice 14)
+    mesh_stage: int = 1             # > 1: GPipe pipeline stages (train/pipeline_vit.py)
     fsdp: bool = False              # ZeRO storage sharding over 'data' (FSDP2)
 
     def __post_init__(self):
         # field -> (set to something the port cannot run, its ROADMAP queue-1 item)
-        unported = {'mesh_stage': (self.mesh_stage != 1, '10, slice 14'),
-                    'epoch_scan': (self.epoch_scan, 3),
+        unported = {'epoch_scan': (self.epoch_scan, 3),
                     'steps_per_dispatch': (self.steps_per_dispatch != 1, 3)}
         bad = [f'{k} (ROADMAP queue 1 item {item})'
                for k, (on, item) in unported.items() if on]

@@ -127,6 +127,10 @@ class EcgMae(nn.Module):
 
     def __init__(self, cfg: VitConfig, mae: MaeConfig = MaeConfig()):
         super().__init__()
+        if cfg.ring_axis is not None:
+            raise NotImplementedError('ring_axis: the MAE gathers visible patches across the '
+                                      'sequence, which a sequence split over ranks cannot '
+                                      'do; pretrain long records with train.long_record.EcgMim')
         self.cfg, self.mae = cfg, mae
         self.encoder_patch_embed = PatchEmbed1D(cfg)
         self.encoder_pos_embed = nn.Parameter(

@@ -52,6 +52,7 @@ layout (keys as stored; the wrapper prefixes them ``vit.``):
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Mapping, Tuple
 
@@ -125,6 +126,34 @@ def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch
     with torch.device('meta'):
         model = EcgVit(cfg)
     return state_dict_from_flax(params, model)
+
+
+def mim_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch.Tensor]:
+    """flax ``EcgMim`` params (``train/long_record.py``) -> the port's
+    ``EcgMim`` state_dict."""
+    from ..train.long_record import EcgMim
+    with torch.device('meta'):
+        model = EcgMim(cfg)
+    return state_dict_from_flax(params, model)
+
+
+def pipeline_state_dict_from_flax(outer: Mapping, stages: Mapping, cfg: VitConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX pipeline pair -- ``outer`` ({'params': everything but the block
+    stack}) and ``stages`` (the stack's leaves, (S, L / S, ...)) of
+    ``train/pipeline_vit.split_vit_params`` -- as numpy arrays -> the port's
+    ``EcgVit(scan_blocks=True)`` state_dict (``PipelineVitTrainer``'s
+    ``set_merged_params`` takes it)."""
+    tree = dict(outer['params'] if 'params' in outer else outer)
+    tree['encoder'] = {**tree['encoder'], 'blocks': _map_leaves(
+        stages, lambda a: np.asarray(a).reshape(-1, *np.shape(a)[2:]))}
+    return vit_state_dict_from_flax({'params': tree},
+                                    dataclasses.replace(cfg, scan_blocks=True))
+
+
+def _map_leaves(tree: Mapping, fn) -> Dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
 
 
 def flax_path(key: str) -> Tuple[str, ...]:

@@ -46,7 +46,11 @@ runs its ``heads`` (H / n_model); every dropout site passes where its
 tensor sits in the global one (``parallel.spmd.frame``), and the attention
 kernel the first global bh of the rank's rows.
 
-``ring_axis`` (context parallelism) is not ported yet and raises.
+With ``ring_axis`` set (context parallelism, ``train/long_record.py``) the
+sequence is split over that axis of the current mesh and ``SelfAttention``
+runs ``parallel.ring_attention.ring_attention_local``: no
+attention-probability dropout on that path, and its output dropout takes
+salt 1, as in JAX.
 """
 from __future__ import annotations
 
@@ -151,15 +155,13 @@ class PatchEmbed1D(nn.Module):
 class SelfAttention(nn.Module):
     def __init__(self, cfg: VitConfig):
         super().__init__()
-        if cfg.ring_axis is not None:
-            raise NotImplementedError('not ported: ring_axis (ring context parallelism, '
-                                      'ROADMAP queue 1 item 10, slice 14)')
         self.cfg = cfg
         self.heads = cfg.num_attention_heads   # the rank's heads under the Megatron plan
         dt = _dtype(cfg)
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size, bias=False, dtype=dt)
         self.out = Dense(cfg.hidden_size, cfg.hidden_size, dtype=dt)
-        self.drop = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=2)
+        self.drop = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob,
+                                 salt=2 if cfg.ring_axis is None else 1)
 
     def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
         cfg = self.cfg
@@ -167,7 +169,11 @@ class SelfAttention(nn.Module):
         qkv = self.qkv(x).reshape(b, t, 3, self.heads, cfg.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)   # (B,H,T,D)
         probs = None
-        if return_probs:
+        if cfg.ring_axis is not None:
+            # context parallelism: K/V blocks ring around the sequence axis
+            from ..parallel.ring_attention import ring_attention_local
+            out = ring_attention_local(q, k, v, cfg.ring_axis)
+        elif return_probs:
             scale = 1.0 / math.sqrt(cfg.head_dim)
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
             probs = torch.softmax(logits, dim=-1)

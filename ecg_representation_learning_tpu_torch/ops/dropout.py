@@ -64,7 +64,9 @@ Frame = Optional[Dict[int, Tuple[int, int]]]
 def flat_index(shape, frame: Frame, device) -> torch.Tensor:
     """Each element's row-major index: in the tensor itself (``frame``
     None), or in the global array where dim d of this slice starts at
-    ``frame[d][0]`` of ``frame[d][1]`` (other dims whole)."""
+    ``frame[d][0]`` of ``frame[d][1]`` (other dims whole); ``frame[d][0]``
+    may also be a tensor of the slice's ``shape[d]`` global indices along d
+    (rows that are not contiguous, as a pipeline's data rank holds)."""
     if not frame:
         return torch.arange(math.prod(shape), device=device).reshape(shape)
     idx = torch.zeros((1,) * len(shape), dtype=torch.int64, device=device)
@@ -72,7 +74,9 @@ def flat_index(shape, frame: Frame, device) -> torch.Tensor:
         off, total = frame.get(d, (0, n))
         view = [1] * len(shape)
         view[d] = n
-        idx = idx * total + (torch.arange(n, device=device) + off).reshape(view)
+        pos = (off.to(device=device, dtype=torch.int64) if isinstance(off, torch.Tensor)
+               else torch.arange(n, device=device) + off)
+        idx = idx * total + pos.reshape(view)
     return idx.expand(*shape)
 
 

@@ -1,6 +1,9 @@
 """Device mesh and sharding rules (the JAX package's ``parallel/mesh.py``).
 
-A 2-D mesh over ('data', 'model'), one rank per device:
+A 2-D mesh over ('data', 'model') (``make_mesh``), or over ('data',
+'stage') for the GPipe pipeline (``make_pp_mesh``: rank = d * S + s, as
+JAX's lays devices out; ``stage_norm_weights`` gives each
+leaf's copies on it), one rank per device.  On the ('data', 'model') mesh:
 
   * data parallelism: each data rank takes its rows of the global batch;
     gradients are averaged over 'data' by DDP, or reduce-scattered by FSDP2
@@ -35,6 +38,7 @@ import torch.nn as nn
 
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
+STAGE_AXIS = 'stage'
 
 
 class P(tuple):
@@ -49,19 +53,20 @@ class P(tuple):
 
 
 class Mesh:
-    """This rank's place on a ('data', 'model') ``DeviceMesh``: ``shape``
-    {'data': n_data, 'model': n_model} as JAX's ``mesh.shape``,
-    ``index(axis)``, ``group(axis)``, and the rank's ``device``.
-    ``tensor_parallel``: apply the Megatron plan (default: when the model
-    axis is > 1; True on a model axis of 1 runs its code path, with no
-    collective)."""
+    """This rank's place on a 2-D ``DeviceMesh``: ``shape`` {axis: size}
+    as JAX's ``mesh.shape`` ({'data': n_data, 'model': n_model} or {'data':
+    n_data, 'stage': n_stage}), ``index(axis)``, ``group(axis)``, and the
+    rank's ``device``.  ``tensor_parallel``: apply the Megatron plan
+    (default: when the model axis is > 1; True on a model axis of 1 runs its
+    code path, with no collective)."""
 
     def __init__(self, device_mesh, device: torch.device,
                  tensor_parallel: Optional[bool] = None):
         self.device_mesh = device_mesh
         self.device = torch.device(device)
-        self.shape = {DATA_AXIS: device_mesh.size(0), MODEL_AXIS: device_mesh.size(1)}
-        self.tensor_parallel = (self.shape[MODEL_AXIS] > 1 if tensor_parallel is None
+        self.shape = {name: device_mesh.size(i)
+                      for i, name in enumerate(device_mesh.mesh_dim_names)}
+        self.tensor_parallel = (self.shape.get(MODEL_AXIS, 1) > 1 if tensor_parallel is None
                                 else bool(tensor_parallel))
 
     def index(self, axis: str) -> int:
@@ -74,6 +79,45 @@ class Mesh:
         return f'Mesh({self.shape}, device={self.device})'
 
 
+def _device_mesh(n_outer: int, n_inner: int, names: Tuple[str, str], devices, device):
+    """(DeviceMesh over ``devices`` -- default every rank -- reshaped
+    row-major to (n_outer, n_inner) with ``names``, this rank's device)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from .distributed import local_device
+    if not dist.is_initialized():
+        raise RuntimeError('a mesh needs a torch.distributed process group: run under '
+                           'torchrun (initialize_distributed) or the local launcher')
+    ranks = list(range(dist.get_world_size())) if devices is None else [int(d) for d in devices]
+    n = len(ranks)
+    if n_outer * n_inner != n or n != dist.get_world_size():
+        raise ValueError(f'a {n_outer} x {n_inner} mesh needs {n_outer * n_inner} ranks, '
+                         f'the group has {dist.get_world_size()} ({n} given)')
+    device = torch.device(device) if device is not None else local_device()
+    return DeviceMesh(device.type, torch.tensor(ranks).reshape(n_outer, n_inner),
+                      mesh_dim_names=names), device
+
+
+def make_pp_mesh(n_stage: int, n_data: int = 1, devices=None, *, device=None) -> Mesh:
+    """A ('data', 'stage') mesh for the GPipe pipeline (JAX's
+    ``train/pipeline_vit.make_pp_mesh``): microbatch rows over 'data',
+    layers over 'stage'; rank d * n_stage + s is stage s of data rank d
+    (JAX's ``np.asarray(devices).reshape(n_data, n_stage)``).  ``device`` as
+    ``make_mesh``."""
+    dm, device = _device_mesh(n_data, n_stage, (DATA_AXIS, STAGE_AXIS), devices, device)
+    return Mesh(dm, device)
+
+
+def stage_norm_weights(names, stage_names, mesh: Mesh) -> List[float]:
+    """Per leaf of ``names``, 1 / its identical copies on a ('data',
+    'stage') mesh, for the mesh-wide norm: a stage leaf (in
+    ``stage_names``) has one copy per data rank, every other (boundary)
+    leaf one per rank."""
+    n_data, n_stage = mesh.shape[DATA_AXIS], mesh.shape[STAGE_AXIS]
+    stage_names = set(stage_names)
+    return [1.0 / (n_data if name in stage_names else n_data * n_stage) for name in names]
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices=None, *,
               device=None, tensor_parallel: Optional[bool] = None) -> Mesh:
     """A ('data', 'model') mesh over the ranks ``devices`` (default: every
@@ -82,24 +126,16 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices=None, *,
     on 'data'.  ``device``: this rank's device (default: ``cuda:LOCAL_RANK``
     under NCCL, else the CPU).  Needs the process group
     (``initialize_distributed`` or the launcher), one of one rank too."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from .distributed import local_device
-    if not dist.is_initialized():
-        raise RuntimeError('make_mesh needs a torch.distributed process group: run under '
-                           'torchrun (initialize_distributed) or the local launcher')
-    ranks = list(range(dist.get_world_size())) if devices is None else [int(d) for d in devices]
-    n = len(ranks)
+    devices = None if devices is None else list(devices)
     if n_data is None:
+        if not dist.is_initialized():
+            raise RuntimeError('make_mesh needs a torch.distributed process group: run '
+                               'under torchrun (initialize_distributed) or the local launcher')
+        n = dist.get_world_size() if devices is None else len(devices)
         if n % n_model:
             raise ValueError(f'{n} ranks do not split into model groups of {n_model}')
         n_data = n // n_model
-    if n_data * n_model != n or n != dist.get_world_size():
-        raise ValueError(f'a {n_data} x {n_model} mesh needs {n_data * n_model} ranks, '
-                         f'the group has {dist.get_world_size()} ({n} given)')
-    device = torch.device(device) if device is not None else local_device()
-    dm = DeviceMesh(device.type, torch.tensor(ranks).reshape(n_data, n_model),
-                    mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    dm, device = _device_mesh(n_data, n_model, (DATA_AXIS, MODEL_AXIS), devices, device)
     return Mesh(dm, device, tensor_parallel)
 
 

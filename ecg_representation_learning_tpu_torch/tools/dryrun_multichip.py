@@ -1,4 +1,4 @@
-"""Multi-rank dry run of the mesh trainers: the first four legs of the JAX
+"""Multi-rank dry run of the parallel trainers: the six legs of the JAX
 package's ``__graft_entry__.dryrun_multichip``, on the port.
 
     python -m ecg_representation_learning_tpu_torch.tools.dryrun_multichip [--ranks 4]
@@ -19,10 +19,17 @@ on:
    shape (smaller than the Megatron slice);
 3. contrastive pretraining, NT-Xent over the global batch;
 4. Switch-MoE (4 experts on every second block) with expert parallelism:
-   each rank holds 4 / n_model experts.
+   each rank holds 4 / n_model experts;
+5. ring context parallelism: ``RingPretrainer`` with the sequence split
+   over all N ranks ('debug', 4 leads, patch 64, 128 N samples, dropout
+   off), two steps with finite losses;
+6. the GPipe pipeline: ``PipelineVitTrainer`` ('debug' with
+   ``scan_blocks``, dropout on, 320 samples, bs 16) on (N / S) x S ranks
+   with S = min(4, N): a finite loss, each rank holding only its stage's
+   layers and their Adam moments, and the merged parameters driving the
+   one-device ``EcgVit``.
 
-Rank 0 prints one JSON summary.  Ring context parallelism and the GPipe
-pipeline (the JAX dry run's legs 5 and 6) are not ported yet.
+Rank 0 prints one JSON summary.
 """
 from __future__ import annotations
 
@@ -35,17 +42,20 @@ import shutil
 import tempfile
 from typing import Optional
 
+import numpy as np
 import torch
 
 
 def dryrun(out_dir: str, device: Optional[str] = None) -> dict:
-    """The four legs on this rank (every rank of the process group calls
+    """The six legs on this rank (every rank of the process group calls
     it).  Returns the summary; raises on a failed check."""
     import torch.distributed as dist
 
     from ..configs import ContrastiveConfig, MaeConfig, TrainConfig, VitConfig
     from ..data import get_ptbxl_splits, synth_ptbxl
-    from ..train import Trainer
+    from ..models.vit import EcgVit
+    from ..parallel import make_mesh
+    from ..train import PipelineVitTrainer, RingPretrainer, Trainer
     from ..train.contrastive import ContrastiveTrainer
     from ..train.pretrain import MaeTrainer
 
@@ -111,6 +121,44 @@ def dryrun(out_dir: str, device: Optional[str] = None) -> dict:
     experts = int(moe.sharded.leaves()['encoder.blocks.1.moe.w1'].shape[0])
     assert experts == 4 // n_model, experts
     out['moe'] = {'eval_loss': ev['loss'], 'experts_per_rank': experts}
+    del moe
+
+    # 5. ring context parallelism: the sequence split over all n ranks
+    cp_cfg = VitConfig.from_defined('debug', max_signal_length=128 * n, patch_size=64,
+                                    num_channels=4, use_flash_attention=False, ring_axis='data',
+                                    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ring = RingPretrainer(cp_cfg, TrainConfig(learning_rate=1e-3), make_mesh(n, 1, device=device),
+                          seq_axis='data', total_steps=2)
+    rng = np.random.default_rng(0)
+    res = ring.train((rng.standard_normal((2, 4, cp_cfg.max_signal_length)).astype(np.float32)
+                      for _ in range(2)), steps=2)
+    assert len(res['losses']) == 2 and all(math.isfinite(v) for v in res['losses']), res
+    out['ring'] = {'shards': n, 'losses': res['losses']}
+    del ring
+
+    # 6. the GPipe pipeline on (n / S) x S ranks, dropout on
+    n_stage = min(4, n)
+    n_pp_data = max(1, n // n_stage)
+    pp_cfg = VitConfig.from_defined('debug', max_signal_length=320, scan_blocks=True)
+    pp = PipelineVitTrainer(pp_cfg, dataclasses.replace(
+        cfg, num_train_epoch=1, mesh_model=1, mesh_data=n_pp_data, mesh_stage=n_stage,
+        fsdp=False, train_batch_size=16), train_data=splits.train,
+        output_dir=os.path.join(out_dir, 'pp'), device=device)
+    res = pp.train()
+    assert math.isfinite(res['loss']), res
+    # stage leaves and their Adam moments: this stage's layers only
+    qkv = 'encoder.blocks.attn.qkv.weight'
+    per = pp_cfg.num_hidden_layers // n_stage
+    local, mu = tuple(pp.model.get_parameter(qkv).shape), tuple(pp.opt_state.mu[qkv].shape)
+    assert local == mu and local[0] == per, (local, mu)
+    # the merged parameters drive the one-device model
+    model = EcgVit(pp_cfg).eval()
+    model.load_state_dict(pp.merged_params())
+    with torch.no_grad():
+        logits = model(torch.zeros(2, 12, 320)).logits
+    assert bool(torch.isfinite(logits).all())
+    out['pipeline'] = {'mesh': {'data': n_pp_data, 'stage': n_stage}, 'loss': res['loss'],
+                       'stage_qkv_shape': local, 'layers_per_stage': per}
     return out
 
 

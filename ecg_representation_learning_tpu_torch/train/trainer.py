@@ -121,11 +121,14 @@ def eval_mode(fn):
 
 
 def _resolve_mesh(mesh, cfg: TrainConfig, device):
-    """The trainer's mesh: ``mesh``; else one from ``cfg.mesh_data`` /
+    """The trainer's mesh: ``mesh``; None for ``mesh=False`` (one device,
+    even inside a process group); else one from ``cfg.mesh_data`` /
     ``cfg.mesh_model`` (``fsdp`` too) or, when the process group has more than
     one rank, every rank on 'data' (JAX's default mesh); else None (one
     device)."""
     import torch.distributed as dist
+    if mesh is False:
+        return None
     if mesh is not None:
         return mesh
     many = dist.is_initialized() and dist.get_world_size() > 1

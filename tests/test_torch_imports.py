@@ -6,7 +6,9 @@ them): every module, the ingest and stream modules (``data.readers``,
 ``utils.rollout``, ``utils.auc_plot``, ``utils.ecg_domain``,
 ``registry_gen``, ``tools.dryrun_multichip``) and the mesh layer
 (``parallel``, ``parallel.distributed``, ``parallel.mesh``,
-``parallel.spmd``) among them.
+``parallel.spmd``), ring context parallelism and the GPipe pipeline
+(``parallel.ring_attention``, ``parallel.pipeline_parallel``,
+``train.long_record``, ``train.pipeline_vit``) among them.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses ``jax``,
 ``flax``, ``optax``, ``orbax``, ``h5py``, ``pandas``, ``matplotlib``,
@@ -83,6 +85,10 @@ def test_port_and_chip_smoke_import_without_jax():
         'parallel', 'parallel.distributed', 'parallel.mesh', 'parallel.spmd',
         'tools.dryrun_multichip')}
     assert parallel <= set(modules), parallel - set(modules)
+    ring_pipeline = {f'{port.__name__}.{m}' for m in (
+        'parallel.ring_attention', 'parallel.pipeline_parallel', 'train.long_record',
+        'train.pipeline_vit')}
+    assert ring_pipeline <= set(modules), ring_pipeline - set(modules)
     code = (f'MODULES = {modules!r}\nCHIP_SMOKE = {str(ROOT / "chip_smoke.py")!r}\n'
             + BLOCKER)
     res = _run(code)

@@ -16,9 +16,9 @@ keeping its rows:
 
 each step's loss to 1e-5 relative and every parameter to 1e-5 max abs (the
 learning rate is 1e-4: an Adam step can move a weight whose gradient is at
-rounding level by 2 lr).  Then ``tools/dryrun_multichip.py`` at 2 x 2 and
-``cli --platform cpu --host-devices 4 train --mesh-model 2 --fsdp``, end to
-end.
+rounding level by 2 lr).  Then ``tools/dryrun_multichip.py`` at 2 x 2 (all
+six legs) and ``cli --platform cpu --host-devices 4 train --mesh-model 2
+--fsdp``, end to end.
 """
 import dataclasses
 import json
@@ -171,6 +171,11 @@ def test_dryrun_multichip_at_2x2(capsys):
     assert np.prod(summary['mae']['mu_shape']) < np.prod(summary['mae']['megatron_shape'])
     assert summary['moe']['experts_per_rank'] == 2
     assert np.isfinite(summary['contrastive']['loss'])
+    # legs 5 and 6: ring context parallelism over 4 shards, GPipe over 4 stages
+    assert summary['ring']['shards'] == 4 and all(np.isfinite(summary['ring']['losses']))
+    assert summary['pipeline']['mesh'] == {'data': 1, 'stage': 4}
+    assert summary['pipeline']['layers_per_stage'] == 1
+    assert np.isfinite(summary['pipeline']['loss'])
 
 
 def test_cli_train_on_four_cpu_ranks_with_tp_and_fsdp(tmp_path, capfd):

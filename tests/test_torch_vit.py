@@ -136,9 +136,16 @@ def test_model_rejects_unported_features():
     assert isinstance(tvit.EcgVit(VitConfig.from_defined('debug', scan_blocks=True))
                       .encoder.blocks, tvit.ScannedBlocks)
     assert tvit.EcgVit(VitConfig.from_defined('debug', remat=True)).cfg.remat
-    # what stays refused: context parallelism, and MoE with a scanned stack
-    with pytest.raises(NotImplementedError, match='ring_axis'):
-        tvit.EcgVit(VitConfig.from_defined('debug', ring_axis='seq'))
+    # context parallelism builds (tests/test_torch_long_record.py holds it to
+    # JAX); outside a mesh its ring has one shard: plain attention
+    ring = tvit.EcgVit(VitConfig.from_defined('debug', ring_axis='seq',
+                                              max_signal_length=320)).eval()
+    plain = tvit.EcgVit(VitConfig.from_defined('debug', max_signal_length=320)).eval()
+    plain.load_state_dict(ring.state_dict())
+    x = torch.randn(2, 12, 320)
+    with torch.no_grad():
+        torch.testing.assert_close(ring(x).logits, plain(x).logits, rtol=1e-5, atol=1e-5)
+    # what stays refused: MoE with a scanned stack
     with pytest.raises(ValueError, match='scan_blocks'):
         tvit.EcgVit(VitConfig.from_defined('debug', moe_num_experts=4, scan_blocks=True))
     # the training forward runs, but a dropout site needs its generators
