@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
-                                    scale artifacts parallel pipeline]
+                                    scale artifacts parallel pipeline dispatch]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -17,7 +17,9 @@ process per source started together (into ``build/torch_kernels/``), then:
    of a size that takes the kernel's scalar-load branch), f32 and bf16,
    dropout 0 and 0.1,
    and the dropout masks of #1 to #4 checked entry by entry against
-   ``keep_full``; #3 and #4 also as one backward (with the delta reduction)
+   ``keep_full``, and each launch again with the seed read from device
+   memory (``seed_dev``, as a step tape passes it) for the same bits; #3 and
+   #4 also as one backward (with the delta reduction)
    beside SDPA's backward and the plain recompute, in device time; #5's
    FusedAdamW tail (``adamw.cu``: the norm launch with the clip and
    non-finite scalars and the counter, then the update) over every ViT-base
@@ -138,7 +140,19 @@ process per source started together (into ``build/torch_kernels/``), then:
    against the one-card ``Trainer`` within 1e-5 with 30/30/30/1/1 launches of #2/#3/#4/#5
    update/#5 norm per rank and step, hashed dropout 0.1 twice for the same bits, the merged
    parameters through ``Trainer.predict`` (#1) against a plain twin, and bf16 samples/s and
-   peak memory per rank (ranks sharing one card: a price, not scaling).
+   peak memory per rank (ranks sharing one card: a price, not scaling);
+12. dispatch phase (``steps_per_dispatch`` and ``epoch_scan`` as CUDA graphs,
+   ``train/dispatch.py``): ViT-base bf16 at bs 64 (every layer through #2-#4),
+   flax dropout 0.1, TimeOut and an EMA, 2 epochs of 9 steps from one init: the
+   per-step loop, K = 4 (two graph dispatches and a leftover step an epoch),
+   epoch_scan (one cursor step replayed 9 times) and K = 4 with the optax chain
+   against its own per-step loop -- params, EMA, moments, generator states and
+   counts bit-equal (rtol 5e-4 only if cuBLAS picks other kernels under capture,
+   which the row then names), each graph holding K steps' launches of #2-#5 and
+   the run's counters every step's; 2 layers of Switch-MoE with remat and
+   grad_accum 2, flax and hashed dropout, bit-equal too; samples/s, profiles
+   (wall, device ms, busy share, the host's launch calls per step), capture
+   seconds and the memory each graph's pool reserved.
 
 The kernel phase's dropout-mask checks run at ``bh_offset`` 0 and at a rank's offset.
 Every phase raises on a failed check.  Prints one JSON object per line; the
@@ -197,6 +211,7 @@ from ecg_representation_learning_tpu_torch.serving import serve
 from ecg_representation_learning_tpu_torch.tools import adamw_probe
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
 from ecg_representation_learning_tpu_torch.train import SplitData, Trainer, checkpoint
+from ecg_representation_learning_tpu_torch.train.dispatch import Dispatcher
 from ecg_representation_learning_tpu_torch.train.contrastive import (ContrastiveTrainer,
                                                                      load_any_encoder)
 from ecg_representation_learning_tpu_torch.train.checkpoint import wait_for_checkpoints
@@ -458,14 +473,18 @@ def dropout_mask_phase():
     (v[w + c, c] = 1) output column c is nonzero iff key w + c is kept.  The
     nonzero pattern must equal ``keep_full``'s at every (bh, query, key), so
     a wrong fragment -> (qpos, kpos) map cannot hide inside a tolerance; at
-    ``bh_offset`` 0 and at a rank's offset into a larger batch."""
+    ``bh_offset`` 0 and at a rank's offset into a larger batch.  Each launch
+    is made again with the seed in device memory (``seed_dev``, as a step
+    tape passes it): the same bits."""
     b, h = MASK_BH
     rows = []
+    seed_dev = torch.tensor(4321, dtype=torch.int32, device='cuda')
     for t, off in [(t, o) for t in MASK_TS for o in MASK_BH_OFFSETS]:
         keep = attn.keep_full(4321, b, h, t, MASK_RATE, device='cuda', bh_offset=off)
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.zeros((b, h, t, 64), device='cuda', dtype=dtype)
             mismatches = {'flash_fwd': 0, 'flash_fwd_lse': 0}
+            same_dev = True
             for w in range(0, t, 64):
                 n = min(64, t - w)
                 v = torch.zeros_like(q)
@@ -475,15 +494,22 @@ def dropout_mask_phase():
                 for name, lse in (('flash_fwd', False), ('flash_fwd_lse', True)):
                     got = attn.flash_attention_forward(q, q, v, 4321, None, MASK_RATE,
                                                        return_lse=lse, bh_offset=off)
+                    # the seed read from device memory (a step tape's slot)
+                    dev = attn.flash_attention_forward(q, q, v, seed_dev, None, MASK_RATE,
+                                                       return_lse=lse, bh_offset=off)
+                    same_dev &= all(torch.equal(x, y) for x, y in
+                                    zip(got if lse else (got,), dev if lse else (dev,)))
                     got = got[0] if lse else got
                     mismatches[name] += int(((got != 0) != want).sum().item())
             row = {'phase': 'kernel_dropout_mask', 'shape': [b, h, t, 64],
                    'dtype': str(dtype), 'dropout_rate': MASK_RATE, 'bh_offset': off,
-                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
+                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches,
+                   'seed_dev_same_bits': same_dev}
             emit(row)
             rows.append(row)
-    if any(sum(r['mismatches'].values()) for r in rows):
-        raise AssertionError(f'flash kernels drop other entries than keep_full: {rows}')
+    if any(sum(r['mismatches'].values()) or not r['seed_dev_same_bits'] for r in rows):
+        raise AssertionError(f'flash kernels drop other entries than keep_full, or differ '
+                             f'with the seed in device memory: {rows}')
 
 
 def _rel_err(got, want) -> float:
@@ -504,9 +530,11 @@ def bwd_dropout_mask_phase():
           p_eff[w + c, j], nonzero iff query w + c keeps key j.
     Each nonzero pattern must equal ``keep_full``'s, so a wrong fragment ->
     (qpos, kpos) map cannot hide inside a tolerance; at ``bh_offset`` 0 and at
-    a rank's offset into a larger batch."""
+    a rank's offset into a larger batch.  Each launch is made again with the
+    seed in device memory (``seed_dev``): the same bits."""
     b, h = MASK_BH
     rows = []
+    seed_dev = torch.tensor(4321, dtype=torch.int32, device=DEV)
     for t, off in [(t, o) for t in MASK_TS for o in MASK_BH_OFFSETS]:
         keep = attn.keep_full(4321, b, h, t, MASK_RATE, device=DEV, bh_offset=off)
         lse = torch.full((b, h, t), math.log(t), device=DEV)
@@ -516,17 +544,25 @@ def bwd_dropout_mask_phase():
             e0 = zero.clone()
             e0[..., 0] = 1
             mismatches = {'flash_bwd_dq': 0, 'flash_bwd_dk': 0, 'flash_bwd_dv': 0}
+            same_dev = True
             for w in range(0, t, 64):
                 n = min(64, t - w)
                 idx = torch.arange(n, device=DEV)
                 window = zero.clone()
                 window[:, :, w + idx, idx] = 1
 
-                def run(kernel, q, k, v, do):
-                    return kernel(q, k, v, do, lse, delta, 4321, 0.125, MASK_RATE, off)
+                def run(kernel, q, k, v, do, seed=4321):
+                    return kernel(q, k, v, do, lse, delta, seed, 0.125, MASK_RATE, off)
                 got = {'flash_bwd_dq': run(attn.flash_bwd_dq_kernel, zero, window, e0, e0),
                        'flash_bwd_dk': run(attn.flash_bwd_dkv_kernel, window, zero, e0, e0)[0],
                        'flash_bwd_dv': run(attn.flash_bwd_dkv_kernel, zero, zero, zero, window)[1]}
+                dev = {'flash_bwd_dq': run(attn.flash_bwd_dq_kernel, zero, window, e0, e0,
+                                           seed_dev),
+                       'flash_bwd_dk': run(attn.flash_bwd_dkv_kernel, window, zero, e0, e0,
+                                           seed_dev)[0],
+                       'flash_bwd_dv': run(attn.flash_bwd_dkv_kernel, zero, zero, zero, window,
+                                           seed_dev)[1]}
+                same_dev &= all(torch.equal(got[k], dev[k]) for k in got)
                 want_q = torch.zeros((b, h, t, 64), dtype=torch.bool, device=DEV)
                 want_q[..., :n] = keep[..., w:w + n]
                 want_kv = torch.zeros_like(want_q)
@@ -536,11 +572,13 @@ def bwd_dropout_mask_phase():
                     mismatches[name] += int(((x != 0) != want).sum().item())
             row = {'phase': 'kernel_bwd_dropout_mask', 'shape': [b, h, t, 64],
                    'dtype': str(dtype), 'dropout_rate': MASK_RATE, 'bh_offset': off,
-                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches}
+                   'kept_share': keep.float().mean().item(), 'mismatches': mismatches,
+                   'seed_dev_same_bits': same_dev}
             emit(row)
             rows.append(row)
-    if any(sum(r['mismatches'].values()) for r in rows):
-        raise AssertionError(f'backward kernels drop other entries than keep_full: {rows}')
+    if any(sum(r['mismatches'].values()) or not r['seed_dev_same_bits'] for r in rows):
+        raise AssertionError(f'backward kernels drop other entries than keep_full, or differ '
+                             f'with the seed in device memory: {rows}')
 
 
 def sdpa_backward_device_ms(q, k, v, do):
@@ -1375,14 +1413,18 @@ def _wall(fn) -> float:
 PROFILE_MARGIN_S = 0.02   # idle seconds before and after a profiled run
 # substrings of the port's kernel symbols, for the profiles' ``port_kernels``
 PORT_KERNEL_SYMBOLS = ('flash_fwd_', 'bwd_dq_', 'bwd_dkv_', 'adamw_', 'nlm_')
+# the host's runtime calls that launch kernels, or a whole CUDA graph
+HOST_LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                     'cuLaunchKernelEx', 'cudaGraphLaunch')
 
 
 def _profile(what: str, unit: str, n: int, run) -> dict:
     """Profile ``run()``, which does ``n`` units of work ending in a host
     fetch: wall time, summed device time, the device's busy share, the
-    kernels that take the most device time, the port's own kernels, and the
-    host operators that take the most CPU time of their own (the profiler
-    adds to the latter)."""
+    kernels that take the most device time, the port's own kernels, the
+    host's kernel and graph launch calls (a CUDA graph's replay is one call
+    for all its kernels), and the host operators that take the most CPU time
+    of their own (the profiler adds to the latter)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1400,11 +1442,14 @@ def _profile(what: str, unit: str, n: int, run) -> dict:
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
                    if e.device_type == DeviceType.CPU), key=lambda k: -k[1])[:10]
+    launch_calls = {e.key: e.count / n for e in events
+                    if e.device_type == DeviceType.CPU and e.key in HOST_LAUNCH_CALLS}
     return {'phase': 'profile', 'what': what,
             f'wall_ms_per_{unit}': 1e3 * wall / n,
             f'device_ms_per_{unit}': device_us / 1e3 / n,
             'device_busy_share': device_us / 1e6 / wall,
             f'device_launches_per_{unit}': sum(c for _, _, c in kernels) / n,
+            f'host_launch_calls_per_{unit}': launch_calls,
             'top_kernels': [{'name': k[:90], f'ms_per_{unit}': t / 1e3 / n,
                              f'launches_per_{unit}': c / n} for k, t, c in top],
             'port_kernels': [{'name': k[:90], f'ms_per_{unit}': t / 1e3 / n,
@@ -3231,8 +3276,219 @@ def pipeline_phase(smi: str) -> dict:
     return main_path
 
 
+# ---------------------------------------------------------------- dispatch
+DISPATCH_ROWS = 600       # 9 steps an epoch at bs 64: two K = 4 dispatches and a leftover
+DISPATCH_K = 4
+DISPATCH_EPOCHS = 2
+# used only when cuBLAS picks other kernels under capture than eagerly (printed
+# then): the JAX package's own K-step tolerance (tests/test_train.py:420-423)
+DISPATCH_RTOL, DISPATCH_ATOL = 5e-4, 1e-8
+DISPATCH_SMALL = dict(num_hidden_layers=2, moe_num_experts=2, moe_every=1, remat=True)
+DISPATCH_TIMED = 5        # K-step dispatches timed (epoch dispatches: 2)
+
+
+def _dispatch_trainer(cfg: VitConfig, data: SplitData, init: dict, **tkw) -> Trainer:
+    """A ViT trainer on ``data`` from the weights ``init``: bs 64, TimeOut,
+    an EMA, ``DISPATCH_EPOCHS`` epochs without evaluation."""
+    tcfg = TrainConfig(num_train_epoch=DISPATCH_EPOCHS, train_batch_size=64,
+                       augment_timeout=True, log_to_console=False, save_final=False,
+                       do_eval=False, ema_decay=0.999, **tkw)
+    tr = Trainer(cfg, tcfg, train_data=data, norm_stats=PTBXL_TRAIN_STATS['original'],
+                 output_dir='runs/chip_smoke_dispatch')
+    tr.set_params(init)
+    return tr
+
+
+def _dispatch_train(tr: Trainer) -> dict:
+    """``tr.train()``: its payloads, seconds and kernel launches."""
+    payloads = []
+    log = tr._log
+    tr._log = lambda payload: (payloads.append(payload), log(payload))
+    _zero_counts()
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    return {'payloads': payloads, 'seconds': time.perf_counter() - t0, 'launches': _counts()}
+
+
+def _same_state(a: Trainer, b: Trainer) -> dict:
+    """Whether two trainers hold the same bits after the same steps: params,
+    EMA, Adam moments, both generators, the step and count; and the params'
+    largest |a - b| / (|b| + 1e-30)."""
+    out = {}
+    for name, get in (('params', lambda t: t.model.state_dict()), ('ema', lambda t: t.ema),
+                      ('mu', lambda t: t.opt_state.mu), ('nu', lambda t: t.opt_state.nu)):
+        x, y = get(a), get(b)
+        out[name] = all(torch.equal(x[k], y[k]) for k in x)
+    out['generators'] = all(torch.equal(g(a).get_state(), g(b).get_state())
+                            for g in (lambda t: t.rng.host, lambda t: t.rng.device))
+    out['counts'] = (a.step, a.opt_state.count) == (b.step, b.opt_state.count)
+    pa, pb = a.model.state_dict(), b.model.state_dict()
+    rel = max(((pa[k].float() - pb[k].float()).abs() / (pb[k].float().abs() + 1e-30))
+              .max().item() for k in pa)
+    close = all(torch.allclose(pa[k], pb[k], rtol=DISPATCH_RTOL, atol=DISPATCH_ATOL)
+                for k in pa)
+    return {'same_bits': out, 'max_param_rel_err': rel, 'within_limit': close}
+
+
+def _kernel_names(run) -> set:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _dispatch_check(name: str, tr: Trainer, ref: Trainer, run: dict, k: int) -> dict:
+    """Hold a dispatch run against its eager twin and emit the row; a graph
+    of ``k`` steps must hold k steps' launches (a layer's #2, #3 and #4 per
+    microbatch, #2 twice under remat; one #5 update and norm with the fused
+    optimizer), and the run's counters every step's launches."""
+    info = tr.dispatch_info or {}
+    steps = tr.step
+    micro = tr.model_cfg.num_hidden_layers * max(1, tr.cfg.grad_accum)
+    fused = int(tr.cfg.fused_optimizer)   # the optax chain is plain PyTorch
+    per_step = {'flash_fwd': 0, 'flash_fwd_lse': micro * (2 if tr.model_cfg.remat else 1),
+                'flash_bwd_dq': micro, 'flash_bwd_dkv': micro, 'adamw': fused,
+                'adamw_norm': fused}
+    row = {'phase': 'dispatch_parity', 'run': name, 'model': tr.model_cfg.meta,
+           **_same_state(tr, ref), 'route': info.get('route'),
+           'replays': info.get('replays'), 'capture_s': info.get('capture_s'),
+           'graph_pool_bytes': info.get('pool_bytes'),
+           'graph_launches': info.get('graph_launches'),
+           'expected_graph_launches': {n: k * c for n, c in per_step.items()},
+           'run_launches': {n: run['launches'][n] for n in per_step},
+           'expected_run_launches': {n: steps * c for n, c in per_step.items()},
+           'payload_steps': [p['step'] for p in run['payloads']],
+           'train_seconds': run['seconds']}
+    bits = all(row['same_bits'].values())
+    if not bits:   # which kernels the capture changed (cuBLAS may pick others)
+        d = Dispatcher(tr, k, scan=False)
+        takes = np.arange(k * 64).reshape(k, 64) % len(tr.train_data)
+        d.run(takes)
+        row['graph_only_kernels'] = sorted(_kernel_names(lambda: d.run(takes))
+                                           - _kernel_names(lambda: tr.train_step(
+                                               tr.train_data, takes[0])))
+    emit(row)
+    if not ((bits or row['within_limit']) and row['route'] == 'graph'
+            and row['graph_launches'] == row['expected_graph_launches']
+            and row['run_launches'] == row['expected_run_launches']):
+        raise AssertionError(f'dispatch run {name} differs from its eager twin: {row}')
+    return row
+
+
+def _dispatch_rates(eager: Trainer, k4: Trainer, scan: Trainer, data: SplitData,
+                    smi: str) -> None:
+    """Samples/s and a profile of the eager step, of K = 4 dispatches and of
+    an epoch dispatch, after each route's first (eager) dispatch and
+    capture."""
+    rng = np.random.default_rng(3)
+    d4 = Dispatcher(k4, DISPATCH_K, scan=False)
+    takes4 = rng.permutation(len(data))[:DISPATCH_K * 64].reshape(DISPATCH_K, 64)
+    d4.run(takes4)
+    steps = scan.steps_per_epoch
+    ds = Dispatcher(scan, steps, scan=True)
+    takes_ep = rng.permutation(len(data))[:steps * 64].reshape(steps, 64)
+    ds.run(takes_ep)
+
+    def timed(d, takes, n):
+        float(d.run(takes)[0][-1])
+        t0 = time.perf_counter()
+        for _ in range(n):
+            losses = d.run(takes)[0]
+        float(losses[-1])
+        return n * len(takes) * 64 / (time.perf_counter() - t0)
+    rates = {'phase': 'dispatch_rates', 'model': eager.model_cfg.meta, 'nvidia_smi': smi,
+             'eager_samples_per_s': _steps_per_s(eager, data, 20),
+             'k4_samples_per_s': timed(d4, takes4, DISPATCH_TIMED),
+             'epoch_scan_samples_per_s': timed(ds, takes_ep, 2),
+             'k4_capture_s': d4.info().get('capture_s'),
+             'k4_graph_pool_bytes': d4.info().get('pool_bytes'),
+             'epoch_scan_capture_s': ds.info().get('capture_s'),
+             'epoch_scan_graph_pool_bytes': ds.info().get('pool_bytes')}
+    emit(rates)
+
+    def d4_run():
+        for _ in range(2):
+            losses = d4.run(takes4)[0]
+        float(losses[-1])
+    for prof in (profile_train_step(eager, data),
+                 _profile(f'ViT-base bf16 bs-64, steps_per_dispatch={DISPATCH_K}, 2 dispatches',
+                          'step', 2 * DISPATCH_K, d4_run),
+                 _profile(f'ViT-base bf16 bs-64, epoch_scan, one epoch of {steps} steps', 'step',
+                          steps, lambda: float(ds.run(takes_ep)[0][-1]))):
+        emit({**prof, 'nvidia_smi': smi})
+
+
+def dispatch_phase(smi: str) -> dict:
+    """``steps_per_dispatch`` and ``epoch_scan`` on the card (train/dispatch.py):
+    ViT-base bf16 at bs 64 (41 tokens, every layer through #2-#4: flash_min_seq
+    0 and a blocked-backward threshold of 0), flax dropout 0.1 with the
+    attention kernels' hashed masks, TimeOut and an EMA, trained from one init
+    for 2 epochs of 9 steps four ways: the per-step loop; K = 4 (two graph
+    dispatches and one leftover step an epoch); epoch_scan (one cursor step
+    replayed 9 times); and K = 4 with ``fused_optimizer=False`` against its own
+    per-step loop.  Params, EMA, moments, generators and counts bit-equal to
+    the per-step loop; each graph holds K x (12 #2, 12 #3, 12 #4, 1 #5 update,
+    1 #5 norm); the run's counters every step's launches.  Then 2 layers of
+    Switch-MoE (E = 2 on every block) with remat and grad_accum 2, flax and
+    hashed dropout, K = 4 and epoch_scan against the per-step loop, bit for
+    bit.  Samples/s and profiles of the eager step, the K = 4 dispatch and the
+    epoch dispatch, the capture seconds and the memory each graph reserved.
+    Returns the launches of the K = 4 and epoch_scan ``train()`` runs."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    data = _parity_batch(7, DISPATCH_ROWS)
+    cfg = VitConfig.from_defined('base', flash_min_seq=0, dtype='bfloat16')
+    init_tr = Trainer(cfg, TrainConfig(), norm_stats=PTBXL_TRAIN_STATS['original'])
+    init = {k: v.clone() for k, v in init_tr.init_state().items()}
+    del init_tr
+    main = {}
+    eager = _dispatch_trainer(cfg, data, init)
+    _dispatch_train(eager)
+    graphs = {}
+    for name, kw, k in (('k4', dict(steps_per_dispatch=DISPATCH_K), DISPATCH_K),
+                        ('epoch_scan', dict(epoch_scan=True), 1)):
+        tr = _dispatch_trainer(cfg, data, init, **kw)
+        run = _dispatch_train(tr)
+        _dispatch_check(name, tr, eager, run, k)
+        for n, c in run['launches'].items():
+            main[n] = main.get(n, 0) + c
+        graphs[name] = tr
+    _dispatch_rates(eager, graphs['k4'], graphs['epoch_scan'], data, smi)
+    del eager, graphs, tr
+    torch.cuda.empty_cache()
+
+    chain = dict(fused_optimizer=False)
+    ref = _dispatch_trainer(cfg, data, init, **chain)
+    _dispatch_train(ref)
+    tr = _dispatch_trainer(cfg, data, init, steps_per_dispatch=DISPATCH_K, **chain)
+    _dispatch_check('k4_fused_optimizer_false', tr, ref, _dispatch_train(tr), DISPATCH_K)
+    del ref, tr
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, **DISPATCH_SMALL)
+    init_tr = Trainer(small, TrainConfig(), norm_stats=PTBXL_TRAIN_STATS['original'])
+    init = {k: v.clone() for k, v in init_tr.init_state().items()}
+    del init_tr
+    for impl in ('flax', 'hash'):
+        cfg_i = dataclasses.replace(small, dropout_impl=impl)
+        ref = _dispatch_trainer(cfg_i, data, init, grad_accum=2)
+        _dispatch_train(ref)
+        for name, kw, k in (('k4', dict(steps_per_dispatch=DISPATCH_K), DISPATCH_K),
+                            ('epoch_scan', dict(epoch_scan=True), 1)):
+            tr = _dispatch_trainer(cfg_i, data, init, grad_accum=2, **kw)
+            _dispatch_check(f'{name}_moe_remat_accum2_{impl}', tr, ref, _dispatch_train(tr), k)
+            del tr
+        del ref
+    torch.cuda.empty_cache()
+    shutil.rmtree('runs/chip_smoke_dispatch', ignore_errors=True)
+    return main
+
+
 PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
-          'scale', 'artifacts', 'parallel', 'pipeline')
+          'scale', 'artifacts', 'parallel', 'pipeline', 'dispatch')
 
 
 def main(argv=None) -> int:
@@ -3297,6 +3553,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'pipeline' in args.phases:
         for name, count in pipeline_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'dispatch' in args.phases:
+        for name, count in dispatch_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

@@ -215,7 +215,8 @@ def cmd_train(args):
         augment_timeout=args.timeout_augment, seed=args.seed, n_sample=args.n_sample,
         resident_dtype=args.resident_dtype, grad_accum=args.grad_accum,
         ema_decay=args.ema_decay, linear_probe=args.probe, mesh_model=args.mesh_model,
-        fsdp=args.fsdp, mesh_stage=args.mesh_stage)
+        fsdp=args.fsdp, mesh_stage=args.mesh_stage, epoch_scan=args.epoch_scan,
+        steps_per_dispatch=args.steps_per_dispatch)
     if cfg.mesh_stage > 1:
         return _train_pipeline(args, cfg, splits)
     tr = Trainer(_model_cfg_for(args), cfg, train_data=splits.train,
@@ -609,6 +610,14 @@ def build_parser() -> argparse.ArgumentParser:
         if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
         if name == 'train':
+            sp.add_argument('--epoch-scan', action='store_true',
+                            help='run each epoch as ONE jitted lax.scan dispatch over '
+                                 'the train step (device-resident splits; removes '
+                                 'per-step host dispatch -- bit-identical updates)')
+            sp.add_argument('--steps-per-dispatch', type=int, default=1,
+                            help='unroll K train steps into one jitted dispatch '
+                                 '(amortizes per-dispatch runtime overhead on '
+                                 'high-latency-attached hosts; program size grows ~K-fold)')
             sp.add_argument('--mesh-stage', type=int, default=1,
                             help='pipeline-parallel stage count (>1 stages the transformer '
                                  'stack over a stage mesh axis; GPipe microbatches; the '

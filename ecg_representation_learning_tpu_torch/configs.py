@@ -5,9 +5,8 @@ field-for-field copies of the JAX package's, so a configuration carries over
 with ``VitConfig(**dataclasses.asdict(cfg))`` (likewise the others).  The
 one-device model options are ported (Switch-MoE, ``remat``, ``scan_blocks``;
 MoE with ``scan_blocks`` is refused, as in JAX), and so is
-``async_checkpoint``.  Fields whose feature the port has not reached yet
-keep their defaults: ``TrainConfig`` raises on construction for multi-step
-dispatch (``epoch_scan``, ``steps_per_dispatch``: ROADMAP queue 1 item 3).
+``async_checkpoint``, and multi-step dispatch (``epoch_scan``,
+``steps_per_dispatch``: CUDA graphs of the step, ``train/dispatch.py``).
 The parallel layouts are ported: ``mesh_data``, ``mesh_model`` and ``fsdp``
 build the ('data', 'model') mesh (``parallel/``), ``mesh_stage`` the GPipe
 pipeline (``train/pipeline_vit.py``), and ``VitConfig.ring_axis`` runs ring
@@ -166,8 +165,16 @@ class TrainConfig:
                                     # plain PyTorch (train/optim.AdamChain)
     log_per_epoch: bool = False     # log the train metrics once per epoch
                                     # (each logged step syncs the device)
-    epoch_scan: bool = False        # not ported (ROADMAP item 3)
-    steps_per_dispatch: int = 1     # not ported (1 only; ROADMAP item 3)
+    epoch_scan: bool = False        # each epoch as one dispatch: on the GPU
+                                    # replays of a CUDA graph of one step
+                                    # that reads its tape row at a device
+                                    # cursor (train/dispatch.py); wins over
+                                    # steps_per_dispatch; needs a resident split
+    steps_per_dispatch: int = 1     # K > 1: K steps a dispatch, on the GPU one
+                                    # CUDA graph of K steps; leftover steps run
+                                    # the single step.  Both bit-equal to the
+                                    # per-step loop; both fall back to it when
+                                    # the split is not resident
     resident_dtype: Optional[str] = None  # storage dtype of a resident split's
                                     # signals: None (f32) | 'float16' |
                                     # 'bfloat16'; cast to f32 after the gather
@@ -197,15 +204,6 @@ class TrainConfig:
     mesh_model: int = 1             # ranks on 'model' (Megatron TP, expert parallelism)
     mesh_stage: int = 1             # > 1: GPipe pipeline stages (train/pipeline_vit.py)
     fsdp: bool = False              # ZeRO storage sharding over 'data' (FSDP2)
-
-    def __post_init__(self):
-        # field -> (set to something the port cannot run, its ROADMAP queue-1 item)
-        unported = {'epoch_scan': (self.epoch_scan, 3),
-                    'steps_per_dispatch': (self.steps_per_dispatch != 1, 3)}
-        bad = [f'{k} (ROADMAP queue 1 item {item})'
-               for k, (on, item) in unported.items() if on]
-        if bad:
-            raise NotImplementedError(f'not ported: {bad}')
 
     def steps_per_epoch(self, n_train: int) -> int:
         # floor: the trainer drops the last partial batch (the reference's

@@ -185,7 +185,7 @@ class SelfAttention(nn.Module):
             out = attention(q, k, v, dropout_rate=rate, deterministic=not self.training,
                             seed=rng.seed() if active else 0,
                             use_flash=cfg.use_flash_attention, min_seq=cfg.flash_min_seq,
-                            generator=rng.masks if active else None,
+                            draw_bits=rng.bits if active else None,
                             bh_offset=0 if batch is None else batch[0] * self.heads)
         out = out.permute(0, 2, 1, 3).reshape(b, t, self.heads * cfg.head_dim)
         y = self.out(out)
@@ -270,9 +270,18 @@ def _replaying(fn: Callable, rng: Optional[DropoutRng]) -> Callable:
     """``fn`` for ``torch.utils.checkpoint``: its first call runs as it is;
     a recompute runs with the generators of ``rng`` in their state before
     the first call, then gives them back the state it found them in, even
-    when the checkpoint stops the recompute early."""
+    when the checkpoint stops the recompute early.
+
+    Under a step tape (``rng.tape`` set; a CUDA graph may be capturing, and
+    a capture can neither read nor set a generator's state) no generator is
+    touched: the recompute reads the tape from the first call's cursor, and
+    takes the first call's mask and raw-bit draws back as they were drawn
+    (``DropoutRng.saved``), so it sees the same bits; they stay alive until
+    the backward, as the masks of a block without remat do."""
     if rng is None:
         return fn
+    if rng.tape is not None:
+        return _replaying_taped(fn, rng)
     before = (rng.host.get_state(), rng.device.get_state())
     calls = []
 
@@ -289,6 +298,40 @@ def _replaying(fn: Callable, rng: Optional[DropoutRng]) -> Callable:
             rng.host.set_state(now[0])
             rng.device.set_state(now[1])
     return run
+
+
+def _replaying_taped(fn: Callable, rng: DropoutRng) -> Callable:
+    """:func:`_replaying` under a step tape."""
+    cursor, saved, calls = rng.cursor, [], []
+
+    def run(*args):
+        first = not calls
+        calls.append(1)
+        now = rng.cursor
+        if not first:
+            rng.cursor = cursor
+        rng.saved, rng.replay = saved, (None if first else 0)
+        try:
+            return fn(*args)
+        finally:
+            rng.saved, rng.replay = None, None
+            if not first:
+                rng.cursor = now
+    return run
+
+
+def seeds_per_forward(cfg: VitConfig) -> int:
+    """How many seeds a training forward of the encoder takes from
+    ``DropoutRng.seed``: every hashed dropout site with a non-zero rate (the
+    embedding at the attention rate; a block's attention output and its
+    MLP's or MoE's two at the hidden rate) and, with attention dropout on,
+    each block's attention seed, which is drawn on the flash and the plain
+    path alike (the ring path takes none)."""
+    hashed = cfg.dropout_impl == 'hash'
+    attn = cfg.attention_probs_dropout_prob > 0.0
+    hidden = cfg.hidden_dropout_prob > 0.0
+    per_block = int(attn and cfg.ring_axis is None) + 3 * int(hashed and hidden)
+    return int(hashed and attn) + cfg.num_hidden_layers * per_block
 
 
 class EcgVitEncoder(nn.Module):
@@ -386,8 +429,8 @@ def bce_with_logits(logits, labels, reduction: str = 'mean', weight=None):
     """BCEWithLogitsLoss (reference ecg_vit.py:118, 140-149).
 
     ``weight``: optional length-2 (w_neg, w_pos) applied per element by label
-    value.  ``reduction``: 'mean' | 'none' -- 'none' averages per sample over
-    classes.
+    value (a tensor on the logits' device is used as it is).  ``reduction``:
+    'mean' | 'none' -- 'none' averages per sample over classes.
     """
     logits = logits.float()
     labels = labels.float()

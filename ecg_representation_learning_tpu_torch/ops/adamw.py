@@ -17,9 +17,20 @@ first moment and second moment in place:
 from it (scale = min(1, clip / max(||g||, 1e-16)), or 1 without a clip;
 under ``zero_nonfinite`` a non-finite norm gives scale 1 and finite 0), the
 non-finite counter, then the update.  For CUDA tensors that is two kernel
-launches and one pinned H2D copy of [lr, bc1, bc2]; for CPU tensors the
-plain version (``global_norm`` + ``tail_scalars_reference`` +
-``adamw_update_reference``) runs the same math leaf by leaf.  The port
+launches and one pinned H2D copy of [lr, bc1, bc2] and the gradients'
+addresses; for CPU tensors the plain version (``global_norm`` +
+``tail_scalars_reference`` + ``adamw_update_reference``) runs the same math
+leaf by leaf.
+
+``lr_bc`` may instead be 3 f32 on the device (a row of a training step's
+tape, ``train/dispatch.py``): launch 1 copies them into the scalars, and the
+pinned copy carries the gradients' addresses alone.  Inside a CUDA graph
+capture there is no pinned copy at all: a launch takes a device buffer
+reserved before the capture (``_AdamWKernel.reserve``; one allocated inside
+it could share memory with tensors that earlier nodes of the graph write),
+and the addresses of the gradients the capture allocated are written into
+it once, after the capture (``take_captured``), and stay valid for every
+replay.  The port
 updates in place where JAX returns new arrays (JAX aliases them with
 ``input_output_aliases``, to the same effect).
 
@@ -78,10 +89,11 @@ def mesh_norm_reference(grads: Sequence[torch.Tensor], reduce: NormReduce) -> to
     return torch.sqrt(reduce.all_reduce(total)).float()
 
 
-def tail_scalars_reference(g_norm: torch.Tensor, lr_bc: Sequence[float], *,
+def tail_scalars_reference(g_norm: torch.Tensor, lr_bc, *,
                            clip_norm: Optional[float], zero_nonfinite: bool) -> torch.Tensor:
     """Plain version of the scalars: [scale, lr, bc1, bc2, finite] as 5 f32
-    on g_norm's device, with JAX's operations (a true f32 division)."""
+    on g_norm's device, with JAX's operations (a true f32 division);
+    ``lr_bc`` is 3 floats or a tensor of 3 f32."""
     scale = torch.ones_like(g_norm)
     finite = torch.ones_like(g_norm)
     if clip_norm is not None:
@@ -91,8 +103,11 @@ def tail_scalars_reference(g_norm: torch.Tensor, lr_bc: Sequence[float], *,
         ok = torch.isfinite(g_norm)
         scale = torch.where(ok, scale, 1.0)
         finite = ok.float()
-    host = torch.tensor(lr_bc, dtype=torch.float32).to(g_norm.device)
-    return torch.cat([scale.reshape(1), host, finite.reshape(1)])
+    if isinstance(lr_bc, torch.Tensor):
+        lr_bc = lr_bc.to(g_norm.device)
+    else:
+        lr_bc = torch.tensor(lr_bc, dtype=torch.float32).to(g_norm.device)
+    return torch.cat([scale.reshape(1), lr_bc, finite.reshape(1)])
 
 
 def adamw_update_reference(params, grads, mus, nus, scalars, *, b1: float,
@@ -112,7 +127,7 @@ def adamw_update_reference(params, grads, mus, nus, scalars, *, b1: float,
             p.copy_(p - lr * upd)
 
 
-def adamw_tail_reference(params, grads, mus, nus, lr_bc: Sequence[float],
+def adamw_tail_reference(params, grads, mus, nus, lr_bc,
                          nonfinite_count: Optional[torch.Tensor] = None, *,
                          clip_norm: Optional[float], zero_nonfinite: bool, b1: float,
                          b2: float, eps: float, wd: float,
@@ -207,7 +222,9 @@ class _AdamWKernel:
     (count, dtype, device, contiguity, shape) and their addresses go to the
     kernels with the step's scalars in one pinned copy.  A parameter or
     moment handed back at the same address with other strides is not
-    re-checked."""
+    re-checked.  Under a CUDA graph capture each launch pair takes a device
+    buffer from ``reserve`` and records its gradients' addresses for
+    ``take_captured``."""
 
     def __init__(self):
         self.launches = 0        # update kernel launches (CUDA tensors only)
@@ -226,6 +243,8 @@ class _AdamWKernel:
         self._n_blocks = 0
         self._weights = None     # (key, f64 device tensor) of a NormReduce's leaf weights
         self._sum = None         # launch 1's f64 sum of squares under a NormReduce
+        self._reserved = []      # device buffers for launches under a capture
+        self._captured = []      # (device buffer, head, gradient addresses) captured
 
     def _library(self):
         if self._lib is None:
@@ -237,7 +256,7 @@ class _AdamWKernel:
             lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                                        + [ctypes.c_void_p] * 3
                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                                       + [ctypes.c_void_p] * 7)
+                                       + [ctypes.c_void_p] * 8)
             lib.adamw_norm.restype = ctypes.c_int
             lib.adamw_update.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6
@@ -247,11 +266,14 @@ class _AdamWKernel:
             self._lib = lib
         return self._lib
 
-    def _prepare(self, params, grads, mus, nus, head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _prepare(self, params, grads, mus, nus, head: int
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """The block table for these leaves (kept when no parameter or moment
         moved, else checked and rebuilt), the gradients checked, and a pinned
         host buffer of ``head`` int64 then the gradients' addresses, with its
-        device twin: ``(host, device)``, not yet copied."""
+        device twin: ``(host, device)``, not yet copied.  Under a CUDA graph
+        capture the host buffer is None: the device buffer and the addresses
+        wait in ``_captured`` for ``take_captured``."""
         if not params:
             raise ValueError('adamw needs at least one parameter leaf')
         key = (params[0].device, mus[0].dtype if mus else None, *map(_ptr, params),
@@ -279,9 +301,42 @@ class _AdamWKernel:
                 and list(map(_shape, grads)) == self._shapes):
             _validate(params, grads, mus, nus)   # raises, saying which leaf
             raise ValueError('adamw: the gradients do not match the parameters')
+        addrs = np.fromiter(map(_ptr, grads), np.int64, n)
+        if torch.cuda.is_current_stream_capturing():
+            if not self._reserved:
+                raise RuntimeError('adamw under a CUDA graph capture needs a buffer from '
+                                   'reserve() for each launch pair')
+            dev = self._reserved.pop()[:head + n]
+            self._captured.append((dev, head, addrs))
+            return None, dev
         host = torch.empty(head + n, dtype=torch.int64, pin_memory=True)
-        host.numpy()[head:] = np.fromiter(map(_ptr, grads), np.int64, n)
+        host.numpy()[head:] = addrs
         return host, torch.empty(head + n, dtype=torch.int64, device=self._dev)
+
+    def reserve(self, count: int) -> None:
+        """Before a CUDA graph capture of ``count`` launch pairs on the
+        current leaves (after an eager call built their table): one device
+        buffer each for the scalars and the gradients' addresses, allocated
+        outside the capture, so that no node of the graph writes it."""
+        if self._shapes is None:
+            raise RuntimeError('adamw.reserve needs the leaves of an eager call first')
+        self._reserved = [torch.empty(4 + len(self._shapes), dtype=torch.int64,
+                                      device=self._dev) for _ in range(count)]
+
+    def take_captured(self) -> list:
+        """After a CUDA graph capture: write the gradients' addresses into
+        the buffer of every launch captured since ``reserve`` (one copy each,
+        outside the capture) and return those buffers with the block table
+        and the norm's scratch, which the caller keeps alive with the graph:
+        its kernels read them at every replay (the gradients stay at their
+        addresses in its pool), also after another leaf set (another
+        trainer) has made this binding build a new table."""
+        out = [self._blocks, self._partials, self._ticket] if self._captured else []
+        for dev, head, addrs in self._captured:
+            dev[head:].copy_(torch.from_numpy(addrs))
+            out.append(dev)
+        self._captured, self._reserved = [], []
+        return out
 
     def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, stream: int, *,
                        b1: float, b2: float, eps: float, wd: float, mesh_tail=None) -> None:
@@ -310,7 +365,8 @@ class _AdamWKernel:
         host, gptrs = self._prepare(params, grads, mus, nus, 0)
         _check_scalars(scalars, self._dev)
         with torch.cuda.device(self._dev):
-            gptrs.copy_(host, non_blocking=True)
+            if host is not None:
+                gptrs.copy_(host, non_blocking=True)
             self._launch_update(gptrs, scalars, torch.cuda.current_stream().cuda_stream,
                                 b1=b1, b2=b2, eps=eps, wd=wd)
 
@@ -320,16 +376,22 @@ class _AdamWKernel:
         ``host`` and ``ws``): ``(scalars, grad_norm, count_out, gptrs)``.
         The device buffer is [scale, lr, bc1, bc2, finite, grad_norm, -, -]
         as f32 in its first 4 int64, then the gradients' addresses; the copy
-        fills all of it, and launch 1 then writes scale, finite and
-        grad_norm."""
+        fills all of it (lr, bc1, bc2 from ``lr_bc`` floats), and launch 1
+        then writes scale, finite and grad_norm (and lr, bc1, bc2 from an
+        ``lr_bc`` tensor on the device)."""
         dev = self._dev
         for name, t, dtype in (('g_norm', g_norm, torch.float32),
                                ('nonfinite_count', nonfinite_count, torch.int32)):
             if t is not None and (t.numel() != 1 or t.dtype != dtype or t.device != dev):
                 raise ValueError(f'{name} must be one {dtype} on {dev}, got '
                                  f'{tuple(t.shape)} {t.dtype} {t.device}')
-        host.numpy()[:4].view(np.float32)[1:4] = lr_bc
-        ws.copy_(host, non_blocking=True)
+        lr_dev = _lr_bc_device(lr_bc, dev)
+        if host is None and lr_dev is None:
+            raise RuntimeError('a captured adamw step needs lr_bc on the device')
+        if host is not None:
+            if lr_dev is None:
+                host.numpy()[:4].view(np.float32)[1:4] = lr_bc
+            ws.copy_(host, non_blocking=True)
         f32 = ws[:4].view(torch.float32)
         gptrs = ws[4:]
         grad_norm = f32[5] if g_norm is None else g_norm
@@ -339,7 +401,8 @@ class _AdamWKernel:
             self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), ptr(g_norm),
             0.0 if clip_norm is None else float(clip_norm), int(clip_norm is not None),
-            int(zero_nonfinite), f32.data_ptr(), ptr(None if g_norm is not None else grad_norm),
+            int(zero_nonfinite), f32.data_ptr(), ptr(lr_dev),
+            ptr(None if g_norm is not None else grad_norm),
             ptr(nonfinite_count), ptr(count_out), None, None, stream)
         if err != 0:
             raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
@@ -379,6 +442,9 @@ class _AdamWKernel:
                                             or nonfinite_count.dtype != torch.int32
                                             or nonfinite_count.device != dev):
             raise ValueError(f'nonfinite_count must be one int32 on {dev}')
+        if host is None or isinstance(lr_bc, torch.Tensor):
+            raise RuntimeError('the mesh-wide adamw tail takes lr_bc as floats and is not '
+                               'captured in a CUDA graph')
         host.numpy()[:4].view(np.float32)[1:4] = lr_bc
         ws.copy_(host, non_blocking=True)
         f32 = ws[:4].view(torch.float32)
@@ -386,7 +452,7 @@ class _AdamWKernel:
         err = self._lib.adamw_norm(
             self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), None, 0.0, 0, 0,
-            f32.data_ptr(), None, None, None, self._weights[1].data_ptr(),
+            f32.data_ptr(), None, None, None, None, self._weights[1].data_ptr(),
             self._sum.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
@@ -398,7 +464,7 @@ class _AdamWKernel:
             self._sum, clip_norm, zero_nonfinite, grad_norm, nonfinite_count, count_out), **kw)
         return grad_norm, count_out
 
-    def tail(self, params, grads, mus, nus, lr_bc: Sequence[float],
+    def tail(self, params, grads, mus, nus, lr_bc,
              nonfinite_count: Optional[torch.Tensor] = None, *, clip_norm: Optional[float],
              zero_nonfinite: bool, b1: float, b2: float, eps: float, wd: float,
              g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None
@@ -425,6 +491,18 @@ class _AdamWKernel:
 adamw_kernel = _AdamWKernel()
 
 
+def _lr_bc_device(lr_bc, dev: torch.device) -> Optional[torch.Tensor]:
+    """``lr_bc`` when it is a tensor (checked: 3 contiguous f32 on ``dev``),
+    else None (floats, written into the pinned copy)."""
+    if not isinstance(lr_bc, torch.Tensor):
+        return None
+    if (lr_bc.shape != (3,) or lr_bc.dtype != torch.float32 or lr_bc.device != dev
+            or not lr_bc.is_contiguous()):
+        raise ValueError(f'lr_bc must be 3 contiguous float32 on {dev}, got '
+                         f'{tuple(lr_bc.shape)} {lr_bc.dtype} {lr_bc.device}')
+    return lr_bc
+
+
 def _device_type(params) -> str:
     if not params:
         raise ValueError('adamw needs at least one parameter leaf')
@@ -448,7 +526,7 @@ def adamw_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
 
 def adamw_tail(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
-               lr_bc: Sequence[float], nonfinite_count: Optional[torch.Tensor] = None, *,
+               lr_bc, nonfinite_count: Optional[torch.Tensor] = None, *,
                clip_norm: Optional[float], zero_nonfinite: bool, b1: float, b2: float,
                eps: float, wd: float, g_norm: Optional[torch.Tensor] = None,
                reduce: Optional[NormReduce] = None

@@ -10,16 +10,25 @@ dispatcher ``attention``.  Layout is the JAX package's: (B, H, T, D).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its
 plain PyTorch version (``*_reference``) for a CPU tensor; there is no
-fallback from one to the other.  Kernel #1 is also the registered op
-``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``), which the forward calls
-while ``torch.export`` traces it, so an exported program keeps the kernel as
-one node (``models/export_artifact.py``).
+fallback from one to the other.
+
+A dropout seed is a non-negative int32: a Python int, or a 0-d int32 tensor
+on q's device -- a slot of a training step's tape (``train/dispatch.py``),
+which kernels #1-#4 read from device memory (``seed_dev``), so a CUDA graph
+replaying the launch takes each step's seed without a host value in the
+launch; the plain versions hash the tensor's value, with the int's bits.
+
+Kernel #1 is also the registered op ``ecg_tpu_torch::flash_fwd``
+(``flash_fwd_op``), which the forward calls while ``torch.export`` traces
+it, so an exported program keeps the kernel as one node
+(``models/export_artifact.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -39,6 +48,12 @@ _DROPOUT_RES = 1 << 24
 _U32 = 0xFFFFFFFF
 
 
+def raw_bits(shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Raw 32-bit draws (int64) for the plain attention path's dropout."""
+    return torch.randint(0, 1 << 32, shape, dtype=torch.int64, generator=generator,
+                         device=device)
+
+
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32): split ``c`` in 16-bit
     halves so no int64 product overflows."""
@@ -56,7 +71,8 @@ def dropout_keep(seed, bh, qpos, kpos, rate: float) -> torch.Tensor:
     to the JAX ``dropout_keep``: a lowbias32-style mixer over (seed,
     batch*head index, query position, key position) in uint32 arithmetic,
     carried in int64 with every product and sum reduced mod 2^32.  The
-    arguments broadcast; ``seed`` is a non-negative int32."""
+    arguments broadcast; ``seed`` is a non-negative int32, as an int or a
+    0-d integer tensor."""
     def u32(x):
         return torch.as_tensor(x, dtype=torch.int64) & _U32
     h = (_mul32(u32(seed), 0x9E3779B9) + _mul32(u32(bh), 0x85EBCA6B)
@@ -181,11 +197,19 @@ def flash_backward_recompute(q, k, v, g, seed: int = 0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_qkv(name: str, q, others, seed: int, dropout_rate: float,
+def _seed_arg(seed):
+    """A seed as the kernels and plain versions take it: a tensor as it is
+    (its value stays on the device), anything else as an int."""
+    return seed if isinstance(seed, torch.Tensor) else int(seed)
+
+
+def _check_qkv(name: str, q, others, seed, dropout_rate: float,
                device_type: str = 'cuda', bh_offset: int = 0):
     """The input checks shared by the kernel wrappers: ``others`` (name,
     tensor) must match q; q is (B, H, T, D) f32 or bf16 with D <= 128, all
-    contiguous tensors on a ``device_type`` device."""
+    contiguous tensors on a ``device_type`` device.  A tensor seed is one
+    int32 on q's device; its range is checked where the tape is filled
+    (reading it here would wait for the device)."""
     for other, x in others:
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
@@ -202,7 +226,11 @@ def _check_qkv(name: str, q, others, seed: int, dropout_rate: float,
                          f'got {tuple(q.shape)}')
     if not all(x.is_contiguous() for x in [q] + [x for _, x in others]):
         raise ValueError(f'{name} kernel needs contiguous inputs')
-    if not (0 <= seed < 2 ** 31):
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int32 or seed.device != q.device:
+            raise ValueError(f'a tensor dropout seed must be one int32 on {q.device}, got '
+                             f'{tuple(seed.shape)} {seed.dtype} {seed.device}')
+    elif not (0 <= seed < 2 ** 31):
         raise ValueError(f'dropout seed must be a non-negative int32, got {seed}')
     if not (0 <= bh_offset < 2 ** 31):
         raise ValueError(f'bh_offset must be a non-negative int32, got {bh_offset}')
@@ -225,6 +253,13 @@ def _check_rows(q, **rows):
 def _dropout_args(dropout_rate: float):
     return (int(dropout_rate > 0.0), _dropout_threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate))
+
+
+def _seed_args(seed):
+    """(seed, seed_dev) of a launch: an int by value, a tensor by address."""
+    if isinstance(seed, torch.Tensor):
+        return 0, seed.data_ptr()
+    return seed, None
 
 
 class _Binding:
@@ -250,11 +285,11 @@ class _Binding:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, bh_offset,
+# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, seed_dev, bh_offset,
 #           use_dropout, thresh, inv_keep, stream)
-_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _I, _F, _P]
+_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
 # flash_bwd_dq(q, k, v, do, lse, delta, dq, ...) / flash_bwd_dkv(..., dk, dv, ...)
-_BWD_TAIL = [_I] * 4 + [_F, _I, _I, _I, _I, _F, _P]
+_BWD_TAIL = [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
 
 
 class _FlashForward(_Binding):
@@ -265,8 +300,9 @@ class _FlashForward(_Binding):
         super().__init__('flash_fwd', 'flash_fwd', _FWD_ARGS)
         self.with_lse = with_lse
 
-    def __call__(self, q, k, v, seed: int, scale: float, dropout_rate: float,
+    def __call__(self, q, k, v, seed, scale: float, dropout_rate: float,
                  bh_offset: int = 0):
+        """``seed``: an int, or one int32 on the device (read by the kernel)."""
         _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate, bh_offset=bh_offset)
         b, h, t, d = q.shape
         out = torch.empty_like(q)
@@ -274,7 +310,7 @@ class _FlashForward(_Binding):
                if self.with_lse else None)
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(), b * h, t, d,
-                     int(q.dtype == torch.bfloat16), scale, seed, bh_offset,
+                     int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
                      *_dropout_args(dropout_rate))
         return (out, lse) if self.with_lse else out
 
@@ -287,7 +323,7 @@ class _FlashBackward(_Binding):
         super().__init__('flash_bwd', fn, [_P] * (6 + n_out) + _BWD_TAIL)
         self.n_out = n_out
 
-    def __call__(self, q, k, v, do, lse, delta, seed: int, scale: float,
+    def __call__(self, q, k, v, do, lse, delta, seed, scale: float,
                  dropout_rate: float, bh_offset: int = 0):
         _check_qkv('flash backward', q, [('k', k), ('v', v), ('do', do)], seed,
                    dropout_rate, bh_offset=bh_offset)
@@ -296,8 +332,8 @@ class _FlashBackward(_Binding):
         outs = [torch.empty_like(q) for _ in range(self.n_out)]
         self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-                     b * h, t, d, int(q.dtype == torch.bfloat16), scale, seed, bh_offset,
-                     *_dropout_args(dropout_rate))
+                     b * h, t, d, int(q.dtype == torch.bfloat16), scale, *_seed_args(seed),
+                     bh_offset, *_dropout_args(dropout_rate))
         return outs[0] if self.n_out == 1 else tuple(outs)
 
 
@@ -349,9 +385,9 @@ def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = Non
     ``return_lse`` also the row log-sum-exp (B, H, T) f32.
 
     ``scale`` defaults to 1/sqrt(D).  ``dropout_rate`` > 0 drops attention
-    probabilities with the hashed keep mask of ``seed`` (head bh hashing
-    ``bh_offset + bh``).  A CUDA tensor runs the kernel (#1, or #2 for the
-    lse); a CPU tensor the plain version.
+    probabilities with the hashed keep mask of ``seed`` (an int or a 0-d
+    int32 tensor; head bh hashing ``bh_offset + bh``).  A CUDA tensor runs
+    the kernel (#1, or #2 for the lse); a CPU tensor the plain version.
     Under ``torch.export`` the forward without lse is the op
     ``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``); eager calls use the
     binding directly and skip the dispatcher."""
@@ -359,7 +395,7 @@ def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = Non
     if not return_lse and torch.compiler.is_exporting():
         return flash_fwd_op(q, k, v, int(seed), scale, float(dropout_rate))
     kernel = flash_fwd_lse_kernel if return_lse else flash_fwd_kernel
-    return _on(q, lambda: kernel(q, k, v, int(seed), scale, float(dropout_rate),
+    return _on(q, lambda: kernel(q, k, v, _seed_arg(seed), scale, float(dropout_rate),
                                  int(bh_offset)),
                lambda: flash_attention_forward_reference(
                    q, k, v, seed, scale, dropout_rate, return_lse, bh_offset))
@@ -381,7 +417,8 @@ def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
     delta = (g.float() * out).sum(-1)
 
     def cuda():
-        args = (q, k, v, g, lse, delta, int(seed), scale, float(dropout_rate), int(bh_offset))
+        args = (q, k, v, g, lse, delta, _seed_arg(seed), scale, float(dropout_rate),
+                int(bh_offset))
         return (flash_bwd_dq_kernel(*args), *flash_bwd_dkv_kernel(*args))
     return _on(q, cuda, lambda: flash_backward_blocked_reference(
         q, k, v, g, lse, delta, seed, scale, dropout_rate, bh_offset))
@@ -427,7 +464,7 @@ def flash_attention(q, k, v, seed: int = 0, scale: Optional[float] = None,
     ``bh_offset + bh``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, int(seed), _scale(q, scale),
+        return FlashAttention.apply(q, k, v, _seed_arg(seed), _scale(q, scale),
                                     float(dropout_rate), int(bh_offset))
     return flash_attention_forward(q, k, v, seed, scale, dropout_rate, bh_offset=bh_offset)
 
@@ -483,16 +520,19 @@ def flash_attention_sharded(q, k, v, mesh, batch_axis: str = 'data',
 
 
 def attention(q, k, v, dropout_rate: float = 0.0, deterministic: bool = True,
-              seed: int = 0, use_flash: bool = True, min_seq: int = 0,
+              seed=0, use_flash: bool = True, min_seq: int = 0,
               generator: Optional[torch.Generator] = None,
-              bh_offset: int = 0) -> torch.Tensor:
+              bh_offset: int = 0,
+              draw_bits: Optional[Callable[[torch.Size, torch.device], torch.Tensor]] = None
+              ) -> torch.Tensor:
     """Dispatch: flash attention whenever flash is enabled and
     T >= ``min_seq`` (with the hashed dropout mask of ``seed`` when dropout
     is active, head bh hashing ``bh_offset + bh``: a data-parallel rank's
     rows take the global batch's masks), through
     :func:`flash_attention_sharded` inside :class:`flash_tp_context`;
     otherwise plain attention.  Its dropout, as in JAX, compares
-    raw 32-bit draws from ``generator`` (on q's device) against
+    raw 32-bit draws from ``generator`` (on q's device; or, when given,
+    ``draw_bits(shape, device)``, as a ``DropoutRng`` draws them) against
     round((1 - rate) * (2^32 - 1)) and multiplies after the cast to v's
     dtype."""
     active = (not deterministic) and dropout_rate > 0.0
@@ -508,10 +548,11 @@ def attention(q, k, v, dropout_rate: float = 0.0, deterministic: bool = True,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     if active:
-        if generator is None:
-            raise ValueError('dropout on the plain attention path needs a generator')
-        bits = torch.randint(0, 1 << 32, probs.shape, dtype=torch.int64,
-                             generator=generator, device=probs.device)
+        if draw_bits is None:
+            if generator is None:
+                raise ValueError('dropout on the plain attention path needs a generator')
+            draw_bits = functools.partial(raw_bits, generator=generator)
+        bits = draw_bits(probs.shape, probs.device)
         thresh = round((1.0 - dropout_rate) * float(_U32))
         probs = probs * (bits < thresh).to(v.dtype) / (1.0 - dropout_rate)
     return torch.matmul(probs, v)

@@ -25,7 +25,10 @@
 // finite, and count_out = count_in + !isfinite(norm).  The partials' order
 // does not depend on which block finishes last, so two runs give the same
 // bits.  lr, bc1 and bc2 arrive in scalars[1..3], and the address of every
-// leaf's gradient in gptrs, by one pinned H2D copy on the stream before it.
+// leaf's gradient in gptrs, by one pinned H2D copy on the stream before it;
+// or lr, bc1 and bc2 sit in device memory (a training step's tape) and the
+// finishing thread copies them into scalars[1..3], so a CUDA graph replaying
+// the launches takes each step's values and holds no host copy of them.
 // With a norm given by the caller, launch 1 is one thread that only writes
 // the scalars (adamw_scalars_kernel).
 //
@@ -104,6 +107,7 @@ struct Tail {
   float clip;
   int has_clip, zero_nonfinite;
   float* scalars;        // [scale, lr, bc1, bc2, finite]; 0 and 4 written here
+  const float* lr_bc;    // null, or [lr, bc1, bc2] copied into scalars[1..3] here
   float* norm_out;       // may be null
   const int* count_in;   // both null, or both set
   int* count_out;
@@ -300,6 +304,11 @@ __device__ __forceinline__ void finish(float norm, const Tail& t) {
   clip_scalars(norm, t, scale, flag);
   t.scalars[0] = scale;
   t.scalars[4] = flag;
+  if (t.lr_bc) {
+    t.scalars[1] = t.lr_bc[0];
+    t.scalars[2] = t.lr_bc[1];
+    t.scalars[3] = t.lr_bc[2];
+  }
   if (t.norm_out) *t.norm_out = norm;
   if (t.count_out) *t.count_out = *t.count_in + (isfinite(norm) ? 0 : 1);
 }
@@ -441,18 +450,19 @@ extern "C" int adamw_norm_rows() { return kNormRows; }
 // between launches.
 // given_norm: null to take the norm of every block's g, else one f32 on the
 // device (then blocks, gptrs, partials and ticket are not read).  scalars: 5
-// f32 on the device, of which 0 and 4 are written.  norm_out (f32), count_in
+// f32 on the device, of which 0 and 4 are written.  lr_bc: null, or 3 f32 on
+// the device that are copied into scalars[1..3].  norm_out (f32), count_in
 // and count_out (int32) may be null.  leaf_weight: null, or one f64 per leaf
 // on the device; then the weighted sum of squares goes to sum_out (one f64
 // on the device) and nothing else is written.  Returns cudaGetLastError().
 extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, void* partials,
                           void* ticket, const void* given_norm, float clip, int has_clip,
-                          int zero_nonfinite, void* scalars, void* norm_out,
-                          const void* count_in, void* count_out, const void* leaf_weight,
-                          void* sum_out, void* stream) {
+                          int zero_nonfinite, void* scalars, const void* lr_bc,
+                          void* norm_out, const void* count_in, void* count_out,
+                          const void* leaf_weight, void* sum_out, void* stream) {
   const Tail t{clip, has_clip, zero_nonfinite, static_cast<float*>(scalars),
-               static_cast<float*>(norm_out), static_cast<const int*>(count_in),
-               static_cast<int*>(count_out)};
+               static_cast<const float*>(lr_bc), static_cast<float*>(norm_out),
+               static_cast<const int*>(count_in), static_cast<int*>(count_out)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (given_norm) {
     adamw_scalars_kernel<<<1, 1, 0, s>>>(static_cast<const float*>(given_norm), t);
@@ -492,7 +502,7 @@ extern "C" int adamw_update(const void* blocks, const void* gptrs, int n_blocks,
                             const void* count_in, void* count_out, void* stream) {
   if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{b1, one_minus_b1, b2, one_minus_b2, eps, wd};
-  const Tail t{clip, has_clip, zero_nonfinite, nullptr, static_cast<float*>(norm_out),
+  const Tail t{clip, has_clip, zero_nonfinite, nullptr, nullptr, static_cast<float*>(norm_out),
                static_cast<const int*>(count_in), static_cast<int*>(count_out)};
   const auto* su = static_cast<const double*>(sum);
   const auto* bl = static_cast<const Block*>(blocks);

@@ -94,14 +94,16 @@ struct Params {
   int t, d;
   float scale;
   uint32_t seed;
+  const int* seed_dev;                    // non-null: read the seed here (kernel_seed)
   uint32_t bh_offset;                     // added to bh in the dropout hash
   int use_dropout;
   uint32_t thresh;
   float inv_keep;
 };
 
-__device__ __forceinline__ bool kept(const Params& p, int bh, int qpos, int kpos) {
-  return (dropout_hash(p.seed, p.bh_offset + bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
+__device__ __forceinline__ bool kept(const Params& p, uint32_t seed, int bh, int qpos,
+                                     int kpos) {
+  return (dropout_hash(seed, p.bh_offset + bh, qpos, kpos) & 0xFFFFFFu) >= p.thresh;
 }
 
 // 4-byte global -> shared copy; src_bytes 0 writes a zero and reads nothing
@@ -182,6 +184,7 @@ bwd_dq_bf16(const Params p) {
   bf16* kv_s = do_s + BQ * DP;
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + BQ - 1) / BQ;
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * BQ;
@@ -273,7 +276,7 @@ bwd_dq_bf16(const Params p) {
           const int i = 8 * kk + 2 * a + e;
           float dpv = dp[i];
           if (p.use_dropout)
-            dpv = kept(p, bh, row0 + 8 * (a & 1), k0 + (i >> 2) * 8 + 2 * tq + e)
+            dpv = kept(p, seed, bh, row0 + 8 * (a & 1), k0 + (i >> 2) * 8 + 2 * tq + e)
                       ? dpv * p.inv_keep : 0.f;
           ds[e] = s[i] * (dpv - dl[a & 1]);
         }
@@ -318,6 +321,7 @@ bwd_dkv_bf16(const Params p) {
   bf16* qd_s = v_s + BK * DP;
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_ktiles = (t + BK - 1) / BK;
   const int bh = blockIdx.x / n_ktiles;
   const int k0 = (blockIdx.x % n_ktiles) * BK;
@@ -410,7 +414,7 @@ bwd_dkv_bf16(const Params p) {
           float dpv = dp[i];
           pe[e] = s[i];
           if (p.use_dropout) {
-            const bool keep = kept(p, bh, q0 + c, key0 + 8 * (a & 1));
+            const bool keep = kept(p, seed, bh, q0 + c, key0 + 8 * (a & 1));
             pe[e] = keep ? s[i] * p.inv_keep : 0.f;
             dpv = keep ? dpv * p.inv_keep : 0.f;
           }
@@ -527,6 +531,7 @@ bwd_dq_f32(const Params p) {
   float* kv_s = ds_s + R * kPPitch;
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + R - 1) / R;
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * R;
@@ -583,7 +588,7 @@ bwd_dq_f32(const Params p) {
         const int kpos = k0 + tx + 16 * jj;
         const float pr = kpos < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl[i])) : 0.f;
         float dpv = dp[i][jj];
-        if (p.use_dropout) dpv = kept(p, bh, q0 + ty + 16 * i, kpos) ? dpv * p.inv_keep : 0.f;
+        if (p.use_dropout) dpv = kept(p, seed, bh, q0 + ty + 16 * i, kpos) ? dpv * p.inv_keep : 0.f;
         ds_s[(ty + 16 * i) * kPPitch + tx + 16 * jj] = pr * (dpv - dl[i]);
       }
     __syncthreads();
@@ -628,6 +633,7 @@ bwd_dkv_f32(const Params p) {
   float* qd_s = ds_s + R * kPPitch;
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_ktiles = (t + R - 1) / R;
   const int bh = blockIdx.x / n_ktiles;
   const int k0 = (blockIdx.x % n_ktiles) * R;
@@ -685,7 +691,7 @@ bwd_dkv_f32(const Params p) {
         const float pr = q0 + c < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl)) : 0.f;
         float pe = pr, dpv = dp[i][jj];
         if (p.use_dropout) {
-          const bool keep = kept(p, bh, q0 + c, k0 + ty + 16 * i);
+          const bool keep = kept(p, seed, bh, q0 + c, k0 + ty + 16 * i);
           pe = keep ? pr * p.inv_keep : 0.f;
           dpv = keep ? dpv * p.inv_keep : 0.f;
         }
@@ -795,7 +801,7 @@ cudaError_t run(int bh, int is_bf16, bool want_dq, const Params& p, cudaStream_t
 int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool want_dq,
              void* stream) {
   const long long n_tiles = (p.t + kBlock - 1) / kBlock;
-  if (bh < 1 || p.t < 1 || p.d < 1 || p.d > 128 || seed < 0 || thresh < 0 ||
+  if (bh < 1 || p.t < 1 || p.d < 1 || p.d > 128 || (!p.seed_dev && seed < 0) || thresh < 0 ||
       static_cast<long long>(bh) * n_tiles > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -824,29 +830,31 @@ int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool wa
 
 // q, k, v, dout (the output's cotangent) and the outputs: contiguous (bh, t, d)
 // arrays on the device, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1);
-// 1 <= d <= 128.  lse and delta: contiguous (bh, t) f32.  seed >= 0; thresh
+// 1 <= d <= 128.  lse and delta: contiguous (bh, t) f32.  seed >= 0, or seed_dev
+// the address of an int32 seed on the device, read by the kernel instead; thresh
 // and inv_keep are dropout_keep's threshold on the low 24 hash bits and
 // 1/(1-rate); the masks hash bh_offset + bh, as the forward's.  Each launches
 // on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int t,
-                            int d, int is_bf16, float scale, int seed, int bh_offset,
-                            int use_dropout, int thresh, float inv_keep, void* stream) {
+                            int d, int is_bf16, float scale, int seed, const void* seed_dev,
+                            int bh_offset, int use_dropout, int thresh, float inv_keep,
+                            void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                  dq, nullptr, nullptr, t, d, scale, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(bh_offset), use_dropout, static_cast<uint32_t>(thresh),
-                 inv_keep};
+                 static_cast<const int*>(seed_dev), static_cast<uint32_t>(bh_offset),
+                 use_dropout, static_cast<uint32_t>(thresh), inv_keep};
   return dispatch(p, bh, is_bf16, seed, thresh, true, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int t, int d, int is_bf16, float scale, int seed,
-                             int bh_offset, int use_dropout, int thresh, float inv_keep,
-                             void* stream) {
+                             const void* seed_dev, int bh_offset, int use_dropout,
+                             int thresh, float inv_keep, void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                  nullptr, dk, dv, t, d, scale, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(bh_offset), use_dropout, static_cast<uint32_t>(thresh),
-                 inv_keep};
+                 static_cast<const int*>(seed_dev), static_cast<uint32_t>(bh_offset),
+                 use_dropout, static_cast<uint32_t>(thresh), inv_keep};
   return dispatch(p, bh, is_bf16, seed, thresh, false, stream);
 }

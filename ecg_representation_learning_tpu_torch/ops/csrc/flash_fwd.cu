@@ -73,6 +73,7 @@ struct Params {
   int t, d;
   float scale;
   uint32_t seed;
+  const int* seed_dev;                    // non-null: read the seed here (kernel_seed)
   uint32_t bh_offset;                     // added to bh in the dropout hash
   int use_dropout;
   uint32_t thresh;
@@ -80,9 +81,9 @@ struct Params {
 };
 
 // p after dropout (kept entries scaled by inv_keep); l has summed the raw p
-__device__ __forceinline__ float drop(const Params& p, float x, int bh, int qpos,
-                                      int kpos) {
-  const uint32_t hash = dropout_hash(p.seed, p.bh_offset + bh, qpos, kpos);
+__device__ __forceinline__ float drop(const Params& p, uint32_t seed, float x, int bh,
+                                      int qpos, int kpos) {
+  const uint32_t hash = dropout_hash(seed, p.bh_offset + bh, qpos, kpos);
   const bool keep = (hash & 0xFFFFFFu) >= p.thresh;
   return keep ? x * p.inv_keep : 0.f;
 }
@@ -107,6 +108,7 @@ flash_fwd_bf16(const Params p) {
   bf16* v_s = k_s + 2 * kBlockK * DP;               // [2][kBlockK][DP]
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + BQ - 1) / BQ;
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * BQ;
@@ -191,7 +193,8 @@ flash_fwd_bf16(const Params p) {
       const int h = (i >> 1) & 1;
       float x = exp2_ftz(fmaf(s[i], kLog2e, neg[h]));
       l[h] += x;                          // the normalizer sums the raw p
-      if (p.use_dropout) x = drop(p, x, bh, row0 + 8 * h, k0 + (i >> 2) * 8 + 2 * tq + (i & 1));
+      if (p.use_dropout)
+        x = drop(p, seed, x, bh, row0 + 8 * h, k0 + (i >> 2) * 8 + 2 * tq + (i & 1));
       s[i] = x;
     }
 
@@ -292,6 +295,7 @@ flash_fwd_f32(const Params p) {
   float* p_s = v_s + 2 * kBlockK * DP;              // [64][kPPitch]
 
   const int t = p.t, d = p.d;
+  const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + kF32Rows - 1) / kF32Rows;
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * kF32Rows;
@@ -387,7 +391,7 @@ flash_fwd_f32(const Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         float x = exp2_ftz(fmaf(s[i][jj], kLog2e, neg));
         l[i] += x;                        // the normalizer sums the raw p
-        if (p.use_dropout) x = drop(p, x, bh, q0 + ty + 16 * i, k0 + tx + 16 * jj);
+        if (p.use_dropout) x = drop(p, seed, x, bh, q0 + ty + 16 * i, k0 + tx + 16 * jj);
         p_s[(ty + 16 * i) * kPPitch + tx + 16 * jj] = x;
       }
     }
@@ -488,22 +492,25 @@ cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
 
 // q, k, v, o: contiguous (bh, t, d) arrays on the device, all f32 (is_bf16 = 0)
 // or all bf16 (is_bf16 = 1); 1 <= d <= 128.  lse: null, or a contiguous
-// (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0; thresh and inv_keep
-// are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate); the mask
+// (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0, or seed_dev
+// the address of an int32 seed on the device, which the kernel reads instead
+// (a CUDA graph then replays the launch with whatever seed is there); thresh
+// and inv_keep are dropout_keep's threshold on the low 24 hash bits and 1/(1-rate); the mask
 // of the launch's head bh hashes bh_offset + bh (mod 2^32), so a rank holding
 // rows of a larger batch draws that batch's masks.
 // Launches on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int t, int d, int is_bf16, float scale, int seed,
-                         int bh_offset, int use_dropout, int thresh, float inv_keep,
-                         void* stream) {
+                         const void* seed_dev, int bh_offset, int use_dropout, int thresh,
+                         float inv_keep, void* stream) {
   const long long n_qtiles = (t + kBlockK - 1) / kBlockK;
-  if (bh < 1 || t < 1 || d < 1 || d > 128 || seed < 0 || thresh < 0 ||
+  if (bh < 1 || t < 1 || d < 1 || d > 128 || (!seed_dev && seed < 0) || thresh < 0 ||
       static_cast<long long>(bh) * n_qtiles > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{q, k, v, o, static_cast<float*>(lse), t, d, scale,
-                 static_cast<uint32_t>(seed), static_cast<uint32_t>(bh_offset), use_dropout,
+                 static_cast<uint32_t>(seed), static_cast<const int*>(seed_dev),
+                 static_cast<uint32_t>(bh_offset), use_dropout,
                  static_cast<uint32_t>(thresh), inv_keep};
   // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
   // aligned arrays; anything else takes the kernels' scalar-load branch

@@ -36,6 +36,15 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t seed, uint32_t bh,
   return h;
 }
 
+// The dropout seed of a launch: read from device memory when seed_dev is set
+// (a training step's tape, so that a CUDA graph replaying the launch reads the
+// step's new seed), else the value passed.  Read once, at the kernel's start,
+// and only when dropout is on.
+__device__ __forceinline__ uint32_t kernel_seed(int use_dropout, uint32_t seed,
+                                                const int* seed_dev) {
+  return (use_dropout && seed_dev) ? static_cast<uint32_t>(*seed_dev) : seed;
+}
+
 // 2^x on the special-function unit (2 ulp, as exp2f); results below 2^-126
 // flush to 0, which no sum or product of p here can see
 __device__ __forceinline__ float exp2_ftz(float x) {

@@ -16,7 +16,11 @@ sites of its ``models/vit.py``.  ``VitConfig.dropout_impl`` picks the mask:
 A training forward draws its randomness from a :class:`DropoutRng`: 31-bit
 seeds for the hashed masks (this module's and the attention kernel's) from a
 host generator, so drawing one never waits for the device, and Bernoulli
-masks from a generator on the activations' device.
+masks from a generator on the activations' device.  A step run from a tape
+(``train/dispatch.py``: several steps, or a CUDA graph, per dispatch) takes
+its seeds from the tape instead: ``DropoutRng.tape`` holds the step's seeds,
+drawn ahead from the same host generator in the same order, as 0-d int32
+tensors on the device (or ints), and ``seed()`` hands them out in turn.
 
 On a mesh (``parallel/``) a rank holds a slice of each activation.  A hashed
 mask is a function of the element's index in the GLOBAL array, so a rank
@@ -28,14 +32,15 @@ distribution only); every rank of one model group draws the same ones.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from .attention import dropout_keep
+from .attention import dropout_keep, raw_bits
 
 
 @dataclasses.dataclass
@@ -43,19 +48,66 @@ class DropoutRng:
     """The generators of one training forward: ``host`` (CPU) for seeds,
     ``device`` (on the activations' device) for masks, raw bits and the
     draws made for the whole batch; ``mask``, when set (a mesh with more
-    than one data rank), for Bernoulli masks and raw bits instead."""
+    than one data rank), for Bernoulli masks and raw bits instead.
+
+    ``tape``, while set, is the running step's seeds (a 1-D int32 tensor on
+    the device, or a list of ints) and ``cursor`` the next one to hand out.
+    ``saved`` and ``replay`` serve a remat block under a tape
+    (``models/vit._replaying``): the block's first run appends each mask and
+    raw-bit draw to ``saved``, and its recompute takes them back in order
+    from index ``replay``, since a generator's state cannot be read or set
+    inside a CUDA graph capture."""
     host: torch.Generator
     device: torch.Generator
     mask: Optional[torch.Generator] = None
+    tape: Optional[Sequence] = dataclasses.field(default=None, repr=False)
+    cursor: int = 0
+    saved: Optional[List[torch.Tensor]] = dataclasses.field(default=None, repr=False)
+    replay: Optional[int] = None
 
     @property
     def masks(self) -> torch.Generator:
         """The generator of Bernoulli masks and raw dropout bits."""
         return self.device if self.mask is None else self.mask
 
-    def seed(self) -> int:
-        """A non-negative 31-bit seed (the JAX ``bits >> 1``)."""
+    @contextlib.contextmanager
+    def taped(self, seeds: Sequence):
+        """``seed()`` hands out ``seeds`` in turn for the duration (a step of
+        a step tape), and the step must take every one of them."""
+        self.tape, self.cursor = seeds, 0
+        try:
+            yield
+        finally:
+            self.tape = None
+        if self.cursor != len(seeds):
+            raise RuntimeError(f'a step took {self.cursor} dropout seeds, the tape holds '
+                               f'{len(seeds)}')
+
+    def seed(self):
+        """A non-negative 31-bit seed (the JAX ``bits >> 1``): an int from
+        the host generator, or the tape's next slot."""
+        if self.tape is not None:
+            self.cursor += 1
+            return self.tape[self.cursor - 1]
         return int(torch.randint(0, 1 << 31, (1,), generator=self.host))
+
+    def _draw(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        if self.replay is not None:
+            self.replay += 1
+            return self.saved[self.replay - 1]
+        out = fn()
+        if self.saved is not None:
+            self.saved.append(out)
+        return out
+
+    def bernoulli(self, shape, p: float, device) -> torch.Tensor:
+        """A Bernoulli(p) mask of ``shape`` as f32 0/1, from ``masks``."""
+        return self._draw(lambda: torch.empty(shape, device=device).bernoulli_(
+            p, generator=self.masks))
+
+    def bits(self, shape, device) -> torch.Tensor:
+        """Raw 32-bit draws (int64) of ``shape``, from ``masks``."""
+        return self._draw(lambda: raw_bits(shape, device, generator=self.masks))
 
 
 Frame = Optional[Dict[int, Tuple[int, int]]]
@@ -80,11 +132,12 @@ def flat_index(shape, frame: Frame, device) -> torch.Tensor:
     return idx.expand(*shape)
 
 
-def _masked(x: torch.Tensor, seed: int, rate: float, salt: int,
+def _masked(x: torch.Tensor, seed, rate: float, salt: int,
             frame: Frame = None) -> torch.Tensor:
     idx = flat_index(tuple(x.shape), frame, x.device)
     keep = dropout_keep(seed, salt, idx, 0, rate)
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    # a fill, not a host copy, so that a CUDA graph can capture it
+    scale = torch.full((), 1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return x * (keep.to(x.dtype) * scale)
 
 
@@ -103,10 +156,11 @@ class _HashMul(torch.autograd.Function):
         return _masked(g, *ctx.args), None, None, None, None
 
 
-def hash_mul(x: torch.Tensor, seed: int, rate: float, salt: int,
+def hash_mul(x: torch.Tensor, seed, rate: float, salt: int,
              frame: Frame = None) -> torch.Tensor:
-    """The counter-hash dropout of ``x`` (the JAX ``_hash_mul``); ``frame``
-    places ``x`` in a global array (see :func:`flat_index`)."""
+    """The counter-hash dropout of ``x`` (the JAX ``_hash_mul``); ``seed`` is
+    an int or a 0-d int32 tensor; ``frame`` places ``x`` in a global array
+    (see :func:`flat_index`)."""
     return _HashMul.apply(x, seed, rate, salt, frame)
 
 
@@ -135,8 +189,7 @@ class BernoulliDropout(nn.Module):
         """``frame`` is not used: a Bernoulli mask has no index."""
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(
-            1.0 - self.rate, generator=rng.masks)
+        keep = rng.bernoulli(x.shape, 1.0 - self.rate, x.device)
         return torch.where(keep.bool(), x / (1.0 - self.rate), 0.0)
 
 

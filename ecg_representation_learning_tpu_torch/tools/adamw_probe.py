@@ -348,7 +348,7 @@ def design_rows(out: List[dict]) -> None:
         lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                                    + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_int,
                                                               ctypes.c_int]
-                                   + [ctypes.c_void_p] * 7)
+                                   + [ctypes.c_void_p] * 8)
         rows = adamw.block_table(ptrs, sizes, 4, lib.adamw_chunk_elems())
         blocks = torch.from_numpy(rows).cuda()
         parts = torch.empty(-(-len(rows) // lib.adamw_norm_rows()), dtype=torch.float64,
@@ -359,7 +359,7 @@ def design_rows(out: List[dict]) -> None:
             1.0 - b2, HYPER['eps'], HYPER['wd'], None, 0.0, 0, 0, None, None, None, stream))
         norm = (lambda lib=lib, blocks=blocks, n=len(rows), parts=parts, ticket=ticket:
                 lib.adamw_norm(blocks.data_ptr(), gptrs.data_ptr(), n, parts.data_ptr(),
-                               ticket.data_ptr(), None, 1.0, 1, 1, ws.data_ptr(),
+                               ticket.data_ptr(), None, 1.0, 1, 1, ws.data_ptr(), None,
                                ws[5:].data_ptr(), None, None, None, None, stream))
         calls[name] = (update, norm, blocks, parts, ticket)
         norm()

@@ -59,7 +59,7 @@ def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
 def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: FusedAdamWState,
                   params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                   nonfinite_count: torch.Tensor, ema: Dict[str, torch.Tensor] = None,
-                  reduce: Optional[NormReduce] = None
+                  reduce: Optional[NormReduce] = None, scalars: Optional[torch.Tensor] = None
                   ) -> Tuple[FusedAdamWState, torch.Tensor, torch.Tensor]:
     """The update tail.  Returns ``(opt_state, grad_norm, nonfinite_count)``;
     ``params`` (and ``ema`` when ``cfg.ema_decay > 0``) change in place.
@@ -71,10 +71,14 @@ def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: Fused
     counter and update, on the GPU two kernel launches), or here before the
     optax chain (whose clip then sees a norm of 0, the norm of the zeroed
     gradients).  ``reduce`` (on a mesh): the norm is the mesh-wide one, so
-    every rank clips by it and zeroes the same steps."""
+    every rank clips by it and zeroes the same steps.  ``scalars``: the
+    step's [lr, bc1, bc2, -lr] as 4 f32 on the device (a step tape's row,
+    ``train/dispatch.py``), which the optimizers read in place of the values
+    they would make from the count."""
     if isinstance(optimizer, FusedAdamW):
-        opt_state, grad_norm, nonfinite_count = optimizer.step(grads, opt_state, params,
-                                                               nonfinite_count, reduce=reduce)
+        opt_state, grad_norm, nonfinite_count = optimizer.step(
+            grads, opt_state, params, nonfinite_count, reduce=reduce,
+            lr_bc=None if scalars is None else scalars[:3])
     else:
         grad_norm = (global_norm(list(grads.values())) if reduce is None
                      else mesh_norm_reference([grads[k] for k in params], reduce))
@@ -87,7 +91,8 @@ def finish_update(optimizer: Union[FusedAdamW, AdamChain], cfg, opt_state: Fused
                                                                device=g.device))
                          for k, g in grads.items()}
             clip_norm = torch.where(finite, grad_norm, 0.0)
-        opt_state = optimizer.apply(grads, opt_state, params, g_norm=clip_norm)
+        opt_state = optimizer.apply(grads, opt_state, params, g_norm=clip_norm,
+                                    scalars=None if scalars is None else scalars[1:])
     if cfg.ema_decay > 0:   # e * d + p * (1 - d), d and 1 - d in f32 as in JAX
         d = np.float32(cfg.ema_decay)
         e, p = list(ema.values()), [params[k] for k in ema]

@@ -11,7 +11,9 @@ global gradient norm, the clip and non-finite select folded into the scalars
 ``[scale, lr, bc1, bc2, finite]`` on the device, the non-finite counter and
 the update of every leaf in place -- on the GPU two kernel launches of
 ``ops/csrc/adamw.cu`` and one pinned copy of [lr, bc1, bc2] and the
-gradients' addresses.  Nothing in a step waits for the device.
+gradients' addresses.  Nothing in a step waits for the device.  A step run
+from a tape (``train/dispatch.py``) hands both optimizers its scalars as a
+device row instead, so a CUDA graph of the step reads each step's values.
 """
 from __future__ import annotations
 
@@ -85,18 +87,22 @@ class FusedAdamW:
 
     def step(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
              params: Dict[str, torch.Tensor], nonfinite_count: Optional[torch.Tensor] = None,
-             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None
+             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None,
+             lr_bc: Optional[torch.Tensor] = None
              ) -> Tuple[FusedAdamWState, torch.Tensor, Optional[torch.Tensor]]:
         """One step from the gradients: updates ``params`` and the moments in
         place and returns ``(state with its count advanced, grad_norm,
         nonfinite_count + !isfinite(grad_norm))``.  ``g_norm`` may be passed
         when the caller has it already; ``reduce`` (on a mesh, with the
-        leaves in ``params``' order) makes the norm the mesh-wide one."""
+        leaves in ``params``' order) makes the norm the mesh-wide one;
+        ``lr_bc``, 3 f32 on the device, replaces ``self.lr_bc(state.count)``
+        (a step tape's row, which holds those values)."""
         names = list(params)
         grad_norm, nonfinite_count = self.tail(
             [params[k] for k in names], [grads[k] for k in names],
             [state.mu[k] for k in names], [state.nu[k] for k in names],
-            self.lr_bc(state.count), nonfinite_count, clip_norm=self.clip_norm,
+            self.lr_bc(state.count) if lr_bc is None else lr_bc, nonfinite_count,
+            clip_norm=self.clip_norm,
             zero_nonfinite=self.zero_nonfinite, b1=self.b1, b2=self.b2, eps=self.eps,
             wd=self.weight_decay, g_norm=g_norm,
             **({} if reduce is None else {'reduce': reduce}))
@@ -146,19 +152,24 @@ class AdamChain:
 
     init = FusedAdamW.init
     lr_at = FusedAdamW.lr_at
+    lr_bc = FusedAdamW.lr_bc
 
     def apply(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
               params: Dict[str, torch.Tensor],
-              g_norm: Optional[torch.Tensor] = None) -> FusedAdamWState:
+              g_norm: Optional[torch.Tensor] = None,
+              scalars: Optional[torch.Tensor] = None) -> FusedAdamWState:
         """One step: updates ``params`` and the moments in place and returns
-        the state with its count advanced."""
+        the state with its count advanced.  ``scalars``: [bc1, bc2, -lr] as
+        3 f32 on the device (a step tape's row), else made here from the
+        count."""
         names = list(params)
         if g_norm is None:
             g_norm = global_norm([grads[k] for k in names])
-        c = _F32(state.count + 1)
-        host = torch.tensor([_F32(1) - _F32(self.b1) ** c, _F32(1) - _F32(self.b2) ** c,
-                             -self.lr_at(state.count)], dtype=torch.float32)
-        bc1, bc2, neg_lr = host.to(g_norm.device).unbind(0)
+        if scalars is None:
+            c = _F32(state.count + 1)
+            scalars = torch.tensor([_F32(1) - _F32(self.b1) ** c, _F32(1) - _F32(self.b2) ** c,
+                                    -self.lr_at(state.count)], dtype=torch.float32)
+        bc1, bc2, neg_lr = scalars.to(g_norm.device).unbind(0)
         b1, b2 = self.b1, self.b2
         with torch.no_grad():
             for k in names:

@@ -7,6 +7,10 @@
     parameter EMA.  No step waits for the device unless a metric is logged;
   * host shuffling with ``np.random.default_rng(cfg.seed)``, the same batch
     order as JAX, and the last partial batch dropped;
+  * ``cfg.steps_per_dispatch`` K > 1 or ``cfg.epoch_scan``: K steps, or a
+    whole epoch, per dispatch from a step tape -- on the GPU replays of a
+    CUDA graph of the step (``train/dispatch.py``), bit-equal to the
+    per-step loop; the per-step loop when the split is not resident;
   * eval epochs (per-sample losses, binary stats, macro-AUROC), early
     stopping on the eval loss with ``patience``, best and final checkpoints,
     resume from a checkpoint;
@@ -408,14 +412,17 @@ class TrainerBase:
             return x[torch.as_tensor(take, device=x.device)].to(self.device, torch.float32)
         return self._to_device(np.asarray(x[take], np.float32))
 
-    def _update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _update(self, grads: Dict[str, torch.Tensor],
+                scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The update tail of a step (``loop.finish_update``) on the
         accumulated ``grads``; returns the gradient norm.  The parameters go
         in as they are: every in-place write of the tail runs under
-        ``no_grad`` or in the kernels."""
+        ``no_grad`` or in the kernels.  ``scalars``: a step tape's [lr, bc1,
+        bc2, -lr] on the device."""
         self.opt_state, grad_norm, self._nonfinite = finish_update(
             self.optimizer, self.cfg, self.opt_state, self._leaves(), grads, self._nonfinite,
-            self.ema, reduce=None if self.sharded is None else self._norm_reduce)
+            self.ema, reduce=None if self.sharded is None else self._norm_reduce,
+            scalars=scalars)
         for p in self.params().values():
             p.grad = None
         self.step += 1
@@ -639,6 +646,11 @@ class Trainer(TrainerBase):
             from .pretrain import make_probe_optimizer
             self.optimizer, self.schedule = make_probe_optimizer(
                 train_cfg, self.total_steps, self.params())
+        # on the device once: a step then makes no host copy of it
+        self._loss_weight = (None if train_cfg.loss_weight is None else torch.tensor(
+            train_cfg.loss_weight, dtype=torch.float32, device=self.device))
+        self.dispatcher = None   # train()'s train/dispatch.Dispatcher, when it has one
+        self.dispatch_info: Optional[Dict[str, Any]] = None   # its info() after train()
 
     # ------------------------------------------------------------------ steps
     def _split_arrays(self, data: SplitData):
@@ -671,9 +683,28 @@ class Trainer(TrainerBase):
         metrics (0-d device tensors, and the learning rate as a float)."""
         if not self.initialized:
             raise RuntimeError('call init_state() or set_params() first')
+        accum = max(1, self.cfg.grad_accum)
+        sigs, labs, idx = self._step_inputs(data, self._local_take(take, accum))
+        lr = self.optimizer.lr_at(self.step)
+        m = self._step(sigs, labs, idx)
+        return {'loss': m.pop('loss'), 'learning_rate': lr, **m}
+
+    def _tape_step(self, sigs: torch.Tensor, labs: torch.Tensor, idx: torch.Tensor,
+                   seeds: torch.Tensor, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step of a step tape (``train/dispatch.py``): the rows ``idx``
+        of the resident split, the dropout seeds ``seeds`` and the optimizer
+        scalars ``scalars`` [lr, bc1, bc2, -lr], all on the device, so the
+        step reads no host value and a CUDA graph can capture it.  Returns
+        the metrics as 0-d device tensors (no learning rate)."""
+        with self.rng.taped(seeds):
+            return self._step(sigs, labs, idx, scalars)
+
+    def _step(self, sigs: torch.Tensor, labs: torch.Tensor, idx: torch.Tensor,
+              scalars: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Forward, backward and update on rows ``idx`` of ``sigs``/``labs``;
+        the loss, gradient norm and binary stats as 0-d device tensors."""
         cfg = self.cfg
         accum = max(1, cfg.grad_accum)
-        sigs, labs, idx = self._step_inputs(data, self._local_take(take, accum))
         params = self.params()
         self.model.train()
 
@@ -682,7 +713,7 @@ class Trainer(TrainerBase):
             lab = labs.index_select(0, idx_k)
             sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size,
                               train=cfg.augment_timeout, generator=self.rng.device)
-            out = self._net(sig, labels=lab, loss_weight=cfg.loss_weight, rng=self.rng)
+            out = self._net(sig, labels=lab, loss_weight=self._loss_weight, rng=self.rng)
             # metrics of the global (micro)batch; identities on one device
             return ((spmd.mean_over_data(out.loss.detach()),
                      spmd.gather_rows(out.logits.detach()), spmd.gather_rows(lab)),
@@ -694,11 +725,9 @@ class Trainer(TrainerBase):
         loss = torch.stack([a[0] for a in aux]).mean()
         logits = torch.cat([a[1] for a in aux])
         lab = torch.cat([a[2] for a in aux])
-        lr = self.optimizer.lr_at(self.step)
-        grad_norm = self._update(grads)
+        grad_norm = self._update(grads, scalars)
         probs = torch.sigmoid(logits.float())
-        return {'loss': loss, 'learning_rate': lr, 'grad_norm': grad_norm,
-                **binary_stats(probs, lab)}
+        return {'loss': loss, 'grad_norm': grad_norm, **binary_stats(probs, lab)}
 
     # ------------------------------------------------------------------ loops
     def _index_batches(self, data: SplitData, batch_size: int, shuffle_rng=None,
@@ -738,16 +767,22 @@ class Trainer(TrainerBase):
         self._nonfinite.zero_()
         if cfg.do_eval and self.eval_data is not None:
             self._log_epoch(self.evaluate(self.eval_data), prefix='eval')
+        self.dispatcher = self._dispatcher()
         for _ in range(self.epoch, cfg.num_train_epoch):
             self.epoch += 1
-            for take, _ in self._index_batches(self.train_data, cfg.train_batch_size,
-                                               shuffle_rng=host_rng):
-                metrics = self.train_step(self.train_data, take)
-                if (not cfg.log_per_epoch) or self.step % self.steps_per_epoch == 0:
-                    payload = {f'train/{k}': float(v) for k, v in metrics.items()}
-                    payload.update(epoch=self.epoch, step=self.step)
-                    self._check_finite(f'by step {self.step}')
-                    self._log(payload)
+            if self.dispatcher is not None and self.dispatcher.scan:
+                self._train_epoch_scanned(host_rng)
+            elif self.dispatcher is not None:
+                self._train_epoch_chunked(host_rng)
+            else:
+                for take, _ in self._index_batches(self.train_data, cfg.train_batch_size,
+                                                   shuffle_rng=host_rng):
+                    metrics = self.train_step(self.train_data, take)
+                    if (not cfg.log_per_epoch) or self.step % self.steps_per_epoch == 0:
+                        payload = {f'train/{k}': float(v) for k, v in metrics.items()}
+                        payload.update(epoch=self.epoch, step=self.step)
+                        self._check_finite(f'by step {self.step}')
+                        self._log(payload)
             self._check_finite(f'during epoch {self.epoch}')
             if cfg.save_every_n_epoch and self.epoch % cfg.save_every_n_epoch == 0:
                 self.save_checkpoint(tag=f'ep{self.epoch}')
@@ -765,6 +800,8 @@ class Trainer(TrainerBase):
                                f'(patience {cfg.patience}, best eval loss '
                                f'{best_eval_loss:.4f})')
                     break
+        self.dispatch_info = None if self.dispatcher is None else self.dispatcher.info()
+        self.dispatcher = None   # the graphs and their pool go with it
         if cfg.save_final:
             self.save_checkpoint(tag='final')
         wait_for_checkpoints()   # every save committed before train() returns
@@ -773,6 +810,99 @@ class Trainer(TrainerBase):
         self.tb.close()
         return {'best_eval_loss': best_eval_loss, 'history': history,
                 'epochs': self.epoch, 'seconds': dt}
+
+    def _dispatcher(self):
+        """The ``Dispatcher`` of ``cfg.epoch_scan`` (which wins) or of
+        ``cfg.steps_per_dispatch`` > 1 for this ``train()``; None for the
+        per-step loop, which both fall back to when the train split is not
+        device-resident or is smaller than one batch (the JAX rule and info
+        line)."""
+        from .dispatch import Dispatcher
+        cfg = self.cfg
+        if not (cfg.epoch_scan or cfg.steps_per_dispatch > 1):
+            return None
+        if (self._split_arrays(self.train_data) is None
+                or self.steps_per_epoch * cfg.train_batch_size > len(self.train_data)):
+            self._info('epoch_scan/steps_per_dispatch requested but the train split is not '
+                       'device-resident (or smaller than one batch); falling back to the '
+                       'per-step loop')
+            return None
+        if self.mesh is not None:
+            self._info('epoch_scan/steps_per_dispatch on a mesh: each dispatch runs its steps '
+                       'eagerly through the step tape (DDP, FSDP2 and the collectives are '
+                       'not captured in a CUDA graph)')
+        if cfg.epoch_scan:
+            return Dispatcher(self, self.steps_per_epoch, scan=True)
+        return Dispatcher(self, cfg.steps_per_dispatch, scan=False)
+
+    def _train_epoch_scanned(self, host_rng) -> None:
+        """One epoch as one dispatch (``cfg.epoch_scan``): the host shuffle
+        drawn as the per-step loop draws it, the epoch's tape uploaded once,
+        the steps run back to back; the per-step losses and gradient norms
+        fetched once at the end and written to TensorBoard per step, and one
+        epoch payload (the JAX keys) to the console and the file log."""
+        cfg = self.cfg
+        steps, bsz = self.steps_per_epoch, cfg.train_batch_size
+        idx = np.arange(len(self.train_data))
+        host_rng.shuffle(idx)    # the draw of _index_batches: the same batches
+        losses, gnorms, _ = self.dispatcher.run(idx[:steps * bsz].reshape(steps, bsz))
+        losses, gnorms = torch.stack([losses, gnorms]).cpu().numpy()   # one fetch
+        self._check_finite(f'during epoch {self.epoch}')
+        if self.tb:   # the per-step curve, recorded at epoch end
+            first = self.step - steps + 1
+            for i, (loss, gnorm) in enumerate(zip(losses, gnorms)):
+                self.tb.log({'train/loss': float(loss), 'train/grad_norm': float(gnorm)},
+                            step=first + i)
+        payload = {'train/loss': float(losses[-1]),
+                   'train/loss_epoch_mean': float(losses.mean()),
+                   'train/grad_norm': float(gnorms[-1]),
+                   'train/learning_rate': float(self.schedule(self.step - 1)),
+                   'epoch': self.epoch, 'step': self.step}
+        pretty = pretty_log_dict(payload)
+        if cfg.log_to_console:
+            self.logger.info(str(pretty))
+        if self.logger_fl:
+            self.logger_fl.info(str(pretty))
+
+    def _train_epoch_chunked(self, host_rng) -> None:
+        """One epoch K steps a dispatch (``cfg.steps_per_dispatch``): the
+        host shuffle drawn as the per-step loop draws it, steps_per_epoch //
+        K dispatches, then the leftover steps through ``train_step``.  One
+        payload per dispatch (the last step's metrics, at the host step) and
+        per leftover step, or with ``cfg.log_per_epoch`` one per epoch with
+        ``train/loss_epoch_mean`` (over the dispatched steps, as in JAX)."""
+        cfg = self.cfg
+        k, bsz = cfg.steps_per_dispatch, cfg.train_batch_size
+        idx = np.arange(len(self.train_data))
+        host_rng.shuffle(idx)    # the draw of _index_batches: the same batches
+        n_chunks, leftover = divmod(self.steps_per_epoch, k)
+        ep_losses = []
+        for c in range(n_chunks):
+            losses, _, metrics = self.dispatcher.run(
+                idx[c * k * bsz:(c + 1) * k * bsz].reshape(k, bsz))
+            ep_losses.append(losses)
+            if not cfg.log_per_epoch:
+                payload = {f'train/{key}': float(v) for key, v in metrics.items()}
+                payload.update(epoch=self.epoch, step=self.step)
+                self._check_finite(f'by step {self.step}')
+                self._log(payload)
+        pos = n_chunks * k * bsz
+        for i in range(leftover):
+            metrics = self.train_step(self.train_data, idx[pos + i * bsz:pos + (i + 1) * bsz])
+            if not cfg.log_per_epoch:
+                payload = {f'train/{key}': float(v) for key, v in metrics.items()}
+                payload.update(epoch=self.epoch, step=self.step)
+                self._log(payload)
+        if cfg.log_per_epoch:
+            losses = torch.cat(ep_losses).cpu().numpy() if ep_losses else np.zeros(0)
+            self._check_finite(f'during epoch {self.epoch}')
+            payload = {'train/loss': float(metrics['loss']),
+                       'train/grad_norm': float(metrics['grad_norm']),
+                       'train/learning_rate': float(self.schedule(self.step - 1)),
+                       'epoch': self.epoch, 'step': self.step}
+            if losses.size:
+                payload['train/loss_epoch_mean'] = float(losses.mean())
+            self._log(payload)
 
     # -------------------------------------------------------------- inference
     @eval_mode
