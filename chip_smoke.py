@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
-                                    scale artifacts parallel pipeline dispatch]
+                                    scale artifacts parallel pipeline dispatch examples]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -127,7 +127,12 @@ process per source started together (into ``build/torch_kernels/``), then:
    its one-card step; bf16 samples/s and peak memory of each wrapper beside the one-card
    step's (at one rank: the wrappers' cost, not scaling); the norm's all-reduce in device ms;
    (b) two gloo ranks sharing the card with DDP, 32 of each 64 rows, three steps within 2e-5
-   of the one-card steps: the kernels' masks with a non-zero ``bh_offset``;
+   of the one-card steps: the kernels' masks with a non-zero ``bh_offset``; (c)
+   ``parallel_int8``: ViT-base f32 served in int8 by ``enable_int8_inference`` on the two
+   ranks as DP 2, TP 2 and FSDP 2 (replicated: one unsharded int8 model per rank), bs-64
+   ``predict`` and ``evaluate`` on 128 records against the one-card int8 ``Trainer`` within
+   ``SERVING_TOL``, 12 launches of #1 per forward per rank, the int8 bytes a rank holds and
+   bs-64 int8 samples/s beside one card's;
 11. pipeline phase (ring context parallelism and GPipe, f32, TF32 off): ``ring_attention``
    at world 1 (one NCCL rank) and on two gloo ranks sharing the card (1,024 + 1,024 tokens)
    against plain attention on (2, 12, 2048, 64), forward and dQ/dK/dV within 1e-5
@@ -152,7 +157,16 @@ process per source started together (into ``build/torch_kernels/``), then:
    the run's counters every step's; 2 layers of Switch-MoE with remat and
    grad_accum 2, flax and hashed dropout, bit-equal too; samples/s, profiles
    (wall, device ms, busy share, the host's launch calls per step), capture
-   seconds and the memory each graph's pool reserved.
+   seconds and the memory each graph's pool reserved;
+13. examples phase (``examples/torch/``, as a user runs them): the quickstart's stages
+   on the card ('tiny', 256 synthetic records, 2 epochs, ``flash_min_seq=0`` so every
+   layer runs #1-#5; MAE pretraining and the encoder transfer; the tokenizer) up to the
+   rollout arrays, which a CPU rerun matches within 1e-5 (the figure needs matplotlib,
+   which the CPU test draws); the serving demo with 16 clients in f32 and with int8, every
+   client's row equal to ``predict`` of its own record and, at ``SERVING_TOL``, to a
+   twin's with plain attention on the same weights; each stage's wall seconds and
+   launches.  The kernel phase holds #1-#4 to their plain versions at both examples'
+   shapes (``EXAMPLE_SHAPES``).
 
 The kernel phase's dropout-mask checks run at ``bh_offset`` 0 and at a rank's offset.
 Every phase raises on a failed check.  Prints one JSON object per line; the
@@ -233,10 +247,16 @@ SERVING_SHAPE = (64, 12, 41, 64)     # ViT-base at bs 64: B, H, T = 40 patches +
 # tokens over 4 heads of hidden 256, the contrastive trunk 2B = 128 rows
 PRETRAIN_SHAPES = {'mae_encoder': (64, 12, 10, 64), 'mae_decoder': (64, 4, 40, 64),
                    'contrastive_trunk': (128, 12, 41, 64)}
+# the examples phase: the quickstart's 'tiny' at its training batch of 32
+# and the serving demo's 'debug' at 320 samples (6 tokens, head dim 16: f32
+# rows of 64 bytes, the cp.async branch that zero-fills the columns past D),
+# padded to its eval batch of 32; both f32
+EXAMPLE_SHAPES = {'quickstart_tiny': (32, 4, 41, 64), 'serving_demo_debug': (32, 4, 6, 16)}
 # the serving shape, long sequences, ragged T with D = 80 and 128 (the
 # kernels' 128-column tiles), one row, exact tiles, about a bs-64 batch's
-# tokens at T = 256, rows of 40 and 132 bytes (the scalar-load branch), and
-# the pretraining shapes (T = 10 fills a sixth of a 64-row tile)
+# tokens at T = 256, rows of 40 and 132 bytes (the scalar-load branch), the
+# pretraining shapes (T = 10 fills a sixth of a 64-row tile) and the
+# examples' shapes
 KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
                 ((2, 12, 1024, 64), torch.bfloat16), ((1, 4, 2049, 64), torch.float32),
                 ((3, 5, 200, 80), torch.bfloat16), ((2, 4, 130, 128), torch.float32),
@@ -244,7 +264,8 @@ KERNEL_CASES = [(SERVING_SHAPE, torch.float32), (SERVING_SHAPE, torch.bfloat16),
                 ((10, 12, 256, 64), torch.bfloat16), ((2, 3, 100, 20), torch.bfloat16),
                 ((2, 3, 77, 33), torch.float32)] + [
                     (shape, dtype) for shape in PRETRAIN_SHAPES.values()
-                    for dtype in (torch.float32, torch.bfloat16)]
+                    for dtype in (torch.float32, torch.bfloat16)] + [
+                    (shape, torch.float32) for shape in EXAMPLE_SHAPES.values()]
 # the dropout mask check: sequence lengths, (B, H), rate
 MASK_TS, MASK_BH, MASK_RATE = (41, 256), (2, 6), 0.1
 MASK_BH_OFFSETS = (0, 3 * 2 * 6)      # and the bh_offset of rank 3 with 2 rows of 6 heads
@@ -2689,6 +2710,116 @@ def _parallel_rank(out_dir: str) -> dict:
             'local_rows': int(tr._local_take(np.arange(64)).size)}
 
 
+# int8 serving on a mesh: ViT-base f32 at 41 tokens (every layer through #1),
+# replicated int8 on two gloo ranks sharing the card, against one card's int8
+INT8_LAYOUTS = {'dp2': (2, 1, False), 'tp2': (1, 2, False), 'fsdp2': (2, 1, True)}
+INT8_EVAL_N = 128
+
+
+def _int8_setup():
+    """(config, train config, the bs-64 predict batch, the 128-record eval
+    split) of ``parallel_int8``, the same in the parent and the ranks."""
+    cfg = VitConfig.from_defined(PARALLEL_SIZE, flash_min_seq=0)
+    tcfg = TrainConfig(eval_batch_size=64, log_to_console=False, save_final=False)
+    return cfg, tcfg, _parity_batch(13, 64).signals, _parity_batch(17, INT8_EVAL_N)
+
+
+def _int8_serve(tr: Trainer, x: np.ndarray, ev: SplitData) -> dict:
+    """int8 on ``tr`` (its seeded init): the size summary, bs-64 ``predict``
+    with #1's launches of that one forward, ``evaluate`` with its launches,
+    and bs-64 int8 samples/s."""
+    tr.init_state()
+    summary = tr.enable_int8_inference()
+    _zero_counts()
+    probs = tr.predict(x)
+    predict_counts = _counts()
+    _zero_counts()
+    m = tr.evaluate(ev)
+    eval_counts = _counts()
+    return {'summary': summary, 'probs': probs, 'predict_launches': predict_counts,
+            'eval_loss': m['loss'], 'eval_macro_auc': m['macro_auc'],
+            'eval_launches': eval_counts,
+            'samples_per_s_bs64': _samples_per_s(lambda: tr.predict(x), len(x))}
+
+
+def _parallel_int8_rank() -> dict:
+    """``parallel_int8`` on one of two gloo ranks sharing the card: each
+    layout of ``INT8_LAYOUTS`` from the seeded init, served in int8."""
+    from ecg_representation_learning_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ['LOCAL_RANK'] = '0'     # both ranks on the one card
+    if PARALLEL_DEVICE.startswith('cuda'):
+        torch.cuda.set_device(0)
+    cfg, tcfg, x, ev = _int8_setup()
+    out = {}
+    for name, (n_data, n_model, fsdp) in INT8_LAYOUTS.items():
+        tr = Trainer(cfg, dataclasses.replace(tcfg, fsdp=fsdp),
+                     norm_stats=PTBXL_TRAIN_STATS['original'],
+                     mesh=make_mesh(n_data, n_model, device=PARALLEL_DEVICE))
+        out[name] = _int8_serve(tr, x, ev)
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_int8(smi: str) -> dict:
+    """int8 inference on a mesh: ViT-base f32 (``flash_min_seq=0``, 12
+    layers of #1 per forward) served replicated by ``enable_int8_inference``
+    on two gloo ranks sharing the card, as DP 2, TP 2 (model axis 2) and
+    FSDP 2; each layout's bs-64 ``predict`` and ``evaluate`` on 128 records
+    against the one-card int8 ``Trainer`` on the same seeded weights, at
+    ``SERVING_TOL``, with #1's launches per forward per rank, the int8
+    bytes a rank holds and bs-64 int8 samples/s beside one card's.  Returns
+    the ranks' launches (the main path of the part)."""
+    from ecg_representation_learning_tpu_torch.parallel import spawn_ranks
+    t0 = time.perf_counter()
+    cfg, tcfg, x, ev = _int8_setup()
+    one = _int8_serve(Trainer(cfg, tcfg, norm_stats=PTBXL_TRAIN_STATS['original'],
+                              device=PARALLEL_DEVICE), x, ev)
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(2, _parallel_int8_rank, timeout=600)
+    main_path = {k: 0 for k in _counts()}
+    rows = {}
+    for name, (n_data, n_model, fsdp) in INT8_LAYOUTS.items():
+        got = ranks[0][name]
+        for r in ranks:
+            for counts in (r[name]['predict_launches'], r[name]['eval_launches']):
+                for k, v in counts.items():
+                    main_path[k] += v
+        rows[name] = {
+            'mesh': {'data': n_data, 'model': n_model}, 'fsdp': fsdp,
+            'probs_max_abs_err': float(np.abs(got['probs'] - one['probs']).max()),
+            'eval_loss': got['eval_loss'], 'one_card_eval_loss': one['eval_loss'],
+            'eval_loss_rel_err': abs(got['eval_loss'] - one['eval_loss']) / one['eval_loss'],
+            'eval_macro_auc': got['eval_macro_auc'],
+            'one_card_eval_macro_auc': one['eval_macro_auc'],
+            'flash_fwd_per_forward_per_rank': [r[name]['predict_launches']['flash_fwd']
+                                               for r in ranks],
+            'eval_flash_fwd_per_rank': [r[name]['eval_launches']['flash_fwd'] for r in ranks],
+            'param_bytes_int8_per_rank': got['summary']['param_bytes_int8'],
+            'compression': got['summary']['compression'],
+            'samples_per_s_bs64_int8': got['samples_per_s_bs64'],
+            'ranks_agree': all(np.array_equal(r[name]['probs'], got['probs']) for r in ranks)}
+    row = {'phase': 'parallel_int8', 'nvidia_smi': smi, 'model': f'ecg-vit-{PARALLEL_SIZE}',
+           'dtype': 'float32', 'ranks': 2, 'backend': 'gloo', 'batch': len(x),
+           'eval_records': INT8_EVAL_N, 'layouts': rows,
+           'one_card_samples_per_s_bs64_int8': one['samples_per_s_bs64'],
+           'one_card_param_bytes_int8': one['summary']['param_bytes_int8'],
+           'limit': SERVING_TOL, 'seconds': time.perf_counter() - t0}
+    emit(row)
+    layers = cfg.num_hidden_layers
+    for name, r in rows.items():
+        if not (r['probs_max_abs_err'] <= SERVING_TOL and r['eval_loss_rel_err'] <= SERVING_TOL
+                and abs(r['eval_macro_auc'] - r['one_card_eval_macro_auc']) <= SERVING_TOL
+                and r['ranks_agree']
+                and r['flash_fwd_per_forward_per_rank'] == [layers, layers]
+                and r['eval_flash_fwd_per_rank'] == [2 * layers, 2 * layers]
+                and r['param_bytes_int8_per_rank'] == row['one_card_param_bytes_int8']):
+            raise AssertionError(f'int8 on the {name} mesh differs from one card: {r}')
+    return main_path
+
+
 def parallel_phase(smi: str) -> dict:
     """The ('data', 'model') mesh on the card.  (a) One NCCL rank on cuda:0:
     the one-card ``Trainer`` against ``mesh 1 x 1`` with DDP, with
@@ -2852,6 +2983,11 @@ def parallel_phase(smi: str) -> dict:
             and ranks[1]['losses'] == losses
             and all(c == expect for r in ranks for c in r['launches'])):
         raise AssertionError(f'two ranks on the card differ from the one-card steps: {row}')
+
+    # (c) int8 serving replicated on the two ranks, in three layouts
+    torch.cuda.empty_cache()
+    for k, v in _parallel_int8(smi).items():
+        main_path[k] += v
     return main_path
 
 # --------------------------------------------------------------- pipeline
@@ -3487,8 +3623,118 @@ def dispatch_phase(smi: str) -> dict:
     return main
 
 
+# --------------------------------------------------------------- examples
+EXAMPLES_N, EXAMPLES_EPOCHS = 256, 2     # the quickstart's defaults
+EXAMPLES_DIR = 'runs/chip_smoke_examples'
+
+
+def _stage(stages: dict, name: str, fn, **row):
+    """Run ``fn`` as the example stage ``name``: its wall seconds and the
+    kernels' launches go into ``stages[name]`` (with ``row``); returns
+    ``fn()``."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    stages[name] = {'seconds': time.perf_counter() - t0, 'launches': _counts(), **row}
+    return out
+
+
+def _quickstart(smi: str, stages: dict) -> None:
+    """``examples/torch/quickstart.py`` stage by stage on the card as written
+    ('tiny', 256 synthetic records, 2 epochs), with ``flash_min_seq=0`` so
+    its 41-token layers run #1-#4; the rollout arrays against a CPU rerun."""
+    import copy
+    from examples.torch import quickstart as qs
+    splits = _stage(stages, 'quickstart_splits', lambda: qs.build_splits(EXAMPLES_N))
+    model_cfg = VitConfig.from_defined('tiny', flash_min_seq=0)
+    cfg = qs.train_config(EXAMPLES_EPOCHS)
+    tr, result, test = _stage(stages, 'quickstart_supervised', lambda: qs.supervised(
+        splits, model_cfg, cfg, out_dir=f'{EXAMPLES_DIR}/quickstart'))
+    stages['quickstart_supervised'].update(best_eval_loss=result['best_eval_loss'],
+                                           test_macro_auc=test['macro_auc'])
+    mae, _ = _stage(stages, 'quickstart_mae_transfer', lambda: qs.mae_transfer(
+        splits, model_cfg, cfg, out_dir=f'{EXAMPLES_DIR}/quickstart-mae'))
+    stages['quickstart_mae_transfer']['pretrain_loss'] = mae['loss']
+    tok, ids, rf = _stage(stages, 'quickstart_tokenize', lambda: qs.tokenize(splits))
+    stages['quickstart_tokenize'].update(clusters=int(tok.centers.shape[0]),
+                                         ids_shape=list(ids.shape),
+                                         power_law_exponent=float(rf['exponent']))
+    sig = qs.rollout_input(splits, model_cfg)
+    model = tr.served_model()
+    maps, scores = _stage(stages, 'quickstart_rollout_arrays',
+                          lambda: qs.rollout_arrays(model, sig))
+    maps_cpu, scores_cpu = qs.rollout_arrays(copy.deepcopy(model).cpu(), sig)
+    stages['quickstart_rollout_arrays'].update(
+        maps_shape=list(maps.shape), maps_card_vs_cpu=_max_err(maps, maps_cpu),
+        rollout_card_vs_cpu=_max_err(scores, scores_cpu), limit=ROLLOUT_TOL)
+    row = stages['quickstart_rollout_arrays']
+    if not (max(row['maps_card_vs_cpu'], row['rollout_card_vs_cpu']) <= ROLLOUT_TOL
+            and np.isfinite(scores).all()):
+        raise AssertionError(f'the quickstart rollout differs between the card and the CPU: '
+                             f'{row}')
+    sup = stages['quickstart_supervised']['launches']
+    if not (all(sup[k] > 0 for k in ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq',
+                                     'flash_bwd_dkv', 'adamw', 'adamw_norm'))
+            and stages['quickstart_mae_transfer']['launches']['adamw'] > 0
+            and np.isfinite(result['best_eval_loss']) and np.isfinite(mae['loss'])):
+        raise AssertionError(f'the quickstart did not run #1-#5: {stages}')
+
+
+def _serving_demo(smi: str, stages: dict) -> None:
+    """``examples/torch/serving_demo.py`` on the card with 16 clients, f32
+    and ``--int8`` ('debug' at 320 samples, ``flash_min_seq=0`` so its six
+    tokens run #1): every client's row equals ``predict`` of its own record,
+    and the rows equal a twin's with plain attention
+    (``use_flash_attention=False``) on the same weights at ``SERVING_TOL``."""
+    from examples.torch import serving_demo as sd
+    for int8 in (False, True):
+        name = 'serving_demo_int8' if int8 else 'serving_demo'
+        cfg = VitConfig.from_defined('debug', max_signal_length=320, flash_min_seq=0)
+
+        def run():
+            tr = sd.build_trainer(int8=int8, model_cfg=cfg)
+            return tr, sd.run_clients(tr, N_CLIENTS)
+        tr, (got, want, health) = _stage(stages, name, run)
+        ok = sum(bool(np.allclose(g, np.round(w, 6), atol=2e-6)) for g, w in zip(got, want))
+        twin = sd.build_trainer(int8=int8, model_cfg=dataclasses.replace(
+            cfg, use_flash_attention=False))
+        same_weights = all(torch.equal(a, b) for a, b in
+                           zip(tr.state_dict().values(), twin.state_dict().values()))
+        err_plain = float(np.abs(np.stack(got) - twin.predict(sd.client_signals(N_CLIENTS)))
+                          .max())
+        stages[name].update(clients=N_CLIENTS, clients_ok=ok, requests=health['requests'],
+                            dispatches=health['dispatches'], same_weights=same_weights,
+                            max_abs_err_vs_plain_attention=err_plain, limit=SERVING_TOL)
+        del tr, twin
+        if not (ok == N_CLIENTS and same_weights and err_plain <= SERVING_TOL
+                and stages[name]['launches']['flash_fwd'] > 0):
+            raise AssertionError(f'{name}: {stages[name]}')
+
+
+def examples_phase(smi: str) -> dict:
+    """The port's examples as a user runs them, on the card: the
+    quickstart's stages up to the rollout arrays (the figure needs
+    matplotlib, which the card's machine lacks; the CPU test draws it) and
+    the serving demo in f32 and int8.  Prints each stage's wall seconds and
+    launches.  Returns the launches (the main path of the phase)."""
+    attn.BLOCKED_BWD_MIN_SEQ = 0
+    t0 = time.perf_counter()
+    stages = {}
+    try:
+        _quickstart(smi, stages)
+        torch.cuda.empty_cache()
+        _serving_demo(smi, stages)
+    finally:
+        shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    main_path = {k: sum(st['launches'][k] for st in stages.values()) for k in _counts()}
+    emit({'phase': 'examples', 'nvidia_smi': smi, 'stages': stages, 'launches': main_path,
+          'seconds': time.perf_counter() - t0})
+    return main_path
+
+
 PHASES = ('kernels', 'serving', 'training', 'pretrain', 'denoise', 'corpus', 'stream',
-          'scale', 'artifacts', 'parallel', 'pipeline', 'dispatch')
+          'scale', 'artifacts', 'parallel', 'pipeline', 'dispatch', 'examples')
 
 
 def main(argv=None) -> int:
@@ -3556,6 +3802,9 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + count
     if 'dispatch' in args.phases:
         for name, count in dispatch_phase(smi).items():
+            launches[name] = launches.get(name, 0) + count
+    if 'examples' in args.phases:
+        for name, count in examples_phase(smi).items():
             launches[name] = launches.get(name, 0) + count
     if set(args.phases) != set(PHASES):
         return 0

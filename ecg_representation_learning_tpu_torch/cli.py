@@ -103,6 +103,14 @@ def _add_common_train_flags(p):
     p.add_argument('--fsdp', action='store_true',
                    help='ZeRO-style storage sharding of params + Adam moments '
                         'over the data axis')
+    # on every subcommand, as in the JAX CLI; only ``train`` reads them
+    p.add_argument('--epoch-scan', action='store_true',
+                   help='train: run each epoch as one dispatch (device-resident splits; '
+                        'a CUDA graph of the step replayed per step on one GPU -- '
+                        'bit-identical updates)')
+    p.add_argument('--steps-per-dispatch', type=int, default=1,
+                   help='train: K train steps per dispatch from a step tape (a CUDA graph '
+                        'of K steps on one GPU)')
     p.add_argument('--resident-dtype', default=None,
                    choices=[None, 'float16', 'bfloat16'],
                    help='storage dtype of the device-resident signals (halves '
@@ -462,16 +470,21 @@ def cmd_infer(args):
     finally:
         ds.close()
     result = infer_records(_serving_trainer(args), signals, args.top_k)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, 'w') as f:
-        json.dump(result, f)
-    print(json.dumps({'out': args.out, 'n_records': result['n_records']}))
+    if _is_rank0():   # on a mesh every rank holds the gathered result
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as f:
+            json.dump(result, f)
+    _result({'out': args.out, 'n_records': result['n_records']})
 
 
 def cmd_serve(args):
-    """Run the batch-inference HTTP server on the GPU (serving.py)."""
-    from .serving import serve
+    """Run the batch-inference HTTP server on the GPU (serving.py); on a
+    mesh rank 0 serves and the other ranks follow its dispatches."""
+    from .serving import follow, serve
     tr = _serving_trainer(args)
+    if not _is_rank0():
+        follow(tr)
+        return
     httpd = serve(tr, host=args.host, port=args.port)
     print(json.dumps({'serving': f'http://{args.host}:{httpd.server_address[1]}',
                       'endpoints': ['/health', '/predict']}), flush=True)
@@ -610,14 +623,6 @@ def build_parser() -> argparse.ArgumentParser:
         if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
         if name == 'train':
-            sp.add_argument('--epoch-scan', action='store_true',
-                            help='run each epoch as ONE jitted lax.scan dispatch over '
-                                 'the train step (device-resident splits; removes '
-                                 'per-step host dispatch -- bit-identical updates)')
-            sp.add_argument('--steps-per-dispatch', type=int, default=1,
-                            help='unroll K train steps into one jitted dispatch '
-                                 '(amortizes per-dispatch runtime overhead on '
-                                 'high-latency-attached hosts; program size grows ~K-fold)')
             sp.add_argument('--mesh-stage', type=int, default=1,
                             help='pipeline-parallel stage count (>1 stages the transformer '
                                  'stack over a stage mesh axis; GPipe microbatches; the '
@@ -778,10 +783,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _result(obj) -> None:
     """Print a command's JSON result (on a mesh, rank 0 alone)."""
-    import torch.distributed as dist
-    if not dist.is_initialized() or dist.get_rank() == 0:
+    if _is_rank0():
         print(json.dumps(obj), flush=True)
 
 

@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -94,27 +94,36 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True, order='C'))
 
 
+def flax_tree_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params (``{'params': ...}`` or the bare tree, numpy leaves) ->
+    the port's state_dict by path alone, with no model to check it against:
+    a template-free restore of any of the JAX package's models (the ViT, the
+    MAE, the contrastive model, ``EcgMim``, the scan-stacked ViT)."""
+    tree = params['params'] if 'params' in params else params
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf)
+        if path[-1] == 'kernel':
+            arr = np.swapaxes(arr, -1, -2)
+        out[_torch_key(path)] = _tensor(arr)
+    return out
+
+
 def state_dict_from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     """flax params -> a state_dict for ``model`` (an instance of the port's
     counterpart; its parameters are only read for their names and shapes).
 
     Raises ``KeyError`` on a missing or unexpected key and ``ValueError`` on
     a shape mismatch, so a partial mapping cannot pass silently."""
-    tree = params['params'] if 'params' in params else params
     want = model.state_dict()
-    out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(tree):
-        arr = np.asarray(leaf)
-        if path[-1] == 'kernel':
-            arr = np.swapaxes(arr, -1, -2)
-        key = _torch_key(path)
+    out = flax_tree_to_state_dict(params)
+    for key, val in out.items():
         if key not in want:
-            raise KeyError(f'flax param {"/".join(path)} maps to {key}, '
+            raise KeyError(f'flax param {"/".join(flax_path(key))} maps to {key}, '
                            f'which the port has no parameter for')
-        if tuple(arr.shape) != tuple(want[key].shape):
+        if tuple(val.shape) != tuple(want[key].shape):
             raise ValueError(f'{key}: expected shape {tuple(want[key].shape)}, '
-                             f'got {arr.shape}')
-        out[key] = _tensor(arr)
+                             f'got {tuple(val.shape)}')
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f'flax params lack {missing}')
@@ -137,18 +146,72 @@ def mim_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch
     return state_dict_from_flax(params, model)
 
 
-def pipeline_state_dict_from_flax(outer: Mapping, stages: Mapping, cfg: VitConfig
-                                  ) -> Dict[str, torch.Tensor]:
+def merge_pipeline_tree(outer: Mapping, stages: Mapping) -> Dict:
     """A JAX pipeline pair -- ``outer`` ({'params': everything but the block
     stack}) and ``stages`` (the stack's leaves, (S, L / S, ...)) of
-    ``train/pipeline_vit.split_vit_params`` -- as numpy arrays -> the port's
-    ``EcgVit(scan_blocks=True)`` state_dict (``PipelineVitTrainer``'s
-    ``set_merged_params`` takes it)."""
+    ``train/pipeline_vit.split_vit_params`` -- as numpy arrays -> the flax
+    tree of the scan-stacked ViT (JAX's ``merge_vit_params``)."""
     tree = dict(outer['params'] if 'params' in outer else outer)
     tree['encoder'] = {**tree['encoder'], 'blocks': _map_leaves(
         stages, lambda a: np.asarray(a).reshape(-1, *np.shape(a)[2:]))}
-    return vit_state_dict_from_flax({'params': tree},
+    return {'params': tree}
+
+
+def pipeline_state_dict_from_flax(outer: Mapping, stages: Mapping, cfg: VitConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX pipeline pair (``merge_pipeline_tree``) -> the port's
+    ``EcgVit(scan_blocks=True)`` state_dict (``PipelineVitTrainer``'s
+    ``set_merged_params`` takes it)."""
+    return vit_state_dict_from_flax(merge_pipeline_tree(outer, stages),
                                     dataclasses.replace(cfg, scan_blocks=True))
+
+
+def _state_dict_of_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A params-shaped tree of a JAX checkpoint (params, EMA, a moment) ->
+    the port's state_dict; a pipeline's {'outer', 'stages'} pair becomes
+    the one-device scan-stacked layout."""
+    if 'outer' in tree and 'stages' in tree:
+        tree = merge_pipeline_tree(tree['outer'], tree['stages'])
+    return flax_tree_to_state_dict(tree)
+
+
+def _adam_state(opt_state) -> Mapping:
+    """The {count, mu, nu} node of a raw restore of either of the JAX
+    package's optimizer states (its ``train/optim.adam_moments``): a
+    ``FusedAdamWState`` (a dict), or the optax chain
+    ``(clip, (scale_by_adam, wd, lr))`` (lists), whose Adam state is
+    ``[1][0]``."""
+    node = opt_state
+    if isinstance(opt_state, (list, tuple)) and len(opt_state) == 2 \
+            and isinstance(opt_state[1], (list, tuple)) and opt_state[1]:
+        node = opt_state[1][0]
+    if not (isinstance(node, Mapping) and {'count', 'mu', 'nu'} <= set(node)):
+        raise ValueError('unknown optimizer-state layout: expected a FusedAdamWState or '
+                         'the optax chain (clip, (scale_by_adam, wd, lr))')
+    return node
+
+
+def train_state_from_flax(tree: Mapping, epoch: int = 0) -> Dict[str, Any]:
+    """A JAX train-state checkpoint, restored without a template (nested
+    dicts of numpy arrays: ``step``, ``params``, ``opt_state``, ``rng``,
+    ``ema_params`` when saved) -> the port's checkpoint state
+    (``train/checkpoint.py``): the parameters, the EMA, Adam's ``count``,
+    ``mu`` and ``nu`` (from a ``FusedAdamWState`` or an optax chain), the step
+    and ``epoch``.  A pipeline checkpoint becomes the one-device
+    ``scan_blocks`` file.  The JAX PRNG key is not carried: the port draws
+    its randomness from torch generators, so a converted checkpoint has no
+    ``rng`` and a trainer restoring it keeps its own, seeded from its
+    config."""
+    adam = _adam_state(tree['opt_state'])
+    state: Dict[str, Any] = {
+        'step': int(np.asarray(tree['step'])), 'epoch': int(epoch),
+        'params': _state_dict_of_tree(tree['params']),
+        'opt_state': {'count': int(np.asarray(adam['count'])),
+                      'mu': _state_dict_of_tree(adam['mu']),
+                      'nu': _state_dict_of_tree(adam['nu'])}}
+    if tree.get('ema_params') is not None:
+        state['ema_params'] = _state_dict_of_tree(tree['ema_params'])
+    return state
 
 
 def _map_leaves(tree: Mapping, fn) -> Dict:

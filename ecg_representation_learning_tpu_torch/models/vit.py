@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -462,6 +462,35 @@ def forward_flops_per_sample(cfg: VitConfig) -> float:
     )
     head = 2 * h * cfg.num_class
     return float(patch_embed + cfg.num_hidden_layers * per_layer + head)
+
+
+def train_step_flops_per_sample(cfg: VitConfig) -> float:
+    """Forward plus backward: 3 x :func:`forward_flops_per_sample` (the
+    standard 1:2 forward:backward FLOP ratio)."""
+    return 3.0 * forward_flops_per_sample(cfg)
+
+
+def create_vit(cfg: VitConfig, generator: torch.Generator,
+               signal_length: Optional[int] = None
+               ) -> Tuple['EcgVit', Dict[str, torch.Tensor]]:
+    """An ``EcgVit`` on the CPU with flax's init drawn from ``generator``
+    (``train.trainer.flax_init_``), and its state_dict.  As the JAX
+    ``create_vit``, the init runs one forward on a zero batch of
+    ``signal_length`` (default ``cfg.max_signal_length``) samples, so a length
+    the model cannot take raises here."""
+    from ..train.trainer import flax_init_
+    model = EcgVit(cfg)
+    flax_init_(model, generator)
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, cfg.num_channels, signal_length or cfg.max_signal_length))
+    return model, model.state_dict()
+
+
+def param_count(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
+    """The number of elements of a module's parameters or of a state_dict."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    return sum(int(p.numel()) for p in params.values())
 
 
 def stack_unrolled_state_dict(state_dict: Mapping[str, torch.Tensor],

@@ -119,30 +119,55 @@ def _rank_main(rank: int, world: int, store_dir: str, fn: Callable, args, queue)
         dist.destroy_process_group()
 
 
+# seconds ``spawn_ranks`` waits for the other ranks once one has failed
+SPAWN_GRACE_S = 30.0
+
+
 def spawn_ranks(n: int, fn: Callable, *args, timeout: float = 1200.0) -> List[Any]:
     """Run ``fn(*args)`` on ``n`` gloo CPU ranks (new processes, one thread
     each) and return the results by rank; raise if a rank failed.  ``fn``
-    must be importable by name (a module-level function)."""
+    must be importable by name (a module-level function).  A rank that
+    fails, or exits without a result (a crash), ends the run
+    ``SPAWN_GRACE_S`` seconds later: the ranks still waiting for it in a
+    collective are killed and the error names every rank that gave no
+    result; so does a run longer than ``timeout`` seconds."""
+    import queue as queue_mod
+    import time
     ctx = multiprocessing.get_context('spawn')
-    queue = ctx.SimpleQueue()
+    results_q = ctx.Queue()
     store_dir = tempfile.mkdtemp(prefix='ecg-ranks-')
-    procs = [ctx.Process(target=_rank_main, args=(r, n, store_dir, fn, args, queue))
+    procs = [ctx.Process(target=_rank_main, args=(r, n, store_dir, fn, args, results_q))
              for r in range(n)]
     try:
         for p in procs:
             p.start()
         results: List[Any] = [None] * n
-        errors = []
-        for _ in range(n):
-            rank, ok, value = queue.get()
+        errors, done = [], set()
+        deadline = time.monotonic() + timeout
+        while len(done) < n and time.monotonic() < deadline:
+            try:
+                rank, ok, value = results_q.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in done and p.exitcode is not None]
+                if dead and not errors:
+                    errors.append(f'rank(s) {dead} exited with codes '
+                                  f'{[procs[r].exitcode for r in dead]} and no result')
+                    deadline = min(deadline, time.monotonic() + SPAWN_GRACE_S)
+                continue
+            done.add(rank)
             if ok:
                 results[rank] = _unpack(value)
             else:
                 errors.append(f'rank {rank}:\n{value}')
-        for p in procs:
-            p.join(timeout)
+                deadline = min(deadline, time.monotonic() + SPAWN_GRACE_S)
+        missing = sorted(set(range(n)) - done)
+        if missing:
+            errors.append(f'rank(s) {missing} gave no result')
         if errors:
             raise RuntimeError('a rank failed:\n' + '\n'.join(errors))
+        for p in procs:
+            p.join(timeout)
         return results
     finally:
         for p in procs:

@@ -78,6 +78,33 @@ class Mesh:
     def __repr__(self):
         return f'Mesh({self.shape}, device={self.device})'
 
+    def data_axis(self) -> 'DataAxis':
+        """This mesh seen along 'data' alone (``DataAxis``)."""
+        return DataAxis(self)
+
+
+class DataAxis:
+    """A mesh's 'data' axis with a model axis of one rank: what a model
+    replicated on every rank runs under (int8 inference on a mesh).  Inside
+    ``spmd.mesh_context`` of it the data-axis collectives (row gathers, MoE
+    counts) run over the mesh's data groups, and the Megatron helpers and the
+    sharded flash wrap are the identity."""
+
+    tensor_parallel = False
+
+    def __init__(self, mesh: Mesh):
+        self.mesh, self.device = mesh, mesh.device
+        self.shape = {DATA_AXIS: mesh.shape[DATA_AXIS], MODEL_AXIS: 1}
+
+    def index(self, axis: str) -> int:
+        return self.mesh.index(axis) if axis == DATA_AXIS else 0
+
+    def group(self, axis: str):
+        return self.mesh.group(axis)
+
+    def __repr__(self):
+        return f'DataAxis({self.shape}, device={self.device})'
+
 
 def _device_mesh(n_outer: int, n_inner: int, names: Tuple[str, str], devices, device):
     """(DeviceMesh over ``devices`` -- default every rank -- reshaped
@@ -471,16 +498,18 @@ class ShardedModel:
     def full_state(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Tensors laid out like the leaves (the params, Adam's moments, the
         EMA) gathered into full tensors on the CPU, on every rank (a
-        collective: every rank calls it with the same names)."""
-        from torch.distributed.tensor import DTensor
-        params = self.params()
+        collective: every rank calls it with the same names).  The inverse
+        of ``local``: an FSDP chunk's dim divides evenly over 'data' (the
+        JAX rule), so the chunks are all-gathered and concatenated (a plain
+        all-gather, which gloo runs on CUDA tensors too)."""
         out = {}
         for name in self.names:
             t = tensors[name].detach()
-            p = params[name]
-            if isinstance(p, DTensor):
-                t = DTensor.from_local(t, p.device_mesh, p.placements, shape=p.shape,
-                                       stride=p.stride()).full_tensor()
+            d = self.dp_dim[name]
+            if self.fsdp and d is not None and self.n_data > 1:
+                parts = [torch.empty_like(t) for _ in range(self.n_data)]
+                dist.all_gather(parts, t.contiguous(), group=self.mesh.group(DATA_AXIS))
+                t = torch.cat(parts, dim=d)
             if self.tp_dim[name] is not None and self.n_model > 1:
                 parts = [torch.empty_like(t) for _ in range(self.n_model)]
                 dist.all_gather(parts, t.contiguous(), group=self.mesh.group(MODEL_AXIS))

@@ -330,6 +330,12 @@ PTBXL_TRAIN_STATS: Dict[str, Dict[str, Tuple[float, ...]]] = {
     },
 }
 
+# The broken PTB-XL record: ecg_id 12722 (0-indexed row 12721) has an all-zero
+# lead 11 that NLM turns into NaN; the export must keep it all-zero
+# (reference DataExport.m:46-54, transform.py:289).
+PTBXL_BROKEN_RECORD_ROW = 12721
+PTBXL_BROKEN_RECORD_LEAD = 10  # 0-indexed lead V5 slot in the reference note
+
 
 def config(dotted_key: str):
     """Dot-path accessor over the registry, mirroring the reference's

@@ -20,6 +20,12 @@ API:
 
 Wire format: raw 250 Hz signals, shape (N, C, L) with C = the model's lead
 count; normalization/padding happen on the device (Trainer.predict).
+
+On a mesh (a trainer whose process group has more than one rank) rank 0
+serves HTTP and every other rank runs :func:`follow`: each coalesced
+dispatch first broadcasts its batch to the group, then every rank runs its
+rows of ``predict_long`` (a collective); closing the service releases the
+followers.
 """
 from __future__ import annotations
 
@@ -177,25 +183,65 @@ class MicroBatcher:
                     p.event.set()
 
 
+def _on_mesh(trainer) -> bool:
+    import torch.distributed as dist
+    return (getattr(trainer, 'mesh', None) is not None and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _broadcast(obj):
+    """``obj`` of rank 0 on every rank of the default group."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def follow(trainer) -> int:
+    """A rank other than 0 of a served mesh: run ``predict_long`` on every
+    batch rank 0 broadcasts, until it broadcasts None (its service closed).
+    A batch that raises here raises on rank 0 too, which answers its
+    callers with the error (``MicroBatcher``); the follower drops it and
+    waits for the next.  Returns the number of batches run."""
+    n = 0
+    while True:
+        msg = _broadcast(None)
+        if msg is None:
+            return n
+        try:
+            trainer.predict_long(msg[0], agg=msg[1])
+        except Exception:   # noqa: BLE001 -- rank 0 reports it to the callers
+            pass
+        n += 1
+
+
 class InferenceService:
     """Request handling as a pure(ish) object, independent of HTTP -- the
-    unit under test.  Wraps a ``train.Trainer`` with loaded params."""
+    unit under test.  Wraps a ``train.Trainer`` with loaded params; on a
+    mesh, rank 0's service leads the ranks that :func:`follow`."""
 
     def __init__(self, trainer, default_top_k: int = 5,
                  max_batch: int = 1024, max_wait_ms: float = 0.0):
         self.trainer = trainer
         self.default_top_k = default_top_k
         self.max_batch = max_batch
+        self._leads = _on_mesh(trainer)
+
         # predict_long routes internally: direct lossless predict() for
         # L < max_signal_length, sliding windows + per-class aggregation
         # for long records (e.g. a full INCART strip).  The batcher owns
         # device serialization (single dispatcher thread), so no lock.
-        self.batcher = MicroBatcher(
-            lambda sigs, agg: trainer.predict_long(sigs, agg=agg),
-            max_batch=max_batch, max_wait_ms=max_wait_ms)
+        def run(sigs, agg):
+            if self._leads:
+                _broadcast((sigs, agg))
+            return trainer.predict_long(sigs, agg=agg)
+        self.batcher = MicroBatcher(run, max_batch=max_batch, max_wait_ms=max_wait_ms)
 
     def close(self) -> None:
         self.batcher.close()
+        if self._leads:
+            self._leads = False
+            _broadcast(None)
 
     def health(self) -> Dict[str, Any]:
         cfg = self.trainer.model_cfg

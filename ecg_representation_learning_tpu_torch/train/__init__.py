@@ -6,8 +6,8 @@ from .long_record import EcgMim, RingPretrainer
 from .optim import AdamChain, FusedAdamW, make_optimizer, make_schedule
 from .pipeline_vit import PipelineVitTrainer
 from .pretrain import MaeTrainer
-from .trainer import SplitData, Trainer
+from .trainer import SplitData, Trainer, get_all_setup
 
 __all__ = ['AdamChain', 'ContrastiveTrainer', 'EcgMim', 'FusedAdamW', 'MaeTrainer',
            'PipelineVitTrainer', 'RingPretrainer', 'SplitData', 'Trainer',
-           'load_any_encoder', 'make_optimizer', 'make_schedule']
+           'get_all_setup', 'load_any_encoder', 'make_optimizer', 'make_schedule']

@@ -11,8 +11,11 @@ leaves only a tmp directory, which the listings skip.  The files need no
 template to be read, so ``pretrain_params`` hands a pretrain checkpoint's
 parameters to the SSL -> supervised handoff (train/contrastive.py) whatever
 its decoder or projection head.  ``prune_checkpoints`` keeps the newest
-step-tagged checkpoints of a streaming run.  Importing orbax checkpoints of
-the JAX package is not ported.
+step-tagged checkpoints of a streaming run.  The JAX package's orbax
+checkpoints are converted to this format outside the package
+(``tools/orbax_to_port.py``, through ``models.port.train_state_from_flax``):
+the port imports no orbax.  A converted checkpoint has no generator
+states, and a trainer restoring it keeps its own.
 
 ``save_checkpoint(..., async_save=True)`` (``TrainConfig.async_checkpoint``)
 copies the state to host memory on the caller's thread and returns; a

@@ -247,7 +247,8 @@ class RingPretrainer:
             self.opt_state, count=int(opt['count']),
             mu={k: v.to(self.device) for k, v in opt['mu'].items()},
             nu={k: v.to(self.device) for k, v in opt['nu'].items()})
-        self.generator.set_state(raw['rng']['mask'])
+        if 'rng' in raw:   # a checkpoint converted from JAX carries none
+            self.generator.set_state(raw['rng']['mask'])
         self.step = int(raw['step'])
         return self.state_dict()
 

@@ -192,6 +192,14 @@ class AdamChain:
         return dataclasses.replace(state, count=state.count + 1)
 
 
+def adam_moments(opt_state: FusedAdamWState
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(mu, nu) of either optimizer's state: ``FusedAdamW`` and ``AdamChain``
+    both keep a ``FusedAdamWState`` (the JAX ``adam_moments`` also reads the
+    optax chain's tuple, a layout the port does not have)."""
+    return opt_state.mu, opt_state.nu
+
+
 def _polynomial(init: float, end: float, steps: int) -> Schedule:
     """optax.linear_schedule (polynomial with power 1), in f32."""
     if steps <= 0:

@@ -406,9 +406,11 @@ class PipelineVitTrainer:
             self.opt_state, count=int(opt['count']),
             mu={k: mu[k].to(self.device) for k in self.names},
             nu={k: nu[k].to(self.device) for k in self.names})
-        self.rng.host.set_state(raw['rng']['host'])
-        self.rng.device.set_state(raw['rng']['device'])
-        masks = raw['rng'].get('masks')
+        rng = raw.get('rng', {})   # a checkpoint converted from JAX carries none
+        if rng:
+            self.rng.host.set_state(rng['host'])
+            self.rng.device.set_state(rng['device'])
+        masks = rng.get('masks')
         if masks and len(masks) == self.n_data:
             self.rng.mask.set_state(masks[self.mesh.index(DATA_AXIS)])
         self.epoch = int(raw.get('epoch', 0))

@@ -157,11 +157,12 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
-def flax_init_(model: torch.nn.Module, seed: int) -> None:
+def flax_init_(model: torch.nn.Module, seed: Union[int, torch.Generator]) -> None:
     """Seeded init with flax's distributions: lecun-normal Linear weights,
     zero biases, unit LayerNorm scales, normal(0.02) tokens and position
-    embeddings.  Drawn on the CPU from one ``torch.Generator`` in parameter
-    order, so the weights do not depend on the device.
+    embeddings.  Drawn on the CPU in parameter order from one
+    ``torch.Generator`` (``seed``, or one seeded with it), so the weights do
+    not depend on the device.
 
     The fan-in depends on the kind of leaf: a Linear weight (out, in) has
     ``in``, and so does each layer of a ``scan_blocks`` stack (L, out, in),
@@ -171,7 +172,7 @@ def flax_init_(model: torch.nn.Module, seed: int) -> None:
     ``w2`` (E, f, d).  The MoE router is a Linear; ``b1`` and ``b2`` are
     biases (zero)."""
     from ..models.port import flax_path
-    gen = torch.Generator().manual_seed(seed)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             path = flax_path(name)
@@ -482,6 +483,13 @@ class TrainerBase:
         """The eval-mode forward on the served weights (``_served_state``),
         or on their int8 snapshot while int8 inference is enabled."""
         self.model.eval()
+        if self._int8 is not None:
+            from ..models.quantize import int8_weights
+            q = self._int8
+            model = q.get('model', self.model)
+            with spmd.mesh_context(q.get('mesh')), int8_weights(model, q['qweights'],
+                                                                q['scales']):
+                return torch.func.functional_call(model, q['rest'], args, kw)
         if self.sharded is not None:
             with self._spmd(), torch.no_grad():
                 try:
@@ -491,11 +499,6 @@ class TrainerBase:
                         return self.model(*args, **kw)
                 finally:
                     self.sharded.reshard()
-        if self._int8 is not None:
-            from ..models.quantize import int8_weights
-            q = self._int8
-            with int8_weights(self.model, q['qweights'], q['scales']):
-                return torch.func.functional_call(self.model, q['rest'], args, kw)
         if self.ema is not None:
             return torch.func.functional_call(self.model, self.ema, args, kw)
         return self.model(*args, **kw)
@@ -540,11 +543,12 @@ class TrainerBase:
 
     def load_checkpoint(self, path: str):
         """Restore a checkpoint of this model: params, step, epoch, the
-        generators, and -- when they match this trainer -- the optimizer
-        state (else it is re-initialized, with a warning) and the EMA
-        (seeded from the params when the checkpoint has none; dropped, and
-        ``last_restore_info['dropped_ema']`` set, when this trainer keeps
-        none)."""
+        generators (kept as they are when the checkpoint has none, as one
+        converted from the JAX package), and -- when they match this
+        trainer -- the optimizer state (else it is re-initialized, with a
+        warning) and the EMA (seeded from the params when the checkpoint has
+        none; dropped, and ``last_restore_info['dropped_ema']`` set, when
+        this trainer keeps none)."""
         from .checkpoint import restore_checkpoint
         log = logging.getLogger(__name__)
         if not self.initialized:
@@ -597,9 +601,11 @@ class TrainerBase:
             log.warning('checkpoint %s carries EMA params this trainer does not '
                         'track (ema_decay=0); dropping them', path)
             extra['dropped_ema'] = True
-        self.rng.host.set_state(raw['rng']['host'])
-        self.rng.device.set_state(raw['rng']['device'])
-        masks = raw['rng'].get('masks')
+        rng = raw.get('rng', {})   # a checkpoint converted from JAX carries none
+        if rng:
+            self.rng.host.set_state(rng['host'])
+            self.rng.device.set_state(rng['device'])
+        masks = rng.get('masks')
         if self.rng.mask is not None and masks and len(masks) == self.mesh.shape['data']:
             self.rng.mask.set_state(masks[self.mesh.index('data')])
         self.step = int(raw['step'])
@@ -950,16 +956,27 @@ class Trainer(TrainerBase):
         per-output-channel scales (``models/quantize.py``); ``evaluate``,
         ``predict`` and ``predict_long`` then run on them.  The other leaves
         are snapshotted with them.  Returns the size summary.  Call again
-        after further training to re-snapshot."""
+        after further training to re-snapshot.
+
+        On a mesh (a collective of every rank), as JAX replicates the int8
+        tree: the full served state is gathered (``ShardedModel.full_state``),
+        quantized, and served replicated -- one unsharded model per rank,
+        without Megatron slices, DDP or FSDP2, run under the mesh's 'data'
+        axis alone (``parallel.mesh.DataAxis``), so each data rank computes
+        its rows of a batch and the rows are gathered once per data rank.
+        ``disable_int8_inference`` returns to the sharded model."""
         from ..models.quantize import quantize_int8, quantized_bytes
         if not self.initialized:
             raise RuntimeError('call init_state() or load a checkpoint first')
-        if self.mesh is not None:
-            raise NotImplementedError('int8 inference runs on one device, not on a mesh')
-        served = self._served_state()
+        served = self._full_state(self._served_state())
+        if self.sharded is not None:
+            served = {k: v.to(self.device) for k, v in served.items()}
         qweights, scales = quantize_int8(served)
         rest = {k: v.detach().clone() for k, v in served.items() if k not in qweights}
         self._int8 = {'qweights': qweights, 'scales': scales, 'rest': rest}
+        if self.sharded is not None:
+            self._int8.update(model=self._replicated_model(qweights),
+                              mesh=self.mesh.data_axis())
         before = quantized_bytes(served.values())
         after = quantized_bytes([*qweights.values(), *scales.values(), *rest.values()])
         summary = {'param_bytes_f32': before, 'param_bytes_int8': after,
@@ -969,6 +986,17 @@ class Trainer(TrainerBase):
 
     def disable_int8_inference(self) -> None:
         self._int8 = None
+
+    def _replicated_model(self, qweights: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+        """The unsharded model on this rank's device in eval mode, holding no
+        storage for the leaves in ``qweights`` (int8 inference computes with
+        those, and ``_eval_forward`` hands it the rest)."""
+        model = copy.deepcopy(self._full_model)
+        for key in qweights:
+            owner, _, leaf = key.rpartition('.')
+            model.get_submodule(owner).register_parameter(
+                leaf, torch.nn.Parameter(torch.empty(0, device='meta'), requires_grad=False))
+        return model.to_empty(device=self.device).eval()
 
     @eval_mode
     def predict(self, signals: np.ndarray) -> np.ndarray:
@@ -1032,3 +1060,15 @@ class Trainer(TrainerBase):
                                 'classification_report')}
         payload.update(epoch=self.epoch, step=self.step)
         self._log(payload)
+
+
+def get_all_setup(model_size: str = 'small', train_args: Optional[Dict] = None,
+                  train_data: Optional[SplitData] = None,
+                  eval_data: Optional[SplitData] = None,
+                  norm_stats: Optional[Dict] = None, **kwargs) -> Trainer:
+    """A ``Trainer`` for ``ecg-vit-{model_size}`` with ``TrainConfig(**train_args)``
+    (reference get_all_setup, train.py:439-468); ``kwargs`` go to ``Trainer``."""
+    model_cfg = VitConfig.from_defined(f'ecg-vit-{model_size}')
+    cfg = TrainConfig(**(train_args or {}))
+    return Trainer(model_cfg, cfg, train_data=train_data, eval_data=eval_data,
+                   norm_stats=norm_stats, **kwargs)

@@ -40,6 +40,14 @@ def fail_on(rank: int):
     return dist.get_rank()
 
 
+def crash_on(rank: int):
+    """Rank ``rank`` dies without a result; the others wait for it."""
+    if dist.get_rank() == rank:
+        os._exit(3)
+    dist.barrier()
+    return dist.get_rank()
+
+
 def build(kind: str, cfg: VitConfig, tcfg: TrainConfig, mesh, data=None, out=None):
     """A trainer of ``kind`` ('sup', 'mae', 'con') on the CPU (on ``mesh``)."""
     kw = dict(train_data=data, eval_data=data, device='cpu', mesh=mesh, output_dir=out)
@@ -177,6 +185,126 @@ def mesh_norm(grads_full, shards, clip, poison_rank=None):
     return float(norm), int(count), params
 
 
+def int8_serving(cfg, tcfg, shape, flax_params, signals, split, train_steps=0):
+    """int8 inference of a ``Trainer`` on a (n_data, n_model) mesh
+    (``shape`` None: one device, no process group needed) from the flax
+    weights, after ``train_steps`` steps on ``split``: (predict_long of
+    ``signals``, eval loss, eval macro-AUROC) sharded before, in int8, and
+    sharded after ``disable_int8_inference``; the size summary, the full
+    served state, the shapes of the int8 snapshot's float leaves and the
+    bytes of the replicated model's own storage."""
+    mesh = None if shape is None else make_mesh(*shape, device='cpu')
+    tr = build('sup', cfg, tcfg, mesh, split)
+    tr.init_state()
+    if flax_params is not None:
+        tr.set_params(state_dict_from_flax(flax_params, model_of('sup', cfg)))
+    bs = tcfg.train_batch_size
+    for k in range(train_steps):
+        tr.train_step(split, np.arange(bs * k, bs * (k + 1)))
+
+    def serve():
+        ev = tr.evaluate(split)
+        return tr.predict_long(signals), ev['loss'], ev['macro_auc']
+    before = serve()
+    summary = tr.enable_int8_inference()
+    q8 = serve()
+    model = tr._int8.get('model')
+    own = 0 if model is None else sum(p.numel() * p.element_size() for p in model.parameters())
+    rest = {k: tuple(v.shape) for k, v in tr._int8['rest'].items()}
+    tr.disable_int8_inference()
+    after = serve()
+    return {'before': before, 'int8': q8, 'after': after, 'summary': summary,
+            'served': tr._full_state(tr._served_state()), 'rest_shapes': rest,
+            'model_bytes': own}
+
+
+def serve_on_mesh(cfg, tcfg, shape, flax_params, requests):
+    """``serving.serve`` of an int8 ``Trainer`` on a mesh: rank 0 answers the
+    ``requests`` (one concurrent HTTP client each) and returns each
+    client's probabilities and the service's health; the other ranks
+    ``follow`` and return the number of batches they ran."""
+    import json
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ecg_representation_learning_tpu_torch.serving import follow, serve
+    mesh = make_mesh(*shape, device='cpu')
+    tr = build('sup', cfg, tcfg, mesh)
+    tr.init_state()
+    tr.set_params(state_dict_from_flax(flax_params, model_of('sup', cfg)))
+    tr.enable_int8_inference()
+    if dist.get_rank() != 0:
+        return follow(tr)
+    httpd = serve(tr, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}/predict'
+
+    def post(sig):
+        req = urllib.request.Request(url, data=json.dumps({'signals': sig.tolist()}).encode(),
+                                     headers={'Content-Type': 'application/json'})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return np.asarray(json.loads(resp.read())['probs'], np.float32)
+    try:
+        with ThreadPoolExecutor(len(requests)) as ex:
+            probs = list(ex.map(post, requests))
+        health = httpd.service.health()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.close()
+    return probs, health
+
+
+def serve_past_a_failing_batch(cfg, tcfg, shape, params, bad, good):
+    """``serving.serve`` of an int8 ``Trainer`` on a mesh whose
+    ``predict_long`` raises on every rank for records of ``bad``'s length (a
+    batch that fails the same way everywhere): rank 0 posts ``bad``, then
+    ``good``, and returns (``bad``'s HTTP status, ``good``'s probabilities,
+    the service's health); the other ranks ``follow`` and return the number
+    of batches they ran."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from ecg_representation_learning_tpu_torch.serving import follow, serve
+    tr = build('sup', cfg, tcfg, make_mesh(*shape, device='cpu'))
+    tr.init_state()
+    tr.set_params(params)
+    tr.enable_int8_inference()
+    predict_long = tr.predict_long
+
+    def failing(signals, **kw):
+        if signals.shape[-1] == bad.shape[-1]:
+            raise ValueError(f'no records of {signals.shape[-1]} samples')
+        return predict_long(signals, **kw)
+    tr.predict_long = failing
+    if dist.get_rank() != 0:
+        return follow(tr)
+    httpd = serve(tr, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{httpd.server_address[1]}/predict'
+
+    def post(sig):
+        req = urllib.request.Request(url, data=json.dumps({'signals': sig.tolist()}).encode(),
+                                     headers={'Content-Type': 'application/json'})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, np.asarray(json.loads(resp.read())['probs'], np.float32)
+        except urllib.error.HTTPError as e:
+            return e.code, None
+    try:
+        status, _ = post(bad)
+        _, probs = post(good)
+        health = httpd.service.health()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.service.close()
+    return status, probs, health
+
+
 # --------------------------------------------------------------------- tests
 @pytest.fixture(scope='module')
 def ranks():
@@ -192,6 +320,17 @@ def test_a_failing_rank_raises_with_its_traceback(ranks):
     with pytest.raises(RuntimeError, match='rank 1 fails'):
         ranks.run(fail_on, 1)
     assert ranks.run(rank_info)[1][0] == 1     # the group is still usable
+
+
+def test_spawn_ranks_ends_when_a_rank_crashes(monkeypatch):
+    import time
+    from ecg_representation_learning_tpu_torch.parallel import distributed, spawn_ranks
+    monkeypatch.setattr(distributed, 'SPAWN_GRACE_S', 2.0)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r'rank\(s\) \[1\] gave no result'):
+        spawn_ranks(2, crash_on, 1)
+    assert time.monotonic() - t0 < 60
+    assert spawn_ranks(2, crash_on, 5) == [0, 1]
 
 
 def test_spmd_helpers_are_identities_without_a_mesh():

@@ -4,7 +4,7 @@ The functions here run on gloo CPU ranks (``parallel.LocalRanks``), one
 process per rank with one thread; they import torch and the port only, so a
 rank starts without JAX.  The tests holding them to the JAX package are
 ``tests/test_torch_{ring_attention,long_record,pipeline_parallel,
-pipeline_vit}.py``.
+pipeline_vit,orbax_convert}.py``.
 """
 import dataclasses
 
@@ -48,6 +48,22 @@ def ring_steps(cfg, tcfg, params, xs, masks, out_dir=None):
         tr.set_params(params)
     losses = [float(tr.train_step(x, m)) for x, m in zip(xs, masks)]
     return losses, tr.state_dict()
+
+
+def ring_resume(cfg, tcfg, path, x, mask, total_steps):
+    """``RingPretrainer`` restored from the checkpoint ``path``: (its
+    state_dict, Adam's count, mu and nu, and its step as restored; the loss
+    of one step on ``x`` with ``mask``; the state_dict after that step)."""
+    mesh = make_mesh(dist.get_world_size(), 1, device='cpu')
+    tr = RingPretrainer(cfg, tcfg, mesh, total_steps=total_steps)
+    tr.init(0)
+    tr.load_checkpoint(path)
+    opt = tr.opt_state
+    restored = ({k: v.clone() for k, v in tr.state_dict().items()}, opt.count,
+                {k: v.clone() for k, v in opt.mu.items()},
+                {k: v.clone() for k, v in opt.nu.items()}, tr.step)
+    loss = float(tr.train_step(x, mask))
+    return restored, loss, tr.state_dict()
 
 
 def ring_grads(cfg, tcfg, params, x, mask):

@@ -256,9 +256,11 @@ REQUIRED = {
 
 
 def test_cli_flags_are_the_jax_names_and_defaults(monkeypatch):
-    """Every JAX subcommand is in the port, and every flag of every port
-    subcommand is the JAX CLI's, with its default (and whether it is
-    required); the disk-corpus and tools flags are all there."""
+    """Every JAX subcommand is in the port; every flag of every port
+    subcommand is the JAX CLI's and every JAX flag of every subcommand is
+    the port's (``PORT_ONLY`` lists the port's extras), each with its default
+    (and whether it is required); the disk-corpus and tools flags are all
+    there."""
     def capture(self, *args, **kw):
         raise _Parsed(self)
     with monkeypatch.context() as m:
@@ -271,6 +273,7 @@ def test_cli_flags_are_the_jax_names_and_defaults(monkeypatch):
     for name, sp in sub.items():
         got, want = _flags(sp), _flags(jsub[name])
         assert set(got) - set(want) == PORT_ONLY.get(name, set()), name
+        assert set(want) - set(got) == set(), name
         assert {k: want[k] for k in got if k in want} == \
             {k: v for k, v in got.items() if k in want}, name
         assert REQUIRED.get(name, set()) <= set(got), name
@@ -303,3 +306,23 @@ def test_cli_train_evaluate_and_serve_a_checkpoint(monkeypatch, tmp_path, capsys
     cli.main(['serve', '--size', 'debug', '--no-bf16', '--checkpoint', f'{out}/ckpt-final'])
     want = checkpoint.restore_checkpoint(f'{out}/ckpt-final')['params']
     assert all(torch.equal(v, want[k]) for k, v in served[0].model.state_dict().items())
+
+
+def test_pretrain_takes_the_dispatch_flags_and_trains_the_same(monkeypatch, tmp_path, capsys):
+    """``--epoch-scan`` and ``--steps-per-dispatch`` are on every subcommand,
+    as in the JAX CLI, and only ``train`` reads them: ``pretrain`` with
+    ``--steps-per-dispatch 4`` parses and trains exactly as without it."""
+    monkeypatch.setattr(ttrainer, 'default_device', lambda device=None: torch.device('cpu'))
+    results = []
+    for extra in ([], ['--steps-per-dispatch', '4', '--epoch-scan']):
+        cli.main(['pretrain', '--size', 'debug', '--epochs', '1', '--batch-size', '16',
+                  '--synth-n', '64', '--no-bf16', '--output-dir', str(tmp_path / str(len(extra))),
+                  *extra])
+        results.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert results[0]['pretrain_loss'] == results[1]['pretrain_loss']
+    assert results[0]['best_eval_loss'] == results[1]['best_eval_loss']
+    for sub in ('evaluate', 'export-model', 'infer', 'port', 'serve', 'visualize'):
+        args = cli.build_parser().parse_args(
+            [sub, '--steps-per-dispatch', '4', '--epoch-scan',
+             *{'infer': ['--hdf5', 'x'], 'port': ['--port-checkpoint', 'x']}.get(sub, [])])
+        assert (args.steps_per_dispatch, args.epoch_scan) == (4, True)
