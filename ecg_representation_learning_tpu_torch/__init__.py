@@ -30,7 +30,8 @@ corpus, and raw-corpus ingest with streaming pretraining):
                    the host compiler), the export jobs, the sharded and mixed
                    streams with device prefetch, the torch ``Dataset`` adapter
 - ``serving``   -- micro-batching HTTP inference server
-- ``utils``     -- logging, argument checks, ``StepTimer``
+- ``utils``     -- logging, argument checks, ``tracing`` (spans and the train
+                   step's phase marks, ``StepTimer``, ``device_trace``)
 - ``tools``     -- ``nlm_sol_probe`` (the NLM kernel's cost attribution)
 - ``cli``       -- ``synth``, ``train``, ``pretrain`` (and ``--stream``),
                    ``evaluate``, ``infer``, ``serve``, ``port``, ``denoise``,

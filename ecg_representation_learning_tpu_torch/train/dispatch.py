@@ -44,6 +44,13 @@ tape runs its steps eagerly: on the CPU (the plain version the tests hold
 the graphs to) and on a mesh (DDP, FSDP2 and the collectives are not
 captured; each step is ``Trainer.train_step`` with the tape's seeds).  A
 capture that fails raises; there is no other route.
+
+Tracing (``utils/tracing.py``, on while a profiler records): a 'dispatch'
+span with 'dispatch.prepare', '.capture', '.launch' and '.mesh' inside it;
+the graph's phase marks (event-record nodes, 4K + 1 in a K-step graph),
+read at the start of the next dispatch; and after each traced replay an
+end event, from which the next dispatch's gap is read.  With tracing off a
+dispatch adds a few flag checks and the graph's event records.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 
 from ..models.vit import seeds_per_forward
+from ..utils import tracing
 
 
 def _kernels() -> Dict[str, Tuple[Any, str]]:
@@ -134,13 +142,15 @@ class StepTape:
 class Captured:
     """A captured dispatch: the graph, the tensors its replay writes the last
     step's metrics into, the device buffers it reads (kept alive with it),
-    the kernel launches one replay makes, and what the capture cost."""
+    the kernel launches one replay makes, what the capture cost, and the
+    phase marks every replay records."""
     graph: Any
     metrics: Dict[str, torch.Tensor]
     keep: List[torch.Tensor]
     launches: Dict[str, int]
     capture_s: float
     pool_bytes: int
+    marks: tracing.StepMarks
 
 
 class Dispatcher:
@@ -165,6 +175,11 @@ class Dispatcher:
         self.eager = self.device.type != 'cuda' or trainer.mesh is not None
         self.stream = None if self.eager else torch.cuda.Stream(self.device)
         self.replays = 0
+        # traced replays' end events, two in turn (one is read before it is
+        # recorded again), and the trainer's step after the last of them
+        self._ends = None if self.eager else (torch.cuda.Event(enable_timing=True),
+                                              torch.cuda.Event(enable_timing=True))
+        self._end_step = None
 
     def info(self) -> Dict[str, Any]:
         """What the dispatches ran: the route ('graph' on one GPU, 'eager' on
@@ -185,34 +200,56 @@ class Dispatcher:
         replays.  Returns the per-step losses and gradient norms (device
         tensors) and the last step's metrics (device tensors, the learning
         rate a float), as the per-step loop's ``train_step`` returns them."""
+        tracing.collect()   # the last dispatch's marks, if traced: the replay records them again
+        with tracing.span('dispatch', self.tr.step):
+            return self._dispatch(takes, self.tr.step)
+
+    def _dispatch(self, takes: np.ndarray, step: int):
         tr = self.tr
         k = len(takes)
-        seeds = torch.randint(0, 1 << 31, (k * self.tape.n_seeds,),
-                              generator=tr.rng.host).numpy().reshape(k, self.tape.n_seeds)
+        with tracing.span('dispatch.prepare', step):
+            seeds = torch.randint(0, 1 << 31, (k * self.tape.n_seeds,),
+                                  generator=tr.rng.host).numpy().reshape(k, self.tape.n_seeds)
+            if tr.mesh is None:
+                scalars = self._prepare(takes, seeds)
         if tr.mesh is not None:
-            return self._run_mesh(takes, seeds)
+            with tracing.span('dispatch.mesh', step):
+                return self._run_mesh(takes, seeds)
+        if self.captured is not None:
+            with tracing.span('dispatch.launch', step):
+                metrics = self._replay(k)
+        elif self.eager:
+            with tracing.span('dispatch.launch', step):
+                marks = tracing.step_marks(self.device)
+                metrics = self._body(k, marks)
+                marks.launched()
+        else:
+            with tracing.span('dispatch.capture', step):
+                marks = tracing.step_marks(self.device)
+                self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.stream):
+                    metrics = self._body(k, marks)
+                torch.cuda.current_stream(self.device).wait_stream(self.stream)
+                marks.launched()
+                self._capture()
+        # copies: the next dispatch writes the buffers again
+        return (self.losses[:k].clone(), self.gnorms[:k].clone(),
+                {'loss': metrics['loss'], 'learning_rate': float(scalars[-1, 0]),
+                 **{key: v for key, v in metrics.items() if key != 'loss'}})
+
+    def _prepare(self, takes: np.ndarray, seeds: np.ndarray) -> np.ndarray:
+        """The tape filled for the dispatch's steps, the non-finite counter
+        and the cursor set; returns the steps' [lr, bc1, bc2, -lr] rows."""
+        tr = self.tr
         scalars = np.stack([step_scalars(tr.optimizer, tr.opt_state.count + i)
-                            for i in range(k)])
+                            for i in range(len(takes))])
         self.tape.fill(takes, seeds, scalars)
         if tr._nonfinite is not self.nonfinite:   # a single step ran since the last dispatch
             self.nonfinite.copy_(tr._nonfinite)
             tr._nonfinite = self.nonfinite
         if self.scan:
             self.cursor.zero_()
-        if self.captured is not None:
-            metrics = self._replay(k)
-        elif self.eager:
-            metrics = self._body(k)
-        else:
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.stream):
-                metrics = self._body(k)
-            torch.cuda.current_stream(self.device).wait_stream(self.stream)
-            self._capture()
-        # copies: the next dispatch writes the buffers again
-        return (self.losses[:k].clone(), self.gnorms[:k].clone(),
-                {'loss': metrics['loss'], 'learning_rate': float(scalars[-1, 0]),
-                 **{key: v for key, v in metrics.items() if key != 'loss'}})
+        return scalars
 
     def _row(self, i: int):
         """Step ``i``'s views of the tape: row i, or (``scan``) the row at the
@@ -223,14 +260,15 @@ class Dispatcher:
         torch.index_select(self.tape.dev, 0, self.cursor, out=self.row.view(1, -1))
         return self.tape.views(self.row), self.cursor
 
-    def _body(self, n: int) -> Dict[str, torch.Tensor]:
+    def _body(self, n: int, marks) -> Dict[str, torch.Tensor]:
         """``n`` tape steps (``scan``: cursor steps); the per-step loss and
         gradient norm into their buffers, the non-finite counter back into
-        the tensor the next dispatch reads."""
+        the tensor the next dispatch reads.  ``marks``: the steps' phase
+        marks (``utils.tracing``), each step's tail ending after its copies."""
         tr = self.tr
         for i in range(n):
             (idx, seeds, scal), slot = self._row(i)
-            metrics = tr._tape_step(self.sigs, self.labs, idx, seeds, scal)
+            metrics = tr._tape_step(self.sigs, self.labs, idx, seeds, scal, marks)
             if self.scan:
                 self.losses.index_copy_(0, slot, metrics['loss'].reshape(1))
                 self.gnorms.index_copy_(0, slot, metrics['grad_norm'].reshape(1))
@@ -238,6 +276,7 @@ class Dispatcher:
             else:
                 self.losses[slot].copy_(metrics['loss'])
                 self.gnorms[slot].copy_(metrics['grad_norm'])
+            marks.mark('tail')
         self.nonfinite.copy_(tr._nonfinite)
         tr._nonfinite = self.nonfinite
         return metrics
@@ -252,6 +291,7 @@ class Dispatcher:
         if isinstance(tr.optimizer, FusedAdamW):   # #5's buffers, outside the graph's pool
             adamw_kernel.reserve(steps)
         saved = (tr.step, tr.opt_state, launch_counts())
+        marks = tracing.StepMarks(self.device)
         graph = torch.cuda.CUDAGraph()
         for gen in {id(g): g for g in (tr.rng.device, tr.rng.masks)}.values():
             graph.register_generator_state(gen)
@@ -260,23 +300,33 @@ class Dispatcher:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, stream=self.stream):
-            metrics = self._body(steps)
+            metrics = self._body(steps, marks)
         capture_s = time.perf_counter() - t0
         after = launch_counts()
         launches = {name: after[name] - saved[2][name] for name in after}
         _add_counts(launches, -1)
         tr.step, tr.opt_state = saved[0], saved[1]
         self.captured = Captured(graph, metrics, adamw_kernel.take_captured(), launches,
-                                 capture_s, torch.cuda.memory_reserved(self.device) - reserved)
+                                 capture_s, torch.cuda.memory_reserved(self.device) - reserved,
+                                 marks)
 
     def _replay(self, k: int) -> Dict[str, torch.Tensor]:
         """The dispatch as replays: one of the K-step graph, or ``k`` of the
         cursor step; the host counters advanced by ``k`` steps and the launch
-        counters by what the replays launched."""
+        counters by what the replays launched.  Traced: the graph's marks
+        are handed to the recorder (``scan``: the last replay's step, and no
+        gap), and an end event follows the replays."""
         tr, cap = self.tr, self.captured
         replays = k if self.scan else 1
+        traced = tracing.enabled()
         for _ in range(replays):
             cap.graph.replay()
+        if traced:
+            back_to_back = self._end_step == tr.step and not self.scan
+            cap.marks.launched(self._ends[1] if back_to_back else None)
+            self._ends[0].record()
+            self._ends = self._ends[::-1]
+            self._end_step = tr.step + k
         self.replays += replays
         _add_counts(cap.launches, replays)
         tr.step += k

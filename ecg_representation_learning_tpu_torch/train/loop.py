@@ -15,36 +15,42 @@ and the EMA is laid out like the params (each rank updates its shards).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops.adamw import NormReduce, mesh_norm_reference
+from ..utils import tracing
 from .optim import AdamChain, FusedAdamW, FusedAdamWState, global_norm
 
 
 def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
                params: Dict[str, torch.Tensor], idx: torch.Tensor,
-               accum: int, sharded=None) -> Tuple[List[Any], Dict[str, torch.Tensor]]:
+               accum: int, sharded=None, marks=tracing.NO_MARKS
+               ) -> Tuple[List[Any], Dict[str, torch.Tensor]]:
     """Run ``micro_fn(idx_k) -> (aux, loss)`` over ``accum`` equal slices of
     ``idx`` (the JAX ``idx.reshape(accum, -1)``), back-propagating each loss,
     and return ``([aux_k], mean grads)``.  Activation memory is one
     microbatch's; the mean of the microbatch gradient means equals the
     full-batch gradient mean.  ``sharded`` (a ``ShardedModel``): gradients
     are synced over 'data' after the last microbatch only, and the local
-    shards are returned."""
+    shards are returned.  ``marks`` (``utils.tracing.StepMarks``): a mark
+    after each microbatch's loss ('forward') and gradients ('backward', the
+    last one after the sync and the mean)."""
     for p in params.values():
         p.grad = None
     aux = []
     for k, idx_k in enumerate(idx.reshape(accum, -1)):
-        if sharded is None:
-            a, loss = micro_fn(idx_k)
-            loss.backward()
-        else:
-            with sharded.no_sync(k == accum - 1):
+        with contextlib.nullcontext() if sharded is None else sharded.no_sync(k == accum - 1):
+            with tracing.span('step.forward'):
                 a, loss = micro_fn(idx_k)
+            marks.mark('forward')
+            with tracing.span('step.backward'):
                 loss.backward()
+            if k < accum - 1:
+                marks.mark('backward')
         aux.append(a)
     if sharded is not None:
         sharded.sync_grads()
@@ -53,6 +59,7 @@ def grad_accum(micro_fn: Callable[[torch.Tensor], Tuple[Any, torch.Tensor]],
         grads = {k: p.grad for k, p in params.items()}
     if accum > 1:
         torch._foreach_div_(list(grads.values()), float(accum))
+    marks.mark('backward')
     return aux, grads
 
 

@@ -74,6 +74,7 @@ from ..ops.normalize import normalize_fixed
 from ..ops.pad import time_end_pad
 from ..parallel import spmd
 from ..runtime import default_device
+from ..utils import tracing
 from ..utils.logging import TbWriter, get_logger, pretty_log_dict
 from .checkpoint import wait_for_checkpoints
 from .loop import finish_update, grad_accum
@@ -420,12 +421,13 @@ class TrainerBase:
         in as they are: every in-place write of the tail runs under
         ``no_grad`` or in the kernels.  ``scalars``: a step tape's [lr, bc1,
         bc2, -lr] on the device."""
-        self.opt_state, grad_norm, self._nonfinite = finish_update(
-            self.optimizer, self.cfg, self.opt_state, self._leaves(), grads, self._nonfinite,
-            self.ema, reduce=None if self.sharded is None else self._norm_reduce,
-            scalars=scalars)
-        for p in self.params().values():
-            p.grad = None
+        with tracing.span('step.update'):
+            self.opt_state, grad_norm, self._nonfinite = finish_update(
+                self.optimizer, self.cfg, self.opt_state, self._leaves(), grads,
+                self._nonfinite, self.ema,
+                reduce=None if self.sharded is None else self._norm_reduce, scalars=scalars)
+            for p in self.params().values():
+                p.grad = None
         self.step += 1
         return grad_norm
 
@@ -690,29 +692,39 @@ class Trainer(TrainerBase):
         if not self.initialized:
             raise RuntimeError('call init_state() or set_params() first')
         accum = max(1, self.cfg.grad_accum)
+        tracing.collect(wait=False)
+        marks = tracing.step_marks(self.device)
         sigs, labs, idx = self._step_inputs(data, self._local_take(take, accum))
         lr = self.optimizer.lr_at(self.step)
-        m = self._step(sigs, labs, idx)
+        m = self._step(sigs, labs, idx, marks=marks)
+        marks.mark('tail')
+        marks.launched()
         return {'loss': m.pop('loss'), 'learning_rate': lr, **m}
 
     def _tape_step(self, sigs: torch.Tensor, labs: torch.Tensor, idx: torch.Tensor,
-                   seeds: torch.Tensor, scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+                   seeds: torch.Tensor, scalars: torch.Tensor,
+                   marks=tracing.NO_MARKS) -> Dict[str, torch.Tensor]:
         """One step of a step tape (``train/dispatch.py``): the rows ``idx``
         of the resident split, the dropout seeds ``seeds`` and the optimizer
         scalars ``scalars`` [lr, bc1, bc2, -lr], all on the device, so the
         step reads no host value and a CUDA graph can capture it.  Returns
         the metrics as 0-d device tensors (no learning rate)."""
         with self.rng.taped(seeds):
-            return self._step(sigs, labs, idx, scalars)
+            return self._step(sigs, labs, idx, scalars, marks)
 
     def _step(self, sigs: torch.Tensor, labs: torch.Tensor, idx: torch.Tensor,
-              scalars: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              scalars: Optional[torch.Tensor] = None,
+              marks=tracing.NO_MARKS) -> Dict[str, torch.Tensor]:
         """Forward, backward and update on rows ``idx`` of ``sigs``/``labs``;
-        the loss, gradient norm and binary stats as 0-d device tensors."""
+        the loss, gradient norm and binary stats as 0-d device tensors.
+        ``marks`` (``utils.tracing.StepMarks``): the step's start and the ends
+        of its forward, backward and update; the caller marks the end of
+        the tail, once the metrics are where it keeps them."""
         cfg = self.cfg
         accum = max(1, cfg.grad_accum)
         params = self.params()
         self.model.train()
+        marks.start()
 
         def micro(idx_k):
             sig = sigs.index_select(0, idx_k).float()
@@ -726,12 +738,13 @@ class Trainer(TrainerBase):
                     self._objective(out.loss, out.aux_loss))
 
         with self._spmd():
-            aux, grads = grad_accum(micro, params, idx, accum, self.sharded)
+            aux, grads = grad_accum(micro, params, idx, accum, self.sharded, marks)
         self.model.eval()
+        grad_norm = self._update(grads, scalars)
+        marks.mark('update')
         loss = torch.stack([a[0] for a in aux]).mean()
         logits = torch.cat([a[1] for a in aux])
         lab = torch.cat([a[2] for a in aux])
-        grad_norm = self._update(grads, scalars)
         probs = torch.sigmoid(logits.float())
         return {'loss': loss, 'grad_norm': grad_norm, **binary_stats(probs, lab)}
 
@@ -785,7 +798,8 @@ class Trainer(TrainerBase):
                                                    shuffle_rng=host_rng):
                     metrics = self.train_step(self.train_data, take)
                     if (not cfg.log_per_epoch) or self.step % self.steps_per_epoch == 0:
-                        payload = {f'train/{k}': float(v) for k, v in metrics.items()}
+                        with tracing.span('train.read', self.step):
+                            payload = {f'train/{k}': float(v) for k, v in metrics.items()}
                         payload.update(epoch=self.epoch, step=self.step)
                         self._check_finite(f'by step {self.step}')
                         self._log(payload)
@@ -852,7 +866,8 @@ class Trainer(TrainerBase):
         idx = np.arange(len(self.train_data))
         host_rng.shuffle(idx)    # the draw of _index_batches: the same batches
         losses, gnorms, _ = self.dispatcher.run(idx[:steps * bsz].reshape(steps, bsz))
-        losses, gnorms = torch.stack([losses, gnorms]).cpu().numpy()   # one fetch
+        with tracing.span('train.read', self.step):
+            losses, gnorms = torch.stack([losses, gnorms]).cpu().numpy()   # one fetch
         self._check_finite(f'during epoch {self.epoch}')
         if self.tb:   # the per-step curve, recorded at epoch end
             first = self.step - steps + 1
@@ -888,7 +903,8 @@ class Trainer(TrainerBase):
                 idx[c * k * bsz:(c + 1) * k * bsz].reshape(k, bsz))
             ep_losses.append(losses)
             if not cfg.log_per_epoch:
-                payload = {f'train/{key}': float(v) for key, v in metrics.items()}
+                with tracing.span('train.read', self.step):
+                    payload = {f'train/{key}': float(v) for key, v in metrics.items()}
                 payload.update(epoch=self.epoch, step=self.step)
                 self._check_finite(f'by step {self.step}')
                 self._log(payload)
@@ -896,11 +912,13 @@ class Trainer(TrainerBase):
         for i in range(leftover):
             metrics = self.train_step(self.train_data, idx[pos + i * bsz:pos + (i + 1) * bsz])
             if not cfg.log_per_epoch:
-                payload = {f'train/{key}': float(v) for key, v in metrics.items()}
+                with tracing.span('train.read', self.step):
+                    payload = {f'train/{key}': float(v) for key, v in metrics.items()}
                 payload.update(epoch=self.epoch, step=self.step)
                 self._log(payload)
         if cfg.log_per_epoch:
-            losses = torch.cat(ep_losses).cpu().numpy() if ep_losses else np.zeros(0)
+            with tracing.span('train.read', self.step):
+                losses = torch.cat(ep_losses).cpu().numpy() if ep_losses else np.zeros(0)
             self._check_finite(f'during epoch {self.epoch}')
             payload = {'train/loss': float(metrics['loss']),
                        'train/grad_norm': float(metrics['grad_norm']),

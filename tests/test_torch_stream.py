@@ -58,7 +58,7 @@ from ecg_representation_learning_tpu_torch.train import checkpoint, optim
 from ecg_representation_learning_tpu_torch.train import trainer as ttrainer
 from ecg_representation_learning_tpu_torch.train.contrastive import ContrastiveTrainer
 from ecg_representation_learning_tpu_torch.train.pretrain import MaeTrainer
-from ecg_representation_learning_tpu_torch.utils import misc
+from ecg_representation_learning_tpu_torch.utils import tracing
 from ecg_representation_learning_tpu_torch.utils.misc import StepTimer
 from test_raw_tree_integration import _write_record
 from test_torch_contrastive import jax_view_draws
@@ -366,7 +366,8 @@ def test_train_stream_checkpoints_prune_and_final_save(tmp_path):
 
 def test_step_timer_summary(monkeypatch):
     clock = iter([0.0, 1.0, 4.0, 5.0, 8.0])
-    monkeypatch.setattr(misc, 'time', types.SimpleNamespace(perf_counter=lambda: next(clock)))
+    # StepTimer lives in utils/tracing.py (utils.misc re-exports it)
+    monkeypatch.setattr(tracing, 'time', types.SimpleNamespace(perf_counter=lambda: next(clock)))
     t = StepTimer()
     t.input_done()
     t.step_done()
