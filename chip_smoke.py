@@ -37,7 +37,10 @@ process per source started together (into ``build/torch_kernels/``), then:
    shared memory holds, each against the plain version and against the
    plain version evaluated in f64; its five attribution variants (#7), then
    the probe
-   ``tools/nlm_sol_probe.py`` of the port;
+   ``tools/nlm_sol_probe.py`` of the port; the dropout site kernels
+   (``dropout_sites.cu``, port-only) at the supervised cell's shapes, each way
+   against the plain chain (``dropout_add`` bit for bit, ``gelu_dropout``
+   within one ulp), their device ms beside the byte bound and the chain's;
 2. serving phase: ViT-base (f32, 12 layers of attention at 41 tokens, all
    through the kernel: ``flash_min_seq=0``) behind ``serving.serve`` answers
    16 concurrent HTTP requests; every client's rows must equal
@@ -51,7 +54,8 @@ process per source started together (into ``build/torch_kernels/``), then:
    #5's two launches (norm, update): three f32 steps against a plain twin
    (plain attention, the plain AdamW tail) from one init, then
    ``Trainer.train()`` in bf16 with dropout 0.1 and TimeOut over 2 epochs of
-   the hard synthetic corpus, with its train samples/s, eval macro-AUROC,
+   the hard synthetic corpus (each step 12 ``gelu_dropout`` and 24
+   ``dropout_add`` launches each way), with its train samples/s, eval macro-AUROC,
    #5's block-table rebuilds, a profile of one step and one of its update
    tail alone (at most 2 launches and 1 copy);
 4. pretrain phase: the same for self-supervised pretraining, MAE (default
@@ -213,7 +217,7 @@ from ecg_representation_learning_tpu_torch.models.port import (
 from ecg_representation_learning_tpu_torch.models.tokenizer import (EcgTokenizer,
                                                                     nearest_centroid)
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit, stack_unrolled_state_dict
-from ecg_representation_learning_tpu_torch.ops import _build, adamw, nlm_fused
+from ecg_representation_learning_tpu_torch.ops import _build, adamw, dropout, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
 from ecg_representation_learning_tpu_torch.ops.loess import rloess
@@ -365,7 +369,13 @@ KERNELS = [
     ('adamw_norm', 'adamw', 'ecg_representation_learning_tpu/ops/adamw_pallas.py:41'),
     ('nlm_rows', 'nlm', 'ecg_representation_learning_tpu/ops/nlm_pallas.py:48'),
     ('nlm_variant', 'nlm', 'tools/nlm_sol_probe.py:36'),
+    ('gelu_dropout', 'dropout_sites', 'none: port-only, XLA fuses the chain in JAX'),
+    ('dropout_add', 'dropout_sites', 'none: port-only, XLA fuses the chain in JAX'),
 ]
+# the dropout sites of a ViT-base block in the supervised cell (bs 64, 41
+# tokens, bf16, dropout 0.1): the MLP hidden, and the attention and MLP outputs
+SITE_RATE = 0.1
+SITE_SHAPES = {'gelu_dropout': (64, 41, 3072), 'dropout_add': (64, 41, 768)}
 
 
 def emit(obj) -> None:
@@ -705,6 +715,118 @@ def flash_grad_phase():
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two tensors
+    of one float type (+0 and -0 coincide)."""
+    int_type = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    bits = torch.iinfo(int_type).bits
+
+    def ordered(t):
+        i = t.contiguous().view(int_type).long()
+        return torch.where(i < 0, -(i & ((1 << (bits - 1)) - 1)), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+SITE_SETS = 8   # input sets a timing cycles through: 8 x >= 14 MB passes the 50 MB L2
+
+
+def _site_inputs(kind: str, shape, gen) -> dict:
+    """One set of a site's inputs as the cell has them: a bf16 branch, an
+    f32 residual and gradient (bf16 for the hidden), the mask drawn as bool
+    and as f32 (the chain's draw)."""
+    keep_f32 = torch.empty(shape, device='cuda').bernoulli_(1 - SITE_RATE, generator=gen)
+    g_type = torch.bfloat16 if kind == 'gelu_dropout' else torch.float32
+    return {'keep_f32': keep_f32, 'keep': keep_f32.bool(),
+            'branch': (2 * torch.randn(shape, generator=gen, device='cuda')).bfloat16(),
+            'x': torch.randn(shape, generator=gen, device='cuda'),
+            'g': torch.randn(shape, generator=gen, device='cuda').to(g_type)}
+
+
+def _site_calls(kind: str, t: dict) -> dict:
+    """{direction: (kernel call, plain call)} on the inputs ``t``: the plain
+    version from the f32 mask, as the chain ran (its cast, scale, ``where``,
+    and GELU or the add; the backward's mirror)."""
+    inv, r = dropout.keep_scale(SITE_RATE), SITE_RATE
+    br, keep, keep_f32, g = t['branch'], t['keep'], t['keep_f32'], t['g']
+    if kind == 'gelu_dropout':
+        kern = dropout.gelu_dropout_kernel
+        return {'forward': (lambda: kern.launch('forward', torch.empty_like(br), (br, keep),
+                                                (1,), inv),
+                            lambda: dropout.gelu_dropout_reference(br, keep_f32, r)),
+                'backward': (lambda: kern.launch('backward', torch.empty_like(br),
+                                                 (g, keep, br), (1,), inv),
+                             lambda: torch.ops.aten.gelu_backward(
+                                 torch.where(keep_f32.bool(), g, 0.0) / (1 - r), br))}
+    kern, x = dropout.dropout_add_kernel, t['x']
+    return {'forward': (lambda: kern.launch('forward', torch.empty_like(x), (br, keep, x),
+                                            (1, 0), inv),
+                        lambda: dropout.dropout_add_reference(x, br, keep_f32, r)),
+            'backward': (lambda: kern.launch('backward', torch.empty_like(br), (g, keep),
+                                             (0, 1), inv),
+                         lambda: torch.where(keep_f32.bool(), g.bfloat16(), 0.0) / (1 - r))}
+
+
+def _cycled(calls) -> callable:
+    """One call a time from ``calls`` in turn."""
+    state = [0]
+
+    def run():
+        state[0] += 1
+        return calls[state[0] % len(calls)]()
+    return run
+
+
+def _site_row(kind: str, shape, gen) -> dict:
+    """One dropout site kind at ``shape`` as the cell runs it: the kernel
+    against the plain version each way, then each direction's device ms
+    beside its byte bound (the mask as bool; also as f32) and the plain
+    version's, each call on the next of ``SITE_SETS`` input sets, so that
+    inputs come from HBM as the bound assumes (``*_warm``: one set, from
+    L2 when it fits)."""
+    n = math.prod(shape)
+    sets = [_site_calls(kind, _site_inputs(kind, shape, gen)) for _ in range(SITE_SETS)]
+    # bytes read and written besides the mask
+    per_elem = ({'forward': (2, 2), 'backward': (2 + 2, 2)} if kind == 'gelu_dropout'
+                else {'forward': (2 + 4, 4), 'backward': (4, 2)})
+    row = {'phase': 'kernel', 'kernel': kind, 'shape': list(shape), 'dtype': 'bfloat16',
+           'mask': 'bool', 'rate': SITE_RATE, 'input_sets': SITE_SETS}
+    for direction in ('forward', 'backward'):
+        kernel, plain = sets[0][direction]
+        got, want = kernel(), plain()
+        read, written = per_elem[direction]
+        b_ms, b_by = bound(n * (read + 1 + written), 0, torch.float32)
+        k_ms = device_ms(_cycled([s[direction][0] for s in sets]))
+        row[direction] = {
+            'ulps': _ulps(got, want),
+            'max_abs_err': (got.float() - want.float()).abs().max().item(),
+            'kernel_ms': time_ms(kernel), 'kernel_device_ms': k_ms,
+            'kernel_device_ms_warm': device_ms(kernel),
+            'bound_ms': b_ms, 'bound_by': b_by,
+            'bound_ms_f32_mask': bound(n * (read + 4 + written), 0, torch.float32)[0],
+            'bound_share': b_ms / k_ms if k_ms else None,
+            'plain_ms': time_ms(plain, reps=20),
+            'plain_device_ms': device_ms(_cycled([s[direction][1] for s in sets]), reps=20)}
+    row['draw_f32_device_ms'] = device_ms(lambda: torch.empty(shape, device='cuda').bernoulli_(
+        1 - SITE_RATE, generator=gen))
+    row['draw_bool_device_ms'] = device_ms(lambda: torch.empty(
+        shape, dtype=torch.bool, device='cuda').bernoulli_(1 - SITE_RATE, generator=gen))
+    emit(row)
+    limit = 0 if kind == 'dropout_add' else 1   # the sum is the chain's; erf, exp may round apart
+    if max(row[d]['ulps'] for d in ('forward', 'backward')) > limit:
+        raise AssertionError(f'{kind} kernel differs from its plain version: {row}')
+    fwd = row['forward']
+    return {**row, 'max_abs_err': fwd['max_abs_err'], 'kernel_ms': fwd['kernel_device_ms'],
+            'plain_ms': fwd['plain_device_ms'], 'bound_ms': fwd['bound_ms'],
+            'bound_by': fwd['bound_by'], 'library_ms': None}
+
+
+def dropout_sites_phase() -> dict:
+    """The dropout site kernels (``ops/csrc/dropout_sites.cu``) at the
+    supervised cell's shapes (``_site_row``); returns their rows by name."""
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    return {kind: _site_row(kind, shape, gen) for kind, shape in SITE_SHAPES.items()}
 
 
 def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
@@ -1089,6 +1211,15 @@ def _counts():
             'nlm_variant': probe.variant_kernel.launches}
 
 
+def _site_counts():
+    """The dropout site kernels' launch counts, each way (kept out of
+    ``_counts``: the phases' expected launches name kernels #1-#7)."""
+    return {'gelu_dropout': dropout.gelu_dropout_kernel.launches,
+            'gelu_dropout_bwd': dropout.gelu_dropout_kernel.backward_launches,
+            'dropout_add': dropout.dropout_add_kernel.launches,
+            'dropout_add_bwd': dropout.dropout_add_kernel.backward_launches}
+
+
 def _zero_counts():
     for k in (attn.flash_fwd_kernel, attn.flash_fwd_lse_kernel, attn.flash_bwd_dq_kernel,
               attn.flash_bwd_dkv_kernel, adamw.adamw_kernel, nlm_fused.nlm_rows_kernel,
@@ -1194,10 +1325,12 @@ def training_phase():
     tr._log = lambda payload: (payloads.append(payload), log(payload))
     _zero_counts()
     builds = adamw.adamw_kernel.table_builds
+    sites = _site_counts()
     t0 = time.perf_counter()
     result = tr.train()
     train_s = time.perf_counter() - t0
     launches = _counts()     # the eval forwards add flash_fwd launches
+    launches.update({k: v - sites[k] for k, v in _site_counts().items()})
     builds = adamw.adamw_kernel.table_builds - builds
     shutil.rmtree(out_dir, ignore_errors=True)
     train_losses = [p['train/loss'] for p in payloads if 'train/loss' in p]
@@ -1214,7 +1347,10 @@ def training_phase():
                'train_samples_per_s_bf16': _steps_per_s(tr, splits.train, 10)}
     emit(summary)
     want = {'flash_fwd_lse': layers * steps, 'flash_bwd_dq': layers * steps,
-            'flash_bwd_dkv': layers * steps, 'adamw': steps, 'adamw_norm': steps}
+            'flash_bwd_dkv': layers * steps, 'adamw': steps, 'adamw_norm': steps,
+            # every Bernoulli site of a block, once each way a step; eval draws none
+            'gelu_dropout': layers * steps, 'gelu_dropout_bwd': layers * steps,
+            'dropout_add': 2 * layers * steps, 'dropout_add_bwd': 2 * layers * steps}
     if not (len(train_losses) == steps == 2 * tr.steps_per_epoch
             and all(np.isfinite(train_losses)) and aucs[-1] is not None
             and np.isfinite(aucs[-1])
@@ -3752,7 +3888,7 @@ def main(argv=None) -> int:
                           '--format=csv,noheader'], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs = ['flash_fwd', 'flash_bwd', 'adamw', 'nlm']
+    libs = ['flash_fwd', 'flash_bwd', 'adamw', 'nlm', 'dropout_sites']
     _build.build(libs)
     build_s = time.perf_counter() - t0
     ptxas = {lib: [ln.strip() for ln in
@@ -3773,6 +3909,7 @@ def main(argv=None) -> int:
         rows['nlm_rows'] = nlm_phase(*chain_rows())
         rows['nlm_variant'] = nlm_variant_phase()
         launches['nlm_variant'] = rows['nlm_variant']['launches']
+        rows.update(dropout_sites_phase())
     if 'serving' in args.phases:
         _, launches['flash_fwd'] = serving_phase()
     if 'training' in args.phases:

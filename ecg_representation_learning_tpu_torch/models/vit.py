@@ -15,7 +15,10 @@ other.  Numerics kept from the flax model:
   * train mode applies dropout at the JAX sites, each with its salt: attention
     probabilities (the hashed mask, seeded per layer per step), the attention
     output (salt 2), the MLP hidden (3) and output (4), the embedding (5, at
-    ``attention_probs_dropout_prob`` as the reference's emb_dropout);
+    ``attention_probs_dropout_prob`` as the reference's emb_dropout); a
+    Bernoulli site of the block is applied with the GELU before it or the
+    residual add after it (``_Site.gelu``, ``_Site.add_to``: one kernel each
+    way on the card, ``ops/csrc/dropout_sites.cu``);
   * ``return_attention`` runs the plain probabilities path and returns the
     per-layer attention maps (L, B, H, T, T) for rollout.
 
@@ -163,7 +166,10 @@ class SelfAttention(nn.Module):
         self.drop = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob,
                                  salt=2 if cfg.ring_axis is None else 1)
 
-    def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
+    def forward(self, x, residual, rng: Optional[DropoutRng] = None,
+                return_probs: bool = False):
+        """(``residual`` + dropout of the attention output of ``x``, the
+        probabilities when ``return_probs``)."""
         cfg = self.cfg
         b, t, _ = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, self.heads, cfg.head_dim)
@@ -189,7 +195,7 @@ class SelfAttention(nn.Module):
                             bh_offset=0 if batch is None else batch[0] * self.heads)
         out = out.permute(0, 2, 1, 3).reshape(b, t, self.heads * cfg.head_dim)
         y = self.out(out)
-        return self.drop(y, rng, spmd.frame(y.shape)), probs
+        return self.drop.add_to(residual, y, rng, spmd.frame(y.shape)), probs
 
 
 class Mlp(nn.Module):
@@ -202,11 +208,13 @@ class Mlp(nn.Module):
         self.drop2 = make_dropout(cfg.dropout_impl, cfg.hidden_dropout_prob, salt=4)
         self.tp = False   # the hidden units split over 'model' (Megatron plan)
 
-    def forward(self, x, rng: Optional[DropoutRng] = None):
-        h = F.gelu(self.fc1(x), approximate='none')
-        h = self.drop1(h, rng, spmd.frame(h.shape, model_dim=-1 if self.tp else None))
+    def forward(self, x, residual, rng: Optional[DropoutRng] = None):
+        """``residual`` + the MLP of ``x``, with dropout on its hidden and its
+        output."""
+        a = self.fc1(x)
+        h = self.drop1.gelu(a, rng, spmd.frame(a.shape, model_dim=-1 if self.tp else None))
         y = self.fc2(h)
-        return self.drop2(y, rng, spmd.frame(y.shape))
+        return self.drop2.add_to(residual, y, rng, spmd.frame(y.shape))
 
 
 class Block(nn.Module):
@@ -225,12 +233,11 @@ class Block(nn.Module):
             self.mlp = Mlp(cfg)
 
     def forward(self, x, rng: Optional[DropoutRng] = None, return_probs: bool = False):
-        attn_out, probs = self.attn(self.norm1(x), rng, return_probs)
-        x = x + attn_out
+        x, probs = self.attn(self.norm1(x), x, rng, return_probs)
         if hasattr(self, 'moe'):
             y, aux = self.moe(self.norm2(x), rng)
             return x + y, probs, aux
-        return x + self.mlp(self.norm2(x), rng), probs, None
+        return self.mlp(self.norm2(x), x, rng), probs, None
 
 
 class ScannedBlocks(Block):

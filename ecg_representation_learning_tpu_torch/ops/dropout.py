@@ -13,6 +13,17 @@ sites of its ``models/vit.py``.  ``VitConfig.dropout_impl`` picks the mask:
     mask drawn from the trainer's device generator.  flax's bits come from
     JAX's rbg streams and cannot be matched; only the distribution is held.
 
+A site of the ViT block is applied with its neighbour (:class:`_Site`):
+``gelu(a)`` is dropout of the exact GELU of ``a`` (the MLP hidden),
+``add_to(x, y)`` is ``x`` plus dropout of ``y`` (the attention and MLP
+outputs).  A Bernoulli site in training at a rate above 0 draws its mask as
+``forward`` would (bool on the card) and on the card runs one kernel of
+``csrc/dropout_sites.cu`` each way (:func:`gelu_dropout`,
+:func:`dropout_add`: the mask, the scale and the GELU or the add in one
+pass, rounding where the chain of PyTorch kernels rounds); on the CPU the
+plain versions, which are that chain.  Other sites run ``forward`` and then
+their operation.
+
 A training forward draws its randomness from a :class:`DropoutRng`: 31-bit
 seeds for the hashed masks (this module's and the attention kernel's) from a
 host generator, so drawing one never waits for the device, and Bernoulli
@@ -33,13 +44,17 @@ distribution only); every rank of one model group draws the same ones.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from . import _build
 from .attention import dropout_keep, raw_bits
 
 
@@ -100,9 +115,12 @@ class DropoutRng:
             self.saved.append(out)
         return out
 
-    def bernoulli(self, shape, p: float, device) -> torch.Tensor:
-        """A Bernoulli(p) mask of ``shape`` as f32 0/1, from ``masks``."""
-        return self._draw(lambda: torch.empty(shape, device=device).bernoulli_(
+    def bernoulli(self, shape, p: float, device, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
+        """A Bernoulli(p) mask of ``shape`` as 0/1 of ``dtype``, from ``masks``.
+        On the card a bool draw keeps the bits of the f32 one, and moves the
+        generator as far (``tests/test_torch_dropout_card.py``)."""
+        return self._draw(lambda: torch.empty(shape, dtype=dtype, device=device).bernoulli_(
             p, generator=self.masks))
 
     def bits(self, shape, device) -> torch.Tensor:
@@ -164,7 +182,174 @@ def hash_mul(x: torch.Tensor, seed, rate: float, salt: int,
     return _HashMul.apply(x, seed, rate, salt, frame)
 
 
-class HashDropout(nn.Module):
+def keep_scale(rate: float) -> float:
+    """The factor by which PyTorch's ``x / (1 - rate)`` multiplies on the
+    card: the f32 reciprocal of the f32 ``1 - rate``."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def gelu_dropout_reference(a: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Plain version of the MLP hidden site: flax dropout of the exact GELU
+    of ``a`` with the drawn mask ``keep`` (f32 0/1 or bool)."""
+    return torch.where(keep.bool(), F.gelu(a, approximate='none') / (1.0 - rate), 0.0)
+
+
+def dropout_add_reference(x: torch.Tensor, y: torch.Tensor, keep: torch.Tensor,
+                          rate: float) -> torch.Tensor:
+    """Plain version of an output site: the residual ``x`` plus flax dropout
+    of the branch ``y`` with the drawn mask ``keep``."""
+    return x + torch.where(keep.bool(), y / (1.0 - rate), 0.0)
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = {'gelu_dropout_forward': [_P] * 3 + [_L, _I, _F, _P],
+         'gelu_dropout_backward': [_P] * 4 + [_L, _I, _F, _P],
+         'dropout_add_forward': [_P] * 4 + [_L, _I, _I, _F, _P],
+         'dropout_add_backward': [_P] * 3 + [_L, _I, _I, _F, _P]}
+
+
+class _SiteKernel:
+    """``csrc/dropout_sites.cu``'s forward and backward entries of one site
+    kind, with their launch counts (CUDA tensors only).  A launch costs the
+    host a few microseconds besides the ctypes call: the eager step makes 72
+    of them, so the stream is read raw and the device switched only when it
+    is not the current one."""
+
+    def __init__(self, kind: str):
+        self.launches = 0            # forward launches
+        self.backward_launches = 0
+        self._kind = kind
+        self._fns = {}
+
+    def _fn(self, direction: str):
+        fn = self._fns.get(direction)
+        if fn is None:
+            name = f'{self._kind}_{direction}'
+            fn = getattr(_build.load('dropout_sites'), name)
+            fn.argtypes, fn.restype = _ARGS[name], ctypes.c_int
+            self._fns[direction] = fn
+        return fn
+
+    def launch(self, direction: str, out: torch.Tensor, tensors: Sequence[torch.Tensor],
+               codes: Sequence[int], inv: float) -> torch.Tensor:
+        """``out`` from ``tensors`` (the bool mask second, as every entry
+        takes it) in one launch; every tensor contiguous, of ``out``'s shape,
+        on its CUDA device."""
+        dev, shape = out.get_device(), out.shape
+        for t in (*tensors, out):
+            if t.get_device() != dev or t.shape != shape or not t.is_contiguous():
+                raise ValueError(f'{self._kind}: every tensor must be contiguous, '
+                                 f'{tuple(shape)}, on {out.device}; got {tuple(t.shape)} '
+                                 f'on {t.device}')
+        if dev < 0 or tensors[1].dtype != torch.bool:
+            raise ValueError(f'{self._kind} kernel takes CUDA tensors and a bool mask, got '
+                             f'{out.device} and {tensors[1].dtype}')
+        fn = self._fn(direction)
+        args = (*[t.data_ptr() for t in tensors], out.data_ptr(), out.numel(), *codes, inv)
+        if dev == torch.cuda.current_device():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        if err != 0:
+            raise RuntimeError(f'{self._kind}_{direction} launch failed: CUDA error {err}')
+        if direction == 'forward':
+            self.launches += 1
+        else:
+            self.backward_launches += 1
+        return out
+
+
+gelu_dropout_kernel = _SiteKernel('gelu_dropout')
+dropout_add_kernel = _SiteKernel('dropout_add')
+
+
+def _code(t: torch.Tensor) -> int:
+    if t.dtype not in _CODES:
+        raise TypeError(f'the dropout site kernels take float32 or bfloat16, got {t.dtype}')
+    return _CODES[t.dtype]
+
+
+class _GeluDropout(torch.autograd.Function):
+    """The MLP hidden site on the card: one launch each way; saves ``a``
+    and the mask, as the chain's GELU and ``where`` did."""
+
+    @staticmethod
+    def forward(ctx, a, keep, rate):
+        a, keep = a.contiguous(), keep.contiguous()
+        ctx.save_for_backward(a, keep)
+        ctx.inv = keep_scale(rate)
+        return gelu_dropout_kernel.launch('forward', torch.empty_like(a), (a, keep),
+                                          (_code(a),), ctx.inv)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, keep = ctx.saved_tensors
+        return gelu_dropout_kernel.launch('backward', torch.empty_like(a),
+                                          (g.contiguous().to(a.dtype), keep, a),
+                                          (_code(a),), ctx.inv), None, None
+
+
+class _DropoutAdd(torch.autograd.Function):
+    """An output site on the card: one launch each way; the gradient of the
+    residual is the incoming one, as the chain's add passed it on."""
+
+    @staticmethod
+    def forward(ctx, x, y, keep, rate):
+        x, y, keep = x.contiguous(), y.contiguous(), keep.contiguous()
+        ctx.save_for_backward(keep)
+        ctx.inv, ctx.y_dtype = keep_scale(rate), y.dtype
+        out = torch.empty_like(y, dtype=torch.promote_types(x.dtype, y.dtype))
+        return dropout_add_kernel.launch('forward', out, (y, keep, x), (_code(y), _code(x)),
+                                         ctx.inv)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        keep, = ctx.saved_tensors
+        dy = None
+        if ctx.needs_input_grad[1]:
+            g = g.contiguous()
+            dy = dropout_add_kernel.launch('backward', torch.empty_like(g, dtype=ctx.y_dtype),
+                                           (g, keep), (_code(g), _CODES[ctx.y_dtype]), ctx.inv)
+        return g if ctx.needs_input_grad[0] else None, dy, None, None
+
+
+def gelu_dropout(a: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """where(keep, gelu(a) / (1 - rate), 0) with its gradient: on the card
+    one kernel launch each way (``keep`` bool), on the CPU the plain
+    version."""
+    if a.device.type == 'cuda':
+        return _GeluDropout.apply(a, keep, rate)
+    return gelu_dropout_reference(a, keep, rate)
+
+
+def dropout_add(x: torch.Tensor, y: torch.Tensor, keep: torch.Tensor,
+                rate: float) -> torch.Tensor:
+    """x + where(keep, y / (1 - rate), 0) with its gradients: on the card
+    one kernel launch each way (``keep`` bool), on the CPU the plain
+    version."""
+    if y.device.type == 'cuda':
+        return _DropoutAdd.apply(x, y, keep, rate)
+    return dropout_add_reference(x, y, keep, rate)
+
+
+class _Site(nn.Module):
+    """A dropout site of the block, with the elementwise operation beside it:
+    ``gelu`` (the MLP hidden) and ``add_to`` (an output and its residual)."""
+
+    def gelu(self, a, rng: DropoutRng = None, frame: Frame = None):
+        """Dropout of the exact GELU of ``a``."""
+        return self(F.gelu(a, approximate='none'), rng, frame)
+
+    def add_to(self, x, y, rng: DropoutRng = None, frame: Frame = None):
+        """``x`` plus dropout of ``y``."""
+        return x + self(y, rng, frame)
+
+
+class HashDropout(_Site):
     """Counter-hash dropout at one site; ``salt`` decorrelates the sites."""
 
     def __init__(self, rate: float, salt: int = 0):
@@ -177,9 +362,12 @@ class HashDropout(nn.Module):
         return hash_mul(x, rng.seed(), self.rate, self.salt, frame)
 
 
-class BernoulliDropout(nn.Module):
+class BernoulliDropout(_Site):
     """flax ``nn.Dropout``: where(keep, x / (1 - rate), 0), keep ~
-    Bernoulli(1 - rate) from the device generator."""
+    Bernoulli(1 - rate) from the device generator.  In training at a rate
+    above 0, ``gelu`` and ``add_to`` draw the site's mask as ``forward``
+    does and apply it with their operation in one kernel on the card
+    (:func:`gelu_dropout`, :func:`dropout_add`; the mask drawn as bool)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -191,6 +379,20 @@ class BernoulliDropout(nn.Module):
             return x
         keep = rng.bernoulli(x.shape, 1.0 - self.rate, x.device)
         return torch.where(keep.bool(), x / (1.0 - self.rate), 0.0)
+
+    def _keep(self, x, rng: DropoutRng) -> torch.Tensor:
+        dtype = torch.bool if x.device.type == 'cuda' else torch.float32
+        return rng.bernoulli(x.shape, 1.0 - self.rate, x.device, dtype=dtype)
+
+    def gelu(self, a, rng: DropoutRng = None, frame: Frame = None):
+        if not self.training or self.rate == 0.0:
+            return super().gelu(a, rng, frame)
+        return gelu_dropout(a, self._keep(a, rng), self.rate)
+
+    def add_to(self, x, y, rng: DropoutRng = None, frame: Frame = None):
+        if not self.training or self.rate == 0.0:
+            return super().add_to(x, y, rng, frame)
+        return dropout_add(x, y, self._keep(y, rng), self.rate)
 
 
 def make_dropout(impl: str, rate: float, salt: int) -> nn.Module:

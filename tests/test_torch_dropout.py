@@ -6,6 +6,7 @@ the JAX ``_masked`` for the same seed and salt, forward and backward;
 Bernoulli dropout (``dropout_impl='flax'``) cannot match flax's bits, so its
 distribution is held instead.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -122,3 +123,101 @@ def test_model_training_forward_draws_from_its_rng(impl):
     m0.load_state_dict(m.state_dict())
     np.testing.assert_allclose(m0.train()(x).logits.detach().numpy(),
                                m0.eval()(x).logits.detach().numpy(), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the block's dropout sites with their GELU or residual add (``_Site.gelu``,
+# ``_Site.add_to``): on the CPU the plain route, which is the chain the
+# model ran before; the kernels are held to it on the card
+# (tests/test_torch_dropout_card.py)
+# ---------------------------------------------------------------------------
+def _rng(seed):
+    return dropout.DropoutRng(torch.Generator().manual_seed(seed),
+                              torch.Generator().manual_seed(seed + 1))
+
+
+def _launches():
+    return [(k.launches, k.backward_launches)
+            for k in (dropout.gelu_dropout_kernel, dropout.dropout_add_kernel)]
+
+
+def _chain(monkeypatch):
+    """Route every Bernoulli site through the chain: dropout's forward
+    after the GELU, before the add."""
+    monkeypatch.setattr(dropout.BernoulliDropout, 'gelu', dropout._Site.gelu)
+    monkeypatch.setattr(dropout.BernoulliDropout, 'add_to', dropout._Site.add_to)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize('site', ['gelu', 'add_to'])
+def test_a_site_on_the_cpu_is_the_chain_bit_for_bit(site, dtype):
+    mod = dropout.BernoulliDropout(0.3).train()
+    before = _launches()
+    a = torch.from_numpy(_x(5, (2, 7, 33))).to(dtype).requires_grad_()
+    x = torch.from_numpy(_x(6, (2, 7, 33))).requires_grad_()
+    if site == 'gelu':
+        got, want = (mod.gelu(a, _rng(9)),
+                     mod(torch.nn.functional.gelu(a, approximate='none'), _rng(9)))
+        inputs = (a,)
+    else:
+        got, want = mod.add_to(x, a, _rng(9)), x + mod(a, _rng(9))
+        inputs = (x, a)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    g = torch.from_numpy(_x(7, (2, 7, 33))).to(got.dtype)
+    for dg, dw in zip(torch.autograd.grad(got, inputs, g), torch.autograd.grad(want, inputs, g)):
+        assert dg.dtype == dw.dtype and torch.equal(dg, dw)
+    assert _launches() == before   # no kernel on the CPU
+
+
+@pytest.mark.parametrize('case', ['eval', 'rate_0', 'hash'])
+def test_inactive_and_hashed_sites_take_the_old_path(case, monkeypatch):
+    def refuse(*args):
+        raise AssertionError('a fused site ran')
+    monkeypatch.setattr(dropout, 'gelu_dropout', refuse)
+    monkeypatch.setattr(dropout, 'dropout_add', refuse)
+    a, x = torch.from_numpy(_x(1, (3, 5, 16))), torch.from_numpy(_x(2, (3, 5, 16)))
+    gelu = torch.nn.functional.gelu(a, approximate='none')
+    if case == 'hash':
+        mod = dropout.HashDropout(0.3, salt=3).train()
+        assert torch.equal(mod.gelu(a, _rng(4)), mod(gelu, _rng(4)))
+        assert torch.equal(mod.add_to(x, a, _rng(4)), x + mod(a, _rng(4)))
+        return
+    mod = (dropout.BernoulliDropout(0.3).eval() if case == 'eval'
+           else dropout.BernoulliDropout(0.0).train())
+    assert torch.equal(mod.gelu(a, _rng(4)), gelu)
+    assert torch.equal(mod.add_to(x, a, _rng(4)), x + a)
+
+
+def _loss_and_grads(m, x, lab, cfg, taped: bool):
+    rng = _rng(21)
+    params = [p for p in m.parameters() if p.requires_grad]
+    seeds = list(range(1000, 1000 + tvit.seeds_per_forward(cfg)))
+    with rng.taped(seeds) if taped else contextlib.nullcontext():
+        loss = m(x, lab, rng=rng).loss
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+
+@pytest.mark.parametrize('taped', [False, True], ids=['generators', 'step_tape'])
+@pytest.mark.parametrize('remat', [False, True], ids=['no_remat', 'remat'])
+@pytest.mark.parametrize('size,dtype', [('debug', 'bfloat16'), ('debug', 'float32'),
+                                        ('tiny', 'bfloat16')])
+def test_a_vit_on_the_cpu_keeps_its_loss_and_gradients(size, dtype, remat, taped,
+                                                        monkeypatch):
+    """The model's loss and every gradient are the chain's bit for bit, with
+    and without remat, drawing from the generators or under a step tape."""
+    cfg = VitConfig.from_defined(size, max_signal_length=640, dtype=dtype, remat=remat,
+                                 hidden_dropout_prob=0.3)
+    torch.manual_seed(3)
+    m = tvit.EcgVit(cfg).train()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(0.0, 0.1)
+    x = torch.from_numpy(_x(8, (2, 12, 640)))
+    lab = (torch.from_numpy(_x(9, (2, cfg.num_class))) > 0.5).float()
+    before = _launches()
+    got = _loss_and_grads(m, x, lab, cfg, taped)
+    _chain(monkeypatch)
+    want = _loss_and_grads(m, x, lab, cfg, taped)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert _launches() == before
