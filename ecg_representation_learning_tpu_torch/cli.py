@@ -146,8 +146,11 @@ def _add_stats_flag(p):
 def _model_cfg_for(args):
     """VitConfig for the run; --port-checkpoint implies the reference
     vit-pytorch-0.33.2 layout (patch_norm=False); --moe-experts E makes every
-    --moe-every-th block a Switch-MoE block."""
+    --moe-every-th block a Switch-MoE block; --model-preset names a
+    configuration of ``configs.MODEL_PRESETS`` instead of the ladder."""
     from .configs import VitConfig
+    if getattr(args, 'model_preset', None):
+        return VitConfig.from_preset(args.model_preset)
     from .models.port import reference_vit_config
     from .utils.check_args import ca
     ca(model_size=args.size)
@@ -607,6 +610,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--host-devices', type=int, default=None,
                    help='with --platform cpu: start this many gloo CPU ranks on this '
                         'host (multi-rank runs of --mesh-model / --fsdp / --mesh-stage)')
+    from .configs import MODEL_PRESETS
     sub = p.add_subparsers(dest='cmd', required=True)
     for name, fn in (('train', cmd_train), ('pretrain', cmd_pretrain),
                      ('evaluate', cmd_evaluate), ('visualize', cmd_visualize)):
@@ -623,6 +627,11 @@ def build_parser() -> argparse.ArgumentParser:
         if name in ('train', 'pretrain'):
             sp.add_argument('--resume-from', default=None)
         if name == 'train':
+            sp.add_argument('--model-preset', default=None, choices=sorted(MODEL_PRESETS),
+                            help='a published block on the ECG trunk (configs.MODEL_PRESETS) '
+                                 "in place of --size (port only): moonlight-16b-a3b-ep8 is "
+                                 "DeepSeek-V3's block at Moonlight-16B-A3B's widths, one "
+                                 "GPU's 8 of 64 experts, 13 layers")
             sp.add_argument('--mesh-stage', type=int, default=1,
                             help='pipeline-parallel stage count (>1 stages the transformer '
                                  'stack over a stage mesh axis; GPipe microbatches; the '

@@ -11,6 +11,10 @@ The parallel layouts are ported: ``mesh_data``, ``mesh_model`` and ``fsdp``
 build the ('data', 'model') mesh (``parallel/``), ``mesh_stage`` the GPipe
 pipeline (``train/pipeline_vit.py``), and ``VitConfig.ring_axis`` runs ring
 context parallelism (``train/long_record.py``).
+``DeepseekConfig``, a subclass of ``VitConfig`` with no JAX counterpart,
+runs DeepSeek-V3's block on the same trunk, and ``MODEL_PRESETS`` names
+published blocks cut to one device's share (``VitConfig.from_preset``,
+``cli train --model-preset``).
 ``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
 unread, so that a JAX configuration still loads.
 ``PreprocessConfig`` is a whole copy.
@@ -65,6 +69,16 @@ class VitConfig:
     moe_every: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    @property
+    def block(self) -> str:
+        """The block kind: 'vit' here, 'deepseek' for ``DeepseekConfig``."""
+        return 'vit'
+
+    def require_vit_block(self, what: str) -> None:
+        """Raise ValueError where ``what`` cannot serve the deepseek block yet."""
+        if self.block != 'vit':
+            raise ValueError(f'{what} does not serve the {self.block!r} block yet '
+                             f"(only block='vit')")
 
     @property
     def num_patches(self) -> int:
@@ -91,6 +105,15 @@ class VitConfig:
     }
 
     @classmethod
+    def from_preset(cls, name: str, **overrides) -> 'VitConfig':
+        """A configuration of ``MODEL_PRESETS`` (outside the reference ladder,
+        each a ``DeepseekConfig``)."""
+        if name not in MODEL_PRESETS:
+            raise ValueError(f'Unknown model preset {name!r}; expected one of '
+                             f'{sorted(MODEL_PRESETS)}')
+        return DeepseekConfig(**{**MODEL_PRESETS[name], **overrides})
+
+    @classmethod
     def from_defined(cls, model_name: str, **overrides) -> 'VitConfig':
         """Build a config from a ladder name like ``'ecg-vit-base'`` or ``'base'``."""
         size = model_name.split('-')[-1]
@@ -109,6 +132,56 @@ class VitConfig:
             '#layer': self.num_hidden_layers,
             '#head': self.num_attention_heads,
         }
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekConfig(VitConfig):
+    """DeepSeek-V3's block on the ViT's trunk (``models/mla.py``,
+    ``models/moe.py``'s ``DeepseekMoe``): RMSNorm, latent attention with
+    decoupled RoPE positions (no learned table), SwiGLU MLPs, and from layer
+    ``first_k_dense_replace`` on a MoE of ``moe_num_experts`` routed experts
+    (sigmoid scores, top ``moe_top_k`` of score + correction bias, gates
+    normalized and scaled), ``moe_shared_experts`` shared ones, dropless.  No
+    dropout sites.  A subclass, so ``VitConfig`` keeps the JAX package's
+    fields one for one."""
+    kv_lora_rank: int = 512         # the latent keys and values come from
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64      # one rotary key shared by all heads
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    first_k_dense_replace: int = 1  # leading dense (SwiGLU) layers
+    moe_intermediate_size: int = 1408  # width of each routed and shared expert
+    moe_top_k: int = 6
+    moe_routed_scale: float = 1.0   # routed_scaling_factor
+    moe_shared_experts: int = 0
+    moe_held: Optional[Tuple[int, int]] = None  # (first, count) of the routed
+                                    # experts this device holds (expert
+                                    # parallelism's share); None: all
+    moe_bias_rate: float = 0.0      # aux-loss-free balancing: the correction
+                                    # bias's step per optimizer step
+    moe_seq_aux_weight: float = 0.0  # sequence-wise balance loss weight
+
+    @property
+    def block(self) -> str:
+        return 'deepseek'
+
+
+# Published blocks on the ECG trunk (patch embedding, cls token, 71-class
+# head), cut to one device's share of a stated deployment.
+MODEL_PRESETS = {
+    # Moonlight-16B-A3B (huggingface.co/moonshotai/Moonlight-16B-A3B,
+    # config.json, DeepSeek-V3's block): 8-way expert parallel, this device
+    # holding experts 0-7 of 64, stage 1 of 2 (layer 0 dense, 12 MoE layers)
+    'moonlight-16b-a3b-ep8': dict(
+        hidden_size=2048, num_hidden_layers=13, num_attention_heads=16,
+        intermediate_size=11264, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, rope_theta=50000.0, rms_norm_eps=1e-5,
+        first_k_dense_replace=1, moe_num_experts=64, moe_intermediate_size=1408,
+        moe_top_k=6, moe_routed_scale=2.446, moe_shared_experts=2, moe_held=(0, 8),
+        moe_bias_rate=1e-3, moe_seq_aux_weight=1e-4, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, dtype='bfloat16'),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -122,6 +122,7 @@ def export_model(
     metadata dict."""
     from ..registry import PTBXL_CODE2DESCRIPTION, PTBXL_ID2CODE
     cfg = trainer.model_cfg
+    cfg.require_vit_block('export_model (models/export_artifact.py)')
     if not trainer.initialized:
         raise RuntimeError('trainer has no params: init/load a checkpoint first')
     if cfg.moe_num_experts > 0:

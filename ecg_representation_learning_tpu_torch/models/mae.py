@@ -127,6 +127,7 @@ class EcgMae(nn.Module):
 
     def __init__(self, cfg: VitConfig, mae: MaeConfig = MaeConfig()):
         super().__init__()
+        cfg.require_vit_block('the MAE (models/mae.py)')
         if cfg.ring_axis is not None:
             raise NotImplementedError('ring_axis: the MAE gathers visible patches across the '
                                       'sequence, which a sequence split over ranks cannot '

@@ -46,6 +46,34 @@ batch, as GSPMD keeps them in JAX:
     one rank, the others add zeros -- a dropped token is 0 on every rank)
     and then scaled by its gate.  The aux loss comes from the replicated
     router on every rank and is never summed over 'model'.
+
+``DeepseekMoe`` is DeepSeek-V3's MoE layer (``VitConfig.block ==
+'deepseek'``), dropless, on one device's share of the routed experts:
+
+  * s = sigmoid(x W_r) in f32 over all ``moe_num_experts``; the experts are
+    the top ``moe_top_k`` of s + b, b the correction bias (a buffer, moved
+    by the trainer's aux-loss-free update, never by a gradient); the gates
+    are s at the chosen experts over their sum (+1e-20), times
+    ``moe_routed_scale`` (``noaux_tc`` with one group);
+  * the output is the sum of the held experts' gated SwiGLU outputs plus the
+    shared experts' SwiGLU (``moe_shared_experts`` experts as one of that
+    many times the width).  The layer holds experts ``moe_held`` = (first,
+    count), routes over all of them and computes only its held experts'
+    part: no exchange, nothing for the absent devices;
+  * dropless with static shapes: the (token, choice) pairs are sorted by held
+    expert on the device (the others after them), and the held experts run
+    as grouped GEMMs over device-side offsets (``torch._grouped_mm`` for bf16
+    on the GPU) on a buffer of T * min(k, count) rows, the most a token set
+    can route here.  Rows past the last offset are never written; neither
+    they nor their gradients reach the output or the inputs.  No host read,
+    so the step captures in a CUDA graph;
+  * the sequence-wise balance loss of DeepSeek-V3 (a sequence is a record):
+    mean over records of sum_i f_i P_i, with f_i = E / (k T) times the
+    record's choices of expert i and P_i the record's mean of s_i / sum_j s_j,
+    returned beside the output; the counts of every expert's choices are
+    added into the ``load`` buffer for the trainer's bias update, and the
+    held rows and the busiest held expert's rows into two running device
+    counters (``routed_counters``).
 """
 from __future__ import annotations
 
@@ -63,7 +91,10 @@ from ..parallel import spmd
 
 
 def moe_layer(cfg: VitConfig, i: int) -> bool:
-    """Whether block ``i`` of a trunk is a MoE block (the JAX rule)."""
+    """Whether block ``i`` of a trunk is a MoE block (the JAX rule; for the
+    deepseek block every block from ``first_k_dense_replace`` on)."""
+    if cfg.block == 'deepseek':
+        return cfg.moe_num_experts > 0 and i >= cfg.first_k_dense_replace
     return cfg.moe_num_experts > 0 and (i + 1) % cfg.moe_every == 0
 
 
@@ -159,3 +190,207 @@ def mean_aux(auxes, device) -> torch.Tensor:
     """The mean of the MoE blocks' aux losses (the JAX ``moe_aux_loss``);
     an f32 0 on ``device`` when there are none."""
     return sum(auxes) / len(auxes) if auxes else torch.zeros((), device=device)
+
+
+# ---------------------------------------------------------------- DeepSeek-V3
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """(R, N): rows offs[g-1]:offs[g] of ``a`` (R, K) times ``w[g]``.T, ``w``
+    (G, N, K) in ``nn.Linear``'s layout, ``offs`` (G,) int32 cumulative row
+    ends.  Rows past offs[-1] are left as they are allocated: bf16 on the
+    GPU runs ``torch._grouped_mm`` (no host read); otherwise each group is
+    one product, its bounds read on the host, and the rows past the last
+    offset are NaN, so a test sees any use of them."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, w.transpose(-2, -1), offs=offs)
+    out = a.new_full((a.shape[0], w.shape[1]), float('nan'))
+    lo = 0
+    for g, hi in enumerate(offs.tolist()):
+        out[lo:hi] = a[lo:hi] @ w[g].t()
+        lo = hi
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    """The buffer rows: ``xs`` (S, d) cast to ``dtype``, row i the token of
+    pair ``order[i]``.  The backward gathers each token's k rows (``pos``
+    (S, k): the row of each pair, ``held``: whether it was routed here) and
+    sums the held ones in f32: no atomics, and the rows past the last offset
+    (unwritten by the grouped GEMMs) never enter."""
+
+    @staticmethod
+    def forward(ctx, xs, src, pos, held, dtype):
+        ctx.save_for_backward(pos, held)
+        return xs.to(dtype).index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, held = ctx.saved_tensors
+        gx = torch.zeros((pos.shape[0], g.shape[1]), dtype=torch.float32, device=g.device)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        for j in range(pos.shape[1]):
+            gx += torch.where(held[:, j, None], g.index_select(0, pos[:, j]), zero)
+        return gx, None, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """(S, d) f32: sum over each token's held choices j of gates[:, j] times
+    the expert output in row ``pos[:, j]`` of ``y`` (r, d); rows of ``y``
+    past the last offset (``valid`` False) are never read.  The backward
+    gives each buffer row its pair's gate times the token's gradient
+    (``order``: the pair of each row) and each held gate the dot product of
+    its row with the token's gradient: gathers only, no atomics."""
+
+    @staticmethod
+    def forward(ctx, y, gates, pos, held, order, valid):
+        zero = torch.zeros((), dtype=y.dtype, device=y.device)
+        yc = torch.where(valid[:, None], y, zero)
+        w = torch.where(held, gates, torch.zeros((), device=gates.device))
+        out = torch.zeros((pos.shape[0], y.shape[1]), dtype=torch.float32, device=y.device)
+        for j in range(pos.shape[1]):
+            out.addcmul_(yc.index_select(0, pos[:, j]), w[:, j, None])
+        ctx.save_for_backward(yc, w, pos, held, order)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        yc, w, pos, held, order = ctx.saved_tensors
+        k = pos.shape[1]
+        dgates = torch.stack([(yc.index_select(0, pos[:, j]) * dout).sum(dim=-1)
+                              for j in range(k)], dim=1)
+        dgates = torch.where(held, dgates, torch.zeros((), device=dgates.device))
+        src = order[:yc.shape[0]]
+        dy = dout.index_select(0, src // k) * w.reshape(-1).index_select(0, src)[:, None]
+        return dy.to(yc.dtype), dgates, None, None, None, None
+
+
+class HeldExperts(nn.Module):
+    """The SwiGLU experts held here, stacked: ``gate_up`` (count, 2 * inner,
+    d) (the gate's rows, then the up projection's), ``down`` (count, d,
+    inner)."""
+
+    def __init__(self, count: int, dim: int, inner: int):
+        super().__init__()
+        self.inner = inner
+        self.gate_up = nn.Parameter(torch.zeros(count, 2 * inner, dim))
+        self.down = nn.Parameter(torch.zeros(count, dim, inner))
+
+    def forward(self, xp: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+        h = grouped_mm(xp, self.gate_up.to(xp.dtype), offs)
+        a = F.silu(h[:, :self.inner]) * h[:, self.inner:]
+        return grouped_mm(a, self.down.to(xp.dtype), offs)
+
+
+class Router(nn.Module):
+    """The f32 router (``weight`` (E, d)) and its correction bias (a buffer)."""
+
+    def __init__(self, experts: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(experts, dim))
+        self.register_buffer('e_score_correction_bias', torch.zeros(experts))
+
+
+class DeepseekMoe(nn.Module):
+    """DeepSeek-V3's MoE layer on the held experts (module docstring);
+    ``forward`` returns (output (B, T, d), the sequence balance loss)."""
+
+    def __init__(self, cfg: VitConfig, dtype: torch.dtype):
+        super().__init__()
+        from .mla import SwiGLU
+        e, d = cfg.moe_num_experts, cfg.hidden_size
+        self.first, self.count = cfg.moe_held or (0, e)
+        if not (0 <= self.first and self.count >= 1 and self.first + self.count <= e):
+            raise ValueError(f'moe_held {cfg.moe_held} must name experts of 0..{e - 1}')
+        self.cfg, self.compute_dtype = cfg, dtype
+        self.gate = Router(e, d)
+        self.experts = HeldExperts(self.count, d, cfg.moe_intermediate_size)
+        self.shared_experts = SwiGLU(d, cfg.moe_intermediate_size * cfg.moe_shared_experts,
+                                     dtype)
+        # this step's choices of every expert (the bias update reads and zeroes it)
+        self.register_buffer('load', torch.zeros(e), persistent=False)
+        # running totals: held rows, and the busiest held expert's rows, per forward
+        self.register_buffer('held_rows', torch.zeros((), dtype=torch.int64), persistent=False)
+        self.register_buffer('busiest_rows', torch.zeros((), dtype=torch.int64),
+                             persistent=False)
+
+    def route(self, xs: torch.Tensor):
+        """(scores s (S, E) f32, chosen experts (S, k), gates (S, k) f32) of the
+        tokens ``xs`` (S, d)."""
+        cfg = self.cfg
+        scores = torch.sigmoid(F.linear(xs.float(), self.gate.weight))
+        choice = scores.detach() + self.gate.e_score_correction_bias
+        idx = torch.topk(choice, cfg.moe_top_k, dim=-1, sorted=False).indices
+        w = scores.gather(1, idx)
+        return scores, idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.moe_routed_scale
+
+    def forward(self, x: torch.Tensor):
+        from ..utils import tracing
+        cfg, dt = self.cfg, self.compute_dtype
+        e, k, n_held = cfg.moe_num_experts, cfg.moe_top_k, self.count
+        b, t, d = x.shape
+        s = b * t
+        xs = x.reshape(s, d)
+        tracing.region(None)
+        scores, idx, gates = self.route(xs)
+        with torch.no_grad():
+            ones = torch.ones((), device=x.device).expand(s * k)
+            if self.training:
+                self.load.index_add_(0, idx.reshape(-1), ones)
+            per_seq = torch.zeros((b, e), device=x.device).scatter_add_(
+                1, idx.reshape(b, t * k), ones.reshape(b, t * k)) * (e / (k * t))
+        share = (scores / scores.sum(dim=-1, keepdim=True)).reshape(b, t, e).mean(dim=1)
+        aux = (per_seq * share).sum(dim=1).mean()
+        tracing.region('moe.route')
+
+        # the held pairs sorted by expert, then the others; buffer rows = the first r
+        local = idx.reshape(-1) - self.first
+        held = (local >= 0) & (local < n_held)
+        key = torch.where(held, local, n_held)
+        order = torch.argsort(key, stable=True)
+        r = s * min(k, n_held)
+        counts = torch.zeros(n_held + 1, dtype=torch.int64, device=x.device).index_add_(
+            0, key, torch.ones((), dtype=torch.int64, device=x.device).expand(s * k))[:n_held]
+        offs = counts.cumsum(0)
+        pos = torch.empty_like(order).scatter_(0, order, torch.arange(s * k, device=x.device))
+        pos = pos.clamp(max=r - 1).reshape(s, k)    # a pair past r is never held
+        held = held.reshape(s, k)
+        xp = _Permute.apply(xs, order[:r] // k, pos, held, dt)
+        if self.training:
+            with torch.no_grad():
+                self.held_rows.add_(offs[-1])
+                self.busiest_rows.add_(counts.max())
+        tracing.region('moe.permute')
+
+        y = self.experts(xp, offs.to(torch.int32))
+        tracing.region('moe.experts')
+
+        valid = torch.arange(r, device=x.device) < offs[-1]
+        out = _Combine.apply(y, gates, pos, held, order, valid).reshape(b, t, d)
+        tracing.region('moe.combine')
+        out = out + self.shared_experts(xs).reshape(b, t, d)
+        tracing.region('moe.shared')
+        return out, aux
+
+    @torch.no_grad()
+    def update_bias(self, rate: float) -> None:
+        """The aux-loss-free step: b_i += rate * sign(mean load - load_i) over
+        this step's counts, which are then zeroed (on the device)."""
+        self.gate.e_score_correction_bias.add_(
+            torch.sign(self.load.mean() - self.load), alpha=rate)
+        self.load.zero_()
+
+
+def deepseek_layers(model: nn.Module):
+    """The ``DeepseekMoe`` layers of ``model``, in order."""
+    return [m for m in model.modules() if isinstance(m, DeepseekMoe)]
+
+
+def routed_counters(model: nn.Module) -> Dict[str, int]:
+    """The running totals of ``model``'s MoE layers (a host read): held rows
+    and the busiest held expert's rows summed over every forward of every
+    layer, and the experts held a layer."""
+    layers = deepseek_layers(model)
+    if not layers:
+        return {}
+    tot = torch.stack([torch.stack([m.held_rows, m.busiest_rows]) for m in layers]).sum(0)
+    return {'held_rows': int(tot[0]), 'busiest_rows': int(tot[1]),
+            'held_experts': layers[0].count}

@@ -132,6 +132,7 @@ def state_dict_from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.T
 
 def vit_state_dict_from_flax(params: Mapping, cfg: VitConfig) -> Dict[str, torch.Tensor]:
     """flax ``EcgVit`` params -> the port's ``EcgVit`` state_dict."""
+    cfg.require_vit_block('the JAX conversion (models/port.py)')
     with torch.device('meta'):
         model = EcgVit(cfg)
     return state_dict_from_flax(params, model)

@@ -83,7 +83,10 @@ def int8_weights(model: torch.nn.Module, qweights: Mapping[str, torch.Tensor],
     """Within the block, each Linear of ``model`` whose weight is in
     ``qweights`` computes with its dequantized int8 weight instead of its
     own (``models.vit.Dense.int8``), and each MoE MLP with its dequantized
-    int8 expert stacks (``models.moe.MoeMlp.int8``)."""
+    int8 expert stacks (``models.moe.MoeMlp.int8``).  The deepseek block
+    is refused."""
+    if hasattr(getattr(model, 'cfg', None), 'require_vit_block'):
+        model.cfg.require_vit_block('int8 weights (models/quantize.py)')
     layers = [(model.get_submodule(key.rsplit('.', 1)[0]), key) for key in qweights]
     try:
         for layer, key in layers:

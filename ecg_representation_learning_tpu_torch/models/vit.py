@@ -41,6 +41,14 @@ The model options of the JAX encoder:
     convert between the layouts).  MoE blocks differ per layer, so MoE with
     ``scan_blocks`` is refused, as in JAX.
 
+A ``DeepseekConfig`` (``cfg.block == 'deepseek'``): DeepSeek-V3's block on the same trunk
+(``models/mla.py``): RMSNorm, latent attention with RoPE positions (the cls
+token at 0, no learned table), SwiGLU MLPs, and from layer
+``first_k_dense_replace`` on the dropless ``DeepseekMoe``; the final norm is
+an RMSNorm, and the model output carries the sum of the MoE layers'
+sequence balance losses.  It has no dropout sites, and refuses remat,
+``scan_blocks`` and ring attention.
+
 On a mesh (``parallel/mesh.py``) the modules run the Megatron plan that
 ``ShardedModel`` gives them: a ``Dense`` with ``tp`` 'col' / 'row' /
 'gather' is column-parallel, row-parallel (its bias added after the sum over
@@ -341,21 +349,40 @@ def seeds_per_forward(cfg: VitConfig) -> int:
     return int(hashed and attn) + cfg.num_hidden_layers * per_block
 
 
+def _check_deepseek(cfg: VitConfig) -> None:
+    if cfg.block == 'vit':
+        return
+    if cfg.scan_blocks or cfg.remat or cfg.ring_axis is not None:
+        raise ValueError('the deepseek block runs the unrolled stack without remat or ring '
+                         'attention')
+    if max(cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob) > 0.0:
+        raise ValueError('the deepseek block has no dropout sites: set both dropout rates to 0')
+
+
 class EcgVitEncoder(nn.Module):
-    """Patch embed + cls token + pos emb + transformer stack + final norm."""
+    """Patch embed + cls token + pos emb + transformer stack + final norm
+    (the deepseek block: no pos emb, RoPE inside the attention, RMSNorm)."""
 
     def __init__(self, cfg: VitConfig):
         super().__init__()
         if cfg.moe_num_experts > 0 and cfg.scan_blocks:
             raise ValueError('MoE blocks differ per layer and scan_blocks needs identical '
                              'layers: use the unrolled stack for MoE models')
+        _check_deepseek(cfg)
         self.cfg = cfg
         self.patch_embed = PatchEmbed1D(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.num_patches + 1, cfg.hidden_size))
+        if cfg.block == 'vit':
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, cfg.num_patches + 1, cfg.hidden_size))
         self.emb_drop = make_dropout(cfg.dropout_impl, cfg.attention_probs_dropout_prob,
                                      salt=5)
+        if cfg.block == 'deepseek':
+            from .mla import DeepseekBlock, RMSNorm
+            self.blocks = nn.ModuleList(DeepseekBlock(cfg, moe_layer(cfg, i), _dtype(cfg))
+                                        for i in range(cfg.num_hidden_layers))
+            self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+            return
         if cfg.scan_blocks:
             self.blocks = ScannedBlocks(cfg)
         else:
@@ -372,6 +399,8 @@ class EcgVitEncoder(nn.Module):
         b, n_patch, hidden = h.shape
         cls = self.cls_token.expand(b, 1, hidden).to(h.dtype)
         h = torch.cat([cls, h], dim=1)
+        if self.cfg.block == 'deepseek':
+            return self._deepseek(h, return_attention)
         h = h + self.pos_embed[:, :n_patch + 1].to(h.dtype)
         h = self.emb_drop(h, rng, spmd.frame(h.shape))
         blocks = self.blocks
@@ -392,6 +421,18 @@ class EcgVitEncoder(nn.Module):
         return (h, torch.stack(maps, dim=0) if return_attention else None,
                 mean_aux(auxes, h.device))
 
+    def _deepseek(self, h, return_attention: bool):
+        """The deepseek blocks and the final RMSNorm; the MoE layers'
+        balance losses summed (each layer's is its own term, as in DeepSeek-V3)."""
+        if return_attention:
+            raise ValueError('the deepseek block returns no attention maps')
+        aux = torch.zeros((), device=h.device)
+        for block in self.blocks:
+            h, _, a = block(h)
+            if a is not None:
+                aux = aux + a
+        return self.final_norm(h), None, aux
+
 
 @dataclasses.dataclass
 class VitOutput:
@@ -399,7 +440,8 @@ class VitOutput:
     logits: torch.Tensor
     loss: Optional[torch.Tensor] = None
     attention: Optional[torch.Tensor] = None
-    aux_loss: Optional[torch.Tensor] = None   # mean MoE aux loss (0 when dense)
+    aux_loss: Optional[torch.Tensor] = None   # mean MoE aux loss (0 when dense; the
+                                              # deepseek block: the summed balance losses)
 
 
 class EcgVit(nn.Module):

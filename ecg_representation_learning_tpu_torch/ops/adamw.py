@@ -428,7 +428,9 @@ class _AdamWKernel:
     def _mesh_tail(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
                    reduce: NormReduce, stream, **kw):
         """Under a ``NormReduce``: launch 1 with the leaf weights (its f64
-        sum of squares), the all-reduce of the sum, launch 2 from it."""
+        sum of squares), the all-reduce of the sum, launch 2 from it.  With
+        ``lr_bc`` on the device (a step tape) nothing reads the host, so a
+        CUDA graph captures it, the all-reduce included."""
         dev = self._dev
         wkey = (self._key, tuple(reduce.weights))
         if self._weights is None or self._weights[0] != wkey:
@@ -442,12 +444,16 @@ class _AdamWKernel:
                                             or nonfinite_count.dtype != torch.int32
                                             or nonfinite_count.device != dev):
             raise ValueError(f'nonfinite_count must be one int32 on {dev}')
-        if host is None or isinstance(lr_bc, torch.Tensor):
-            raise RuntimeError('the mesh-wide adamw tail takes lr_bc as floats and is not '
-                               'captured in a CUDA graph')
-        host.numpy()[:4].view(np.float32)[1:4] = lr_bc
-        ws.copy_(host, non_blocking=True)
+        lr_dev = _lr_bc_device(lr_bc, dev)
+        if host is None and lr_dev is None:
+            raise RuntimeError('a captured adamw step needs lr_bc on the device')
+        if host is not None:
+            if lr_dev is None:
+                host.numpy()[:4].view(np.float32)[1:4] = lr_bc
+            ws.copy_(host, non_blocking=True)
         f32 = ws[:4].view(torch.float32)
+        if lr_dev is not None:   # a step tape's row: the norm launch's mesh branch copies none
+            f32[1:4].copy_(lr_dev)
         gptrs = ws[4:]
         err = self._lib.adamw_norm(
             self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,

@@ -7,7 +7,9 @@ leaf's copies on it), one rank per device.  On the ('data', 'model') mesh:
 
   * data parallelism: each data rank takes its rows of the global batch;
     gradients are averaged over 'data' by DDP, or reduce-scattered by FSDP2
-    (``fsdp``);
+    (``fsdp``); a step of the step tape on a mesh of 'data' alone averages
+    them with one all-reduce of one flat buffer (``ShardedModel.sync_grads``,
+    which a CUDA graph captures);
   * Megatron tensor parallelism over 'model': the qkv and fc1 kernels
     column-sharded, the attention-out and fc2 kernels row-sharded, the patch
     projection column-sharded and gathered, the MoE expert stacks sharded on
@@ -29,6 +31,7 @@ GSPMD before the attention.  Checkpoints gather the full tensors
 """
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -276,8 +279,11 @@ def _dims(spec: P, ndim: int, kernel: bool) -> Dict[str, int]:
 
 class ShardedModel:
     """A model placed on a mesh (``shard_params``): its parameters cut to the
-    rank's Megatron slices, then wrapped in DDP over 'data' or, with
-    ``fsdp``, sharded by FSDP2 over 'data'.
+    rank's Megatron slices, then wrapped in DDP over 'data' (at the first
+    step that calls ``net``) or, with ``fsdp``, sharded by FSDP2 over
+    'data'.  With 'data' alone and no FSDP (``flat_sync``), a step of the
+    step tape (``taped_step``) calls the model unwrapped and averages its
+    gradients by one flat all-reduce (``sync_grads``).
 
     ``net`` is what a training forward calls (the DDP wrapper, or the model);
     ``leaves()`` / ``grads()`` give each parameter's and gradient's local
@@ -315,12 +321,49 @@ class ShardedModel:
                         if fsdp and self.n_data > 1 else set())
         if fsdp:
             self._fully_shard()
-        else:
+        # a mesh with 'data' alone: the step tape's steps may average the
+        # gradients themselves, with no DDP wrapper (DDP keeps each leaf's
+        # gradient accumulator alive on the stream it was built on, and a
+        # backward on another stream then waits on that one, which breaks a
+        # CUDA graph's capture: ``drop_ddp``)
+        self.flat_sync = not fsdp and self.n_model == 1
+        self.taped = False
+
+    @property
+    def net(self) -> nn.Module:
+        """What a training forward calls: the model under FSDP2 and in a
+        step of the step tape, else its DDP wrapper."""
+        return self.model if self.fsdp or self.taped else self._ddp()
+
+    def _ddp(self) -> nn.Module:
+        if self.ddp is None:
             from torch.nn.parallel import DistributedDataParallel
             self.ddp = DistributedDataParallel(
-                model, process_group=mesh.group(DATA_AXIS), broadcast_buffers=False,
-                device_ids=[mesh.device.index] if mesh.device.type == 'cuda' else None)
-        self.net = self.ddp if self.ddp is not None else model
+                self.model, process_group=self.mesh.group(DATA_AXIS), broadcast_buffers=False,
+                device_ids=[self.mesh.device.index] if self.mesh.device.type == 'cuda' else None)
+        return self.ddp
+
+    def drop_ddp(self) -> None:
+        """Free the DDP wrapper and the gradient accumulators it keeps
+        alive, before a capture (the next eager step builds it again)."""
+        if self.ddp is not None:
+            import gc
+            self.ddp = None
+            gc.collect()
+
+    @contextlib.contextmanager
+    def taped_step(self):
+        """The context of a step of the step tape (``train/dispatch.py``)
+        on a mesh of 'data' alone: the model called unwrapped, every
+        gradient averaged by ``sync_grads``' flat all-reduce."""
+        if not self.flat_sync:
+            raise ValueError('the step tape averages gradients itself only on a mesh of '
+                             "'data' alone without FSDP")
+        self.taped = True
+        try:
+            yield
+        finally:
+            self.taped = False
 
     # ------------------------------------------------------------ placement
     def tp_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -436,9 +479,10 @@ class ShardedModel:
     def no_sync(self, sync: bool):
         """The context of one microbatch's backward: gradients are averaged
         over 'data' only when ``sync`` (the last microbatch)."""
-        import contextlib
-        if self.ddp is not None:
-            return contextlib.nullcontext() if sync else self.ddp.no_sync()
+        if self.taped:
+            return contextlib.nullcontext()
+        if not self.fsdp:
+            return contextlib.nullcontext() if sync else self._ddp().no_sync()
         self.model.set_requires_gradient_sync(sync)
         return contextlib.nullcontext()
 
@@ -450,7 +494,23 @@ class ShardedModel:
 
     def sync_grads(self) -> None:
         """After the last backward: average the FSDP-ignored leaves'
-        gradients over 'data' (DDP and FSDP2 did the rest)."""
+        gradients over 'data' (DDP and FSDP2 did the rest); in a
+        ``taped_step``, every gradient, as DDP would (each scaled by 1 /
+        n_data, then summed), in one all-reduce of one flat buffer, between
+        the region marks of 'allreduce' (``utils.tracing``).  No host read,
+        so a CUDA graph captures it."""
+        if self.taped:
+            if self.n_data == 1:
+                return
+            from ..utils import tracing
+            grads = [p.grad for p in self.params().values()]
+            flat = torch.cat([g.reshape(-1) for g in grads]).mul_(1.0 / self.n_data)
+            tracing.region(None)
+            dist.all_reduce(flat, group=self.mesh.group(DATA_AXIS))
+            tracing.region('allreduce')
+            torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                         zip(flat.split([g.numel() for g in grads]), grads)])
+            return
         if not self.ignored or self.n_data == 1:
             return
         group = self.mesh.group(DATA_AXIS)
@@ -521,5 +581,7 @@ class ShardedModel:
 def shard_params(model: nn.Module, mesh: Mesh, fsdp: bool = False) -> ShardedModel:
     """Place ``model`` (full, identical on every rank) on ``mesh`` by the
     partition rules: Megatron slices over 'model', then DDP or (``fsdp``)
-    FSDP2 over 'data'."""
+    FSDP2 over 'data'.  The deepseek block is refused."""
+    if hasattr(getattr(model, 'cfg', None), 'require_vit_block'):
+        model.cfg.require_vit_block('ShardedModel (a mesh, parallel/mesh.py)')
     return ShardedModel(model, mesh, fsdp)

@@ -36,14 +36,27 @@ state, EMA and generator states afterwards.
 
 The first dispatch of a ``train()`` runs the same steps eagerly through the
 tape, on the stream the capture then uses: it builds the kernels, the AdamW
-block table and the cuBLAS state, and its steps count.  The capture that
+block table and the cuBLAS state, and its steps count.  A dispatch of
+another number of steps (an epoch's leftover steps, one a dispatch) is
+captured at its first call into the memory pool of the first graph, so the
+two graphs, which never run at once, hold one pool between them, and then
+replayed.  The capture that
 follows makes no host draw and moves no host counter (the trainer's step
 and optimizer count are put back, and the launch counters too: each replay
 adds the captured launches to them instead).  Where no graph is taken the
 tape runs its steps eagerly: on the CPU (the plain version the tests hold
-the graphs to) and on a mesh (DDP, FSDP2 and the collectives are not
-captured; each step is ``Trainer.train_step`` with the tape's seeds).  A
-capture that fails raises; there is no other route.
+the graphs to) and on a mesh with a 'model' axis or FSDP (Megatron slices
+and FSDP2 are not captured; each step is ``Trainer.train_step`` with the
+tape's seeds).  A capture that fails raises; there is no other route.
+
+On a mesh with a 'data' axis alone (no FSDP) the tape steps run as on one
+device, a CUDA graph on the GPU: each rank's tape rows hold its own rows of
+each batch, and each step's gradients are averaged over 'data' by one
+all-reduce of one flat buffer (``ShardedModel.sync_grads``: NCCL, inside the
+graph, as are the mesh-wide norm, whose AdamW tail reads the tape's
+scalars, and the metrics' collectives).  Eager steps outside the tape keep
+DDP; a capture first frees the DDP wrapper an eager step built
+(``ShardedModel.drop_ddp``).
 
 Tracing (``utils/tracing.py``, on while a profiler records): a 'dispatch'
 span with 'dispatch.prepare', '.capture', '.launch' and '.mesh' inside it;
@@ -164,15 +177,19 @@ class Dispatcher:
         self.device = trainer.device
         self.sigs, self.labs = trainer._split_arrays(trainer.train_data)
         n_seeds = max(1, cfg.grad_accum) * seeds_per_forward(trainer.model_cfg)
-        self.tape = StepTape(steps, cfg.train_batch_size, n_seeds, self.device)
+        mesh, sharded = trainer.mesh, trainer.sharded
+        # a mesh with 'data' alone runs the tape steps; other meshes Trainer.train_step
+        self.flat = sharded is not None and sharded.flat_sync
+        n_data = mesh.shape['data'] if self.flat else 1
+        self.tape = StepTape(steps, cfg.train_batch_size // n_data, n_seeds, self.device)
         self.losses = torch.zeros(steps, dtype=torch.float32, device=self.device)
         self.gnorms = torch.zeros(steps, dtype=torch.float32, device=self.device)
         self.nonfinite = trainer._nonfinite
         if scan:
             self.cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
             self.row = torch.empty(self.tape.width, dtype=torch.int64, device=self.device)
-        self.captured: Optional[Captured] = None
-        self.eager = self.device.type != 'cuda' or trainer.mesh is not None
+        self.graphs: Dict[int, Captured] = {}   # by steps a replay (scan: 1, the cursor step)
+        self.eager = self.device.type != 'cuda' or (mesh is not None and not self.flat)
         self.stream = None if self.eager else torch.cuda.Stream(self.device)
         self.replays = 0
         # traced replays' end events, two in turn (one is read before it is
@@ -181,14 +198,21 @@ class Dispatcher:
                                               torch.cuda.Event(enable_timing=True))
         self._end_step = None
 
+    @property
+    def captured(self) -> Optional[Captured]:
+        """The graph of the dispatch's ``steps`` steps (scan: the cursor step)."""
+        return self.graphs.get(1 if self.scan else self.steps)
+
     def info(self) -> Dict[str, Any]:
         """What the dispatches ran: the route ('graph' on one GPU, 'eager' on
         the CPU, 'mesh'), the steps a dispatch, the graph replays, and for a
         graph the capture's seconds, the memory it reserved and one replay's
         kernel launches."""
-        route = 'mesh' if self.tr.mesh is not None else 'eager' if self.eager else 'graph'
+        mesh = self.tr.mesh is not None and not self.flat
+        route = 'mesh' if mesh else 'eager' if self.eager else 'graph'
         out = {'route': route, 'scan': self.scan, 'steps': self.steps,
-               'replays': self.replays}
+               'replays': self.replays,
+               'data_ranks': self.tr.mesh.shape['data'] if self.flat else 1}
         if self.captured is not None:
             out.update(capture_s=self.captured.capture_s, pool_bytes=self.captured.pool_bytes,
                        graph_launches=dict(self.captured.launches))
@@ -210,12 +234,13 @@ class Dispatcher:
         with tracing.span('dispatch.prepare', step):
             seeds = torch.randint(0, 1 << 31, (k * self.tape.n_seeds,),
                                   generator=tr.rng.host).numpy().reshape(k, self.tape.n_seeds)
-            if tr.mesh is None:
+            if tr.mesh is None or self.flat:
                 scalars = self._prepare(takes, seeds)
-        if tr.mesh is not None:
+        if tr.mesh is not None and not self.flat:
             with tracing.span('dispatch.mesh', step):
                 return self._run_mesh(takes, seeds)
-        if self.captured is not None:
+        key = 1 if self.scan else k
+        if key in self.graphs:
             with tracing.span('dispatch.launch', step):
                 metrics = self._replay(k)
         elif self.eager:
@@ -223,7 +248,7 @@ class Dispatcher:
                 marks = tracing.step_marks(self.device)
                 metrics = self._body(k, marks)
                 marks.launched()
-        else:
+        elif not self.graphs:
             with tracing.span('dispatch.capture', step):
                 marks = tracing.step_marks(self.device)
                 self.stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -231,7 +256,12 @@ class Dispatcher:
                     metrics = self._body(k, marks)
                 torch.cuda.current_stream(self.device).wait_stream(self.stream)
                 marks.launched()
-                self._capture()
+                self._capture(key)
+        else:   # another step count: captured into the first graph's pool, then replayed
+            with tracing.span('dispatch.capture', step):
+                self._capture(key, next(iter(self.graphs.values())).graph.pool())
+            with tracing.span('dispatch.launch', step):
+                metrics = self._replay(k)
         # copies: the next dispatch writes the buffers again
         return (self.losses[:k].clone(), self.gnorms[:k].clone(),
                 {'loss': metrics['loss'], 'learning_rate': float(scalars[-1, 0]),
@@ -243,6 +273,9 @@ class Dispatcher:
         tr = self.tr
         scalars = np.stack([step_scalars(tr.optimizer, tr.opt_state.count + i)
                             for i in range(len(takes))])
+        if self.flat:   # this rank's rows of each batch
+            accum = max(1, tr.cfg.grad_accum)
+            takes = np.stack([tr._local_take(t, accum) for t in takes])
         self.tape.fill(takes, seeds, scalars)
         if tr._nonfinite is not self.nonfinite:   # a single step ran since the last dispatch
             self.nonfinite.copy_(tr._nonfinite)
@@ -267,29 +300,36 @@ class Dispatcher:
         marks (``utils.tracing``), each step's tail ending after its copies."""
         tr = self.tr
         for i in range(n):
-            (idx, seeds, scal), slot = self._row(i)
-            metrics = tr._tape_step(self.sigs, self.labs, idx, seeds, scal, marks)
-            if self.scan:
-                self.losses.index_copy_(0, slot, metrics['loss'].reshape(1))
-                self.gnorms.index_copy_(0, slot, metrics['grad_norm'].reshape(1))
-                self.cursor.add_(1)
-            else:
-                self.losses[slot].copy_(metrics['loss'])
-                self.gnorms[slot].copy_(metrics['grad_norm'])
-            marks.mark('tail')
+            metrics = self._tape_step(i, marks)
         self.nonfinite.copy_(tr._nonfinite)
         tr._nonfinite = self.nonfinite
         return metrics
 
-    def _capture(self) -> None:
-        """Capture the dispatch (``scan``: one cursor step) with the host
-        state put back after it, so the capture itself counts no step."""
+    def _tape_step(self, i: int, marks) -> Dict[str, torch.Tensor]:
+        """Step ``i`` of the tape, its loss and gradient norm into their slots."""
+        (idx, seeds, scal), slot = self._row(i)
+        metrics = self.tr._tape_step(self.sigs, self.labs, idx, seeds, scal, marks)
+        if self.scan:
+            self.losses.index_copy_(0, slot, metrics['loss'].reshape(1))
+            self.gnorms.index_copy_(0, slot, metrics['grad_norm'].reshape(1))
+            self.cursor.add_(1)
+        else:
+            self.losses[slot].copy_(metrics['loss'])
+            self.gnorms[slot].copy_(metrics['grad_norm'])
+        marks.mark('tail')
+        return metrics
+
+    def _capture(self, steps: int, pool=None) -> None:
+        """Capture a dispatch of ``steps`` steps (``scan``: one cursor step)
+        with the host state put back after it, so the capture itself counts
+        no step; ``pool``: the memory pool of the graph captured first."""
         from ..ops.adamw import adamw_kernel
         from .optim import FusedAdamW
         tr = self.tr
-        steps = 1 if self.scan else self.steps
         if isinstance(tr.optimizer, FusedAdamW):   # #5's buffers, outside the graph's pool
             adamw_kernel.reserve(steps)
+        if tr.sharded is not None:   # an eager step's DDP wrapper would break the capture
+            tr.sharded.drop_ddp()
         saved = (tr.step, tr.opt_state, launch_counts())
         marks = tracing.StepMarks(self.device)
         graph = torch.cuda.CUDAGraph()
@@ -299,16 +339,16 @@ class Dispatcher:
         torch.cuda.empty_cache()   # as the capture does on entry: the delta is its pool
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream):
+        with torch.cuda.graph(graph, pool=pool, stream=self.stream):
             metrics = self._body(steps, marks)
         capture_s = time.perf_counter() - t0
         after = launch_counts()
         launches = {name: after[name] - saved[2][name] for name in after}
         _add_counts(launches, -1)
         tr.step, tr.opt_state = saved[0], saved[1]
-        self.captured = Captured(graph, metrics, adamw_kernel.take_captured(), launches,
-                                 capture_s, torch.cuda.memory_reserved(self.device) - reserved,
-                                 marks)
+        self.graphs[steps] = Captured(graph, metrics, adamw_kernel.take_captured(), launches,
+                                      capture_s,
+                                      torch.cuda.memory_reserved(self.device) - reserved, marks)
 
     def _replay(self, k: int) -> Dict[str, torch.Tensor]:
         """The dispatch as replays: one of the K-step graph, or ``k`` of the
@@ -316,7 +356,7 @@ class Dispatcher:
         counters by what the replays launched.  Traced: the graph's marks
         are handed to the recorder (``scan``: the last replay's step, and no
         gap), and an end event follows the replays."""
-        tr, cap = self.tr, self.captured
+        tr, cap = self.tr, self.graphs[1 if self.scan else k]
         replays = k if self.scan else 1
         traced = tracing.enabled()
         for _ in range(replays):

@@ -53,6 +53,7 @@ class EcgMim(nn.Module):
 
     def __init__(self, cfg: VitConfig):
         super().__init__()
+        cfg.require_vit_block('ring attention (train/long_record.py)')
         self.cfg = cfg
         self.patch_embed = PatchEmbed1D(cfg)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))

@@ -141,6 +141,7 @@ class PipelineVitTrainer:
                  norm_stats: Optional[Dict[str, Any]] = None,
                  n_micro: Optional[int] = None, output_dir: Optional[str] = None,
                  mesh=None, device=None):
+        model_cfg.require_vit_block('the GPipe pipeline (train/pipeline_vit.py)')
         if not model_cfg.scan_blocks:
             raise ValueError('pipeline staging needs the stacked layout (scan_blocks=True)')
         if train_cfg.mesh_stage <= 1:

@@ -171,7 +171,8 @@ def flax_init_(model: torch.nn.Module, seed: Union[int, torch.Generator]) -> Non
     is one flax ``lecun_normal`` leaf in the JAX layout, whose leading
     expert axis counts in the fan-in: E * d for ``w1`` (E, d, f), E * f for
     ``w2`` (E, f, d).  The MoE router is a Linear; ``b1`` and ``b2`` are
-    biases (zero)."""
+    biases (zero).  The deepseek block's stacked experts (``gate_up``,
+    ``down``) are initialised expert by expert, as Linear layers."""
     from ..models.port import flax_path
     gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -183,6 +184,8 @@ def flax_init_(model: torch.nn.Module, seed: Union[int, torch.Generator]) -> Non
                 p.zero_()
             elif path[-1] in ('w1', 'w2'):
                 _lecun_normal_(p, p.shape[0] * p.shape[1], gen)
+            elif path[-1] in ('gate_up', 'down'):   # deepseek experts: one Linear each
+                _lecun_normal_(p, p.shape[-1], gen)
             elif path[-1] == 'kernel':
                 _lecun_normal_(p, p.shape[-1], gen)
             else:
@@ -243,6 +246,8 @@ class TrainerBase:
         self.logger_fl = None
         self.tb = None
         self.sharded = None
+        from ..models.moe import deepseek_layers
+        self._routed = deepseek_layers(model)   # their bias update follows each step
         if self.mesh is not None:
             from ..parallel.mesh import shard_params
             from ..ops.adamw import NormReduce
@@ -374,8 +379,10 @@ class TrainerBase:
         """What a step minimises: the task ``loss``, plus ``moe_aux_weight``
         times the MoE aux loss ``aux`` for a MoE model (metrics keep the task
         loss, as in JAX)."""
-        if self.model_cfg.moe_num_experts > 0:
-            return loss + self.model_cfg.moe_aux_weight * aux
+        cfg = self.model_cfg
+        if cfg.moe_num_experts > 0:
+            weight = cfg.moe_seq_aux_weight if cfg.block == 'deepseek' else cfg.moe_aux_weight
+            return loss + weight * aux
         return loss
 
     def _info(self, msg: str) -> None:
@@ -428,6 +435,8 @@ class TrainerBase:
                 reduce=None if self.sharded is None else self._norm_reduce, scalars=scalars)
             for p in self.params().values():
                 p.grad = None
+            for layer in self._routed:
+                layer.update_bias(self.model_cfg.moe_bias_rate)
         self.step += 1
         return grad_norm
 
@@ -646,7 +655,11 @@ class Trainer(TrainerBase):
                  output_dir: Optional[str] = None, name: str = 'EcgVit', device=None,
                  mesh=None):
         self.save_time = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
-        super().__init__(EcgVit(model_cfg), model_cfg, train_cfg, train_data, eval_data,
+        # the deepseek block is built on the device (its CPU build of ~1e9
+        # parameters would take longer than the step); weights come after
+        with torch.device(default_device(device) if model_cfg.block == 'deepseek' else 'cpu'):
+            model = EcgVit(model_cfg)
+        super().__init__(model, model_cfg, train_cfg, train_data, eval_data,
                          norm_stats, output_dir or os.path.join('runs', self.save_time),
                          name, f'{name} Train', device, mesh)
         if train_cfg.linear_probe:
@@ -709,7 +722,8 @@ class Trainer(TrainerBase):
         scalars ``scalars`` [lr, bc1, bc2, -lr], all on the device, so the
         step reads no host value and a CUDA graph can capture it.  Returns
         the metrics as 0-d device tensors (no learning rate)."""
-        with self.rng.taped(seeds):
+        taped = contextlib.nullcontext() if self.sharded is None else self.sharded.taped_step()
+        with self.rng.taped(seeds), taped:
             return self._step(sigs, labs, idx, scalars, marks)
 
     def _step(self, sigs: torch.Tensor, labs: torch.Tensor, idx: torch.Tensor,
@@ -737,7 +751,7 @@ class Trainer(TrainerBase):
                      spmd.gather_rows(out.logits.detach()), spmd.gather_rows(lab)),
                     self._objective(out.loss, out.aux_loss))
 
-        with self._spmd():
+        with self._spmd(), tracing.regions(marks):
             aux, grads = grad_accum(micro, params, idx, accum, self.sharded, marks)
         self.model.eval()
         grad_norm = self._update(grads, scalars)
@@ -847,10 +861,10 @@ class Trainer(TrainerBase):
                        'device-resident (or smaller than one batch); falling back to the '
                        'per-step loop')
             return None
-        if self.mesh is not None:
-            self._info('epoch_scan/steps_per_dispatch on a mesh: each dispatch runs its steps '
-                       'eagerly through the step tape (DDP, FSDP2 and the collectives are '
-                       'not captured in a CUDA graph)')
+        if self.sharded is not None and not self.sharded.flat_sync:
+            self._info('epoch_scan/steps_per_dispatch on a mesh with a model axis or FSDP: '
+                       'each dispatch runs its steps eagerly through the step tape (Megatron '
+                       'slices and FSDP2 are not captured in a CUDA graph)')
         if cfg.epoch_scan:
             return Dispatcher(self, self.steps_per_epoch, scan=True)
         return Dispatcher(self, cfg.steps_per_dispatch, scan=False)
@@ -888,7 +902,8 @@ class Trainer(TrainerBase):
     def _train_epoch_chunked(self, host_rng) -> None:
         """One epoch K steps a dispatch (``cfg.steps_per_dispatch``): the
         host shuffle drawn as the per-step loop draws it, steps_per_epoch //
-        K dispatches, then the leftover steps through ``train_step``.  One
+        K dispatches, then the leftover steps one a dispatch (on the GPU a
+        one-step graph in the K-step graph's memory pool).  One
         payload per dispatch (the last step's metrics, at the host step) and
         per leftover step, or with ``cfg.log_per_epoch`` one per epoch with
         ``train/loss_epoch_mean`` (over the dispatched steps, as in JAX)."""
@@ -910,7 +925,7 @@ class Trainer(TrainerBase):
                 self._log(payload)
         pos = n_chunks * k * bsz
         for i in range(leftover):
-            metrics = self.train_step(self.train_data, idx[pos + i * bsz:pos + (i + 1) * bsz])
+            _, _, metrics = self.dispatcher.run(idx[pos + i * bsz:pos + (i + 1) * bsz][None])
             if not cfg.log_per_epoch:
                 with tracing.span('train.read', self.step):
                     payload = {f'train/{key}': float(v) for key, v in metrics.items()}

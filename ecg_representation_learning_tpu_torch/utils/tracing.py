@@ -42,6 +42,16 @@ gap: on the card, the device time from one graph dispatch's end to the first
 mark of the next, back to back (no step in between), read on the device's
 clock.
 
+Region marks (``region(phase)``) inside a step, recorded into the marks of
+the step whose forward runs (``regions(marks)``, set by ``Trainer._step``):
+``region(None)`` opens a run of regions, each later ``region(phase)`` ends
+``phase``; their phases are the step's too but count no step.  The MoE layer
+of the deepseek block marks 'moe.route' (router, top-k, gates, the balance
+counts), 'moe.permute' (the sort by expert, the offsets, the row gather),
+'moe.experts' (the grouped GEMMs and SwiGLU), 'moe.combine' (the gated sum
+over the choices) and 'moe.shared' (the shared experts) in each forward; the
+data-parallel tape step marks 'allreduce' (the gradient all-reduce).
+
 ``snapshot()`` returns what was recorded::
 
     {'spans': {name: {'count', 'host_s'}}, 'phases': {name: {'steps', 'device_s'}},
@@ -116,9 +126,11 @@ class StepMarks:
     the step runs synchronously there."""
 
     def __init__(self, device):
+        self.device = device
         self.cuda = torch.device(device).type == 'cuda'
         self.ends: List[Optional[str]] = []    # the phase each mark ends (None: the start)
         self.marks: List[Any] = []
+        self.sub: Optional['StepMarks'] = None   # the region marks inside the steps
 
     def start(self) -> None:
         if not self.marks:
@@ -126,6 +138,11 @@ class StepMarks:
 
     def mark(self, phase: str) -> None:
         self._record(phase)
+
+    def region(self, phase: Optional[str]) -> None:
+        if self.sub is None:
+            self.sub = StepMarks(self.device)
+        self.sub._record(phase)
 
     def _record(self, phase: Optional[str]) -> None:
         if self.cuda:
@@ -141,6 +158,8 @@ class StepMarks:
         while on: read them at the next ``collect``.  ``gap_from``: the end
         event of the dispatch before, back to back."""
         RECORDER.pending.append((self, gap_from))
+        if self.sub is not None:
+            RECORDER.pending.append((self.sub, None))
 
     def completed(self) -> bool:
         return not self.cuda or self.marks[-1].query()
@@ -157,7 +176,8 @@ class StepMarks:
             gap = None
         by: Dict[str, float] = {}
         for i in range(1, len(t)):
-            by[self.ends[i]] = by.get(self.ends[i], 0.0) + t[i] - t[i - 1]
+            if self.ends[i] is not None:    # None opens a run of regions
+                by[self.ends[i]] = by.get(self.ends[i], 0.0) + t[i] - t[i - 1]
         return by, self.ends.count('tail'), gap
 
 
@@ -170,11 +190,32 @@ class _NoMarks:
     def mark(self, phase: str) -> None:
         pass
 
+    def region(self, phase: Optional[str]) -> None:
+        pass
+
     def launched(self, gap_from=None) -> None:
         pass
 
 
 NO_MARKS = _NoMarks()
+_STEP: List[Any] = [NO_MARKS]    # the marks of the step whose forward runs
+
+
+@contextlib.contextmanager
+def regions(marks):
+    """``region`` records into ``marks`` inside the block."""
+    _STEP.append(marks)
+    try:
+        yield
+    finally:
+        _STEP.pop()
+
+
+def region(phase: Optional[str]) -> None:
+    """A region mark of the running step (nothing outside ``regions`` or
+    while its marks are ``NO_MARKS``): ``None`` opens a run, a name ends that
+    region."""
+    _STEP[-1].region(phase)
 
 
 def step_marks(device):

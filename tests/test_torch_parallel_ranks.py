@@ -91,6 +91,37 @@ def train_run(kind, cfg, tcfg, shape, data, flax_params, out):
             'mu_shapes': {k: tuple(v.shape) for k, v in tr.opt_state.mu.items()}}
 
 
+def ddp_then_tape_run(cfg, tcfg, shape, data, out, mixed):
+    """Four steps on a (n_data, 1) mesh: ``train_step`` each, or (``mixed``)
+    an eager step (DDP), a dispatch of two tape steps after ``drop_ddp`` (as
+    a capture drops it) and an eager step again.  Returns the full state and
+    whether a parameter's gradient accumulator outlived its backward under
+    the DDP wrapper and after the drop."""
+    from ecg_representation_learning_tpu_torch.train.dispatch import Dispatcher
+    tr = build('sup', cfg, tcfg, make_mesh(*shape, device='cpu'), data, out)
+    tr.init_state()
+    takes = np.arange(4 * tcfg.train_batch_size).reshape(4, -1)
+    p = next(iter(tr.model.parameters()))
+
+    def kept() -> bool:   # a node's metadata lives as long as the node
+        node = p.view_as(p).grad_fn.next_functions[0][0]
+        was = 'probe' in node.metadata
+        node.metadata['probe'] = True
+        return was
+    if not mixed:
+        for t in takes:
+            tr.train_step(tr.train_data, t)
+        return {'state': tr.state_dict()}
+    tr.train_step(tr.train_data, takes[0])
+    kept()
+    held = kept()
+    tr.sharded.drop_ddp()
+    freed = not kept()
+    Dispatcher(tr, 2, scan=False).run(takes[1:3])
+    tr.train_step(tr.train_data, takes[3])
+    return {'state': tr.state_dict(), 'held': held, 'freed': freed}
+
+
 def replay_steps(kind, cfg, tcfg, shape, data, flax_params, steps):
     """``len(steps)`` train steps fed the given randomness (each step: MAE
     noise per microbatch, or the two views' draws, for the global batch; the

@@ -148,7 +148,8 @@ def test_per_step_loop_marks_and_train_reads(splits, tmp_path):
     snap = tracing.snapshot()
     steps = tr.steps_per_epoch
     assert snap['spans']['train.read']['count'] == steps // 2 + steps % 2
-    assert snap['spans']['dispatch']['count'] == steps // 2
+    # the epoch's leftover step is a one-step dispatch
+    assert snap['spans']['dispatch']['count'] == steps // 2 + steps % 2
     assert all(snap['phases'][p]['steps'] == steps for p in PHASES)
 
 

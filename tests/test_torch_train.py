@@ -234,7 +234,7 @@ def _flags(sp):
 
 
 # flags the port adds to a JAX subcommand
-PORT_ONLY = {'denoise': {'--device'}}
+PORT_ONLY = {'denoise': {'--device'}, 'train': {'--model-preset'}}
 # flags of this slice that each subcommand must have
 REQUIRED = {
     'train': {'--hdf5', '--labels-csv', '--n-sample', '--resident-dtype', '--port-checkpoint'},
