@@ -41,6 +41,14 @@ process per source started together (into ``build/torch_kernels/``), then:
    (``dropout_sites.cu``, port-only) at the supervised cell's shapes, each way
    against the plain chain (``dropout_add`` bit for bit, ``gelu_dropout``
    within one ulp), their device ms beside the byte bound and the chain's;
+   the MoE glue kernels (``moe_glue.cu``, port-only) at the
+   ``moonlight_ep8_cls_k4`` cell's shapes, each of the six entries against
+   its plain version (the permute, the SwiGLU and the combine's row
+   gradients equal, the sums within their f32 bounds), its device ms beside
+   its byte bound and the plain version's; then the launches on the main
+   path: two eager ``Trainer.train_step``s of the deepseek block at the
+   preset's size and the cell's batch (512 records in two microbatches),
+   one launch of each entry each way per MoE layer and microbatch;
 2. serving phase: ViT-base (f32, 12 layers of attention at 41 tokens, all
    through the kernel: ``flash_min_seq=0``) behind ``serving.serve`` answers
    16 concurrent HTTP requests; every client's rows must equal
@@ -182,6 +190,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -210,14 +219,14 @@ from ecg_representation_learning_tpu_torch.data.pipeline import (MixedRecordStre
                                                                  prefetch_to_device)
 from ecg_representation_learning_tpu_torch.models.export_artifact import (ExportedModel,
                                                                           export_model)
-from ecg_representation_learning_tpu_torch.models.moe import MoeMlp
+from ecg_representation_learning_tpu_torch.models.moe import MoeMlp, deepseek_layers, sort_pairs
 from ecg_representation_learning_tpu_torch.models.moe import capacity as moe_capacity
 from ecg_representation_learning_tpu_torch.models.port import (
     export_vit_pytorch_state_dict, reference_vit_config)
 from ecg_representation_learning_tpu_torch.models.tokenizer import (EcgTokenizer,
                                                                     nearest_centroid)
 from ecg_representation_learning_tpu_torch.models.vit import EcgVit, stack_unrolled_state_dict
-from ecg_representation_learning_tpu_torch.ops import _build, adamw, dropout, nlm_fused
+from ecg_representation_learning_tpu_torch.ops import _build, adamw, dropout, moe_glue, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
 from ecg_representation_learning_tpu_torch.ops.loess import rloess
@@ -371,11 +380,23 @@ KERNELS = [
     ('nlm_variant', 'nlm', 'tools/nlm_sol_probe.py:36'),
     ('gelu_dropout', 'dropout_sites', 'none: port-only, XLA fuses the chain in JAX'),
     ('dropout_add', 'dropout_sites', 'none: port-only, XLA fuses the chain in JAX'),
+    ('moe_glue', 'moe_glue', 'none: port-only, the JAX package has no dropless MoE layer'),
 ]
 # the dropout sites of a ViT-base block in the supervised cell (bs 64, 41
 # tokens, bf16, dropout 0.1): the MLP hidden, and the attention and MLP outputs
 SITE_RATE = 0.1
 SITE_SHAPES = {'gelu_dropout': (64, 41, 3072), 'dropout_add': (64, 41, 768)}
+# the MoE glue at the moonlight_ep8_cls_k4 cell's shapes: a microbatch of 256
+# records of 41 tokens, d 2,048, top 6 of 64 experts with experts 0-7 held,
+# SwiGLU 1,408 wide, bf16 rows; a held expert drawn with weight 0.76 against
+# the others' 1, which holds ~10 % of the pairs, as the cell's router does
+# over its measured window (the bias update evens the load); sums held within
+# 2**-22 of their terms' magnitudes, the gates' dot products within 1e-5
+# (tests/test_torch_moe_glue_card.py)
+GLUE = dict(tokens=256 * 41, d=2048, f=1408, experts=64, k=6, held=8, held_weight=0.76)
+GLUE_SETS = 4   # input sets a timing cycles through: each call moves >= 30 MB
+GLUE_SUM_ULPS, GLUE_DOT_RTOL = 2.0 ** -22, 1e-5
+GLUE_STEPS, GLUE_BATCH, GLUE_ACCUM = 2, 512, 2   # the main path's count: the cell's step
 
 
 def emit(obj) -> None:
@@ -827,6 +848,166 @@ def dropout_sites_phase() -> dict:
     supervised cell's shapes (``_site_row``); returns their rows by name."""
     gen = torch.Generator(device='cuda').manual_seed(3)
     return {kind: _site_row(kind, shape, gen) for kind, shape in SITE_SHAPES.items()}
+
+
+def _glue_set(order, pos, held, offs, rows, gen) -> dict:
+    """One set of the glue's inputs at ``GLUE``'s shapes, rows past the held
+    count NaN."""
+    t, d, f, k = GLUE['tokens'], GLUE['d'], GLUE['f'], GLUE['k']
+    n = int(offs[-1])
+
+    def draw(shape, dtype=torch.bfloat16, poison=False):
+        x = (2 * torch.randn(shape, generator=gen, device=DEV)).to(dtype)
+        if poison:
+            x[n:] = float('nan')
+        return x
+    return {'xs': draw((t, d), torch.float32), 'h': draw((rows, 2 * f), poison=True),
+            'da': draw((rows, f), poison=True), 'y': draw((rows, d), poison=True),
+            'g': draw((rows, d), poison=True), 'dout': draw((t, d), torch.float32),
+            'gates': draw((t, k), torch.float32).abs(), 'order': order, 'pos': pos,
+            'held': held, 'offs': offs, 'rows': rows}
+
+
+def _glue_calls(z: dict) -> dict:
+    """{entry: (kernel call, plain call)} on the inputs ``z``."""
+    bf = torch.bfloat16
+    args = {'permute_forward': (z['xs'], z['order'], z['offs'], z['rows'], bf),
+            'permute_backward': (z['g'], z['pos'], z['held']),
+            'swiglu_forward': (z['h'], z['offs']),
+            'swiglu_backward': (z['h'], z['da'], z['offs']),
+            'combine_forward': (z['y'], z['gates'], z['pos'], z['held'], z['offs']),
+            'combine_backward': (z['y'], z['gates'], z['dout'], z['pos'], z['held'],
+                                 z['order'], z['offs'])}
+    return {name: ((lambda name=name, a=a: getattr(moe_glue, name)(*a)),
+                   (lambda name=name, a=a: getattr(moe_glue, f'{name}_reference')(*a)))
+            for name, a in args.items()}
+
+
+def _glue_bytes(z: dict) -> dict:
+    """The least bytes each entry moves at these inputs: each held row, each
+    token's row and each index read or written once (2-byte rows, an f32 xs,
+    out, gx and dout); dout's rows only for the tokens with a held choice."""
+    t, d, f, k = GLUE['tokens'], GLUE['d'], GLUE['f'], GLUE['k']
+    n = int(z['offs'][-1])
+    t_held = int(z['held'].any(dim=1).sum())
+    routing = t * k * (8 + 1 + 4)   # pos, held, gates
+    return {'permute_forward': n * (d * (4 + 2) + 8),
+            'permute_backward': n * d * 2 + t * k * 9 + t * d * 4,
+            'swiglu_forward': n * f * (4 + 2),
+            'swiglu_backward': n * f * (4 + 2 + 4),
+            'combine_forward': n * d * 2 + routing + t * d * 4,
+            'combine_backward': t_held * d * 4 + n * (d * 2 * 2 + 8) + routing + t * k * 4}
+
+
+def _glue_check(name: str, got, want, z: dict) -> dict:
+    """The kernel's output against the plain version's: values equal below
+    the held count, or within the f32 bound of the sum (``GLUE_*``)."""
+    n, t, k = int(z['offs'][-1]), GLUE['tokens'], GLUE['k']
+    if name == 'combine_backward':
+        (got, got_dg), (want, want_dg) = got, want
+    token_rows = name in ('combine_forward', 'permute_backward')   # (T, d), else buffer rows
+    got, want = (got, want) if token_rows else (got[:n], want[:n])
+    err = {'finite': bool(torch.isfinite(got).all())}
+    if token_rows:
+        rows = z['y'] if name == 'combine_forward' else z['g']
+        w = z['gates'] * z['held'] if name == 'combine_forward' else z['held'].float()
+        terms = torch.nan_to_num(rows.float(), nan=0.0).index_select(0, z['pos'].reshape(-1))
+        scale = (terms.reshape(t, k, -1).abs() * w[..., None]).sum(1)
+        err['within'] = bool(((got - want).abs() <= GLUE_SUM_ULPS * scale).all())
+        err['bits_equal'] = bool(torch.equal(got, want))
+    else:
+        err['within'] = bool(torch.equal(got, want))
+    err['max_abs_err'] = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if name == 'combine_backward':
+        ys = torch.nan_to_num(z['y'].float(), nan=0.0).index_select(0, z['pos'].reshape(-1))
+        scale = (ys.reshape(t, k, -1).abs() * z['dout'].abs()[:, None]).sum(-1) * z['held']
+        gap = (got_dg - want_dg).abs()
+        err['dgates_max_abs_err'] = float(gap.max())
+        err['within'] = (err['within'] and bool(torch.isfinite(got_dg).all())
+                         and bool((gap <= GLUE_DOT_RTOL * scale).all()))
+    return err
+
+
+def _glue_main_path_launches() -> dict:
+    """The glue's launches on the main path: ``GLUE_STEPS`` eager
+    ``Trainer.train_step``s of the deepseek block at the preset's size (bf16,
+    12 MoE layers) and the cell's batch, ``GLUE_BATCH`` records in
+    ``GLUE_ACCUM`` microbatches, with the counters set to 0 just before.  A
+    CUDA graph of the step records these launches once, at capture.  Each
+    entry must launch once each way per MoE layer and microbatch."""
+    kernels = {'permute': moe_glue.permute_kernel, 'swiglu': moe_glue.swiglu_kernel,
+               'combine': moe_glue.combine_kernel}
+    cfg = VitConfig.from_preset('moonlight-16b-a3b-ep8', dtype='bfloat16')
+    rng = np.random.default_rng(4)
+    n = GLUE_STEPS * GLUE_BATCH
+    data = SplitData(signals=(0.2 * rng.standard_normal((n, 12, 2500))).astype(np.float32),
+                     labels=(rng.uniform(size=(n, 71)) < 0.1).astype(np.float32))
+    tr = Trainer(cfg, TrainConfig(train_batch_size=GLUE_BATCH, grad_accum=GLUE_ACCUM,
+                                  log_to_console=False, save_final=False),
+                 train_data=data, norm_stats=PTBXL_TRAIN_STATS['original'])
+    tr.init_state()
+    layers = len(deepseek_layers(tr.model))
+    for kn in kernels.values():
+        kn.launches = kn.backward_launches = 0
+    for i in range(GLUE_STEPS):
+        m = tr.train_step(data, np.arange(i * GLUE_BATCH, (i + 1) * GLUE_BATCH))
+    loss = float(m['loss'])
+    made = {name: (kn.launches, kn.backward_launches) for name, kn in kernels.items()}
+    want = GLUE_STEPS * GLUE_ACCUM * layers
+    del tr, data, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(counts != (want, want) for counts in made.values()) or not math.isfinite(loss):
+        raise AssertionError(f'moe_glue: {GLUE_STEPS} steps of {layers} MoE layers and '
+                             f'{GLUE_ACCUM} microbatches made launches {made} (want {want} '
+                             f'each way), loss {loss}')
+    total = sum(a + b for a, b in made.values())
+    return {'moe_layers': layers, 'steps': GLUE_STEPS, 'microbatches': GLUE_ACCUM,
+            'launches': made, 'launches_per_step': total / GLUE_STEPS, 'total': total}
+
+
+def moe_glue_phase():
+    """The MoE glue kernels (``ops/csrc/moe_glue.cu``) at the
+    ``moonlight_ep8_cls_k4`` cell's shapes: each entry against its plain
+    version, its device ms (each call on the next of ``GLUE_SETS`` input
+    sets) beside its byte bound and the plain version's; then the
+    launches on the main path (``_glue_main_path_launches``).  Returns (the
+    row, those launches)."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    t, e, k = GLUE['tokens'], GLUE['experts'], GLUE['k']
+    w = torch.ones(e, device=DEV)
+    w[:GLUE['held']] = GLUE['held_weight']
+    idx = torch.multinomial(w.expand(t, e).contiguous(), k, replacement=False, generator=gen)
+    rows = t * min(k, GLUE['held'])
+    order, pos, held, _, offs = sort_pairs(idx, 0, GLUE['held'], rows)
+    sets = [_glue_set(order, pos, held, offs, rows, gen) for _ in range(GLUE_SETS)]
+    calls = [_glue_calls(z) for z in sets]
+    n_bytes = _glue_bytes(sets[0])
+    row = {'phase': 'kernel', 'kernel': 'moe_glue', 'tokens': t, 'rows': rows,
+           'held_rows': int(offs[-1]), 'held_share': int(offs[-1]) / rows, 'dtype': 'bfloat16',
+           'input_sets': GLUE_SETS}
+    for name in n_bytes:
+        kernel, plain = calls[0][name]
+        entry = _glue_check(name, kernel(), plain(), sets[0])
+        b_ms, b_by = bound(n_bytes[name], 0, torch.float32)
+        k_ms = device_ms(_cycled([c[name][0] for c in calls]))
+        entry.update(kernel_device_ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                     bound_share=b_ms / k_ms if k_ms else None,
+                     plain_device_ms=device_ms(_cycled([c[name][1] for c in calls]), reps=20))
+        row[name] = entry
+    del sets, calls
+    torch.cuda.empty_cache()
+    row['main_path'] = _glue_main_path_launches()
+    launches = row['main_path']['total']
+    emit(row)
+    bad = [name for name in n_bytes if not (row[name]['finite'] and row[name]['within'])]
+    if bad:
+        raise AssertionError(f'moe_glue kernels differ from their plain versions: {bad}: {row}')
+    total = {key: sum(row[name][key] or 0.0 for name in n_bytes)
+             for key in ('kernel_device_ms', 'bound_ms', 'plain_device_ms')}
+    return {**row, 'max_abs_err': max(row[name]['max_abs_err'] for name in n_bytes),
+            'kernel_ms': total['kernel_device_ms'], 'plain_ms': total['plain_device_ms'],
+            'bound_ms': total['bound_ms'], 'bound_by': 'bytes', 'library_ms': None}, launches
 
 
 def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
@@ -3888,7 +4069,7 @@ def main(argv=None) -> int:
                           '--format=csv,noheader'], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs = ['flash_fwd', 'flash_bwd', 'adamw', 'nlm', 'dropout_sites']
+    libs = ['flash_fwd', 'flash_bwd', 'adamw', 'nlm', 'dropout_sites', 'moe_glue']
     _build.build(libs)
     build_s = time.perf_counter() - t0
     ptxas = {lib: [ln.strip() for ln in
@@ -3910,6 +4091,7 @@ def main(argv=None) -> int:
         rows['nlm_variant'] = nlm_variant_phase()
         launches['nlm_variant'] = rows['nlm_variant']['launches']
         rows.update(dropout_sites_phase())
+        rows['moe_glue'], launches['moe_glue'] = moe_glue_phase()
     if 'serving' in args.phases:
         _, launches['flash_fwd'] = serving_phase()
     if 'training' in args.phases:

@@ -64,9 +64,12 @@ batch, as GSPMD keeps them in JAX:
     expert on the device (the others after them), and the held experts run
     as grouped GEMMs over device-side offsets (``torch._grouped_mm`` for bf16
     on the GPU) on a buffer of T * min(k, count) rows, the most a token set
-    can route here.  Rows past the last offset are never written; neither
-    they nor their gradients reach the output or the inputs.  No host read,
-    so the step captures in a CUDA graph;
+    can route here.  The row gather into the buffer, the SwiGLU between
+    the GEMMs and the gated sum back, each way, are ``ops/moe_glue.py``
+    (one launch of kernel #9 each on the card), which touch only the rows
+    below the last offset: rows past it are never written, and neither they
+    nor their gradients reach the output or the inputs.  No host read, so
+    the step captures in a CUDA graph;
   * the sequence-wise balance loss of DeepSeek-V3 (a sequence is a record):
     mean over records of sum_i f_i P_i, with f_i = E / (k T) times the
     record's choices of expert i and P_i the record's mean of s_i / sum_j s_j,
@@ -86,6 +89,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..configs import VitConfig
+from ..ops import moe_glue
 from ..ops.dropout import DropoutRng, make_dropout
 from ..parallel import spmd
 
@@ -210,57 +214,25 @@ def grouped_mm(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Te
     return out
 
 
-class _Permute(torch.autograd.Function):
-    """The buffer rows: ``xs`` (S, d) cast to ``dtype``, row i the token of
-    pair ``order[i]``.  The backward gathers each token's k rows (``pos``
-    (S, k): the row of each pair, ``held``: whether it was routed here) and
-    sums the held ones in f32: no atomics, and the rows past the last offset
-    (unwritten by the grouped GEMMs) never enter."""
-
-    @staticmethod
-    def forward(ctx, xs, src, pos, held, dtype):
-        ctx.save_for_backward(pos, held)
-        return xs.to(dtype).index_select(0, src)
-
-    @staticmethod
-    def backward(ctx, g):
-        pos, held = ctx.saved_tensors
-        gx = torch.zeros((pos.shape[0], g.shape[1]), dtype=torch.float32, device=g.device)
-        zero = torch.zeros((), dtype=g.dtype, device=g.device)
-        for j in range(pos.shape[1]):
-            gx += torch.where(held[:, j, None], g.index_select(0, pos[:, j]), zero)
-        return gx, None, None, None, None
-
-
-class _Combine(torch.autograd.Function):
-    """(S, d) f32: sum over each token's held choices j of gates[:, j] times
-    the expert output in row ``pos[:, j]`` of ``y`` (r, d); rows of ``y``
-    past the last offset (``valid`` False) are never read.  The backward
-    gives each buffer row its pair's gate times the token's gradient
-    (``order``: the pair of each row) and each held gate the dot product of
-    its row with the token's gradient: gathers only, no atomics."""
-
-    @staticmethod
-    def forward(ctx, y, gates, pos, held, order, valid):
-        zero = torch.zeros((), dtype=y.dtype, device=y.device)
-        yc = torch.where(valid[:, None], y, zero)
-        w = torch.where(held, gates, torch.zeros((), device=gates.device))
-        out = torch.zeros((pos.shape[0], y.shape[1]), dtype=torch.float32, device=y.device)
-        for j in range(pos.shape[1]):
-            out.addcmul_(yc.index_select(0, pos[:, j]), w[:, j, None])
-        ctx.save_for_backward(yc, w, pos, held, order)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        yc, w, pos, held, order = ctx.saved_tensors
-        k = pos.shape[1]
-        dgates = torch.stack([(yc.index_select(0, pos[:, j]) * dout).sum(dim=-1)
-                              for j in range(k)], dim=1)
-        dgates = torch.where(held, dgates, torch.zeros((), device=dgates.device))
-        src = order[:yc.shape[0]]
-        dy = dout.index_select(0, src // k) * w.reshape(-1).index_select(0, src)[:, None]
-        return dy.to(yc.dtype), dgates, None, None, None, None
+def sort_pairs(idx: torch.Tensor, first: int, n_held: int, rows: int):
+    """The (token, choice) pairs of the choices ``idx`` (T, k) sorted by held
+    expert (experts first..first + n_held - 1), then the others, in token
+    order within each: (order (T k,): the pair of each sorted position, pos
+    (T, k): the buffer row of each pair, clamped to ``rows`` - 1 (a pair past
+    the buffer is never held), held (T, k): whether the pair's expert is
+    held, counts (n_held,): each held expert's rows, offs: their cumulative
+    ends).  All on the device, with no host read."""
+    s, k = idx.shape
+    local = idx.reshape(-1) - first
+    held = (local >= 0) & (local < n_held)
+    key = torch.where(held, local, n_held)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(n_held + 1, dtype=torch.int64, device=idx.device).index_add_(
+        0, key, torch.ones((), dtype=torch.int64, device=idx.device).expand(s * k))[:n_held]
+    offs = counts.cumsum(0)
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(s * k, device=idx.device))
+    pos = pos.clamp(max=rows - 1).reshape(s, k)
+    return order, pos, held.reshape(s, k), counts, offs
 
 
 class HeldExperts(nn.Module):
@@ -270,14 +242,12 @@ class HeldExperts(nn.Module):
 
     def __init__(self, count: int, dim: int, inner: int):
         super().__init__()
-        self.inner = inner
         self.gate_up = nn.Parameter(torch.zeros(count, 2 * inner, dim))
         self.down = nn.Parameter(torch.zeros(count, dim, inner))
 
     def forward(self, xp: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
         h = grouped_mm(xp, self.gate_up.to(xp.dtype), offs)
-        a = F.silu(h[:, :self.inner]) * h[:, self.inner:]
-        return grouped_mm(a, self.down.to(xp.dtype), offs)
+        return grouped_mm(moe_glue.swiglu(h, offs), self.down.to(xp.dtype), offs)
 
 
 class Router(nn.Module):
@@ -342,18 +312,9 @@ class DeepseekMoe(nn.Module):
         tracing.region('moe.route')
 
         # the held pairs sorted by expert, then the others; buffer rows = the first r
-        local = idx.reshape(-1) - self.first
-        held = (local >= 0) & (local < n_held)
-        key = torch.where(held, local, n_held)
-        order = torch.argsort(key, stable=True)
         r = s * min(k, n_held)
-        counts = torch.zeros(n_held + 1, dtype=torch.int64, device=x.device).index_add_(
-            0, key, torch.ones((), dtype=torch.int64, device=x.device).expand(s * k))[:n_held]
-        offs = counts.cumsum(0)
-        pos = torch.empty_like(order).scatter_(0, order, torch.arange(s * k, device=x.device))
-        pos = pos.clamp(max=r - 1).reshape(s, k)    # a pair past r is never held
-        held = held.reshape(s, k)
-        xp = _Permute.apply(xs, order[:r] // k, pos, held, dt)
+        order, pos, held, counts, offs = sort_pairs(idx, self.first, n_held, r)
+        xp = moe_glue.permute(xs, order, pos, held, offs, r, dt)
         if self.training:
             with torch.no_grad():
                 self.held_rows.add_(offs[-1])
@@ -363,8 +324,7 @@ class DeepseekMoe(nn.Module):
         y = self.experts(xp, offs.to(torch.int32))
         tracing.region('moe.experts')
 
-        valid = torch.arange(r, device=x.device) < offs[-1]
-        out = _Combine.apply(y, gates, pos, held, order, valid).reshape(b, t, d)
+        out = moe_glue.combine(y, gates, pos, held, order, offs).reshape(b, t, d)
         tracing.region('moe.combine')
         out = out + self.shared_experts(xs).reshape(b, t, d)
         tracing.region('moe.shared')

@@ -15,6 +15,9 @@ imported: the CPU tests import every module, and there is no nvcc there.
 ``CXX_FLAGS``; its hash also covers the compiler and the CPU that
 ``-march=native`` resolves to, so a library built on another machine is
 never loaded.
+
+``CtypesKernel`` launches a pair of a library's entries (forward and
+backward) on the current stream of a card and counts the launches.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Mapping, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
@@ -96,6 +101,46 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+class CtypesKernel:
+    """The entries ``<kind>_forward`` and ``<kind>_backward`` of
+    ``csrc/<lib>.cu`` (``argtypes``: each entry's ctypes arguments by its
+    name, the stream last; each returns a CUDA error code), with their
+    launch counts.  A launch costs the host a few microseconds besides the
+    ctypes call, so the stream is read raw and the device switched only when
+    it is not the current one.  The caller checks the arguments."""
+
+    def __init__(self, lib: str, kind: str, argtypes: Mapping[str, Sequence]):
+        self.launches = 0            # forward launches
+        self.backward_launches = 0
+        self.lib, self.kind, self._argtypes = lib, kind, argtypes
+        self._fns = {}
+
+    def _fn(self, direction: str):
+        fn = self._fns.get(direction)
+        if fn is None:
+            name = f'{self.kind}_{direction}'
+            fn = getattr(load(self.lib), name)
+            fn.argtypes, fn.restype = list(self._argtypes[name]), ctypes.c_int
+            self._fns[direction] = fn
+        return fn
+
+    def launch(self, direction: str, device: torch.device, args: Sequence) -> None:
+        """One launch of the ``direction`` entry on ``device``'s current
+        stream; ``args`` are its arguments before the stream."""
+        fn, dev = self._fn(direction), device.index
+        if dev == torch.cuda.current_device():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        else:
+            with torch.cuda.device(dev):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        if err != 0:
+            raise RuntimeError(f'{self.kind}_{direction} launch failed: CUDA error {err}')
+        if direction == 'forward':
+            self.launches += 1
+        else:
+            self.backward_launches += 1
 
 
 def host_compiler() -> Optional[str]:

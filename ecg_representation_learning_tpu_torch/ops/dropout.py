@@ -209,60 +209,29 @@ _ARGS = {'gelu_dropout_forward': [_P] * 3 + [_L, _I, _F, _P],
          'dropout_add_backward': [_P] * 3 + [_L, _I, _I, _F, _P]}
 
 
-class _SiteKernel:
-    """``csrc/dropout_sites.cu``'s forward and backward entries of one site
-    kind, with their launch counts (CUDA tensors only).  A launch costs the
-    host a few microseconds besides the ctypes call: the eager step makes 72
-    of them, so the stream is read raw and the device switched only when it
-    is not the current one."""
-
-    def __init__(self, kind: str):
-        self.launches = 0            # forward launches
-        self.backward_launches = 0
-        self._kind = kind
-        self._fns = {}
-
-    def _fn(self, direction: str):
-        fn = self._fns.get(direction)
-        if fn is None:
-            name = f'{self._kind}_{direction}'
-            fn = getattr(_build.load('dropout_sites'), name)
-            fn.argtypes, fn.restype = _ARGS[name], ctypes.c_int
-            self._fns[direction] = fn
-        return fn
-
-    def launch(self, direction: str, out: torch.Tensor, tensors: Sequence[torch.Tensor],
-               codes: Sequence[int], inv: float) -> torch.Tensor:
-        """``out`` from ``tensors`` (the bool mask second, as every entry
-        takes it) in one launch; every tensor contiguous, of ``out``'s shape,
-        on its CUDA device."""
-        dev, shape = out.get_device(), out.shape
-        for t in (*tensors, out):
-            if t.get_device() != dev or t.shape != shape or not t.is_contiguous():
-                raise ValueError(f'{self._kind}: every tensor must be contiguous, '
-                                 f'{tuple(shape)}, on {out.device}; got {tuple(t.shape)} '
-                                 f'on {t.device}')
-        if dev < 0 or tensors[1].dtype != torch.bool:
-            raise ValueError(f'{self._kind} kernel takes CUDA tensors and a bool mask, got '
-                             f'{out.device} and {tensors[1].dtype}')
-        fn = self._fn(direction)
-        args = (*[t.data_ptr() for t in tensors], out.data_ptr(), out.numel(), *codes, inv)
-        if dev == torch.cuda.current_device():
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        else:
-            with torch.cuda.device(dev):
-                err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-        if err != 0:
-            raise RuntimeError(f'{self._kind}_{direction} launch failed: CUDA error {err}')
-        if direction == 'forward':
-            self.launches += 1
-        else:
-            self.backward_launches += 1
-        return out
+def _launch(kernel: _build.CtypesKernel, direction: str, out: torch.Tensor,
+            tensors: Sequence[torch.Tensor], codes: Sequence[int], inv: float) -> torch.Tensor:
+    """``out`` from ``tensors`` (the bool mask second, as every entry takes
+    it) in one launch of ``kernel``; every tensor contiguous, of ``out``'s
+    shape, on its CUDA device."""
+    dev, shape = out.get_device(), out.shape
+    for t in (*tensors, out):
+        if t.get_device() != dev or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f'{kernel.kind}: every tensor must be contiguous, '
+                             f'{tuple(shape)}, on {out.device}; got {tuple(t.shape)} '
+                             f'on {t.device}')
+    if dev < 0 or tensors[1].dtype != torch.bool:
+        raise ValueError(f'{kernel.kind} kernel takes CUDA tensors and a bool mask, got '
+                         f'{out.device} and {tensors[1].dtype}')
+    kernel.launch(direction, out.device, (*[t.data_ptr() for t in tensors], out.data_ptr(),
+                                          out.numel(), *codes, inv))
+    return out
 
 
-gelu_dropout_kernel = _SiteKernel('gelu_dropout')
-dropout_add_kernel = _SiteKernel('dropout_add')
+# ``csrc/dropout_sites.cu``'s entries of each site kind, with their launch
+# counts (the eager step makes 72 launches)
+gelu_dropout_kernel = _build.CtypesKernel('dropout_sites', 'gelu_dropout', _ARGS)
+dropout_add_kernel = _build.CtypesKernel('dropout_sites', 'dropout_add', _ARGS)
 
 
 def _code(t: torch.Tensor) -> int:
@@ -280,16 +249,15 @@ class _GeluDropout(torch.autograd.Function):
         a, keep = a.contiguous(), keep.contiguous()
         ctx.save_for_backward(a, keep)
         ctx.inv = keep_scale(rate)
-        return gelu_dropout_kernel.launch('forward', torch.empty_like(a), (a, keep),
-                                          (_code(a),), ctx.inv)
+        return _launch(gelu_dropout_kernel, 'forward', torch.empty_like(a), (a, keep),
+                       (_code(a),), ctx.inv)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         a, keep = ctx.saved_tensors
-        return gelu_dropout_kernel.launch('backward', torch.empty_like(a),
-                                          (g.contiguous().to(a.dtype), keep, a),
-                                          (_code(a),), ctx.inv), None, None
+        return _launch(gelu_dropout_kernel, 'backward', torch.empty_like(a),
+                       (g.contiguous().to(a.dtype), keep, a), (_code(a),), ctx.inv), None, None
 
 
 class _DropoutAdd(torch.autograd.Function):
@@ -302,8 +270,8 @@ class _DropoutAdd(torch.autograd.Function):
         ctx.save_for_backward(keep)
         ctx.inv, ctx.y_dtype = keep_scale(rate), y.dtype
         out = torch.empty_like(y, dtype=torch.promote_types(x.dtype, y.dtype))
-        return dropout_add_kernel.launch('forward', out, (y, keep, x), (_code(y), _code(x)),
-                                         ctx.inv)
+        return _launch(dropout_add_kernel, 'forward', out, (y, keep, x), (_code(y), _code(x)),
+                       ctx.inv)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -312,8 +280,8 @@ class _DropoutAdd(torch.autograd.Function):
         dy = None
         if ctx.needs_input_grad[1]:
             g = g.contiguous()
-            dy = dropout_add_kernel.launch('backward', torch.empty_like(g, dtype=ctx.y_dtype),
-                                           (g, keep), (_code(g), _CODES[ctx.y_dtype]), ctx.inv)
+            dy = _launch(dropout_add_kernel, 'backward', torch.empty_like(g, dtype=ctx.y_dtype),
+                         (g, keep), (_code(g), _CODES[ctx.y_dtype]), ctx.inv)
         return g if ctx.needs_input_grad[0] else None, dy, None, None
 
 
