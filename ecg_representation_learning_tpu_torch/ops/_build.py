@@ -16,8 +16,11 @@ imported: the CPU tests import every module, and there is no nvcc there.
 ``-march=native`` resolves to, so a library built on another machine is
 never loaded.
 
-``CtypesKernel`` launches a pair of a library's entries (forward and
-backward) on the current stream of a card and counts the launches.
+``CtypesLibrary`` is the one binding of a kernel library's entries: it
+launches an entry on the current stream of a card, raises on a CUDA error
+and counts the launch in the registry of launch counters, one per kernel
+(``COUNTERS``), which ``launch_counts``, ``add_launches`` and
+``reset_launches`` read and move.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Mapping, Optional, Sequence
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -103,44 +106,75 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-class CtypesKernel:
-    """The entries ``<kind>_forward`` and ``<kind>_backward`` of
-    ``csrc/<lib>.cu`` (``argtypes``: each entry's ctypes arguments by its
-    name, the stream last; each returns a CUDA error code), with their
-    launch counts.  A launch costs the host a few microseconds besides the
-    ctypes call, so the stream is read raw and the device switched only when
-    it is not the current one.  The caller checks the arguments."""
+# the launch counter of each hand-written kernel, by its name in
+# chip_smoke.py's kernels line (``_bwd``: the entry's backward); #1 and #2
+# share the entry flash_fwd
+COUNTERS = ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq', 'flash_bwd_dkv', 'adamw',
+            'adamw_norm', 'nlm_rows', 'nlm_variant', 'gelu_dropout', 'gelu_dropout_bwd',
+            'dropout_add', 'dropout_add_bwd', 'moe_permute', 'moe_permute_bwd', 'moe_swiglu',
+            'moe_swiglu_bwd', 'moe_combine', 'moe_combine_bwd')
+_launches: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
-    def __init__(self, lib: str, kind: str, argtypes: Mapping[str, Sequence]):
-        self.launches = 0            # forward launches
-        self.backward_launches = 0
-        self.lib, self.kind, self._argtypes = lib, kind, argtypes
+
+def launch_counts() -> Dict[str, int]:
+    """Every counter's launches so far (a copy)."""
+    return dict(_launches)
+
+
+def add_launches(delta: Mapping[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counters it names (a CUDA graph's
+    replays add the launches its capture recorded)."""
+    for name, n in delta.items():
+        _launches[name] += times * n
+
+
+def reset_launches() -> None:
+    """Set every counter to 0."""
+    for name in _launches:
+        _launches[name] = 0
+
+
+class CtypesLibrary:
+    """The named C entries of one kernel library: ``csrc/<lib>.cu`` built at
+    first use, or a library file at the path ``lib``.  ``argtypes`` holds
+    each entry's ctypes arguments by its name; every entry returns an int.
+    A launch entry takes the stream last and returns a CUDA error code; a
+    launch costs the host a few microseconds besides the ctypes call, so the
+    stream is read raw and the device switched only when it is not the
+    current one.  The caller checks the arguments."""
+
+    def __init__(self, lib: Union[str, Path], argtypes: Mapping[str, Sequence]):
+        self.lib, self._argtypes = lib, argtypes
         self._fns = {}
 
-    def _fn(self, direction: str):
-        fn = self._fns.get(direction)
+    def _fn(self, entry: str):
+        fn = self._fns.get(entry)
         if fn is None:
-            name = f'{self.kind}_{direction}'
-            fn = getattr(load(self.lib), name)
-            fn.argtypes, fn.restype = list(self._argtypes[name]), ctypes.c_int
-            self._fns[direction] = fn
+            handle = load(self.lib) if isinstance(self.lib, str) else ctypes.CDLL(str(self.lib))
+            fn = getattr(handle, entry)
+            fn.argtypes, fn.restype = list(self._argtypes[entry]), ctypes.c_int
+            self._fns[entry] = fn
         return fn
 
-    def launch(self, direction: str, device: torch.device, args: Sequence) -> None:
-        """One launch of the ``direction`` entry on ``device``'s current
-        stream; ``args`` are its arguments before the stream."""
-        fn, dev = self._fn(direction), device.index
+    def value(self, entry: str, *args) -> int:
+        """What an entry that launches nothing returns."""
+        return self._fn(entry)(*args)
+
+    def launch(self, entry: str, counter: Optional[str], device: torch.device,
+               args: Sequence) -> None:
+        """One launch of ``entry`` on ``device``'s current stream, counted
+        under ``counter`` (None: not counted); ``args`` are its arguments
+        before the stream."""
+        fn, dev = self._fn(entry), device.index
         if dev == torch.cuda.current_device():
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         else:
             with torch.cuda.device(dev):
                 err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
         if err != 0:
-            raise RuntimeError(f'{self.kind}_{direction} launch failed: CUDA error {err}')
-        if direction == 'forward':
-            self.launches += 1
-        else:
-            self.backward_launches += 1
+            raise RuntimeError(f'{entry} launch failed: CUDA error {err}')
+        if counter is not None:
+            _launches[counter] += 1
 
 
 def host_compiler() -> Optional[str]:

@@ -205,6 +205,14 @@ def _check_scalars(scalars: torch.Tensor, dev: torch.device) -> None:
                          f'{tuple(scalars.shape)} {scalars.dtype} {scalars.device}')
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ``csrc/adamw.cu``'s entries: the update (launch 2), the norm (launch 1), and
+# the block table's elements a block and the norm's table rows a block
+ARGTYPES = {'adamw_update': [_P, _P, _I, _P, _I] + [_F] * 6 + [_P, _F, _I, _I] + [_P] * 4,
+            'adamw_norm': [_P, _P, _I] + [_P] * 3 + [_F, _I, _I] + [_P] * 8,
+            'adamw_chunk_elems': [], 'adamw_norm_rows': []}
+ADAMW = _build.CtypesLibrary('adamw', ARGTYPES)
+
 _ptr = torch.Tensor.data_ptr
 _numel = torch.Tensor.numel
 _dtype = operator.attrgetter('dtype')
@@ -212,7 +220,8 @@ _shape = operator.attrgetter('shape')
 
 
 class _AdamWKernel:
-    """ctypes binding of ``csrc/adamw.cu`` with its launch counts.
+    """The launches of ``csrc/adamw.cu`` (``ADAMW``), counted as ``adamw``
+    (the update) and ``adamw_norm``.
 
     Keeps the device block table of the last leaf set.  A call compares the
     parameters' and moments' addresses and sizes with that set's; only when
@@ -227,12 +236,7 @@ class _AdamWKernel:
     ``take_captured``."""
 
     def __init__(self):
-        self.launches = 0        # update kernel launches (CUDA tensors only)
-        self.norm_launches = 0   # norm (or given-norm scalars) launches
         self.table_builds = 0
-        self._lib = None
-        self._chunk = None
-        self._norm_rows = None
         self._key = None
         self._dev = None
         self._shapes = None      # the leaves' shapes, which each gradient must have
@@ -245,26 +249,6 @@ class _AdamWKernel:
         self._sum = None         # launch 1's f64 sum of squares under a NormReduce
         self._reserved = []      # device buffers for launches under a capture
         self._captured = []      # (device buffer, head, gradient addresses) captured
-
-    def _library(self):
-        if self._lib is None:
-            lib = _build.load('adamw')
-            lib.adamw_chunk_elems.restype = ctypes.c_int
-            lib.adamw_norm_rows.restype = ctypes.c_int
-            self._chunk = lib.adamw_chunk_elems()
-            self._norm_rows = lib.adamw_norm_rows()
-            lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                                       + [ctypes.c_void_p] * 3
-                                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                                       + [ctypes.c_void_p] * 8)
-            lib.adamw_norm.restype = ctypes.c_int
-            lib.adamw_update.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6
-                                         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                                            ctypes.c_int] + [ctypes.c_void_p] * 4)
-            lib.adamw_update.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
 
     def _prepare(self, params, grads, mus, nus, head: int
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
@@ -280,14 +264,14 @@ class _AdamWKernel:
                *map(_ptr, mus), *map(_ptr, nus), *map(_numel, params))
         if key != self._key:
             dev, mu_dtype = _validate(params, grads, mus, nus)
-            self._library()
             mu_bytes = 2 if mu_dtype == torch.bfloat16 else 4
             ptrs = np.array([(_ptr(p), _ptr(m), _ptr(v)) for p, m, v in zip(params, mus, nus)],
                             np.int64)
-            rows = block_table(ptrs, [p.numel() for p in params], mu_bytes, self._chunk)
+            rows = block_table(ptrs, [p.numel() for p in params], mu_bytes,
+                               ADAMW.value('adamw_chunk_elems'))
             self._key = None   # a failure below leaves no half-built table
             self._blocks = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)
-            self._partials = torch.empty(-(-len(rows) // self._norm_rows),
+            self._partials = torch.empty(-(-len(rows) // ADAMW.value('adamw_norm_rows')),
                                          dtype=torch.float64, device=dev)
             self._ticket = torch.zeros(1, dtype=torch.int32, device=dev)
             self._n_blocks, self._dev, self._mu_bf16 = len(rows), dev, int(mu_bytes == 2)
@@ -338,7 +322,7 @@ class _AdamWKernel:
         self._captured, self._reserved = [], []
         return out
 
-    def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, stream: int, *,
+    def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, *,
                        b1: float, b2: float, eps: float, wd: float, mesh_tail=None) -> None:
         """Launch 2; ``mesh_tail`` = (sum, clip_norm, zero_nonfinite,
         norm_out, count_in, count_out) takes the scalars from the mesh-wide
@@ -351,12 +335,9 @@ class _AdamWKernel:
             tail = (total.data_ptr(), 0.0 if clip is None else float(clip),
                     int(clip is not None), int(zero_nonfinite), norm_out.data_ptr(),
                     ptr(count_in), ptr(count_out))
-        err = self._lib.adamw_update(self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
-                                     scalars.data_ptr(), self._mu_bf16, b1, 1.0 - b1, b2,
-                                     1.0 - b2, eps, wd, *tail, stream)
-        if err != 0:
-            raise RuntimeError(f'adamw_update launch failed: CUDA error {err}')
-        self.launches += 1
+        ADAMW.launch('adamw_update', 'adamw', self._dev, (
+            self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks, scalars.data_ptr(),
+            self._mu_bf16, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, *tail))
 
     def __call__(self, params, grads, mus, nus, scalars, *, b1: float, b2: float,
                  eps: float, wd: float) -> None:
@@ -367,11 +348,10 @@ class _AdamWKernel:
         with torch.cuda.device(self._dev):
             if host is not None:
                 gptrs.copy_(host, non_blocking=True)
-            self._launch_update(gptrs, scalars, torch.cuda.current_stream().cuda_stream,
-                                b1=b1, b2=b2, eps=eps, wd=wd)
+            self._launch_update(gptrs, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
 
     def _norm_scalars(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
-                      g_norm, stream):
+                      g_norm):
         """The pinned copy and launch 1 (after ``_prepare(..., 4)`` gave
         ``host`` and ``ws``): ``(scalars, grad_norm, count_out, gptrs)``.
         The device buffer is [scale, lr, bc1, bc2, finite, grad_norm, -, -]
@@ -397,16 +377,13 @@ class _AdamWKernel:
         grad_norm = f32[5] if g_norm is None else g_norm
         count_out = None if nonfinite_count is None else torch.empty_like(nonfinite_count)
         ptr = lambda t: None if t is None else t.data_ptr()
-        err = self._lib.adamw_norm(
+        ADAMW.launch('adamw_norm', 'adamw_norm', dev, (
             self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), ptr(g_norm),
             0.0 if clip_norm is None else float(clip_norm), int(clip_norm is not None),
             int(zero_nonfinite), f32.data_ptr(), ptr(lr_dev),
             ptr(None if g_norm is not None else grad_norm),
-            ptr(nonfinite_count), ptr(count_out), None, None, stream)
-        if err != 0:
-            raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
-        self.norm_launches += 1
+            ptr(nonfinite_count), ptr(count_out), None, None))
         return f32[:5], grad_norm, count_out, gptrs
 
     def norm_scalars(self, params, grads, mus, nus, lr_bc: Sequence[float],
@@ -422,11 +399,10 @@ class _AdamWKernel:
         host, ws = self._prepare(params, grads, mus, nus, 4)
         with torch.cuda.device(self._dev):
             return self._norm_scalars(host, ws, lr_bc, nonfinite_count, clip_norm,
-                                      zero_nonfinite, g_norm,
-                                      torch.cuda.current_stream().cuda_stream)[:3]
+                                      zero_nonfinite, g_norm)[:3]
 
     def _mesh_tail(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
-                   reduce: NormReduce, stream, **kw):
+                   reduce: NormReduce, **kw):
         """Under a ``NormReduce``: launch 1 with the leaf weights (its f64
         sum of squares), the all-reduce of the sum, launch 2 from it.  With
         ``lr_bc`` on the device (a step tape) nothing reads the host, so a
@@ -455,18 +431,15 @@ class _AdamWKernel:
         if lr_dev is not None:   # a step tape's row: the norm launch's mesh branch copies none
             f32[1:4].copy_(lr_dev)
         gptrs = ws[4:]
-        err = self._lib.adamw_norm(
+        ADAMW.launch('adamw_norm', 'adamw_norm', dev, (
             self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), None, 0.0, 0, 0,
             f32.data_ptr(), None, None, None, None, self._weights[1].data_ptr(),
-            self._sum.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f'adamw_norm launch failed: CUDA error {err}')
-        self.norm_launches += 1
+            self._sum.data_ptr()))
         reduce.all_reduce(self._sum)
         grad_norm = f32[5]
         count_out = None if nonfinite_count is None else torch.empty_like(nonfinite_count)
-        self._launch_update(gptrs, f32[:5], stream, mesh_tail=(
+        self._launch_update(gptrs, f32[:5], mesh_tail=(
             self._sum, clip_norm, zero_nonfinite, grad_norm, nonfinite_count, count_out), **kw)
         return grad_norm, count_out
 
@@ -483,14 +456,11 @@ class _AdamWKernel:
         if reduce is not None and g_norm is None:
             with torch.cuda.device(self._dev):
                 return self._mesh_tail(host, ws, lr_bc, nonfinite_count, clip_norm,
-                                       zero_nonfinite, reduce,
-                                       torch.cuda.current_stream().cuda_stream,
-                                       b1=b1, b2=b2, eps=eps, wd=wd)
+                                       zero_nonfinite, reduce, b1=b1, b2=b2, eps=eps, wd=wd)
         with torch.cuda.device(self._dev):
-            stream = torch.cuda.current_stream().cuda_stream
             scalars, grad_norm, count, gptrs = self._norm_scalars(
-                host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite, g_norm, stream)
-            self._launch_update(gptrs, scalars, stream, b1=b1, b2=b2, eps=eps, wd=wd)
+                host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite, g_norm)
+            self._launch_update(gptrs, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
         return grad_norm, count
 
 

@@ -262,43 +262,24 @@ def _seed_args(seed):
     return seed, None
 
 
-class _Binding:
-    """A ctypes entry of one ``csrc/<lib>.cu`` library with its launch count
-    (the count moves only when the kernel is launched)."""
-
-    def __init__(self, lib: str, fn: str, argtypes):
-        self.launches = 0     # kernel launches (CUDA tensors only)
-        self._lib, self._name, self._argtypes = lib, fn, argtypes
-        self._fn = None
-
-    def _launch(self, device, *args) -> None:
-        if self._fn is None:
-            fn = getattr(_build.load(self._lib), self._name)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        with torch.cuda.device(device):
-            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f'{self._name} launch failed: CUDA error {err}')
-        self.launches += 1
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, seed_dev, bh_offset,
-#           use_dropout, thresh, inv_keep, stream)
-_FWD_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
 # flash_bwd_dq(q, k, v, do, lse, delta, dq, ...) / flash_bwd_dkv(..., dk, dv, ...)
 _BWD_TAIL = [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
+# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, seed_dev, bh_offset,
+#           use_dropout, thresh, inv_keep, stream)
+FLASH_FWD = _build.CtypesLibrary('flash_fwd', {
+    'flash_fwd': [_P] * 5 + [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]})
+FLASH_BWD = _build.CtypesLibrary('flash_bwd', {'flash_bwd_dq': [_P] * 7 + _BWD_TAIL,
+                                               'flash_bwd_dkv': [_P] * 8 + _BWD_TAIL})
 
 
-class _FlashForward(_Binding):
+class _FlashForward:
     """``csrc/flash_fwd.cu``: kernel #1, or with ``with_lse`` kernel #2 (the
-    same entry given an lse array), each with its own launch count."""
+    same entry given an lse array), each counted under its own name."""
 
     def __init__(self, with_lse: bool):
-        super().__init__('flash_fwd', 'flash_fwd', _FWD_ARGS)
         self.with_lse = with_lse
+        self.counter = 'flash_fwd_lse' if with_lse else 'flash_fwd'
 
     def __call__(self, q, k, v, seed, scale: float, dropout_rate: float,
                  bh_offset: int = 0):
@@ -308,20 +289,20 @@ class _FlashForward(_Binding):
         out = torch.empty_like(q)
         lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
                if self.with_lse else None)
-        self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     None if lse is None else lse.data_ptr(), b * h, t, d,
-                     int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
-                     *_dropout_args(dropout_rate))
+        FLASH_FWD.launch('flash_fwd', self.counter, q.device, (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b * h, t, d,
+            int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
+            *_dropout_args(dropout_rate)))
         return (out, lse) if self.with_lse else out
 
 
-class _FlashBackward(_Binding):
+class _FlashBackward:
     """``csrc/flash_bwd.cu``: kernel #3 (dQ) or #4 (dK, dV)."""
 
     def __init__(self, fn: str):
-        n_out = 1 if fn == 'flash_bwd_dq' else 2
-        super().__init__('flash_bwd', fn, [_P] * (6 + n_out) + _BWD_TAIL)
-        self.n_out = n_out
+        self.fn = fn
+        self.n_out = 1 if fn == 'flash_bwd_dq' else 2
 
     def __call__(self, q, k, v, do, lse, delta, seed, scale: float,
                  dropout_rate: float, bh_offset: int = 0):
@@ -330,10 +311,11 @@ class _FlashBackward(_Binding):
         _check_rows(q, lse=lse, delta=delta)
         b, h, t, d = q.shape
         outs = [torch.empty_like(q) for _ in range(self.n_out)]
-        self._launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-                     b * h, t, d, int(q.dtype == torch.bfloat16), scale, *_seed_args(seed),
-                     bh_offset, *_dropout_args(dropout_rate))
+        FLASH_BWD.launch(self.fn, self.fn, q.device, (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs), b * h, t, d,
+            int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
+            *_dropout_args(dropout_rate)))
         return outs[0] if self.n_out == 1 else tuple(outs)
 
 

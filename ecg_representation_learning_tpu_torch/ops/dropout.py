@@ -209,29 +209,27 @@ _ARGS = {'gelu_dropout_forward': [_P] * 3 + [_L, _I, _F, _P],
          'dropout_add_backward': [_P] * 3 + [_L, _I, _I, _F, _P]}
 
 
-def _launch(kernel: _build.CtypesKernel, direction: str, out: torch.Tensor,
-            tensors: Sequence[torch.Tensor], codes: Sequence[int], inv: float) -> torch.Tensor:
+# ``csrc/dropout_sites.cu``'s entries (the eager step makes 72 launches)
+SITES = _build.CtypesLibrary('dropout_sites', _ARGS)
+
+
+def _launch(entry: str, counter: str, out: torch.Tensor, tensors: Sequence[torch.Tensor],
+            codes: Sequence[int], inv: float) -> torch.Tensor:
     """``out`` from ``tensors`` (the bool mask second, as every entry takes
-    it) in one launch of ``kernel``; every tensor contiguous, of ``out``'s
-    shape, on its CUDA device."""
+    it) in one launch of ``entry``, counted under ``counter``; every tensor
+    contiguous, of ``out``'s shape, on its CUDA device."""
     dev, shape = out.get_device(), out.shape
     for t in (*tensors, out):
         if t.get_device() != dev or t.shape != shape or not t.is_contiguous():
-            raise ValueError(f'{kernel.kind}: every tensor must be contiguous, '
+            raise ValueError(f'{entry}: every tensor must be contiguous, '
                              f'{tuple(shape)}, on {out.device}; got {tuple(t.shape)} '
                              f'on {t.device}')
     if dev < 0 or tensors[1].dtype != torch.bool:
-        raise ValueError(f'{kernel.kind} kernel takes CUDA tensors and a bool mask, got '
+        raise ValueError(f'{entry} kernel takes CUDA tensors and a bool mask, got '
                          f'{out.device} and {tensors[1].dtype}')
-    kernel.launch(direction, out.device, (*[t.data_ptr() for t in tensors], out.data_ptr(),
-                                          out.numel(), *codes, inv))
+    SITES.launch(entry, counter, out.device, (*[t.data_ptr() for t in tensors], out.data_ptr(),
+                                              out.numel(), *codes, inv))
     return out
-
-
-# ``csrc/dropout_sites.cu``'s entries of each site kind, with their launch
-# counts (the eager step makes 72 launches)
-gelu_dropout_kernel = _build.CtypesKernel('dropout_sites', 'gelu_dropout', _ARGS)
-dropout_add_kernel = _build.CtypesKernel('dropout_sites', 'dropout_add', _ARGS)
 
 
 def _code(t: torch.Tensor) -> int:
@@ -249,14 +247,14 @@ class _GeluDropout(torch.autograd.Function):
         a, keep = a.contiguous(), keep.contiguous()
         ctx.save_for_backward(a, keep)
         ctx.inv = keep_scale(rate)
-        return _launch(gelu_dropout_kernel, 'forward', torch.empty_like(a), (a, keep),
+        return _launch('gelu_dropout_forward', 'gelu_dropout', torch.empty_like(a), (a, keep),
                        (_code(a),), ctx.inv)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         a, keep = ctx.saved_tensors
-        return _launch(gelu_dropout_kernel, 'backward', torch.empty_like(a),
+        return _launch('gelu_dropout_backward', 'gelu_dropout_bwd', torch.empty_like(a),
                        (g.contiguous().to(a.dtype), keep, a), (_code(a),), ctx.inv), None, None
 
 
@@ -270,8 +268,8 @@ class _DropoutAdd(torch.autograd.Function):
         ctx.save_for_backward(keep)
         ctx.inv, ctx.y_dtype = keep_scale(rate), y.dtype
         out = torch.empty_like(y, dtype=torch.promote_types(x.dtype, y.dtype))
-        return _launch(dropout_add_kernel, 'forward', out, (y, keep, x), (_code(y), _code(x)),
-                       ctx.inv)
+        return _launch('dropout_add_forward', 'dropout_add', out, (y, keep, x),
+                       (_code(y), _code(x)), ctx.inv)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -280,8 +278,9 @@ class _DropoutAdd(torch.autograd.Function):
         dy = None
         if ctx.needs_input_grad[1]:
             g = g.contiguous()
-            dy = _launch(dropout_add_kernel, 'backward', torch.empty_like(g, dtype=ctx.y_dtype),
-                         (g, keep), (_code(g), _CODES[ctx.y_dtype]), ctx.inv)
+            dy = _launch('dropout_add_backward', 'dropout_add_bwd',
+                         torch.empty_like(g, dtype=ctx.y_dtype), (g, keep),
+                         (_code(g), _CODES[ctx.y_dtype]), ctx.inv)
         return g if ctx.needs_input_grad[0] else None, dy, None, None
 
 

@@ -28,9 +28,9 @@ each runs its plain version (``*_reference``): the chain of PyTorch
 operations the layer ran before the kernels, with the rows past the count
 of each buffer output set to NaN, so that a test sees any use of them.  The
 kernels round where those chains round (``csrc/moe_glue.cu``); only the
-gates' dot products sum in another order.  ``permute_kernel``,
-``swiglu_kernel`` and ``combine_kernel`` count their forward and backward
-launches (a CUDA graph counts them once, at capture).
+gates' dot products sum in another order.  Each launch counts under its
+operation's name in ``_build``'s registry (``moe_permute``,
+``moe_permute_bwd``, ...).
 """
 from __future__ import annotations
 
@@ -52,13 +52,8 @@ _ARGS = {'moe_permute_forward': [_P] * 3 + [_I, _P, _L, _L, _I, _I, _I, _P],
          'moe_swiglu_backward': [_P] * 3 + [_I, _P, _L, _L, _I, _P],
          'moe_combine_forward': [_P] * 5 + [_L, _L, _I, _I, _P],
          'moe_combine_backward': [_P] * 7 + [_I, _P, _P, _L, _L, _L, _I, _I, _P]}
-
-
-# ``csrc/moe_glue.cu``'s forward and backward entries of each operation, with
-# their launch counts (CUDA tensors only)
-permute_kernel = _build.CtypesKernel('moe_glue', 'moe_permute', _ARGS)
-swiglu_kernel = _build.CtypesKernel('moe_glue', 'moe_swiglu', _ARGS)
-combine_kernel = _build.CtypesKernel('moe_glue', 'moe_combine', _ARGS)
+# ``csrc/moe_glue.cu``'s forward and backward entries of each operation
+GLUE = _build.CtypesLibrary('moe_glue', _ARGS)
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _F32 = (torch.float32,)
@@ -205,7 +200,7 @@ def permute_forward(xs: torch.Tensor, order: torch.Tensor, offs: torch.Tensor, r
         return permute_forward_reference(xs, order, offs, rows, dtype)
     _card('permute_forward', [('xs', xs)], k, rows)
     xp = torch.empty((rows, d), dtype=dtype, device=xs.device)
-    permute_kernel.launch('forward', xs.device, (
+    GLUE.launch('moe_permute_forward', 'moe_permute', xs.device, (
         xs.data_ptr(), order.data_ptr(), *_count_args(offs), xp.data_ptr(), rows, d, k,
         _CODES[xs.dtype], _CODES[dtype]))
     return xp
@@ -221,7 +216,7 @@ def permute_backward(g: torch.Tensor, pos: torch.Tensor, held: torch.Tensor) -> 
     d = g.shape[1]
     _card('permute_backward', [('g', g)], k, g.shape[0])
     gx = torch.empty((s, d), dtype=torch.float32, device=g.device)
-    permute_kernel.launch('backward', g.device, (
+    GLUE.launch('moe_permute_backward', 'moe_permute_bwd', g.device, (
         g.data_ptr(), pos.data_ptr(), held.data_ptr(), gx.data_ptr(), s, d, k, _CODES[g.dtype]))
     return gx
 
@@ -233,7 +228,7 @@ def swiglu_forward(h: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
         return swiglu_forward_reference(h, offs)
     _card('swiglu_forward', [('h', h), ('h[:, f:]', h[:, f:])])
     a = torch.empty((rows, f), dtype=h.dtype, device=h.device)
-    swiglu_kernel.launch('forward', h.device, (
+    GLUE.launch('moe_swiglu_forward', 'moe_swiglu', h.device, (
         h.data_ptr(), *_count_args(offs), a.data_ptr(), rows, f, _CODES[h.dtype]))
     return a
 
@@ -247,7 +242,7 @@ def swiglu_backward(h: torch.Tensor, da: torch.Tensor, offs: torch.Tensor) -> to
         return swiglu_backward_reference(h, da, offs)
     _card('swiglu_backward', [('h', h), ('h[:, f:]', h[:, f:]), ('da', da)])
     dh = torch.empty_like(h)
-    swiglu_kernel.launch('backward', h.device, (
+    GLUE.launch('moe_swiglu_backward', 'moe_swiglu_bwd', h.device, (
         h.data_ptr(), da.data_ptr(), *_count_args(offs), dh.data_ptr(), rows, f,
         _CODES[h.dtype]))
     return dh
@@ -265,7 +260,7 @@ def combine_forward(y: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
     d = y.shape[1]
     _card('combine_forward', [('y', y)], k, y.shape[0])
     out = torch.empty((s, d), dtype=torch.float32, device=y.device)
-    combine_kernel.launch('forward', y.device, (
+    GLUE.launch('moe_combine_forward', 'moe_combine', y.device, (
         y.data_ptr(), gates.data_ptr(), pos.data_ptr(), held.data_ptr(), out.data_ptr(), s, d,
         k, _CODES[y.dtype]))
     return out
@@ -288,7 +283,7 @@ def combine_backward(y: torch.Tensor, gates: torch.Tensor, dout: torch.Tensor,
     _card('combine_backward', [('y', y), ('dout', dout)], k, rows)
     dy = torch.empty_like(y)
     dgates = torch.empty((s, k), dtype=torch.float32, device=y.device)
-    combine_kernel.launch('backward', y.device, (
+    GLUE.launch('moe_combine_backward', 'moe_combine_bwd', y.device, (
         y.data_ptr(), gates.data_ptr(), dout.data_ptr(), pos.data_ptr(), held.data_ptr(),
         order.data_ptr(), *_count_args(offs), dgates.data_ptr(), dy.data_ptr(), s, rows, d, k,
         _CODES[y.dtype]))

@@ -19,9 +19,8 @@ box sum, and the -s term reads the weights from a shared row (one barrier per
 shift); other widths and longer rows take a generic, segmented branch
 (``csrc/nlm.cu``'s header has the design).
 
-``nlm_rows`` launches the kernel for a CUDA tensor (``nlm_rows_kernel``, with
-its launch count: one per call) and runs the plain ``nlm_rows_reference`` for
-a CPU tensor.
+``nlm_rows`` launches the kernel for a CUDA tensor (``nlm_rows_kernel``, one
+launch per call) and runs the plain ``nlm_rows_reference`` for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -84,66 +83,47 @@ def nlm_rows_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd
     return torch.where(interior, den, x2)
 
 
-class NlmKernel:
-    """ctypes binding of one entry of ``csrc/nlm.cu`` with its launch count:
-    ``nlm_rows`` (the denoise kernel) or ``nlm_variant`` (its attribution
-    variants, which take the four switches)."""
-
-    def __init__(self, entry: str):
-        self.entry = entry
-        self.launches = 0     # kernel launches (CUDA tensors only)
-        self._fn = None
-
-    def _load(self):
-        if self._fn is None:
-            fn = getattr(_build.load('nlm'), self.entry)
-            n_flags = len(FLAGS) if self.entry == 'nlm_variant' else 0
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (4 + n_flags)
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-    def __call__(self, x2: torch.Tensor, hinv: torch.Tensor, sch_wd: int, patch_wd: int,
-                 flags: Optional[dict] = None) -> torch.Tensor:
-        """Rows ``x2`` (R, L) f32 and ``hinv`` (R,) f32, both contiguous on
-        one CUDA device; returns the (R, L) output."""
-        if x2.dim() != 2 or x2.dtype != torch.float32 or not x2.is_contiguous():
-            raise ValueError(f'x2 must be a contiguous (R, L) float32 tensor, got '
-                             f'{tuple(x2.shape)} {x2.dtype}')
-        if (hinv.shape != x2.shape[:1] or hinv.dtype != torch.float32
-                or hinv.device != x2.device or not hinv.is_contiguous()):
-            raise ValueError(f'hinv must be ({x2.shape[0]},) contiguous float32 on '
-                             f'{x2.device}, got {tuple(hinv.shape)} {hinv.dtype} '
-                             f'{hinv.device}')
-        if x2.device.type != 'cuda':
-            raise ValueError(f'nlm kernel takes CUDA tensors, got {x2.device}')
-        if sch_wd < 1 or patch_wd < 0:
-            raise ValueError(f'need sch_wd >= 1 and patch_wd >= 0, got {sch_wd}, {patch_wd}')
-        fn = self._load()
-        out = torch.empty_like(x2)
-        switches = [] if flags is None else [int(flags.get(k, True)) for k in FLAGS]
-        with torch.cuda.device(x2.device):
-            err = fn(x2.data_ptr(), hinv.data_ptr(), out.data_ptr(), x2.shape[0],
-                     x2.shape[1], sch_wd, patch_wd, *switches,
-                     torch.cuda.current_stream(x2.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f'{self.entry} launch failed: CUDA error {err}')
-        self.launches += 1
-        return out
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ``csrc/nlm.cu``'s entries: nlm_rows(x, hinv, out, rows, n, sch, pw, stream),
+# nlm_variant (the four switches before the stream), nlm_rows_cluster
+ARGTYPES = {'nlm_rows': [_P] * 3 + [_I] * 4 + [_P],
+            'nlm_variant': [_P] * 3 + [_I] * (4 + len(FLAGS)) + [_P],
+            'nlm_rows_cluster': [_I] * 4}
+NLM = _build.CtypesLibrary('nlm', ARGTYPES)
 
 
-nlm_rows_kernel = NlmKernel('nlm_rows')
+def nlm_rows_kernel(x2: torch.Tensor, hinv: torch.Tensor, sch_wd: int, patch_wd: int,
+                    flags: Optional[dict] = None) -> torch.Tensor:
+    """One launch of ``nlm_rows``, or with ``flags`` of its attribution
+    variant ``nlm_variant``, counted under the entry's name: rows ``x2``
+    (R, L) f32 and ``hinv`` (R,) f32, both contiguous on one CUDA device;
+    returns the (R, L) output."""
+    if x2.dim() != 2 or x2.dtype != torch.float32 or not x2.is_contiguous():
+        raise ValueError(f'x2 must be a contiguous (R, L) float32 tensor, got '
+                         f'{tuple(x2.shape)} {x2.dtype}')
+    if (hinv.shape != x2.shape[:1] or hinv.dtype != torch.float32
+            or hinv.device != x2.device or not hinv.is_contiguous()):
+        raise ValueError(f'hinv must be ({x2.shape[0]},) contiguous float32 on '
+                         f'{x2.device}, got {tuple(hinv.shape)} {hinv.dtype} '
+                         f'{hinv.device}')
+    if x2.device.type != 'cuda':
+        raise ValueError(f'nlm kernel takes CUDA tensors, got {x2.device}')
+    if sch_wd < 1 or patch_wd < 0:
+        raise ValueError(f'need sch_wd >= 1 and patch_wd >= 0, got {sch_wd}, {patch_wd}')
+    out = torch.empty_like(x2)
+    entry = 'nlm_rows' if flags is None else 'nlm_variant'
+    switches = [] if flags is None else [int(flags.get(k, True)) for k in FLAGS]
+    NLM.launch(entry, entry, x2.device, (x2.data_ptr(), hinv.data_ptr(), out.data_ptr(),
+                                         x2.shape[0], x2.shape[1], sch_wd, patch_wd,
+                                         *switches))
+    return out
 
 
 def cluster_size(rows: int, n: int, sch_wd: int, patch_wd: int) -> int:
     """The thread block cluster size (blocks that split a row's shifts)
     that ``nlm_rows`` launches with for these arguments on the current CUDA
     device; the kernel chooses it from the card's SMs."""
-    fn = _build.load('nlm').nlm_rows_cluster
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    c = fn(rows, n, sch_wd, patch_wd)
+    c = NLM.value('nlm_rows_cluster', rows, n, sch_wd, patch_wd)
     if c < 1:
         raise RuntimeError(f'nlm_rows_cluster failed: CUDA error {-c}')
     return c

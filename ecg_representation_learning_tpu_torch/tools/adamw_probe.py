@@ -38,7 +38,6 @@ Prints one JSON object per line, and writes them to ``--out`` as well.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import subprocess
@@ -334,33 +333,26 @@ def design_rows(out: List[dict]) -> None:
     scalars = scalars_for()
     ws = torch.zeros(8, device='cuda')
     plain_norm = adamw.global_norm(t['grads']).item()
-    stream = torch.cuda.current_stream().cuda_stream
+    dev = ws.device
     b1, b2 = HYPER['b1'], HYPER['b2']
     calls = {}
     for name, path in libs.items():
-        lib = ctypes.CDLL(str(path))
-        for entry in (lib.adamw_chunk_elems, lib.adamw_norm_rows):
-            entry.restype = ctypes.c_int
-        lib.adamw_update.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6
-                                     + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_int] + [ctypes.c_void_p] * 4)
-        lib.adamw_norm.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                                   + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                              ctypes.c_int]
-                                   + [ctypes.c_void_p] * 8)
-        rows = adamw.block_table(ptrs, sizes, 4, lib.adamw_chunk_elems())
+        lib = _build.CtypesLibrary(path, adamw.ARGTYPES)
+        rows = adamw.block_table(ptrs, sizes, 4, lib.value('adamw_chunk_elems'))
         blocks = torch.from_numpy(rows).cuda()
-        parts = torch.empty(-(-len(rows) // lib.adamw_norm_rows()), dtype=torch.float64,
+        parts = torch.empty(-(-len(rows) // lib.value('adamw_norm_rows')), dtype=torch.float64,
                             device='cuda')
         ticket = torch.zeros(1, dtype=torch.int32, device='cuda')
-        update = (lambda lib=lib, blocks=blocks, n=len(rows): lib.adamw_update(
-            blocks.data_ptr(), gptrs.data_ptr(), n, scalars.data_ptr(), 0, b1, 1.0 - b1, b2,
-            1.0 - b2, HYPER['eps'], HYPER['wd'], None, 0.0, 0, 0, None, None, None, stream))
+        update = (lambda lib=lib, blocks=blocks, n=len(rows): lib.launch(
+            'adamw_update', None, dev, (blocks.data_ptr(), gptrs.data_ptr(), n,
+                                        scalars.data_ptr(), 0, b1, 1.0 - b1, b2, 1.0 - b2,
+                                        HYPER['eps'], HYPER['wd'], None, 0.0, 0, 0, None, None,
+                                        None)))
         norm = (lambda lib=lib, blocks=blocks, n=len(rows), parts=parts, ticket=ticket:
-                lib.adamw_norm(blocks.data_ptr(), gptrs.data_ptr(), n, parts.data_ptr(),
-                               ticket.data_ptr(), None, 1.0, 1, 1, ws.data_ptr(), None,
-                               ws[5:].data_ptr(), None, None, None, None, stream))
+                lib.launch('adamw_norm', None, dev, (
+                    blocks.data_ptr(), gptrs.data_ptr(), n, parts.data_ptr(), ticket.data_ptr(),
+                    None, 1.0, 1, 1, ws.data_ptr(), None, ws[5:].data_ptr(), None, None, None,
+                    None)))
         calls[name] = (update, norm, blocks, parts, ticket)
         norm()
         norm_err = abs(ws[5].item() / plain_norm - 1)
@@ -374,7 +366,7 @@ def design_rows(out: List[dict]) -> None:
         del copy
         log = (DESIGN_DIR / f'{name}.log').read_text()
         emit({'what': 'design', 'design': name, 'constants': DESIGNS[name],
-              'chunk': lib.adamw_chunk_elems(), 'norm_rows': lib.adamw_norm_rows(),
+              'chunk': lib.value('adamw_chunk_elems'), 'norm_rows': lib.value('adamw_norm_rows'),
               'blocks': len(rows), 'registers': re.findall(r'Used (\d+) registers', log),
               'max_abs_err': err, 'norm_rel_err': norm_err}, out)
     order = list(calls) + list(calls)[::-1]

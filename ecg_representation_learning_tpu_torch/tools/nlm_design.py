@@ -20,7 +20,6 @@ line, and writes them to ``--out`` as well.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import subprocess
@@ -33,7 +32,7 @@ import torch
 
 from ..data import synth_ecg
 from ..ops import _build
-from ..ops.nlm_fused import nlm_bandwidth, nlm_rows_reference
+from ..ops.nlm_fused import ARGTYPES, nlm_bandwidth, nlm_rows_reference
 from ..ops.preprocess import zheng_detrend
 from ..runtime import default_device
 
@@ -115,20 +114,12 @@ def build_all(sources: Dict[str, str]) -> Dict[str, Path]:
     return libs
 
 
-def entry(lib: Path):
-    """The library's nlm_rows(x, hinv, out, rows, n, sch, pw, stream)."""
-    fn = ctypes.CDLL(str(lib)).nlm_rows
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def run(fn, x: torch.Tensor, hinv: torch.Tensor, sch: int, pw: int) -> torch.Tensor:
+def run(lib: _build.CtypesLibrary, x: torch.Tensor, hinv: torch.Tensor, sch: int,
+        pw: int) -> torch.Tensor:
+    """One launch of the library's ``nlm_rows`` (not counted)."""
     out = torch.empty_like(x)
-    err = fn(x.data_ptr(), hinv.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], sch, pw,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'nlm_rows launch failed: CUDA error {err}')
+    lib.launch('nlm_rows', None, x.device, (x.data_ptr(), hinv.data_ptr(), out.data_ptr(),
+                                            x.shape[0], x.shape[1], sch, pw))
     return out
 
 
@@ -197,7 +188,7 @@ def main(argv=None) -> int:
         name, path = item.split('=', 1)
         sources[name] = Path(path).read_text()
     t0 = time.perf_counter()
-    fns = {name: entry(lib) for name, lib in build_all(sources).items()}
+    fns = {name: _build.CtypesLibrary(lib, ARGTYPES) for name, lib in build_all(sources).items()}
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip()
     emit({'env': smi, 'torch': torch.__version__, 'build_s': time.perf_counter() - t0})

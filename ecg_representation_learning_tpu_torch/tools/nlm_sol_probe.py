@@ -31,7 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.nlm_fused import NlmKernel, nlm_rows_reference
+from ..ops.nlm_fused import nlm_rows_kernel, nlm_rows_reference
 from ..runtime import default_device
 
 SHAPE = (768, 2500, 128, 10)   # rows (64 records x 12 leads), L, search, patch half-width
@@ -44,8 +44,6 @@ VARIANTS = (
 )
 EPS = 1e-12
 REPS = 10
-
-variant_kernel = NlmKernel('nlm_variant')
 
 
 def variant_reference(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd: int,
@@ -60,8 +58,8 @@ def run_variant(x2: torch.Tensor, h2: torch.Tensor, sch_wd: int, patch_wd: int,
     CPU tensors."""
     dev = x2.device.type
     if dev == 'cuda':
-        return variant_kernel(x2.contiguous(), (1.0 / h2).contiguous(), sch_wd, patch_wd,
-                              dict(flags))
+        return nlm_rows_kernel(x2.contiguous(), (1.0 / h2).contiguous(), sch_wd, patch_wd,
+                               dict(flags))
     if dev == 'cpu':
         return variant_reference(x2, h2, sch_wd, patch_wd, flags)
     raise RuntimeError(f'no nlm variant for device {x2.device}')

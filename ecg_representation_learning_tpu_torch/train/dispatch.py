@@ -42,8 +42,9 @@ captured at its first call into the memory pool of the first graph, so the
 two graphs, which never run at once, hold one pool between them, and then
 replayed.  The capture that
 follows makes no host draw and moves no host counter (the trainer's step
-and optimizer count are put back, and the launch counters too: each replay
-adds the captured launches to them instead).  Where no graph is taken the
+and optimizer count are put back, and every kernel's launch counter in
+``ops/_build``'s registry too: each replay adds the captured launches to
+them instead).  Where no graph is taken the
 tape runs its steps eagerly: on the CPU (the plain version the tests hold
 the graphs to) and on a mesh with a 'model' axis or FSDP (Megatron slices
 and FSDP2 are not captured; each step is ``Trainer.train_step`` with the
@@ -69,35 +70,33 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.vit import seeds_per_forward
+from ..ops import _build
 from ..utils import tracing
 
 
-def _kernels() -> Dict[str, Tuple[Any, str]]:
-    """The launch counter of each kernel a training step runs (#1-#5), by
-    its name in chip_smoke.py's kernels line: (wrapper, attribute)."""
-    from ..ops import adamw, attention
-    return {'flash_fwd': (attention.flash_fwd_kernel, 'launches'),
-            'flash_fwd_lse': (attention.flash_fwd_lse_kernel, 'launches'),
-            'flash_bwd_dq': (attention.flash_bwd_dq_kernel, 'launches'),
-            'flash_bwd_dkv': (attention.flash_bwd_dkv_kernel, 'launches'),
-            'adamw': (adamw.adamw_kernel, 'launches'),
-            'adamw_norm': (adamw.adamw_kernel, 'norm_launches')}
+def _uncounted(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+    """``fn()`` and the kernel launches it made, by the launch registry
+    (``ops/_build``), with the registry's counts put back: a graph's
+    capture launches nothing, and each replay adds what it captured."""
+    before = _build.launch_counts()
+    out = fn()
+    launches = {name: n - before[name] for name, n in _build.launch_counts().items()}
+    _build.add_launches(launches, -1)
+    return out, launches
 
 
-def launch_counts() -> Dict[str, int]:
-    """The Python launch counters of kernels #1-#5."""
-    return {name: getattr(obj, attr) for name, (obj, attr) in _kernels().items()}
-
-
-def _add_counts(delta: Dict[str, int], times: int = 1) -> None:
-    for name, (obj, attr) in _kernels().items():
-        setattr(obj, attr, getattr(obj, attr) + times * delta[name])
+def _replayed(graph, launches: Dict[str, int], times: int) -> None:
+    """``times`` replays of ``graph``, each adding the ``launches`` its
+    capture recorded to the registry."""
+    for _ in range(times):
+        graph.replay()
+    _build.add_launches(launches, times)
 
 
 def step_scalars(optimizer, count: int) -> np.ndarray:
@@ -330,7 +329,7 @@ class Dispatcher:
             adamw_kernel.reserve(steps)
         if tr.sharded is not None:   # an eager step's DDP wrapper would break the capture
             tr.sharded.drop_ddp()
-        saved = (tr.step, tr.opt_state, launch_counts())
+        saved = (tr.step, tr.opt_state)
         marks = tracing.StepMarks(self.device)
         graph = torch.cuda.CUDAGraph()
         for gen in {id(g): g for g in (tr.rng.device, tr.rng.masks)}.values():
@@ -340,12 +339,9 @@ class Dispatcher:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool, stream=self.stream):
-            metrics = self._body(steps, marks)
+            metrics, launches = _uncounted(lambda: self._body(steps, marks))
         capture_s = time.perf_counter() - t0
-        after = launch_counts()
-        launches = {name: after[name] - saved[2][name] for name in after}
-        _add_counts(launches, -1)
-        tr.step, tr.opt_state = saved[0], saved[1]
+        tr.step, tr.opt_state = saved
         self.graphs[steps] = Captured(graph, metrics, adamw_kernel.take_captured(), launches,
                                       capture_s,
                                       torch.cuda.memory_reserved(self.device) - reserved, marks)
@@ -359,8 +355,7 @@ class Dispatcher:
         tr, cap = self.tr, self.graphs[1 if self.scan else k]
         replays = k if self.scan else 1
         traced = tracing.enabled()
-        for _ in range(replays):
-            cap.graph.replay()
+        _replayed(cap.graph, cap.launches, replays)
         if traced:
             back_to_back = self._end_step == tr.step and not self.scan
             cap.marks.launched(self._ends[1] if back_to_back else None)
@@ -368,7 +363,6 @@ class Dispatcher:
             self._ends = self._ends[::-1]
             self._end_step = tr.step + k
         self.replays += replays
-        _add_counts(cap.launches, replays)
         tr.step += k
         tr.opt_state = dataclasses.replace(tr.opt_state, count=tr.opt_state.count + k)
         return cap.metrics

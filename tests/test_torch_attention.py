@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ecg_representation_learning_tpu_torch.ops import _build
 from ecg_representation_learning_tpu_torch.ops import attention as tattn
 
 # the JAX package's ops/__init__ re-exports attention(), which shadows the
@@ -82,11 +83,11 @@ def test_flash_reference_matches_pallas_interpret(t, d, rate, dtype, atol, retur
 
 def test_flash_forward_on_cpu_runs_the_plain_version():
     q, k, v = map(torch.from_numpy, _qkv(3, (2, 2, 41, 16)))
-    before = tattn.flash_fwd_kernel.launches
+    before = _build.launch_counts()
     got = tattn.flash_attention_forward(q, k, v, seed=9, dropout_rate=0.1)
     want = tattn.flash_attention_forward_reference(q, k, v, seed=9, dropout_rate=0.1)
     assert torch.equal(got, want)
-    assert tattn.flash_fwd_kernel.launches == before
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize('dtype,atol', [(np.float32, 1e-5),

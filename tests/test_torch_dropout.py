@@ -19,7 +19,7 @@ from ecg_representation_learning_tpu.ops import augment as jaugment
 from ecg_representation_learning_tpu.ops.dropout import _hash_mul, _masked
 from ecg_representation_learning_tpu_torch.configs import VitConfig
 from ecg_representation_learning_tpu_torch.models import vit as tvit
-from ecg_representation_learning_tpu_torch.ops import augment, dropout
+from ecg_representation_learning_tpu_torch.ops import _build, augment, dropout
 
 torch.set_num_threads(2)
 
@@ -137,8 +137,7 @@ def _rng(seed):
 
 
 def _launches():
-    return [(k.launches, k.backward_launches)
-            for k in (dropout.gelu_dropout_kernel, dropout.dropout_add_kernel)]
+    return _build.launch_counts()
 
 
 def _chain(monkeypatch):

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from ecg_representation_learning_tpu_torch.configs import TrainConfig, VitConfig
-from ecg_representation_learning_tpu_torch.ops import dropout
+from ecg_representation_learning_tpu_torch.ops import _build, dropout
 from ecg_representation_learning_tpu_torch.registry import PTBXL_TRAIN_STATS
+from ecg_representation_learning_tpu_torch.train import dispatch
 
 RATE = 0.1
 SHAPES = [(2624, 768), (2624, 3072), (37, 771)]
@@ -79,11 +80,11 @@ def test_dropout_add_kernel_is_the_chain_bit_for_bit(card, shape, types, offset)
     results = []
     for fn in (dropout.dropout_add, dropout.dropout_add_reference):
         x, y = x0.clone().requires_grad_(), y0.clone().requires_grad_()
-        before = dropout.dropout_add_kernel.backward_launches
+        before = _build.launch_counts()['dropout_add_bwd']
         out = fn(x, y, keep, RATE)
         out.backward(g)
         results.append((out, x.grad, y.grad,
-                        dropout.dropout_add_kernel.backward_launches - before))
+                        _build.launch_counts()['dropout_add_bwd'] - before))
     (out, dx, dy, launched), (want, want_dx, want_dy, _) = results
     assert launched == 1
     assert out.dtype == want.dtype == out_type
@@ -114,7 +115,9 @@ def test_gelu_dropout_kernel_is_the_chain_within_an_ulp(card, shape, dtype, offs
 @pytest.mark.card
 def test_a_captured_graph_replays_the_eager_sites(card):
     """Both site kinds each way, captured once, replayed on new inputs
-    written into the captured ones: the eager call's bits on those inputs."""
+    written into the captured ones: the eager call's bits on those inputs.
+    Counted as a step tape's graph is, the capture leaves the launch counts
+    as they were and the replay adds the captured launches."""
     gen = torch.Generator(device=card).manual_seed(7)
     shape = SITE_SHAPES[1]
 
@@ -145,16 +148,20 @@ def test_a_captured_graph_replays_the_eager_sites(card):
         sites(*static)
     side.synchronize()
     graph = torch.cuda.CUDAGraph()
-    fwd = dropout.gelu_dropout_kernel.launches
-    with torch.cuda.graph(graph, stream=side):
-        outs = sites(*static)
-    assert dropout.gelu_dropout_kernel.launches == fwd + 1   # the capture counts once
+    before = _build.launch_counts()
+    with torch.cuda.graph(graph, stream=side):   # counted as a step tape's capture
+        outs, captured = dispatch._uncounted(lambda: sites(*static))
+    assert _build.launch_counts() == before   # the capture puts its counts back
+    # the gelu site's backward runs in both gradients
+    assert {k: n for k, n in captured.items() if n} == {
+        'gelu_dropout': 1, 'gelu_dropout_bwd': 2, 'dropout_add': 1, 'dropout_add_bwd': 1}
     with torch.no_grad():
         for dst, src in zip(static, second):
             dst.copy_(src)
-    graph.replay()
+    dispatch._replayed(graph, captured, 1)
     torch.cuda.synchronize(card)
-    assert dropout.gelu_dropout_kernel.launches == fwd + 1   # a replay counts nothing
+    # a replay adds the captured launches
+    assert _build.launch_counts() == {k: n + captured[k] for k, n in before.items()}
     assert all(torch.equal(o, w) for o, w in zip(outs, want))
 
 
@@ -178,10 +185,11 @@ def test_a_vit_base_step_launches_every_block_site_once_each_way(card, monkeypat
                                   save_final=False), train_data=data,
                  norm_stats=PTBXL_TRAIN_STATS['original'], device=card)
     tr.init_state()
-    kernels = (dropout.gelu_dropout_kernel, dropout.dropout_add_kernel)
-    before = [(k.launches, k.backward_launches) for k in kernels]
+    before = _build.launch_counts()
     loss = float(tr.train_step(data, np.arange(64))['loss'])
-    counts = [(k.launches - f, k.backward_launches - b) for k, (f, b) in zip(kernels, before)]
+    after = _build.launch_counts()
+    counts = [(after[k] - before[k], after[f'{k}_bwd'] - before[f'{k}_bwd'])
+              for k in ('gelu_dropout', 'dropout_add')]
     layers = cfg.num_hidden_layers
     assert np.isfinite(loss)
     assert counts == [(layers, layers), (2 * layers, 2 * layers)]   # 36 each way

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ecg_representation_learning_tpu_torch.configs import VitConfig
 from ecg_representation_learning_tpu_torch.models.moe import DeepseekMoe, sort_pairs
-from ecg_representation_learning_tpu_torch.ops import moe_glue
+from ecg_representation_learning_tpu_torch.ops import _build, moe_glue
 
 torch.set_num_threads(2)
 DTYPES = [torch.float32, torch.bfloat16]
@@ -208,7 +208,8 @@ def test_rows_past_the_count_never_reach_an_output(dtype, held_case):
     for fn, t in cases:
         got = fn(poisoned(t))
         assert torch.isfinite(got).all() and torch.equal(got, fn(t))
-    assert (moe_glue.permute_kernel.launches, moe_glue.combine_kernel.backward_launches) == (0, 0)
+    counts = _build.launch_counts()
+    assert (counts['moe_permute'], counts['moe_combine_bwd']) == (0, 0)
 
 
 def _bad_inputs():

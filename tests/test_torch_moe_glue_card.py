@@ -38,7 +38,7 @@ import torch
 
 from ecg_representation_learning_tpu_torch.configs import VitConfig
 from ecg_representation_learning_tpu_torch.models.moe import DeepseekMoe, sort_pairs
-from ecg_representation_learning_tpu_torch.ops import moe_glue
+from ecg_representation_learning_tpu_torch.ops import _build, moe_glue
 
 RECORDS, TOKENS, D, F_INNER, E, K, HELD = 256, 41, 2048, 1408, 64, 6, 8
 T = RECORDS * TOKENS
@@ -160,8 +160,9 @@ def _cell_layer(dev) -> DeepseekMoe:
 
 
 def _counts():
-    return [(kern.launches, kern.backward_launches)
-            for kern in (moe_glue.permute_kernel, moe_glue.swiglu_kernel, moe_glue.combine_kernel)]
+    counts = _build.launch_counts()
+    return [(counts[f'moe_{op}'], counts[f'moe_{op}_bwd'])
+            for op in ('permute', 'swiglu', 'combine')]
 
 
 def _fwd_bwd(layer, x, w_out):

@@ -19,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import ecg_representation_learning_tpu.ops.nlm  # noqa: F401
 from ecg_representation_learning_tpu.ops.nlm_pallas import _nlm_pallas_2d, nlm_pallas
-from ecg_representation_learning_tpu_torch.ops import nlm_fused
+from ecg_representation_learning_tpu_torch.ops import _build, nlm_fused
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe as probe
 from tools.nlm_sol_probe import _variant_kernel
 
@@ -146,13 +146,13 @@ def test_full_variant_is_the_kernel_up_to_eps(rng):
 def test_wrappers_run_the_plain_version_on_the_cpu_and_count_no_launch(rng):
     x2 = torch.from_numpy(rng.standard_normal((3, 80)).astype(np.float32))
     h2 = torch.full((3,), 2.0)
-    before = (nlm_fused.nlm_rows_kernel.launches, probe.variant_kernel.launches)
+    before = _build.launch_counts()
     torch.testing.assert_close(nlm_fused.nlm_rows(x2, h2, 16, 4),
                                nlm_fused.nlm_rows_reference(x2, h2, 16, 4), rtol=0, atol=0)
     torch.testing.assert_close(probe.run_variant(x2, h2, 16, 4, {'exp': False}),
                                probe.variant_reference(x2, h2, 16, 4, {'exp': False}),
                                rtol=0, atol=0)
-    assert (nlm_fused.nlm_rows_kernel.launches, probe.variant_kernel.launches) == before
+    assert _build.launch_counts() == before
     with pytest.raises(RuntimeError, match='no nlm'):
         nlm_fused.nlm_rows(x2.to('meta'), h2.to('meta'), 16, 4)
     with pytest.raises(ValueError, match='CUDA'):

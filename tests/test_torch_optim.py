@@ -37,7 +37,7 @@ from ecg_representation_learning_tpu.train.trainer import TrainState
 from ecg_representation_learning_tpu_torch.configs import TrainConfig, VitConfig
 from ecg_representation_learning_tpu_torch.models.port import (
     fused_adamw_state_from_flax, vit_state_dict_from_flax)
-from ecg_representation_learning_tpu_torch.ops import adamw
+from ecg_representation_learning_tpu_torch.ops import _build, adamw
 from ecg_representation_learning_tpu_torch.train import loop, optim
 
 torch.set_num_threads(2)
@@ -244,11 +244,11 @@ def test_adamw_wrapper_rejects_what_the_kernel_cannot_take(bad, err):
 
 
 def test_adamw_on_cpu_runs_the_plain_version():
-    before = adamw.adamw_kernel.launches
+    before = _build.launch_counts()
     a = _leaves(grads=[torch.ones(3, 4), torch.ones(71)])
     adamw.adamw_update(a['params'], a['grads'], a['mus'], a['nus'],
                        torch.tensor([1.0, 0.1, 0.1, 0.001, 1.0]), **HYPER)
-    assert adamw.adamw_kernel.launches == before
+    assert _build.launch_counts() == before
     assert all(torch.allclose(p, torch.full_like(p, -0.1)) for p in a['params'])
 
 
@@ -297,14 +297,12 @@ def test_finish_update_fused_tail_matches_jax_over_five_steps(mu_dtype):
 
 
 def test_fused_tail_on_cpu_runs_the_plain_version():
-    before = (adamw.adamw_kernel.launches, adamw.adamw_kernel.norm_launches,
-              adamw.adamw_kernel.table_builds)
+    before = (_build.launch_counts(), adamw.adamw_kernel.table_builds)
     a = _leaves(grads=[torch.full((3, 4), 3.0), torch.full((71,), 3.0)])
     norm, bad = adamw.adamw_tail(a['params'], a['grads'], a['mus'], a['nus'], (0.1, 0.1, 0.001),
                                  torch.zeros((), dtype=torch.int32), clip_norm=1.0,
                                  zero_nonfinite=True, **HYPER)
-    assert (adamw.adamw_kernel.launches, adamw.adamw_kernel.norm_launches,
-            adamw.adamw_kernel.table_builds) == before
+    assert (_build.launch_counts(), adamw.adamw_kernel.table_builds) == before
     np.testing.assert_allclose(float(norm), 3.0 * np.sqrt(83), rtol=1e-6)
     assert int(bad) == 0
     assert all(torch.allclose(p, torch.full_like(p, -0.1)) for p in a['params'])
