@@ -227,7 +227,8 @@ from ecg_representation_learning_tpu_torch.models.port import (
     export_vit_pytorch_state_dict, reference_vit_config)
 from ecg_representation_learning_tpu_torch.models.tokenizer import (EcgTokenizer,
                                                                     nearest_centroid)
-from ecg_representation_learning_tpu_torch.models.vit import EcgVit, stack_unrolled_state_dict
+from ecg_representation_learning_tpu_torch.models.vit import (Dense, EcgVit,
+                                                             stack_unrolled_state_dict)
 from ecg_representation_learning_tpu_torch.ops import _build, adamw, dropout, moe_glue, nlm_fused
 from ecg_representation_learning_tpu_torch.ops import attention as attn
 from ecg_representation_learning_tpu_torch.ops.filter import butterworth_low_pass
@@ -935,7 +936,9 @@ def _glue_main_path_launches() -> dict:
     ``Trainer.train_step``s of the deepseek block at the preset's size (bf16,
     12 MoE layers) and the cell's batch, ``GLUE_BATCH`` records in
     ``GLUE_ACCUM`` microbatches.  Each entry must launch once each way per
-    MoE layer and microbatch."""
+    MoE layer and microbatch; no parameter is cast (``param_cast`` 0: every
+    bf16 layer reads kernel #5's compute copies, whose count a step updates
+    is reported)."""
     cfg = VitConfig.from_preset('moonlight-16b-a3b-ep8', dtype='bfloat16')
     rng = np.random.default_rng(4)
     n = GLUE_STEPS * GLUE_BATCH
@@ -954,16 +957,21 @@ def _glue_main_path_launches() -> dict:
     made = {name: tuple(after[k] - before[k] for k in (f'moe_{name}', f'moe_{name}_bwd'))
             for name in ('permute', 'swiglu', 'combine')}
     want = GLUE_STEPS * GLUE_ACCUM * layers
+    casts = after['param_cast'] - before['param_cast']
+    copy_leaves = len(tr._copies.copies) if tr._copies else 0
     del tr, data, m
     gc.collect()
     torch.cuda.empty_cache()
-    if any(counts != (want, want) for counts in made.values()) or not math.isfinite(loss):
+    if (any(counts != (want, want) for counts in made.values()) or not math.isfinite(loss)
+            or casts != 0 or copy_leaves == 0):
         raise AssertionError(f'moe_glue: {GLUE_STEPS} steps of {layers} MoE layers and '
                              f'{GLUE_ACCUM} microbatches made launches {made} (want {want} '
-                             f'each way), loss {loss}')
+                             f'each way), {casts} parameter casts (want 0) over '
+                             f'{copy_leaves} copied leaves, loss {loss}')
     total = sum(a + b for a, b in made.values())
     return {'moe_layers': layers, 'steps': GLUE_STEPS, 'microbatches': GLUE_ACCUM,
-            'launches': made, 'launches_per_step': total / GLUE_STEPS, 'total': total}
+            'launches': made, 'launches_per_step': total / GLUE_STEPS, 'total': total,
+            'param_cast': casts, 'copy_leaves_per_update': copy_leaves}
 
 
 def moe_glue_phase():
@@ -1018,7 +1026,12 @@ def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
     ``tail_scalars_reference`` from the kernel's norm -- then launch 2 (the
     update, with launch 1's scalars) bit for bit against the plain update;
     then the times of both beside the plain versions' and
-    ``torch.optim.AdamW(fused=True)``'s on the same tensors."""
+    ``torch.optim.AdamW(fused=True)``'s on the same tensors.  Then the copy
+    route (``copy_route``: bf16 gradient parts at accum 1 and 2, every
+    leaf's compute copy written): one step bit for bit against the f32
+    route fed the mean gradients (norm, counter, p, mu, nu, copies) and
+    against the plain version given the kernel's norm, the norm within
+    NORM_RTOL of ``global_norm``; and its time."""
     shapes = adamw_probe.tree_shapes(moe)
     n_params = sum(s.numel() for s in shapes)
     gen = torch.Generator(device='cuda').manual_seed(2)
@@ -1089,6 +1102,58 @@ def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
     row['tail_device_ms'], row['tail_host_us_per_call'] = adamw_probe.device_and_host(tail_call)
     del twin
     torch.cuda.empty_cache()
+    # the copy route: every leaf's gradient as bf16 microbatch parts, every
+    # leaf's compute copy written (a training step's tail on a bf16 model):
+    # one step from the state above held to the f32 route fed the mean
+    # gradients and to the plain version (given the kernel's norm), then timed
+    row['copy_route'] = {}
+    lr_bc = (3e-4, 0.1, 0.001)
+    tail_kw = dict(clip_norm=1.0, zero_nonfinite=True, **hyper)
+    for accum in (1, 2):
+        parts = [tuple(torch.randn(s, generator=gen, device='cuda').to(torch.bfloat16)
+                       for _ in range(accum)) for s in shapes]
+        mean = adamw.mean_grads(parts, accum)
+        sides = {}
+        for side in ('copy', 'f32', 'plain'):
+            state = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+            cps = [torch.zeros_like(p, dtype=torch.bfloat16) for p in params]
+            if side == 'copy':
+                out = adamw.adamw_tail(state[0], parts, *state[1:], lr_bc, count, accum=accum,
+                                       copies=cps, **tail_kw)
+            elif side == 'f32':
+                out = adamw.adamw_tail(state[0], mean, *state[1:], lr_bc, count, **tail_kw)
+                cps = [p.to(torch.bfloat16) for p in state[0]]
+            else:
+                out = adamw.adamw_tail_reference(state[0], parts, *state[1:], lr_bc, count,
+                                                 accum=accum, copies=cps,
+                                                 g_norm=sides['copy'][0], **tail_kw)
+            torch.cuda.synchronize()
+            sides[side] = (*out, state, cps)
+        norm, got_count, state, cps = sides['copy']
+        plain_norm = adamw.global_norm(mean).item()
+        check = {'norm': norm.item(), 'plain_norm': plain_norm,
+                 'norm_rel_err': abs(norm.item() / plain_norm - 1),
+                 'norm_equal_f32_route': _same_bits(norm, sides['f32'][0]),
+                 'count_equal': int(got_count) == int(sides['f32'][1]) == int(sides['plain'][1])}
+        for side in ('f32', 'plain'):
+            other = sides[side]
+            check[f'state_equal_{side}'] = all(
+                _same_bits(a.float(), b.float()) for xs, ys in zip(state, other[2])
+                for a, b in zip(xs, ys))
+            check[f'copies_equal_{side}'] = all(
+                torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(cps, other[3]))
+        del sides, state, cps, mean
+        torch.cuda.empty_cache()
+        copies = [torch.empty_like(p, dtype=torch.bfloat16) for p in params]
+        copy_call = lambda: adamw.adamw_tail(params, parts, mus, nus, lr_bc, accum=accum,
+                                             copies=copies, **tail_kw)
+        ms, host_us = adamw_probe.device_and_host(copy_call)
+        row['copy_route'][f'accum{accum}'] = {
+            **check, 'tail_device_ms': ms, 'host_us_per_call': host_us,
+            'bytes_per_param': 4 * 3 + 4 + 2 * mu_bytes + 2 + 2 * 2 * accum}
+        del parts, copies
+        torch.cuda.empty_cache()
     lib = [torch.nn.Parameter(p) for p in params]
     for p, g in zip(lib, grads):
         p.grad = g
@@ -1101,6 +1166,10 @@ def adamw_tree_row(tree: str, moe: bool, mu_dtype: torch.dtype) -> dict:
     emit(row)
     bad = [c for c in checks if not (c['norm_rel_err'] <= NORM_RTOL and c['same_bits_twice']
                                      and c['scalars_equal_plain'] and c['count_equal_plain'])]
+    bad += [c for c in row['copy_route'].values()
+            if not (c['norm_rel_err'] <= NORM_RTOL and all(
+                c[k] for k in ('norm_equal_f32_route', 'count_equal', 'state_equal_f32',
+                               'copies_equal_f32', 'state_equal_plain', 'copies_equal_plain')))]
     if not (finite_ok and max(errs) <= ADAMW_LIMIT and not bad and checks[-1]['count'] == 1):
         raise AssertionError(f'adamw kernels disagree with their plain versions: {row}')
     return row
@@ -1411,6 +1480,51 @@ def profile_train_step(tr, data: SplitData, steps: int = 3, kind: str = 'train')
                     f'{kind} step, {steps} steps', 'step', steps, run)
 
 
+def copy_route_parity(cfg: VitConfig, tcfg: TrainConfig, batch: SplitData, stats) -> None:
+    """Kernel #5's copy route in training: ViT-base bf16, dropout off, two
+    microbatches a step, so every bf16 Linear reads its compute copy and #5
+    reads the copies' bf16 gradients, takes their mean and writes the
+    copies; against a twin from the same init whose tail is the plain
+    version (``adamw_tail_reference``: the mean, ``global_norm``, the
+    update, the copies written).  Losses and parameters within LOSS_RTOL and
+    PARAM_TOL, every copy equal to its parameter rounded to bf16 on both
+    sides, and no parameter cast (``param_cast`` 0)."""
+    cfg = dataclasses.replace(cfg, dtype='bfloat16')
+    tcfg = dataclasses.replace(tcfg, grad_accum=2)
+    tr = Trainer(cfg, tcfg, train_data=batch, norm_stats=stats)
+    tr.init_state()
+    twin = Trainer(cfg, tcfg, train_data=batch, norm_stats=stats)
+    twin.set_params(tr.model.state_dict())
+    twin.optimizer.tail = adamw.adamw_tail_reference
+    losses, casts = [], []
+    for k in range(PARITY_STEPS):
+        take = np.arange(64 * k, 64 * (k + 1))
+        before = _build.launch_counts()['param_cast']
+        got = float(tr.train_step(batch, take)['loss'])
+        want = float(twin.train_step(batch, take)['loss'])
+        casts.append(_build.launch_counts()['param_cast'] - before)
+        losses.append((got, want))
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(tr.model.state_dict().values(), twin.model.state_dict().values()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    copies_current = all(
+        t._copies is not None and all(torch.equal(c, t.model.get_parameter(n).detach().to(
+            torch.bfloat16)) for n, c in t._copies.copies.items()) for t in (tr, twin))
+    emit({'phase': 'train_parity', 'model': 'ecg-vit-base', 'dtype': 'bfloat16',
+          'grad_accum': 2, 'steps': PARITY_STEPS, 'losses_kernel_plain': losses,
+          'max_loss_rel_err': loss_err, 'loss_limit': LOSS_RTOL,
+          'max_param_abs_err': param_err, 'param_limit': PARAM_TOL,
+          'copy_leaves_per_update': len(tr._copies.copies) if tr._copies else 0,
+          'copies_current': copies_current, 'param_cast_per_step': casts})
+    if not (loss_err <= LOSS_RTOL and param_err <= PARAM_TOL and copies_current
+            and casts == [0] * PARITY_STEPS):
+        raise AssertionError(f'the copy route differs from the plain tail: losses {losses}, '
+                             f'params {param_err}, copies current {copies_current}, '
+                             f'parameter casts {casts}')
+    del tr, twin
+    torch.cuda.empty_cache()
+
+
 def training_phase():
     """ViT-base training through kernels #2-#5 (``flash_min_seq=0`` and a
     blocked-backward threshold of 0, so every layer's forward is the lse
@@ -1465,6 +1579,7 @@ def training_phase():
                              f'{losses}, params {param_err}')
     del tr, twin
     torch.cuda.empty_cache()
+    copy_route_parity(cfg, tcfg, batch, stats)
 
     # 2. Trainer.train() on the hard corpus, bf16, dropout 0.1, TimeOut
     t0 = time.perf_counter()
@@ -1498,6 +1613,8 @@ def training_phase():
                'corpus_seconds': synth_s, 'train_rows': len(splits.train),
                'eval_rows': len(splits.eval), 'epochs': result['epochs'],
                'steps': steps, 'train_seconds': train_s, 'launches': launches,
+               'copy_leaves_per_update': len(tr._copies.copies) if tr._copies else 0,
+               'adamw_copy_leaves': adamw.adamw_kernel.copy_leaves,
                'adamw_table_builds': builds, 'train_losses': train_losses,
                'eval_losses': [h['loss'] for h in result['history']],
                'eval_macro_auc': aucs,
@@ -1507,8 +1624,12 @@ def training_phase():
             'flash_bwd_dkv': layers * steps, 'adamw': steps, 'adamw_norm': steps,
             # every Bernoulli site of a block, once each way a step; eval draws none
             'gelu_dropout': layers * steps, 'gelu_dropout_bwd': layers * steps,
-            'dropout_add': 2 * layers * steps, 'dropout_add_bwd': 2 * layers * steps}
+            'dropout_add': 2 * layers * steps, 'dropout_add_bwd': 2 * layers * steps,
+            # every bf16 Linear reads its compute copy: no parameter cast
+            'param_cast': 0}
     if not (len(train_losses) == steps == 2 * tr.steps_per_epoch
+            and summary['copy_leaves_per_update'] == summary['adamw_copy_leaves']
+            == 2 + 7 * layers
             and all(np.isfinite(train_losses)) and aucs[-1] is not None
             and np.isfinite(aucs[-1])
             and _launched(launches, want)):
@@ -3770,6 +3891,19 @@ def _kernel_names(run) -> set:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
+def _param_casts(tr: Trainer) -> int:
+    """The parameter casts of one training forward of ``tr``'s model: a
+    Switch-MoE block's four stacks, and where the trainer keeps no compute
+    copies (the optax chain) every bf16 Linear's weight and bias."""
+    n = 0
+    for m in tr.model.modules():
+        if isinstance(m, MoeMlp) and m.compute_dtype != torch.float32:
+            n += 4
+        elif tr._copies is None and isinstance(m, Dense) and m.compute_dtype != torch.float32:
+            n += 1 + (m.bias is not None)
+    return n
+
+
 def _dispatch_check(name: str, tr: Trainer, ref: Trainer, run: dict, k: int) -> dict:
     """Hold a dispatch run against its eager twin and emit the row; a graph
     of ``k`` steps must hold k steps' launches of every kernel (a layer's
@@ -3777,7 +3911,9 @@ def _dispatch_check(name: str, tr: Trainer, ref: Trainer, run: dict, k: int) -> 
     optimizer; with flax dropout, #8's ``gelu_dropout`` for a dense block's
     MLP hidden and ``dropout_add`` for its attention and MLP outputs, a
     Switch-MoE block's attention output alone; the forwards, #2's and #8's,
-    twice under remat; nothing else), and the run's counters every step's
+    twice under remat; nothing else), its ``param_cast`` count the
+    forwards' parameter casts (``_param_casts``: 0 for a dense model that
+    reads kernel #5's compute copies), and the run's counters every step's
     launches."""
     info = tr.dispatch_info or {}
     steps, cfg = tr.step, tr.model_cfg
@@ -3792,10 +3928,12 @@ def _dispatch_check(name: str, tr: Trainer, ref: Trainer, run: dict, k: int) -> 
     per_step = {**dict.fromkeys(_build.COUNTERS, 0), 'flash_fwd_lse': micro * fwd,
                 'flash_bwd_dq': micro, 'flash_bwd_dkv': micro, 'adamw': fused,
                 'adamw_norm': fused, 'gelu_dropout': mlp * fwd, 'gelu_dropout_bwd': mlp,
-                'dropout_add': out * fwd, 'dropout_add_bwd': out}
+                'dropout_add': out * fwd, 'dropout_add_bwd': out,
+                'param_cast': _param_casts(tr) * accum * fwd}
     row = {'phase': 'dispatch_parity', 'run': name, 'model': tr.model_cfg.meta,
            **_same_state(tr, ref), 'route': info.get('route'),
            'replays': info.get('replays'), 'capture_s': info.get('capture_s'),
+           'copy_leaves_per_update': len(tr._copies.copies) if tr._copies else 0,
            'graph_pool_bytes': info.get('pool_bytes'),
            'graph_launches': info.get('graph_launches'),
            'expected_graph_launches': {n: k * c for n, c in per_step.items()},

@@ -108,11 +108,14 @@ def load(name: str) -> ctypes.CDLL:
 
 # the launch counter of each hand-written kernel, by its name in
 # chip_smoke.py's kernels line (``_bwd``: the entry's backward); #1 and #2
-# share the entry flash_fwd
+# share the entry flash_fwd.  ``param_cast`` counts the casts of a parameter
+# to its layer's compute dtype that a training forward on the card still
+# makes (``train/loop.count_param_casts``): 0 where kernel #5's compute
+# copies are read
 COUNTERS = ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq', 'flash_bwd_dkv', 'adamw',
             'adamw_norm', 'nlm_rows', 'nlm_variant', 'gelu_dropout', 'gelu_dropout_bwd',
             'dropout_add', 'dropout_add_bwd', 'moe_permute', 'moe_permute_bwd', 'moe_swiglu',
-            'moe_swiglu_bwd', 'moe_combine', 'moe_combine_bwd')
+            'moe_swiglu_bwd', 'moe_combine', 'moe_combine_bwd', 'param_cast')
 _launches: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
 

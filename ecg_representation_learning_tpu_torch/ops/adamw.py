@@ -13,6 +13,16 @@ first moment and second moment in place:
 
 ``scalars`` is a 5-element f32 tensor on the leaves' device,
 [scale, lr, bc1, bc2, finite], so a step reads them without a host sync.
+
+``g`` is the mean of the step's microbatches: a leaf's gradient is one f32
+tensor (autograd's sum) or a tuple of ``accum`` bf16 tensors, the gradients
+of its compute copy (``train/loop.py``'s ``ComputeCopies``), one per
+microbatch, and g = (f32(g_1) + ... + f32(g_n)) / ``accum`` in that order
+(no division at accum 1) -- the sum autograd's accumulation made and the
+division ``grad_accum`` made before, done as the kernels read the gradient.
+``copies`` (one per leaf, None where a leaf has none): each bf16 copy is
+written from the updated parameter, rounded to nearest even, in the same
+pass.
 ``adamw_tail`` is the whole step: the global gradient norm, the scalars
 from it (scale = min(1, clip / max(||g||, 1e-16)), or 1 without a clip;
 under ``zero_nonfinite`` a non-finite norm gives scale 1 and finite 0), the
@@ -56,7 +66,8 @@ import torch
 
 from . import _build
 
-_BLOCK_COLS = 6   # block table row: p, mu, nu addresses, start, leaf | count << 32, vector flag
+# block table row: p, mu, nu, copy addresses, start, leaf | count << 32, vector flag | parts << 32
+_BLOCK_COLS = 7
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -110,10 +121,32 @@ def tail_scalars_reference(g_norm: torch.Tensor, lr_bc, *,
     return torch.cat([scale.reshape(1), lr_bc, finite.reshape(1)])
 
 
+def mean_grads(grads, accum: int = 1) -> list:
+    """Each leaf's gradient as the kernels read it: an f32 tensor, or the
+    sum of a tuple of bf16 parts widened to f32 and added in order; then
+    divided by ``accum`` (``torch._foreach_div``, a true division on every
+    device, as ``grad_accum``'s was) when ``accum`` > 1.  New tensors: the
+    gradients given are left as they are."""
+    out = []
+    for g in grads:
+        if isinstance(g, torch.Tensor):
+            out.append(g)
+            continue
+        s = g[0].float()
+        for part in g[1:]:
+            s = s + part.float()
+        out.append(s)
+    return torch._foreach_div(out, float(accum)) if accum > 1 else out
+
+
 def adamw_update_reference(params, grads, mus, nus, scalars, *, b1: float,
-                           b2: float, eps: float, wd: float) -> None:
-    """Plain PyTorch version: the per-leaf math of the JAX ``FusedAdamW``."""
+                           b2: float, eps: float, wd: float, accum: int = 1,
+                           copies: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
+    """Plain PyTorch version: the per-leaf math of the JAX ``FusedAdamW``,
+    on the mean gradients (:func:`mean_grads`), each copy written from its
+    updated parameter."""
     scale, lr, bc1, bc2, finite = scalars.unbind(0)
+    grads = mean_grads(grads, accum)
     with torch.no_grad():
         for p, g, mu, nu in zip(params, grads, mus, nus):
             g32 = torch.where(finite > 0, g.float() * scale, 0.0)
@@ -125,68 +158,98 @@ def adamw_update_reference(params, grads, mus, nus, scalars, *, b1: float,
             mu.copy_(mu2)
             nu.copy_(nu2)
             p.copy_(p - lr * upd)
+        for p, c in zip(params, copies or ()):
+            if c is not None:
+                c.copy_(p)
 
 
 def adamw_tail_reference(params, grads, mus, nus, lr_bc,
                          nonfinite_count: Optional[torch.Tensor] = None, *,
                          clip_norm: Optional[float], zero_nonfinite: bool, b1: float,
                          b2: float, eps: float, wd: float,
-                         g_norm: Optional[torch.Tensor] = None
+                         g_norm: Optional[torch.Tensor] = None, accum: int = 1,
+                         copies: Optional[Sequence[Optional[torch.Tensor]]] = None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the whole tail; returns ``(grad_norm,
     nonfinite_count + !isfinite(grad_norm))`` (the count None when none is
     given).  ``g_norm``, when given, is used as the norm."""
+    grads = mean_grads(grads, accum)
     if g_norm is None:
         g_norm = global_norm(grads)
     scalars = tail_scalars_reference(g_norm, lr_bc, clip_norm=clip_norm,
                                      zero_nonfinite=zero_nonfinite)
-    adamw_update_reference(params, grads, mus, nus, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
+    adamw_update_reference(params, grads, mus, nus, scalars, b1=b1, b2=b2, eps=eps, wd=wd,
+                           copies=copies)
     if nonfinite_count is not None:
         nonfinite_count = nonfinite_count + (~torch.isfinite(g_norm)).to(torch.int32)
     return g_norm, nonfinite_count
 
 
 def block_table(ptrs: np.ndarray, sizes: Sequence[int], mu_bytes: int,
-                chunk: int) -> np.ndarray:
-    """The kernels' block table: one row of six int64 per block of ``chunk``
-    elements of each leaf (a leaf of n elements takes max(1, ceil(n /
-    chunk)) blocks, in leaf order) -- the p, mu, nu addresses of the block's
-    first element, that element's index in the leaf, then the leaf index and
-    the block's element count as two int32 (leaf in the low half), then 1
-    when the leaf's p and nu are 16-byte aligned and its mu 4-element
-    aligned (the kernels' vector path), else 0.  ``ptrs``: (leaves, 3)
-    addresses of p, mu, nu.  Gradients are not in it: they move every step
-    and reach the kernels as one address per leaf."""
-    ptrs = np.asarray(ptrs, np.int64).reshape(-1, 3)
+                chunk: int, parts: Optional[Sequence[int]] = None) -> np.ndarray:
+    """The kernels' block table: one row of seven int64 per block of
+    ``chunk`` elements of each leaf (a leaf of n elements takes max(1,
+    ceil(n / chunk)) blocks, in leaf order) -- the p, mu, nu and copy
+    addresses of the block's first element (copy 0 where the leaf has none),
+    that element's index in the leaf, then the leaf index and the block's
+    element count as two int32 (leaf in the low half), then as two int32 1
+    when the leaf's p and nu are 16-byte aligned and its mu and copy
+    4-element aligned (the kernels' vector path), else 0, and the leaf's
+    number of bf16 gradient parts (0: one f32 gradient).  ``ptrs``: (leaves,
+    3) addresses of p, mu, nu, or (leaves, 4) with the copy's; ``parts``:
+    one per leaf (default 0).  Gradients' addresses are not in it: they move
+    every step and reach the kernels each call."""
+    ptrs = np.asarray(ptrs, np.int64)
+    if ptrs.shape[-1] == 3:
+        ptrs = np.concatenate([ptrs.reshape(-1, 3), np.zeros((len(ptrs), 1), np.int64)], 1)
+    ptrs = ptrs.reshape(-1, 4)
     sizes = np.asarray(sizes, np.int64)
+    parts = np.zeros(len(sizes), np.int64) if parts is None else np.asarray(parts, np.int64)
     per_leaf = np.maximum(1, -(-sizes // chunk))
     leaf = np.repeat(np.arange(len(sizes)), per_leaf)
     first = np.cumsum(per_leaf) - per_leaf
     start = (np.arange(len(leaf)) - first[leaf]) * chunk
-    aligned = (ptrs % np.array([16, 4 * mu_bytes, 16], np.int64) == 0).all(axis=1)
+    aligned = (ptrs % np.array([16, 4 * mu_bytes, 16, 8], np.int64) == 0).all(axis=1)
     rows = np.empty((len(leaf), _BLOCK_COLS), np.int64)
-    rows[:, :3] = ptrs[leaf] + start[:, None] * np.array([4, mu_bytes, 4], np.int64)
-    rows[:, 3] = start
-    rows[:, 4] = leaf | (np.minimum(sizes[leaf] - start, chunk) << 32)
-    rows[:, 5] = aligned[leaf]
+    rows[:, :4] = ptrs[leaf] + start[:, None] * np.array([4, mu_bytes, 4, 2], np.int64)
+    rows[:, 3] = np.where(ptrs[leaf, 3] != 0, rows[:, 3], 0)
+    rows[:, 4] = start
+    rows[:, 5] = leaf | (np.minimum(sizes[leaf] - start, chunk) << 32)
+    rows[:, 6] = aligned[leaf] | (parts[leaf] << 32)
     return rows
 
 
-def _validate(params, grads, mus, nus) -> Tuple[torch.device, torch.dtype]:
-    """What the kernels take: as many grads, mus and nus as params (>= 1),
-    f32 (mu f32 or bf16, one dtype for all), each leaf's four tensors of one
-    shape, contiguous, on one CUDA device."""
+def _parts(g) -> Tuple[torch.Tensor, ...]:
+    """A leaf's gradient as its parts: (g,) for one f32 tensor, else the
+    tuple of its bf16 ones."""
+    return (g,) if isinstance(g, torch.Tensor) else tuple(g)
+
+
+def _validate(params, grads, mus, nus, copies, accum: int) -> Tuple[torch.device, torch.dtype]:
+    """What the kernels take: as many grads, mus, nus and copies as params
+    (>= 1), f32 (mu f32 or bf16, one dtype for all), a gradient one f32
+    tensor or ``accum`` bf16 ones, a copy (where there is one) bf16, each
+    leaf's tensors of one shape, contiguous, on one CUDA device."""
     n = len(params)
-    if n == 0 or not (len(grads) == len(mus) == len(nus) == n):
-        raise ValueError(f'adamw needs as many grads, mus and nus as params '
-                         f'(>= 1): {n}, {len(grads)}, {len(mus)}, {len(nus)}')
+    if n == 0 or not (len(grads) == len(mus) == len(nus) == len(copies) == n):
+        raise ValueError(f'adamw needs as many grads, mus, nus and copies as params '
+                         f'(>= 1): {n}, {len(grads)}, {len(mus)}, {len(nus)}, {len(copies)}')
+    if accum < 1:
+        raise ValueError(f'accum must be >= 1, got {accum}')
     dev = params[0].device
     mu_dtype = mus[0].dtype
     if mu_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'mu must be float32 or bfloat16, got {mu_dtype}')
-    for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus)):
-        for name, x, dtype in (('param', p, torch.float32), ('grad', g, torch.float32),
-                               ('mu', mu, mu_dtype), ('nu', nu, torch.float32)):
+    for i, (p, g, mu, nu, c) in enumerate(zip(params, grads, mus, nus, copies)):
+        parts = _parts(g)
+        one = isinstance(g, torch.Tensor)
+        if not one and len(parts) != accum:
+            raise ValueError(f'leaf {i}: {len(parts)} gradient parts for accum {accum}')
+        g_dtype = torch.float32 if one else torch.bfloat16
+        checks = (('param', p, torch.float32), *(('grad', x, g_dtype) for x in parts),
+                  ('mu', mu, mu_dtype), ('nu', nu, torch.float32),
+                  *(() if c is None else (('copy', c, torch.bfloat16),)))
+        for name, x, dtype in checks:
             if x.dtype != dtype:
                 raise TypeError(f'leaf {i}: {name} must be {dtype}, got {x.dtype}')
             if x.shape != p.shape or x.device != dev or not x.is_contiguous():
@@ -208,8 +271,8 @@ def _check_scalars(scalars: torch.Tensor, dev: torch.device) -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ``csrc/adamw.cu``'s entries: the update (launch 2), the norm (launch 1), and
 # the block table's elements a block and the norm's table rows a block
-ARGTYPES = {'adamw_update': [_P, _P, _I, _P, _I] + [_F] * 6 + [_P, _F, _I, _I] + [_P] * 4,
-            'adamw_norm': [_P, _P, _I] + [_P] * 3 + [_F, _I, _I] + [_P] * 8,
+ARGTYPES = {'adamw_update': [_P, _P, _I, _I, _P, _I] + [_F] * 6 + [_P, _F, _I, _I] + [_P] * 4,
+            'adamw_norm': [_P, _P, _I, _I] + [_P] * 3 + [_F, _I, _I] + [_P] * 8,
             'adamw_chunk_elems': [], 'adamw_norm_rows': []}
 ADAMW = _build.CtypesLibrary('adamw', ARGTYPES)
 
@@ -219,29 +282,41 @@ _dtype = operator.attrgetter('dtype')
 _shape = operator.attrgetter('shape')
 
 
+def _copy_ptr(c: Optional[torch.Tensor]) -> int:
+    return 0 if c is None else c.data_ptr()
+
+
 class _AdamWKernel:
     """The launches of ``csrc/adamw.cu`` (``ADAMW``), counted as ``adamw``
     (the update) and ``adamw_norm``.
 
     Keeps the device block table of the last leaf set.  A call compares the
-    parameters' and moments' addresses and sizes with that set's; only when
-    one moved are the leaves checked (``_validate``) and the table rebuilt
-    (one pinned copy on the stream, no sync; ``table_builds`` counts them).
-    The gradients, which move every step, are checked each call in bulk
-    (count, dtype, device, contiguity, shape) and their addresses go to the
-    kernels with the step's scalars in one pinned copy.  A parameter or
-    moment handed back at the same address with other strides is not
+    parameters', moments' and copies' addresses and sizes, and each leaf's
+    number of gradient parts, with that set's; only when one changed are the
+    leaves checked (``_validate``) and the table rebuilt (one pinned copy on
+    the stream, no sync; ``table_builds`` counts them).  The gradients,
+    which move every step, are checked each call in bulk (parts, dtype,
+    device, contiguity, shape) and their addresses, ``accum`` a leaf (a
+    leaf of one f32 gradient: its address, then zeros), go to the kernels
+    with the step's scalars in one pinned copy.  A parameter, moment or
+    copy handed back at the same address with other strides is not
     re-checked.  Under a CUDA graph capture each launch pair takes a device
     buffer from ``reserve`` and records its gradients' addresses for
-    ``take_captured``."""
+    ``take_captured``.  ``copy_leaves``: the leaves of the current table
+    whose compute copy an update writes."""
 
     def __init__(self):
         self.table_builds = 0
+        self.copy_leaves = 0
         self._key = None
         self._dev = None
-        self._shapes = None      # the leaves' shapes, which each gradient must have
+        self._shapes = None      # the leaves' shapes
+        self._gshapes = None     # each gradient part's shape, dtype, in leaf order
+        self._gdtypes = None
+        self._slots = None       # (kinds, accum, where each part's address goes)
+        self._gwidth = 0         # the gradients' addresses of the last call
         self._mu_bf16 = 0
-        self._blocks = None      # (n_blocks, 6) int64 on the device
+        self._blocks = None      # (n_blocks, 7) int64 on the device
         self._partials = None    # the norm's f64 partials, one per block of launch 1
         self._ticket = None      # the norm's last-block counter
         self._n_blocks = 0
@@ -250,25 +325,30 @@ class _AdamWKernel:
         self._reserved = []      # device buffers for launches under a capture
         self._captured = []      # (device buffer, head, gradient addresses) captured
 
-    def _prepare(self, params, grads, mus, nus, head: int
+    def _prepare(self, params, grads, mus, nus, head: int, accum: int = 1, copies=None
                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-        """The block table for these leaves (kept when no parameter or moment
-        moved, else checked and rebuilt), the gradients checked, and a pinned
-        host buffer of ``head`` int64 then the gradients' addresses, with its
+        """The block table for these leaves (kept when no parameter, moment
+        or copy moved and no leaf's gradient changed its number of parts,
+        else checked and rebuilt), the gradients checked, and a pinned host
+        buffer of ``head`` int64 then the gradients' addresses, with its
         device twin: ``(host, device)``, not yet copied.  Under a CUDA graph
         capture the host buffer is None: the device buffer and the addresses
         wait in ``_captured`` for ``take_captured``."""
         if not params:
             raise ValueError('adamw needs at least one parameter leaf')
+        if copies is None:
+            copies = [None] * len(params)
+        kinds = tuple(0 if isinstance(g, torch.Tensor) else len(g) for g in grads)
         key = (params[0].device, mus[0].dtype if mus else None, *map(_ptr, params),
-               *map(_ptr, mus), *map(_ptr, nus), *map(_numel, params))
+               *map(_ptr, mus), *map(_ptr, nus), *map(_numel, params), *map(_copy_ptr, copies),
+               kinds)
         if key != self._key:
-            dev, mu_dtype = _validate(params, grads, mus, nus)
+            dev, mu_dtype = _validate(params, grads, mus, nus, copies, accum)
             mu_bytes = 2 if mu_dtype == torch.bfloat16 else 4
-            ptrs = np.array([(_ptr(p), _ptr(m), _ptr(v)) for p, m, v in zip(params, mus, nus)],
-                            np.int64)
+            ptrs = np.array([(_ptr(p), _ptr(m), _ptr(v), _copy_ptr(c))
+                             for p, m, v, c in zip(params, mus, nus, copies)], np.int64)
             rows = block_table(ptrs, [p.numel() for p in params], mu_bytes,
-                               ADAMW.value('adamw_chunk_elems'))
+                               ADAMW.value('adamw_chunk_elems'), kinds)
             self._key = None   # a failure below leaves no half-built table
             self._blocks = torch.from_numpy(rows).pin_memory().to(dev, non_blocking=True)
             self._partials = torch.empty(-(-len(rows) // ADAMW.value('adamw_norm_rows')),
@@ -276,36 +356,49 @@ class _AdamWKernel:
             self._ticket = torch.zeros(1, dtype=torch.int32, device=dev)
             self._n_blocks, self._dev, self._mu_bf16 = len(rows), dev, int(mu_bytes == 2)
             self._shapes = [p.shape for p in params]
+            self.copy_leaves = sum(c is not None for c in copies)
+            self._gshapes = [p.shape for p, k in zip(params, kinds) for _ in range(max(k, 1))]
+            self._gdtypes = [torch.bfloat16 if k else torch.float32
+                             for k in kinds for _ in range(max(k, 1))]
+            self._slots = None
             self._key = key
             self.table_builds += 1
         n = len(self._shapes)
-        if not (len(grads) == n and set(map(_dtype, grads)) == {torch.float32}
-                and set(map(torch.Tensor.get_device, grads)) == {self._dev.index}
-                and all(map(torch.Tensor.is_contiguous, grads))
-                and list(map(_shape, grads)) == self._shapes):
-            _validate(params, grads, mus, nus)   # raises, saying which leaf
+        flat = [x for g in grads for x in _parts(g)]
+        if not (len(grads) == n and set(kinds) <= {0, accum}
+                and list(map(_dtype, flat)) == self._gdtypes
+                and set(map(torch.Tensor.get_device, flat)) == {self._dev.index}
+                and all(map(torch.Tensor.is_contiguous, flat))
+                and list(map(_shape, flat)) == self._gshapes):
+            _validate(params, grads, mus, nus, copies, accum)   # raises, saying which leaf
             raise ValueError('adamw: the gradients do not match the parameters')
-        addrs = np.fromiter(map(_ptr, grads), np.int64, n)
+        if self._slots is None or self._slots[:2] != (kinds, accum):
+            slots = [i * accum + j for i, k in enumerate(kinds) for j in range(max(k, 1))]
+            self._slots = (kinds, accum, np.array(slots, np.int64))
+        addrs = np.zeros(n * accum, np.int64)
+        addrs[self._slots[2]] = np.fromiter(map(_ptr, flat), np.int64, len(flat))
+        self._gwidth = n * accum
         if torch.cuda.is_current_stream_capturing():
             if not self._reserved:
                 raise RuntimeError('adamw under a CUDA graph capture needs a buffer from '
                                    'reserve() for each launch pair')
-            dev = self._reserved.pop()[:head + n]
+            dev = self._reserved.pop()[:head + n * accum]
             self._captured.append((dev, head, addrs))
             return None, dev
-        host = torch.empty(head + n, dtype=torch.int64, pin_memory=True)
+        host = torch.empty(head + n * accum, dtype=torch.int64, pin_memory=True)
         host.numpy()[head:] = addrs
-        return host, torch.empty(head + n, dtype=torch.int64, device=self._dev)
+        return host, torch.empty(head + n * accum, dtype=torch.int64, device=self._dev)
 
     def reserve(self, count: int) -> None:
         """Before a CUDA graph capture of ``count`` launch pairs on the
-        current leaves (after an eager call built their table): one device
-        buffer each for the scalars and the gradients' addresses, allocated
-        outside the capture, so that no node of the graph writes it."""
+        current leaves and microbatches (after an eager call built their
+        table): one device buffer each for the scalars and the gradients'
+        addresses, allocated outside the capture, so that no node of the
+        graph writes it."""
         if self._shapes is None:
             raise RuntimeError('adamw.reserve needs the leaves of an eager call first')
-        self._reserved = [torch.empty(4 + len(self._shapes), dtype=torch.int64,
-                                      device=self._dev) for _ in range(count)]
+        self._reserved = [torch.empty(4 + self._gwidth, dtype=torch.int64, device=self._dev)
+                          for _ in range(count)]
 
     def take_captured(self) -> list:
         """After a CUDA graph capture: write the gradients' addresses into
@@ -322,7 +415,7 @@ class _AdamWKernel:
         self._captured, self._reserved = [], []
         return out
 
-    def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, *,
+    def _launch_update(self, gptrs: torch.Tensor, scalars: torch.Tensor, accum: int, *,
                        b1: float, b2: float, eps: float, wd: float, mesh_tail=None) -> None:
         """Launch 2; ``mesh_tail`` = (sum, clip_norm, zero_nonfinite,
         norm_out, count_in, count_out) takes the scalars from the mesh-wide
@@ -336,22 +429,22 @@ class _AdamWKernel:
                     int(clip is not None), int(zero_nonfinite), norm_out.data_ptr(),
                     ptr(count_in), ptr(count_out))
         ADAMW.launch('adamw_update', 'adamw', self._dev, (
-            self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks, scalars.data_ptr(),
-            self._mu_bf16, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, *tail))
+            self._blocks.data_ptr(), gptrs.data_ptr(), accum, self._n_blocks,
+            scalars.data_ptr(), self._mu_bf16, b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, *tail))
 
     def __call__(self, params, grads, mus, nus, scalars, *, b1: float, b2: float,
-                 eps: float, wd: float) -> None:
+                 eps: float, wd: float, accum: int = 1, copies=None) -> None:
         """The update alone, with ``scalars`` given: one pinned copy of the
         gradients' addresses and one launch."""
-        host, gptrs = self._prepare(params, grads, mus, nus, 0)
+        host, gptrs = self._prepare(params, grads, mus, nus, 0, accum, copies)
         _check_scalars(scalars, self._dev)
         with torch.cuda.device(self._dev):
             if host is not None:
                 gptrs.copy_(host, non_blocking=True)
-            self._launch_update(gptrs, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
+            self._launch_update(gptrs, scalars, accum, b1=b1, b2=b2, eps=eps, wd=wd)
 
     def _norm_scalars(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
-                      g_norm):
+                      g_norm, accum):
         """The pinned copy and launch 1 (after ``_prepare(..., 4)`` gave
         ``host`` and ``ws``): ``(scalars, grad_norm, count_out, gptrs)``.
         The device buffer is [scale, lr, bc1, bc2, finite, grad_norm, -, -]
@@ -378,7 +471,7 @@ class _AdamWKernel:
         count_out = None if nonfinite_count is None else torch.empty_like(nonfinite_count)
         ptr = lambda t: None if t is None else t.data_ptr()
         ADAMW.launch('adamw_norm', 'adamw_norm', dev, (
-            self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
+            self._blocks.data_ptr(), gptrs.data_ptr(), accum, self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), ptr(g_norm),
             0.0 if clip_norm is None else float(clip_norm), int(clip_norm is not None),
             int(zero_nonfinite), f32.data_ptr(), ptr(lr_dev),
@@ -389,20 +482,20 @@ class _AdamWKernel:
     def norm_scalars(self, params, grads, mus, nus, lr_bc: Sequence[float],
                      nonfinite_count: Optional[torch.Tensor] = None, *,
                      clip_norm: Optional[float], zero_nonfinite: bool,
-                     g_norm: Optional[torch.Tensor] = None):
+                     g_norm: Optional[torch.Tensor] = None, accum: int = 1, copies=None):
         """Launch 1 alone, after one pinned H2D copy of ``lr_bc`` = (lr,
         bc1, bc2) and the gradients' addresses: returns ``(scalars,
         grad_norm, nonfinite_count + !finite)``, the scalars [scale, lr,
         bc1, bc2, finite] as 5 f32 on the device (the count None when none is
         given).  ``g_norm``, when given, is used as the norm and no gradient
         is read."""
-        host, ws = self._prepare(params, grads, mus, nus, 4)
+        host, ws = self._prepare(params, grads, mus, nus, 4, accum, copies)
         with torch.cuda.device(self._dev):
             return self._norm_scalars(host, ws, lr_bc, nonfinite_count, clip_norm,
-                                      zero_nonfinite, g_norm)[:3]
+                                      zero_nonfinite, g_norm, accum)[:3]
 
     def _mesh_tail(self, host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite,
-                   reduce: NormReduce, **kw):
+                   reduce: NormReduce, accum: int, **kw):
         """Under a ``NormReduce``: launch 1 with the leaf weights (its f64
         sum of squares), the all-reduce of the sum, launch 2 from it.  With
         ``lr_bc`` on the device (a step tape) nothing reads the host, so a
@@ -432,35 +525,36 @@ class _AdamWKernel:
             f32[1:4].copy_(lr_dev)
         gptrs = ws[4:]
         ADAMW.launch('adamw_norm', 'adamw_norm', dev, (
-            self._blocks.data_ptr(), gptrs.data_ptr(), self._n_blocks,
+            self._blocks.data_ptr(), gptrs.data_ptr(), accum, self._n_blocks,
             self._partials.data_ptr(), self._ticket.data_ptr(), None, 0.0, 0, 0,
             f32.data_ptr(), None, None, None, None, self._weights[1].data_ptr(),
             self._sum.data_ptr()))
         reduce.all_reduce(self._sum)
         grad_norm = f32[5]
         count_out = None if nonfinite_count is None else torch.empty_like(nonfinite_count)
-        self._launch_update(gptrs, f32[:5], mesh_tail=(
+        self._launch_update(gptrs, f32[:5], accum, mesh_tail=(
             self._sum, clip_norm, zero_nonfinite, grad_norm, nonfinite_count, count_out), **kw)
         return grad_norm, count_out
 
     def tail(self, params, grads, mus, nus, lr_bc,
              nonfinite_count: Optional[torch.Tensor] = None, *, clip_norm: Optional[float],
              zero_nonfinite: bool, b1: float, b2: float, eps: float, wd: float,
-             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None,
+             accum: int = 1, copies=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The whole tail in two launches and one pinned H2D copy; returns
         ``(grad_norm, nonfinite_count)`` as ``adamw_tail_reference``.  With
         ``reduce`` the norm is the mesh-wide one (one all-reduce between the
         launches)."""
-        host, ws = self._prepare(params, grads, mus, nus, 4)
+        host, ws = self._prepare(params, grads, mus, nus, 4, accum, copies)
         if reduce is not None and g_norm is None:
             with torch.cuda.device(self._dev):
                 return self._mesh_tail(host, ws, lr_bc, nonfinite_count, clip_norm,
-                                       zero_nonfinite, reduce, b1=b1, b2=b2, eps=eps, wd=wd)
+                                       zero_nonfinite, reduce, accum, b1=b1, b2=b2, eps=eps,
+                                       wd=wd)
         with torch.cuda.device(self._dev):
             scalars, grad_norm, count, gptrs = self._norm_scalars(
-                host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite, g_norm)
-            self._launch_update(gptrs, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
+                host, ws, lr_bc, nonfinite_count, clip_norm, zero_nonfinite, g_norm, accum)
+            self._launch_update(gptrs, scalars, accum, b1=b1, b2=b2, eps=eps, wd=wd)
         return grad_norm, count
 
 
@@ -488,34 +582,41 @@ def _device_type(params) -> str:
     return dev
 
 
-def adamw_update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+def adamw_update(params: Sequence[torch.Tensor], grads: Sequence,
                  mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
                  scalars: torch.Tensor, *, b1: float, b2: float, eps: float,
-                 wd: float) -> None:
-    """One AdamW step on every leaf with the given ``scalars``, in place.
-    CUDA tensors: one kernel launch; CPU tensors: the plain version."""
-    kw = dict(b1=b1, b2=b2, eps=eps, wd=wd)
+                 wd: float, accum: int = 1,
+                 copies: Optional[Sequence[Optional[torch.Tensor]]] = None) -> None:
+    """One AdamW step on every leaf with the given ``scalars``, in place;
+    ``grads`` and ``accum`` give each leaf's mean gradient and ``copies``
+    the bf16 compute copies to write (module docstring).  CUDA tensors: one
+    kernel launch; CPU tensors: the plain version."""
+    kw = dict(b1=b1, b2=b2, eps=eps, wd=wd, accum=accum, copies=copies)
     if _device_type(params) == 'cuda':
         return adamw_kernel(params, grads, mus, nus, scalars, **kw)
     return adamw_update_reference(params, grads, mus, nus, scalars, **kw)
 
 
-def adamw_tail(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+def adamw_tail(params: Sequence[torch.Tensor], grads: Sequence,
                mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
                lr_bc, nonfinite_count: Optional[torch.Tensor] = None, *,
                clip_norm: Optional[float], zero_nonfinite: bool, b1: float, b2: float,
                eps: float, wd: float, g_norm: Optional[torch.Tensor] = None,
-               reduce: Optional[NormReduce] = None
+               reduce: Optional[NormReduce] = None, accum: int = 1,
+               copies: Optional[Sequence[Optional[torch.Tensor]]] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FusedAdamW step from the gradients: norm, scalars, counter and
-    update, in place; returns ``(grad_norm, nonfinite_count)``.  CUDA
-    tensors: two kernel launches; CPU tensors: the plain version.  ``reduce``
-    makes the norm the mesh-wide one (:class:`NormReduce`)."""
+    update, in place; returns ``(grad_norm, nonfinite_count)``.  ``grads``
+    and ``accum`` give each leaf's mean gradient and ``copies`` the bf16
+    compute copies to write (module docstring).  CUDA tensors: two kernel
+    launches; CPU tensors: the plain version.  ``reduce`` makes the norm the
+    mesh-wide one (:class:`NormReduce`)."""
     kw = dict(clip_norm=clip_norm, zero_nonfinite=zero_nonfinite, b1=b1, b2=b2, eps=eps,
-              wd=wd, g_norm=g_norm)
+              wd=wd, g_norm=g_norm, copies=copies)
     if _device_type(params) == 'cuda':
         return adamw_kernel.tail(params, grads, mus, nus, lr_bc, nonfinite_count, **kw,
-                                 reduce=reduce)
+                                 reduce=reduce, accum=accum)
+    grads = mean_grads(grads, accum)
     if reduce is not None and g_norm is None:
         kw['g_norm'] = mesh_norm_reference(grads, reduce)
     return adamw_tail_reference(params, grads, mus, nus, lr_bc, nonfinite_count, **kw)

@@ -11,10 +11,22 @@
 //   nu' = b2 * nu + (1 - b2) * g'^2
 //   p'  = p - lr * ((mu' / bc1) / (sqrt(nu' / bc2) + eps) + wd * p)
 // with [scale, lr, bc1, bc2, finite] read from a device array, so a step
-// needs no host sync.  g, nu and p are f32; mu is f32 or bf16 (computed in
+// needs no host sync.  nu and p are f32; mu is f32 or bf16 (computed in
 // f32, stored rounded to nearest even).  Each operation is done in the plain
 // version's order with IEEE rounding and no FMA contraction (__fmul_rn and
 // friends), so the update agrees with the plain PyTorch version bit for bit.
+//
+// g is the step's mean gradient, g = (g_1 + ... + g_n) / accum (no division
+// at accum 1), made as each kernel reads it: a leaf's gradient is one f32
+// tensor (autograd's sum over the microbatches, n = 1) or the bf16 gradients
+// of the leaf's compute copy, one per microbatch (n = accum), each widened
+// exactly and added in microbatch order, as autograd's accumulation added
+// them in f32 -- so neither the gradients' casts to f32, nor their sum, nor
+// the division by accum is a pass of its own.  A leaf with a compute copy
+// (the bf16 tensor its layer's forward reads in place of casting the
+// parameter; train/loop.py's ComputeCopies) gets the copy written from the
+// updated p in the update's pass, rounded to nearest even as the cast would
+// round it, on every step (a non-finite, zeroed step too).
 //
 // Launch 1 (adamw_norm_kernel) reads every gradient once: each block sums
 // the squares of kNormRows chunks in f64 (exact products of f32 values) and
@@ -45,33 +57,43 @@
 //
 // Bound on the H100 (SXM, 3.35 TB/s), ViT-base's 85.7 M parameters: the
 // update reads g, mu, nu, p and writes mu, nu, p, 28 bytes per parameter
-// with f32 mu (24 with bf16), 2.40 GB, 0.716 ms, against about 15
-// operations per parameter (0.02 ms on the f32 CUDA cores); the norm reads g
-// once, 343 MB, 0.102 ms.  Both are bound by bytes, so the design moves each
-// byte once in the widest transaction and keeps enough of them in flight:
-// - 16-byte loads and stores (float4 for g, nu, p; four bf16 as 8 bytes for
-//   mu), every pointer __restrict__, and each thread issues all its loads
-//   (kUnroll groups of four elements) before any arithmetic or store;
+// with an f32 g and f32 mu (24 with bf16 mu; a leaf on the copy route reads
+// 2 bytes of g a microbatch and writes 2 of its copy), 2.40 GB, 0.716 ms,
+// against about 15 operations per parameter (0.02 ms on the f32 CUDA
+// cores); the norm reads g once, 343 MB, 0.102 ms.  Both are bound by
+// bytes, so the design moves each byte once in the widest transaction and
+// keeps enough of them in flight:
+// - 16-byte loads and stores (float4 for an f32 g, nu, p; four bf16 as 8
+//   bytes for mu, a bf16 g and the copy), every pointer __restrict__, and
+//   each thread issues all its loads (kUnroll groups of four elements)
+//   before any arithmetic or store;
 // - streaming cache hints (__ldcs / __stcs, evict-first): 2.4 GB passes
 //   once through a 50 MB L2 and nothing is read twice;
 // - bytes in flight: a block has 256 threads x kUnroll x 4 loads of 16 bytes
 //   (64 KB with f32 mu) outstanding, against the ~18 KB per SM that 3.35 TB/s
 //   at ~0.7 us of latency needs (Little's law), with several blocks per SM;
 // - no leaf search in the kernel: the host builds, with the leaf pointers, a
-//   block table of one 48-byte row per block -- the p, mu, nu addresses at
-//   the block's first element, that element's index in its leaf, the leaf,
-//   the block's element count (<= kChunk) and whether p and nu are 16-byte
-//   and mu 4-element aligned -- kept for as long as the parameters and
-//   moments stay where they are.  A block reads its row, issues its p, mu and
-//   nu loads, and reads its gradient's address from gptrs (a 1.2 KB array
-//   that stays in cache; gradients move every step, so they are not in the
-//   table).  Vector loads with this much in flight are the Hopper design for
-//   a pure stream; TMA bulk copies were not used: they would stage through
-//   shared memory what a register can hold, for no fewer bytes.
+//   block table of one 56-byte row per block -- the p, mu, nu and copy
+//   addresses at the block's first element, that element's index in its
+//   leaf, the leaf, the block's element count (<= kChunk), whether p and nu
+//   are 16-byte and mu and the copy 4-element aligned, and the leaf's number
+//   of bf16 gradient parts -- kept for as long as the parameters, moments and
+//   copies stay where they are.  A block reads its row, issues its p, mu and
+//   nu loads, and reads its gradients' addresses from gptrs (accum entries a
+//   leaf, a few KB that stay in cache; gradients move every step, so they are
+//   not in the table).  Vector loads with this much in flight are the Hopper
+//   design for a pure stream; TMA bulk copies were not used: they would stage
+//   through shared memory what a register can hold, for no fewer bytes.
 // A leaf of any size takes the same path: a chunk's last count % 4 elements
-// (the 71-wide head bias) go one per thread; a leaf whose p, mu or nu is not
-// aligned runs its chunks one element per thread, and a gradient that is not
-// 16-byte aligned is read one element at a time inside the vector path.
+// (the 71-wide head bias) go one per thread; a leaf whose p, mu, nu or copy
+// is not aligned runs its chunks one element per thread.  A gradient that is
+// not aligned is read one element at a time: in the update inside the
+// vector path; in the norm an f32 one over the whole chunk, one element per
+// thread, bf16 parts in the groups of aligned ones (same bits).  Gradients of
+// more than two parts (accum > 2) are read at the arithmetic, one element at
+// a time.  Each update block runs the code of its gradient's kind alone (a
+// template argument); a norm block whose rows all hold f32 gradients runs
+// the f32 code alone, and one of mixed rows branches on each row's kind.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,12 +108,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNormRows = 4;                    // block-table rows per norm block
 constexpr int kSumBatch = 8;                    // partials in flight per thread, last block
 
-// one row of the block table (six int64 in memory, 48 bytes)
+// one row of the block table (seven int64 in memory, 56 bytes)
 struct Block {
-  long long p, mu, nu;  // addresses of the block's first element
-  long long start;      // that element's index in its leaf
-  int leaf, count;      // the leaf (its gradient: gptrs[leaf]); elements, 0..kChunk
-  int vec, pad;         // 1: p, nu 16-byte aligned and mu 4-element aligned
+  long long p, mu, nu, copy;  // addresses of the block's first element (copy 0: none)
+  long long start;            // that element's index in its leaf
+  int leaf, count;            // the leaf (its gradients: gptrs[leaf * accum ...]);
+                              // elements, 0..kChunk
+  int vec, parts;             // vec 1: p, nu 16-byte aligned, mu and copy 4-element
+                              // aligned; parts 0: one f32 gradient, n: n bf16 ones
 };
 
 struct Consts {
@@ -190,37 +214,206 @@ template <> __device__ __forceinline__ __nv_bfloat16 mu_from<__nv_bfloat16>(floa
 }
 
 template <typename MuT>
-__device__ __forceinline__ void update_one(float* __restrict__ p, const float* __restrict__ g,
+__device__ __forceinline__ void update_one(float* __restrict__ p, float gi,
                                            MuT* __restrict__ mu, float* __restrict__ nu,
-                                           int e, const Step& s, const Consts& c) {
+                                           __nv_bfloat16* __restrict__ copy, int e,
+                                           const Step& s, const Consts& c) {
   float m, v, q;
-  adam(__ldcs(g + e), mu_f32(mu[e]), __ldcs(nu + e), __ldcs(p + e), s, c, m, v, q);
+  adam(gi, mu_f32(mu[e]), __ldcs(nu + e), __ldcs(p + e), s, c, m, v, q);
   mu[e] = mu_from<MuT>(m);
   __stcs(nu + e, v);
   __stcs(p + e, q);
+  if (copy) copy[e] = __float2bfloat16(q);
 }
 
-__device__ __forceinline__ float4 load_g4(const float* __restrict__ g, int q, bool g_vec) {
-  if (g_vec) return __ldcs(reinterpret_cast<const float4*>(g) + q);
-  return make_float4(__ldcs(g + 4 * q), __ldcs(g + 4 * q + 1), __ldcs(g + 4 * q + 2),
-                     __ldcs(g + 4 * q + 3));
+// ---- the gradient: g = (g_1 + ... + g_parts) / accum, element by element
+// (a leaf of one f32 gradient: g_1 alone).  The division is made from a
+// thread's Mean: inv = 1 / accum where accum is a power of two (the product
+// with it is the correctly rounded quotient), else 0 (a true division)
+struct Mean {
+  int accum;
+  float inv;
+};
+
+__device__ __forceinline__ Mean make_mean(int accum) {
+  return Mean{accum, (accum & (accum - 1)) == 0 ? __frcp_rn(static_cast<float>(accum)) : 0.f};
+}
+
+__device__ __forceinline__ float over_accum(float s, const Mean& m) {
+  if (m.accum == 1) return s;
+  if (m.inv != 0.f) return __fmul_rn(s, m.inv);
+  return __fdiv_rn(s, static_cast<float>(m.accum));
+}
+
+__device__ __forceinline__ float bf16_at(long long addr, long long i) {
+  return bf16_bits_to_f32(__ldcs(reinterpret_cast<const unsigned short*>(addr) + i));
+}
+
+// four bf16 values: one 8-byte load, or where unaligned one at a time
+__device__ __forceinline__ uint2 load_bf16x4(long long addr, bool vec, int q) {
+  const unsigned short* x = reinterpret_cast<const unsigned short*>(addr);
+  if (vec) return __ldcs(reinterpret_cast<const uint2*>(x) + q);
+  const unsigned int e0 = __ldcs(x + 4 * q), e1 = __ldcs(x + 4 * q + 1),
+                     e2 = __ldcs(x + 4 * q + 2), e3 = __ldcs(x + 4 * q + 3);
+  return make_uint2(e0 | (e1 << 16), e2 | (e3 << 16));
+}
+
+__device__ __forceinline__ void widen4(unsigned int lo, unsigned int hi, float (&out)[4]) {
+  out[0] = bf16_bits_to_f32(lo & 0xffffu); out[1] = bf16_bits_to_f32(lo >> 16);
+  out[2] = bf16_bits_to_f32(hi & 0xffffu); out[3] = bf16_bits_to_f32(hi >> 16);
+}
+
+// A leaf's gradient at a block's first element, as two words a0, a1: for
+// one f32 gradient or one or two bf16 parts, the first two parts'
+// addresses (a1 = a0 for one part); for more parts, the leaf's row of
+// gptrs and the block's first element in the leaf.  vec: an f32 gradient
+// 16-byte aligned, bf16 parts 8-byte aligned
+struct GradAt {
+  long long a0, a1;
+  bool vec;
+};
+
+__device__ __forceinline__ GradAt grad_at(const long long* __restrict__ gptrs, int leaf,
+                                          int accum, int parts, long long start) {
+  const long long* row = gptrs + static_cast<long long>(leaf) * accum;
+  if (parts > 2) return GradAt{reinterpret_cast<long long>(row), start, true};
+  const long long bytes = parts == 0 ? 4 : 2;
+  const long long a0 = row[0] + start * bytes, a1 = parts == 2 ? row[1] + start * bytes : a0;
+  return GradAt{a0, a1, (parts == 0 ? a0 & 15 : (a0 | a1) & 7) == 0};
+}
+
+// A gradient's kind: 0 one f32 tensor; 1 or 2 bf16 parts; -1 more parts.
+// load_group(at, kind, q) loads the bits of group q (elements 4q..4q+3 of
+// the block): an f32 gradient's four floats as one 16-byte load where it is
+// aligned, else one at a time; one or two bf16 parts' four values each (x, y;
+// z, w) as one 8-byte load each where aligned, else one at a time; more
+// parts nothing (they are read at group_mean).  group_mean makes the group's
+// mean gradient from those bits, elem_mean element e's, loading it.  A kernel
+// that passes a kind known at compile time runs that kind's code alone
+__device__ __forceinline__ uint4 load_group(const GradAt& at, int kind, int q) {
+  if (kind == 0) {
+    const float* x = reinterpret_cast<const float*>(at.a0);
+    const float4 v = at.vec ? __ldcs(reinterpret_cast<const float4*>(x) + q)
+                            : make_float4(__ldcs(x + 4 * q), __ldcs(x + 4 * q + 1),
+                                          __ldcs(x + 4 * q + 2), __ldcs(x + 4 * q + 3));
+    return make_uint4(__float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z),
+                      __float_as_uint(v.w));
+  }
+  if (kind == 1 || kind == 2) {
+    const uint2 v0 = load_bf16x4(at.a0, at.vec, q);
+    const uint2 v1 = kind == 2 ? load_bf16x4(at.a1, at.vec, q) : make_uint2(0u, 0u);
+    return make_uint4(v0.x, v0.y, v1.x, v1.y);
+  }
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+
+// element e's parts summed in microbatch order (more parts: parts of them)
+__device__ __forceinline__ float elem_sum(const GradAt& at, int kind, int parts, int e) {
+  if (kind == 0) return __ldcs(reinterpret_cast<const float*>(at.a0) + e);
+  if (kind == 1 || kind == 2) {
+    const float s = bf16_at(at.a0, e);
+    return kind == 2 ? __fadd_rn(s, bf16_at(at.a1, e)) : s;
+  }
+  const long long* row = reinterpret_cast<const long long*>(at.a0);
+  float s = bf16_at(row[0], at.a1 + e);
+  for (int k = 1; k < parts; ++k) s = __fadd_rn(s, bf16_at(row[k], at.a1 + e));
+  return s;
+}
+
+__device__ __forceinline__ float elem_mean(const GradAt& at, int kind, int parts, const Mean& m,
+                                           int e) {
+  return over_accum(elem_sum(at, kind, parts, e), m);
+}
+
+__device__ __forceinline__ void group_mean(uint4 r, const GradAt& at, int kind, int parts,
+                                           const Mean& m, int q, float (&out)[4]) {
+  if (kind == 0) {
+    out[0] = __uint_as_float(r.x); out[1] = __uint_as_float(r.y);
+    out[2] = __uint_as_float(r.z); out[3] = __uint_as_float(r.w);
+  } else if (kind == 1 || kind == 2) {
+    widen4(r.x, r.y, out);
+    if (kind == 2) {
+      float second[4];
+      widen4(r.z, r.w, second);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[j] = __fadd_rn(out[j], second[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = elem_sum(at, kind, parts, 4 * q + j);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = over_accum(out[j], m);
+}
+
+// kKind: the block's gradient kind (load_group), a compile-time constant
+template <typename MuT, int kKind>
+__device__ __forceinline__ void update_block(const Block& b, const long long* __restrict__ gptrs,
+                                             int accum, const Step& s, const Consts& c) {
+  float* __restrict__ p = reinterpret_cast<float*>(b.p);
+  MuT* __restrict__ mu = reinterpret_cast<MuT*>(b.mu);
+  float* __restrict__ nu = reinterpret_cast<float*>(b.nu);
+  __nv_bfloat16* __restrict__ copy = reinterpret_cast<__nv_bfloat16*>(b.copy);
+  const int count = b.count;
+  const int parts = b.parts;
+  const GradAt g = grad_at(gptrs, b.leaf, accum, kKind < 0 ? parts : kKind, b.start);
+  const Mean m = make_mean(accum);
+  if (!b.vec) {   // a leaf with an unaligned p, mu, nu or copy: one element per thread
+    for (int e = threadIdx.x; e < count; e += kThreads) {
+      update_one(p, elem_mean(g, kKind, parts, m, e), mu, nu, copy, e, s, c);
+    }
+    return;
+  }
+  const int n4 = count >> 2;   // whole groups of 4 in this block
+  float4 pv[kUnroll], vv[kUnroll];
+  uint4 gv[kUnroll];
+  typename Mu4<MuT>::V mv[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {   // every load first: p, mu, nu from the row,
+    const int q = u * kThreads + threadIdx.x;
+    if (q < n4) {
+      mv[u] = Mu4<MuT>::load(mu + 4 * q);
+      vv[u] = __ldcs(reinterpret_cast<const float4*>(nu) + q);
+      pv[u] = __ldcs(reinterpret_cast<const float4*>(p) + q);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {   // then g, once its addresses are in
+    const int q = u * kThreads + threadIdx.x;
+    if (q < n4) gv[u] = load_group(g, kKind, q);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int q = u * kThreads + threadIdx.x;
+    if (q < n4) {
+      float gi[4];
+      group_mean(gv[u], g, kKind, parts, m, q, gi);
+      const float vi[4] = {vv[u].x, vv[u].y, vv[u].z, vv[u].w};
+      const float pi[4] = {pv[u].x, pv[u].y, pv[u].z, pv[u].w};
+      float mi[4], mo[4], vo[4], po[4];
+      Mu4<MuT>::get(mv[u], mi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) adam(gi[j], mi[j], vi[j], pi[j], s, c, mo[j], vo[j], po[j]);
+      Mu4<MuT>::store(mu + 4 * q, mo);
+      __stcs(reinterpret_cast<float4*>(nu) + q, make_float4(vo[0], vo[1], vo[2], vo[3]));
+      __stcs(reinterpret_cast<float4*>(p) + q, make_float4(po[0], po[1], po[2], po[3]));
+      if (copy) Mu4<__nv_bfloat16>::store(copy + 4 * q, po);
+    }
+  }
+  const int e = 4 * n4 + threadIdx.x;   // the last count % 4 elements
+  if (e < count) update_one(p, elem_mean(g, kKind, parts, m, e), mu, nu, copy, e, s, c);
 }
 
 // sum: null to read the scale and finite flag from scalars[0] and [4];
 // else the mesh-wide f64 sum of squares, from which every block takes them
-// (and block 0 writes t's norm and counter; scalars are then only read)
+// (and block 0 writes t's norm and counter; scalars are then only read).
+// Each block runs its gradient kind's update_block
 template <typename MuT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 adamw_update_kernel(const Block* __restrict__ blocks, const long long* __restrict__ gptrs,
-                    const float* __restrict__ scalars, Consts c,
+                    int accum, const float* __restrict__ scalars, Consts c,
                     const double* __restrict__ sum, Tail t) {
   const Block b = blocks[blockIdx.x];
-  float* __restrict__ p = reinterpret_cast<float*>(b.p);
-  MuT* __restrict__ mu = reinterpret_cast<MuT*>(b.mu);
-  float* __restrict__ nu = reinterpret_cast<float*>(b.nu);
-  const long long g_addr = gptrs[b.leaf];
-  const float* __restrict__ g = reinterpret_cast<const float*>(g_addr) + b.start;
-  const int count = b.count;
   Step s;
   if (sum) {
     const float norm = static_cast<float>(sqrt(*sum));
@@ -234,46 +427,12 @@ adamw_update_kernel(const Block* __restrict__ blocks, const long long* __restric
   } else {
     s = load_step(scalars);
   }
-  if (!b.vec) {   // a leaf with an unaligned p, mu or nu: one element per thread
-    for (int e = threadIdx.x; e < count; e += kThreads) update_one(p, g, mu, nu, e, s, c);
-    return;
+  switch (b.parts) {
+    case 0: update_block<MuT, 0>(b, gptrs, accum, s, c); break;
+    case 1: update_block<MuT, 1>(b, gptrs, accum, s, c); break;
+    case 2: update_block<MuT, 2>(b, gptrs, accum, s, c); break;
+    default: update_block<MuT, -1>(b, gptrs, accum, s, c);
   }
-  const int n4 = count >> 2;   // whole groups of 4 in this block
-  float4 gv[kUnroll], pv[kUnroll], vv[kUnroll];
-  typename Mu4<MuT>::V mv[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {   // every load first: p, mu, nu from the row,
-    const int q = u * kThreads + threadIdx.x;
-    if (q < n4) {
-      mv[u] = Mu4<MuT>::load(mu + 4 * q);
-      vv[u] = __ldcs(reinterpret_cast<const float4*>(nu) + q);
-      pv[u] = __ldcs(reinterpret_cast<const float4*>(p) + q);
-    }
-  }
-  const bool g_vec = (g_addr & 15) == 0;   // then g, once its address is in
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int q = u * kThreads + threadIdx.x;
-    if (q < n4) gv[u] = load_g4(g, q, g_vec);
-  }
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int q = u * kThreads + threadIdx.x;
-    if (q < n4) {
-      const float gi[4] = {gv[u].x, gv[u].y, gv[u].z, gv[u].w};
-      const float vi[4] = {vv[u].x, vv[u].y, vv[u].z, vv[u].w};
-      const float pi[4] = {pv[u].x, pv[u].y, pv[u].z, pv[u].w};
-      float mi[4], mo[4], vo[4], po[4];
-      Mu4<MuT>::get(mv[u], mi);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) adam(gi[j], mi[j], vi[j], pi[j], s, c, mo[j], vo[j], po[j]);
-      Mu4<MuT>::store(mu + 4 * q, mo);
-      __stcs(reinterpret_cast<float4*>(nu) + q, make_float4(vo[0], vo[1], vo[2], vo[3]));
-      __stcs(reinterpret_cast<float4*>(p) + q, make_float4(po[0], po[1], po[2], po[3]));
-    }
-  }
-  const int e = 4 * n4 + threadIdx.x;   // the last count % 4 elements
-  if (e < count) update_one(p, g, mu, nu, e, s, c);
 }
 
 // sum over the block in a fixed order: a butterfly within each warp (every
@@ -313,91 +472,109 @@ __device__ __forceinline__ void finish(float norm, const Tail& t) {
   if (t.count_out) *t.count_out = *t.count_in + (isfinite(norm) ? 0 : 1);
 }
 
+// acc plus the squares of a row's elements past its groups, in order: its
+// last count % 4 elements, one per thread, or all of a row whose f32
+// gradient is not 16-byte aligned (it has no groups), one element per thread
+__device__ __forceinline__ double tail_sq(double acc, const GradAt& at, int kind, int parts,
+                                          int count, const Mean& m) {
+  if (kind == 0 && !at.vec) {
+    for (int e = threadIdx.x; e < count; e += kThreads) {
+      acc = __dadd_rn(acc, sq(elem_mean(at, kind, parts, m, e)));
+    }
+    return acc;
+  }
+  const int e = 4 * (count >> 2) + threadIdx.x;
+  return e < count ? __dadd_rn(acc, sq(elem_mean(at, kind, parts, m, e))) : acc;
+}
+
+// The squares of kNormRows block-table rows' mean gradients, summed in f64
+// in a fixed order: every row's group loads first, so that no row's loads
+// wait on another's; then the groups' squares in row order; then each row's
+// last count % 4 elements, or all of a row whose f32 g is not 16-byte
+// aligned, one element per thread (kWeighted: a row's groups and its last
+// elements, times its leaf's weight, row after row).  kF32: every row holds
+// one f32 gradient, so the kind is known at compile time
+template <bool kWeighted, bool kF32>
+__device__ __forceinline__ double norm_rows(const GradAt (&at)[kNormRows],
+                                            const int (&count)[kNormRows],
+                                            const int (&parts)[kNormRows],
+                                            const double (&w)[kNormRows], const Mean& m) {
+  uint4 gv[kNormRows][kUnroll];
+  int kind[kNormRows], n4[kNormRows];
+#pragma unroll
+  for (int r = 0; r < kNormRows; ++r) {
+    kind[r] = kF32 ? 0 : parts[r] <= 2 ? parts[r] : -1;
+    n4[r] = kind[r] == 0 && !at[r].vec ? 0 : count[r] >> 2;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = u * kThreads + threadIdx.x;
+      gv[r][u] = q < n4[r] ? load_group(at[r], kind[r], q) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  double acc = 0.0;
+#pragma unroll
+  for (int r = 0; r < kNormRows; ++r) {
+    double row_acc = 0.0;
+    double& into = kWeighted ? row_acc : acc;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = u * kThreads + threadIdx.x;
+      if (q < n4[r]) {
+        float gi[4];
+        group_mean(gv[r][u], at[r], kind[r], parts[r], m, q, gi);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) into = __dadd_rn(into, sq(gi[j]));
+      }
+    }
+    if (kWeighted) {
+      row_acc = tail_sq(row_acc, at[r], kind[r], parts[r], count[r], m);
+      acc = __dadd_rn(acc, __dmul_rn(w[r], row_acc));
+    }
+  }
+  if (!kWeighted) {
+#pragma unroll
+    for (int r = 0; r < kNormRows; ++r) acc = tail_sq(acc, at[r], kind[r], parts[r], count[r], m);
+  }
+  return acc;
+}
+
 // kWeighted: each row's squares times leaf_weight[its leaf], and the last
 // block writes the total to sum_out instead of finishing
 template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 adamw_norm_kernel(const Block* __restrict__ blocks, const long long* __restrict__ gptrs,
-                  int n_rows, double* __restrict__ partials, unsigned int* __restrict__ ticket,
-                  Tail t, const double* __restrict__ leaf_weight, double* __restrict__ sum_out) {
+                  int accum, int n_rows, double* __restrict__ partials,
+                  unsigned int* __restrict__ ticket, Tail t,
+                  const double* __restrict__ leaf_weight, double* __restrict__ sum_out) {
   __shared__ double warp_sums[kWarps];
   __shared__ bool last;
-  // kNormRows rows of the block table: every row's vector loads first, then
-  // the squares in row order; then each row's last count % 4 elements, or
-  // all of a row whose g is not 16-byte aligned, one element per thread
-  float4 gv[kNormRows][kUnroll];
-  const float* g[kNormRows];
-  int count[kNormRows];
-  bool vec[kNormRows];
+  // kNormRows rows of the block table: the rows' entries, then their
+  // gradients' addresses, then their squares (norm_rows; the f32 code alone
+  // where every row holds one f32 gradient)
+  GradAt at[kNormRows];
+  long long start[kNormRows];
   double w[kNormRows];
+  int count[kNormRows], parts[kNormRows], leaf[kNormRows];
+  bool f32 = true;
 #pragma unroll
   for (int r = 0; r < kNormRows; ++r) {
     const int row = blockIdx.x * kNormRows + r;
-    g[r] = nullptr;
-    count[r] = 0;
-    vec[r] = true;
-    w[r] = 0.0;
-    if (row < n_rows) {
-      const Block b = blocks[row];
-      const long long g_addr = gptrs[b.leaf];
-      g[r] = reinterpret_cast<const float*>(g_addr) + b.start;
-      count[r] = b.count;
-      vec[r] = (g_addr & 15) == 0;
-      if (kWeighted) w[r] = leaf_weight[b.leaf];
-    }
-    const int n4 = vec[r] ? count[r] >> 2 : 0;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int q = u * kThreads + threadIdx.x;
-      gv[r][u] = q < n4 ? __ldcs(reinterpret_cast<const float4*>(g[r]) + q)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    const bool in = row < n_rows;
+    const Block* b = blocks + (in ? row : 0);
+    leaf[r] = b->leaf;
+    count[r] = in ? b->count : 0;
+    parts[r] = in ? b->parts : 0;
+    start[r] = b->start;
+    f32 = f32 && parts[r] == 0;
   }
-  double acc = 0.0;
-  if constexpr (!kWeighted) {
 #pragma unroll
-    for (int r = 0; r < kNormRows; ++r) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        acc = __dadd_rn(acc, sq(gv[r][u].x));
-        acc = __dadd_rn(acc, sq(gv[r][u].y));
-        acc = __dadd_rn(acc, sq(gv[r][u].z));
-        acc = __dadd_rn(acc, sq(gv[r][u].w));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kNormRows; ++r) {
-      if (vec[r]) {
-        const int e = 4 * (count[r] >> 2) + threadIdx.x;
-        if (e < count[r]) acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
-      } else {
-        for (int e = threadIdx.x; e < count[r]; e += kThreads) {
-          acc = __dadd_rn(acc, sq(__ldcs(g[r] + e)));
-        }
-      }
-    }
-  } else {   // a row's squares, then times its leaf's weight
-#pragma unroll
-    for (int r = 0; r < kNormRows; ++r) {
-      double row_acc = 0.0;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        row_acc = __dadd_rn(row_acc, sq(gv[r][u].x));
-        row_acc = __dadd_rn(row_acc, sq(gv[r][u].y));
-        row_acc = __dadd_rn(row_acc, sq(gv[r][u].z));
-        row_acc = __dadd_rn(row_acc, sq(gv[r][u].w));
-      }
-      if (vec[r]) {
-        const int e = 4 * (count[r] >> 2) + threadIdx.x;
-        if (e < count[r]) row_acc = __dadd_rn(row_acc, sq(__ldcs(g[r] + e)));
-      } else {
-        for (int e = threadIdx.x; e < count[r]; e += kThreads) {
-          row_acc = __dadd_rn(row_acc, sq(__ldcs(g[r] + e)));
-        }
-      }
-      acc = __dadd_rn(acc, __dmul_rn(w[r], row_acc));
-    }
+  for (int r = 0; r < kNormRows; ++r) {
+    at[r] = grad_at(gptrs, leaf[r], accum, parts[r], start[r]);
+    w[r] = kWeighted ? leaf_weight[leaf[r]] : 0.0;
   }
+  const Mean m = make_mean(accum);
+  double acc = f32 ? norm_rows<kWeighted, true>(at, count, parts, w, m)
+                   : norm_rows<kWeighted, false>(at, count, parts, w, m);
   acc = block_sum(acc, warp_sums);
   const int n_parts = gridDim.x;
   if (threadIdx.x == 0) {
@@ -444,8 +621,10 @@ extern "C" int adamw_chunk_elems() { return kChunk; }
 // and as many partials.
 extern "C" int adamw_norm_rows() { return kNormRows; }
 
-// Launch 1.  blocks: (n_rows, 6) int64 on the device, the rows of Block;
-// gptrs: the address of every leaf's gradient, int64 on the device;
+// Launch 1.  blocks: (n_rows, 7) int64 on the device, the rows of Block;
+// gptrs: accum int64 a leaf on the device, the addresses of its gradients
+// (a leaf of one f32 gradient: the first, the rest unread); accum >= 1: the
+// number of microbatches, the divisor of every leaf's gradient sum;
 // partials: ceil(n_rows / kNormRows) f64 of scratch; ticket: one u32, 0
 // between launches.
 // given_norm: null to take the norm of every block's g, else one f32 on the
@@ -455,7 +634,8 @@ extern "C" int adamw_norm_rows() { return kNormRows; }
 // and count_out (int32) may be null.  leaf_weight: null, or one f64 per leaf
 // on the device; then the weighted sum of squares goes to sum_out (one f64
 // on the device) and nothing else is written.  Returns cudaGetLastError().
-extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, void* partials,
+extern "C" int adamw_norm(const void* blocks, const void* gptrs, int accum, int n_rows,
+                          void* partials,
                           void* ticket, const void* given_norm, float clip, int has_clip,
                           int zero_nonfinite, void* scalars, const void* lr_bc,
                           void* norm_out, const void* count_in, void* count_out,
@@ -467,7 +647,7 @@ extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, voi
   if (given_norm) {
     adamw_scalars_kernel<<<1, 1, 0, s>>>(static_cast<const float*>(given_norm), t);
   } else {
-    if (n_rows < 1 || (leaf_weight != nullptr) != (sum_out != nullptr)) {
+    if (n_rows < 1 || accum < 1 || (leaf_weight != nullptr) != (sum_out != nullptr)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const auto* bl = static_cast<const Block*>(blocks);
@@ -477,17 +657,17 @@ extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, voi
     const int grid = (n_rows + kNormRows - 1) / kNormRows;
     if (leaf_weight) {
       adamw_norm_kernel<true><<<grid, kThreads, 0, s>>>(
-          bl, gp, n_rows, parts, tk, t, static_cast<const double*>(leaf_weight),
+          bl, gp, accum, n_rows, parts, tk, t, static_cast<const double*>(leaf_weight),
           static_cast<double*>(sum_out));
     } else {
-      adamw_norm_kernel<false><<<grid, kThreads, 0, s>>>(bl, gp, n_rows, parts, tk, t,
+      adamw_norm_kernel<false><<<grid, kThreads, 0, s>>>(bl, gp, accum, n_rows, parts, tk, t,
                                                          nullptr, nullptr);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 2.  blocks and gptrs as above; scalars: 5 f32 on the device
+// Launch 2.  blocks, gptrs and accum as above; scalars: 5 f32 on the device
 // [scale, lr, bc1, bc2, finite].  mu_bf16 says whether every mu is bf16 (1)
 // or f32 (0).  one_minus_b1/b2 are 1 - b1 and 1 - b2 as the caller rounds
 // them.  sum: null, or the mesh-wide f64 sum of squares (launch 1 with leaf
@@ -495,12 +675,12 @@ extern "C" int adamw_norm(const void* blocks, const void* gptrs, int n_rows, voi
 // it with clip, has_clip and zero_nonfinite, and block 0 writes norm_out and
 // count_out (each may be null; count_in with count_out).  Returns
 // cudaGetLastError().
-extern "C" int adamw_update(const void* blocks, const void* gptrs, int n_blocks,
+extern "C" int adamw_update(const void* blocks, const void* gptrs, int accum, int n_blocks,
                             const void* scalars, int mu_bf16, float b1, float one_minus_b1,
                             float b2, float one_minus_b2, float eps, float wd, const void* sum,
                             float clip, int has_clip, int zero_nonfinite, void* norm_out,
                             const void* count_in, void* count_out, void* stream) {
-  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks < 1 || accum < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Consts c{b1, one_minus_b1, b2, one_minus_b2, eps, wd};
   const Tail t{clip, has_clip, zero_nonfinite, nullptr, nullptr, static_cast<float*>(norm_out),
                static_cast<const int*>(count_in), static_cast<int*>(count_out)};
@@ -510,9 +690,10 @@ extern "C" int adamw_update(const void* blocks, const void* gptrs, int n_blocks,
   const auto* sc = static_cast<const float*>(scalars);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mu_bf16) {
-    adamw_update_kernel<__nv_bfloat16><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c, su, t);
+    adamw_update_kernel<__nv_bfloat16><<<n_blocks, kThreads, 0, s>>>(bl, gp, accum, sc, c, su,
+                                                                     t);
   } else {
-    adamw_update_kernel<float><<<n_blocks, kThreads, 0, s>>>(bl, gp, sc, c, su, t);
+    adamw_update_kernel<float><<<n_blocks, kThreads, 0, s>>>(bl, gp, accum, sc, c, su, t);
   }
   return static_cast<int>(cudaGetLastError());
 }

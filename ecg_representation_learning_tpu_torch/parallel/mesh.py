@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import re
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -492,34 +492,54 @@ class ShardedModel:
         if self.fsdp:
             self.model.reshard()
 
-    def sync_grads(self) -> None:
-        """After the last backward: average the FSDP-ignored leaves'
-        gradients over 'data' (DDP and FSDP2 did the rest); in a
-        ``taped_step``, every gradient, as DDP would (each scaled by 1 /
-        n_data, then summed), in one all-reduce of one flat buffer, between
-        the region marks of 'allreduce' (``utils.tracing``).  No host read,
-        so a CUDA graph captures it."""
+    def sync_grads(self, grads: Dict[str, Any]) -> Dict[str, Any]:
+        """After the last backward, with each leaf's gradient of the step
+        (``train.loop.grad_accum``'s: an f32 sum, or a tuple of the compute
+        copy's bf16 microbatch gradients): the local gradients, averaged
+        over 'data'.  Out of a ``taped_step``, DDP and FSDP2 did that for
+        every leaf but the FSDP-ignored ones, averaged here, and the
+        gradients are the parameters'.  In a ``taped_step``, every gradient
+        as DDP would (each scaled by 1 / n_data, then summed), in one
+        all-reduce of one flat f32 buffer -- a tuple's parts cast into it as
+        the buffer is made (their f32 sum first when there are several) --
+        between the region marks of 'allreduce' (``utils.tracing``); the
+        gradients returned are views of the buffer, with no copy back, each
+        leaf's segment padded to a multiple of 4 elements so that every view
+        is 16-byte aligned (kernel #5's vector loads).  No host read, so a
+        CUDA graph captures it."""
         if self.taped:
             if self.n_data == 1:
-                return
+                return grads
             from ..utils import tracing
-            grads = [p.grad for p in self.params().values()]
-            flat = torch.cat([g.reshape(-1) for g in grads]).mul_(1.0 / self.n_data)
+            sums, pieces = {}, []
+            for name, g in grads.items():
+                if not isinstance(g, torch.Tensor):
+                    s = g[0] if len(g) == 1 else g[0].float()
+                    for part in g[1:]:
+                        s = s + part.float()
+                    g = s
+                sums[name] = g
+                pieces.append(g.reshape(-1))
+                if g.numel() % 4:
+                    pieces.append(torch.zeros(4 - g.numel() % 4, device=g.device))
+            flat = torch.cat(pieces).mul_(1.0 / self.n_data)
             tracing.region(None)
             dist.all_reduce(flat, group=self.mesh.group(DATA_AXIS))
             tracing.region('allreduce')
-            torch._foreach_copy_(grads, [v.view_as(g) for v, g in
-                                         zip(flat.split([g.numel() for g in grads]), grads)])
-            return
-        if not self.ignored or self.n_data == 1:
-            return
-        group = self.mesh.group(DATA_AXIS)
-        params = self.params()
-        for name in self.names:
-            if name in self.ignored:
-                g = params[name].grad
-                dist.all_reduce(g, group=group)
-                g.div_(self.n_data)
+            out, at = {}, 0
+            for name, g in sums.items():
+                out[name] = flat[at:at + g.numel()].view(g.shape)
+                at += -(-g.numel() // 4) * 4
+            return out
+        if self.ignored and self.n_data > 1:
+            group = self.mesh.group(DATA_AXIS)
+            params = self.params()
+            for name in self.names:
+                if name in self.ignored:
+                    g = params[name].grad
+                    dist.all_reduce(g, group=group)
+                    g.div_(self.n_data)
+        return self.grads()
 
     def norm_weights(self) -> List[float]:
         """Per leaf (in ``names`` order), 1 / its number of identical copies

@@ -344,13 +344,14 @@ def design_rows(out: List[dict]) -> None:
                             device='cuda')
         ticket = torch.zeros(1, dtype=torch.int32, device='cuda')
         update = (lambda lib=lib, blocks=blocks, n=len(rows): lib.launch(
-            'adamw_update', None, dev, (blocks.data_ptr(), gptrs.data_ptr(), n,
+            'adamw_update', None, dev, (blocks.data_ptr(), gptrs.data_ptr(), 1, n,
                                         scalars.data_ptr(), 0, b1, 1.0 - b1, b2, 1.0 - b2,
                                         HYPER['eps'], HYPER['wd'], None, 0.0, 0, 0, None, None,
                                         None)))
         norm = (lambda lib=lib, blocks=blocks, n=len(rows), parts=parts, ticket=ticket:
                 lib.launch('adamw_norm', None, dev, (
-                    blocks.data_ptr(), gptrs.data_ptr(), n, parts.data_ptr(), ticket.data_ptr(),
+                    blocks.data_ptr(), gptrs.data_ptr(), 1, n, parts.data_ptr(),
+                    ticket.data_ptr(),
                     None, 1.0, 1, 1, ws.data_ptr(), None, ws[5:].data_ptr(), None, None, None,
                     None)))
         calls[name] = (update, norm, blocks, parts, ticket)

@@ -88,7 +88,8 @@ class FusedAdamW:
     def step(self, grads: Dict[str, torch.Tensor], state: FusedAdamWState,
              params: Dict[str, torch.Tensor], nonfinite_count: Optional[torch.Tensor] = None,
              g_norm: Optional[torch.Tensor] = None, reduce: Optional[NormReduce] = None,
-             lr_bc: Optional[torch.Tensor] = None
+             lr_bc: Optional[torch.Tensor] = None, accum: int = 1,
+             copies: Optional[Dict[str, torch.Tensor]] = None
              ) -> Tuple[FusedAdamWState, torch.Tensor, Optional[torch.Tensor]]:
         """One step from the gradients: updates ``params`` and the moments in
         place and returns ``(state with its count advanced, grad_norm,
@@ -96,7 +97,11 @@ class FusedAdamW:
         when the caller has it already; ``reduce`` (on a mesh, with the
         leaves in ``params``' order) makes the norm the mesh-wide one;
         ``lr_bc``, 3 f32 on the device, replaces ``self.lr_bc(state.count)``
-        (a step tape's row, which holds those values)."""
+        (a step tape's row, which holds those values).  ``grads`` and
+        ``accum``: each leaf's mean gradient, an f32 sum or a tuple of bf16
+        microbatch gradients over ``accum``; ``copies``: the bf16 compute
+        copies to write from the updated parameters, by name
+        (``ops/adamw.py``)."""
         names = list(params)
         grad_norm, nonfinite_count = self.tail(
             [params[k] for k in names], [grads[k] for k in names],
@@ -104,7 +109,8 @@ class FusedAdamW:
             self.lr_bc(state.count) if lr_bc is None else lr_bc, nonfinite_count,
             clip_norm=self.clip_norm,
             zero_nonfinite=self.zero_nonfinite, b1=self.b1, b2=self.b2, eps=self.eps,
-            wd=self.weight_decay, g_norm=g_norm,
+            wd=self.weight_decay, g_norm=g_norm, accum=accum,
+            copies=None if copies is None else [copies.get(k) for k in names],
             **({} if reduce is None else {'reduce': reduce}))
         return dataclasses.replace(state, count=state.count + 1), grad_norm, nonfinite_count
 

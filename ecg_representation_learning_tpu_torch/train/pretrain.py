@@ -107,7 +107,8 @@ class MaeTrainer(TrainerBase):
         self.model.train()
         with self._spmd():
             aux, grads = grad_accum(lambda idx_k: self._micro_loss(sigs.index_select(0, idx_k)),
-                                    self.params(), idx, accum, self.sharded)
+                                    self.params(), idx, accum, self.sharded,
+                                    copies=self._reading_copies())
         self.model.eval()
         metrics = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
         lr = self.optimizer.lr_at(self.step)
@@ -190,7 +191,8 @@ class MaeTrainer(TrainerBase):
             self.model.train()
             with self._spmd():
                 aux, grads = grad_accum(lambda _: self._micro_loss(sig, prep), self.params(),
-                                        torch.zeros(1), 1, self.sharded)
+                                        torch.zeros(1), 1, self.sharded,
+                                        copies=self._reading_copies())
             self.model.eval()
             grad_norm = self._update(grads)
             return {**aux[0], 'grad_norm': grad_norm}

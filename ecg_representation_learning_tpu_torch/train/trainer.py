@@ -2,9 +2,11 @@
 
   * one train step: gather the minibatch rows from the device-resident
     split by index -> normalize + pad (+ TimeOut) -> forward with dropout ->
-    BCE -> backward (microbatches summed for ``grad_accum``) -> global norm
-    and the device-side non-finite counter -> the fused AdamW kernel -> the
-    parameter EMA.  No step waits for the device unless a metric is logged;
+    BCE -> backward (microbatches collected for ``grad_accum``) -> global
+    norm and the device-side non-finite counter -> the fused AdamW kernel,
+    which also averages the microbatches and writes the bf16 compute copies
+    the next forward reads (``loop.ComputeCopies``) -> the parameter EMA.
+    No step waits for the device unless a metric is logged;
   * host shuffling with ``np.random.default_rng(cfg.seed)``, the same batch
     order as JAX, and the last partial batch dropped;
   * ``cfg.steps_per_dispatch`` K > 1 or ``cfg.epoch_scan``: K steps, or a
@@ -77,9 +79,9 @@ from ..runtime import default_device
 from ..utils import tracing
 from ..utils.logging import TbWriter, get_logger, pretty_log_dict
 from .checkpoint import wait_for_checkpoints
-from .loop import finish_update, grad_accum
+from .loop import ComputeCopies, StepGrads, count_param_casts, finish_update, grad_accum
 from .metrics import binary_stats, classification_report, multilabel_auroc, per_class_recall
-from .optim import FusedAdamWState, make_optimizer
+from .optim import FusedAdamW, FusedAdamWState, make_optimizer
 
 
 # TrainConfig.resident_dtype -> the storage dtype of a resident split's signals
@@ -232,6 +234,7 @@ class TrainerBase:
 
         self.initialized = False
         self.opt_state: Optional[FusedAdamWState] = None
+        self._copies: Optional[ComputeCopies] = None   # set with the optimizer state
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         self.rng: Optional[DropoutRng] = None
         self.step = 0         # optimizer steps taken, on the host
@@ -255,6 +258,7 @@ class TrainerBase:
             self._full_model = copy.deepcopy(model).to('meta')
             self.sharded = shard_params(self.model, self.mesh, train_cfg.fsdp)
             self._norm_reduce = NormReduce(self.sharded.norm_weights())
+        count_param_casts(self.model)
 
     # ------------------------------------------------------------------ setup
     def params(self) -> Dict[str, torch.nn.Parameter]:
@@ -328,6 +332,30 @@ class TrainerBase:
         self.opt_state = self.optimizer.init(params)
         self.ema = ({k: p.clone() for k, p in params.items()}
                     if self.cfg.ema_decay > 0 else None)
+        self._copies = self._compute_copies()
+
+    def _compute_copies(self) -> Optional[ComputeCopies]:
+        """The compute copies of the cast leaves (``loop.ComputeCopies``),
+        written from the parameters as they are now, where ``FusedAdamW``
+        updates the leaves and no DDP or FSDP2 hook needs their f32
+        gradients: on one device, and on a mesh of 'data' alone, whose tape
+        steps average the gradients themselves; else None."""
+        if (not isinstance(self.optimizer, FusedAdamW)
+                or (self.sharded is not None and not self.sharded.flat_sync)):
+            return None
+        if self._copies is None:
+            copies = ComputeCopies(self.model)
+            return copies if copies.copies else None
+        self._copies.write()
+        return self._copies
+
+    def _reading_copies(self) -> Optional[ComputeCopies]:
+        """The compute copies a training step's forwards read: this
+        trainer's, except on a mesh outside a tape step, where DDP syncs the
+        f32 parameters' gradients."""
+        if self.sharded is not None and not self.sharded.taped:
+            return None
+        return self._copies
 
     def init_state(self, seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Seeded init (``flax_init_``); resets the optimizer state, the EMA,
@@ -421,18 +449,19 @@ class TrainerBase:
             return x[torch.as_tensor(take, device=x.device)].to(self.device, torch.float32)
         return self._to_device(np.asarray(x[take], np.float32))
 
-    def _update(self, grads: Dict[str, torch.Tensor],
-                scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The update tail of a step (``loop.finish_update``) on the
-        accumulated ``grads``; returns the gradient norm.  The parameters go
-        in as they are: every in-place write of the tail runs under
-        ``no_grad`` or in the kernels.  ``scalars``: a step tape's [lr, bc1,
-        bc2, -lr] on the device."""
+    def _update(self, grads: StepGrads, scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The update tail of a step (``loop.finish_update``) on its
+        ``grads`` (``loop.grad_accum``'s), the compute copies written with
+        the parameters; returns the gradient norm.  The parameters go in as
+        they are: every in-place write of the tail runs under ``no_grad`` or
+        in the kernels.  ``scalars``: a step tape's [lr, bc1, bc2, -lr] on
+        the device."""
         with tracing.span('step.update'):
             self.opt_state, grad_norm, self._nonfinite = finish_update(
                 self.optimizer, self.cfg, self.opt_state, self._leaves(), grads,
                 self._nonfinite, self.ema,
-                reduce=None if self.sharded is None else self._norm_reduce, scalars=scalars)
+                reduce=None if self.sharded is None else self._norm_reduce, scalars=scalars,
+                copies=self._copies)
             for p in self.params().values():
                 p.grad = None
             for layer in self._routed:
@@ -752,7 +781,8 @@ class Trainer(TrainerBase):
                     self._objective(out.loss, out.aux_loss))
 
         with self._spmd(), tracing.regions(marks):
-            aux, grads = grad_accum(micro, params, idx, accum, self.sharded, marks)
+            aux, grads = grad_accum(micro, params, idx, accum, self.sharded, marks,
+                                    self._reading_copies())
         self.model.eval()
         grad_norm = self._update(grads, scalars)
         marks.mark('update')

@@ -7,18 +7,20 @@ after the CUDA source, against the plain version (``adamw_update_reference``,
 The kernels run only on the GPU; this model pins their work plan on the CPU.
 The leaves live in one byte-addressed memory at the addresses a device would
 give them; the port's own ``block_table`` (the host half of the kernels)
-cuts the parameters and moments into rows of kChunk elements (the
-gradients' addresses come per step, one per leaf), and the model walks those
-rows as the kernels do: the vector path (each thread's kUnroll groups of
-four elements, every load before any store), the scalar tail of count % 4
-elements per block, the one-element-per-thread path of a leaf whose p, mu or
-nu is not aligned, a gradient read a float at a time when it is not; the
-norm's f64 partial per block of kNormRows rows (each thread's additions in
-the kernel's order, the butterfly within warps, the warps' sums), the last
-block found by a ticket that sums the partials in index order and leaves
-the ticket at 0; and the scalars and counter written from the norm.  Leaves of
-1, 3 and 71 elements, exactly one block, one block plus one, and views at a
-16-byte and at a 4-byte offset into a larger buffer.
+cuts the parameters, moments and compute copies into rows of kChunk elements
+(the gradients' addresses come per step, accum per leaf), and the model
+walks those rows as the kernels do: the vector path (each thread's kUnroll
+groups of four elements, every load before any store), the scalar tail of
+count % 4 elements per block, the one-element-per-thread path of a leaf
+whose p, mu, nu or copy is not aligned, a gradient read an element at a
+time when it is not; each leaf's mean gradient -- one f32 gradient, or 1, 2
+or 3 bf16 parts widened and added in order -- over accum; the copy written
+from the updated p; the norm's f64 partial per block of kNormRows rows (each
+thread's additions in the kernel's order, the butterfly within warps, the
+warps' sums), the last block found by a ticket that sums the partials in
+index order and leaves the ticket at 0; and the scalars and counter written
+from the norm.  Leaves of 1, 3 and 71 elements, exactly one block, one block
+plus one, and views at a 16-byte and at a 4-byte offset into a larger buffer.
 
 Tolerances: the update bit for bit against the plain version (the kernel
 repeats its IEEE operations in order); against JAX, tests/test_torch_optim.py's
@@ -60,6 +62,9 @@ STEPS = {'plain': (1.0, 3e-4, 0.1, 0.001, 1.0), 'clip': (0.37, 1e-3, 0.19, 0.002
 # leaf sizes: 1, 3, the 71-wide head bias, one block, one block + 1, a ragged
 # multi-block leaf
 SIZES = [1, 3, 71, CHUNK, CHUNK + 1, 3 * CHUNK + 770]
+# a step's gradients: (bf16 parts a leaf, 0 for one f32 gradient; accum)
+GRADS = {'f32': (0, 1), 'f32_accum2': (0, 2), 'bf16_accum1': (1, 1), 'bf16_accum2': (2, 2),
+         'bf16_accum3': (3, 3)}
 
 
 def _source() -> str:
@@ -74,15 +79,15 @@ def test_model_constants_are_the_sources(name, value):
 
 def test_chunk_and_row_layout_are_the_sources():
     """kChunk from the constants; a block-table row is the Block struct:
-    p, mu, nu, start as int64, then leaf and count, vec and pad as int32
-    pairs, which block_table packs low half first."""
+    p, mu, nu, copy, start as int64, then leaf and count, vec and parts as
+    int32 pairs, which block_table packs low half first."""
     src = _source()
     assert 'constexpr int kChunk = kThreads * 4 * kUnroll;' in src
     fields = re.search(r'struct Block \{(.*?)\};', src, re.S).group(1)
     assert re.findall(r'(long long|int) ([\w, ]+);', fields) == [
-        ('long long', 'p, mu, nu'), ('long long', 'start'), ('int', 'leaf, count'),
-        ('int', 'vec, pad')]
-    assert adamw._BLOCK_COLS == 6
+        ('long long', 'p, mu, nu, copy'), ('long long', 'start'), ('int', 'leaf, count'),
+        ('int', 'vec, parts')]
+    assert adamw._BLOCK_COLS == 7
 
 
 # --- memory ---------------------------------------------------------------
@@ -124,9 +129,11 @@ def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(F32)
 
 
-def make_leaves(rng, sizes, mu_dtype, nan_at=None):
+def make_leaves(rng, sizes, mu_dtype, nan_at=None, parts=0):
     """Numpy p, g, mu, nu per leaf (mu as f32 values that are exact in
-    ``mu_dtype``), and ``nan_at`` = (leaf, element) set to NaN in g."""
+    ``mu_dtype``), and ``nan_at`` = (leaf, element) set to NaN in g.  With
+    ``parts`` n > 0 every leaf's gradient is also n bf16 parts
+    (``g_parts``, bf16 bits: g rounded, then fresh draws)."""
     leaves = []
     for i, n in enumerate(sizes):
         g = rng.standard_normal(n).astype(F32)
@@ -135,23 +142,36 @@ def make_leaves(rng, sizes, mu_dtype, nan_at=None):
         mu = (0.1 * rng.standard_normal(n)).astype(F32)
         if mu_dtype == 'bfloat16':
             mu = bf16_to_f32(bf16_bits(mu))
-        leaves.append({'p': rng.standard_normal(n).astype(F32), 'g': g, 'mu': mu,
-                       'nu': rng.uniform(1e-4, 1e-2, n).astype(F32)})
+        leaf = {'p': rng.standard_normal(n).astype(F32), 'g': g, 'mu': mu,
+                'nu': rng.uniform(1e-4, 1e-2, n).astype(F32)}
+        if parts:
+            leaf['g_parts'] = [bf16_bits(g)] + [bf16_bits(rng.standard_normal(n).astype(F32))
+                                                for _ in range(parts - 1)]
+        leaves.append(leaf)
     return leaves
 
 
-def place_leaves(leaves, mu_dtype, offsets=None):
+def place_leaves(leaves, mu_dtype, offsets=None, copies=()):
     """The leaves in one Memory: (memory, (leaves, 4) addresses of p, g, mu,
-    nu)."""
+    nu).  A leaf given ``g_parts`` has them placed (``g_addrs``; g's column
+    holds the first), one in ``copies`` gets a bf16 copy (``copy_addr``, at
+    offset 'copy')."""
     mu_bytes = 2 if mu_dtype == 'bfloat16' else 4
-    total = sum(l['p'].size * (12 + mu_bytes) for l in leaves) + 4 * 600 * len(leaves) + 4096
+    total = (sum(l['p'].size * (16 + mu_bytes) + sum(x.size * 2 for x in l.get('g_parts', ()))
+                 for l in leaves) + 4 * 800 * len(leaves) + 4096)
     mem = Memory(total)
     ptrs = []
     for i, l in enumerate(leaves):
         off = (offsets or {}).get(i, {})
         mu = bf16_bits(l['mu']) if mu_bytes == 2 else l['mu']
-        ptrs.append([mem.place(l['p'], off.get('p', 0)), mem.place(l['g'], off.get('g', 0)),
+        g = mem.place(l['g'], off.get('g', 0))
+        if 'g_parts' in l:
+            l['g_addrs'] = [mem.place(x, off.get('g', 0)) for x in l['g_parts']]
+            g = l['g_addrs'][0]
+        ptrs.append([mem.place(l['p'], off.get('p', 0)), g,
                      mem.place(mu, off.get('mu', 0)), mem.place(l['nu'], off.get('nu', 0))])
+        if i in copies:
+            l['copy_addr'] = mem.place(np.zeros(l['p'].size, np.uint16), off.get('copy', 0))
     return mem, np.array(ptrs, np.int64)
 
 
@@ -204,30 +224,64 @@ def adam_f32(g, mu, nu, p, s):
     return m, v, p - lr * upd
 
 
-def table(ptrs: np.ndarray, sizes, mu_bytes: int):
-    """The port's block table for leaves at ``ptrs`` (p, g, mu, nu), and the
-    gradients' addresses (gptrs) that reach the kernels each step."""
-    return adamw.block_table(ptrs[:, [0, 2, 3]], sizes, mu_bytes, CHUNK), ptrs[:, 1]
+def table(ptrs: np.ndarray, sizes, mu_bytes: int, leaves=None, accum: int = 1):
+    """The port's block table for leaves at ``ptrs`` (p, g, mu, nu) -- with
+    ``leaves``, each one's copy and bf16 gradient parts -- and the
+    gradients' addresses (gptrs, (leaves, accum)) that reach the kernels
+    each step: a leaf's parts, or its one f32 gradient then zeros."""
+    n = len(sizes)
+    copies = np.array([l.get('copy_addr', 0) for l in leaves] if leaves else [0] * n, np.int64)
+    parts = [len(l.get('g_parts', ())) for l in leaves] if leaves else [0] * n
+    rows = adamw.block_table(np.concatenate([ptrs[:, [0, 2, 3]], copies[:, None]], 1), sizes,
+                             mu_bytes, CHUNK, parts)
+    gptrs = np.zeros((n, accum), np.int64)
+    for i in range(n):
+        if parts[i]:
+            gptrs[i] = leaves[i]['g_addrs']
+        else:
+            gptrs[i, 0] = ptrs[i, 1]
+    return rows, gptrs
 
 
 def unpack(row):
     """A Block: (p, mu, nu, start, leaf, count, vec)."""
-    p, mu, nu, start, packed, vec = (int(v) for v in row)
-    return p, mu, nu, start, packed & 0xFFFFFFFF, packed >> 32, vec & 0xFFFFFFFF
+    return unpack_all(row)[:7]
 
 
-def update_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, s, mu_bf16: bool) -> None:
+def unpack_all(row):
+    """A Block: (p, mu, nu, start, leaf, count, vec, copy, parts)."""
+    p, mu, nu, copy, start, packed, flags = (int(v) for v in row)
+    return (p, mu, nu, start, packed & 0xFFFFFFFF, packed >> 32, flags & 0xFFFFFFFF, copy,
+            flags >> 32)
+
+
+def grad_values(mem: Memory, g_row: np.ndarray, parts: int, accum: int, start: int,
+                count: int) -> np.ndarray:
+    """A row's mean gradient as the kernels make it: the f32 gradient, or the
+    bf16 parts widened and added in order in f32; then over accum."""
+    if parts == 0:
+        s = mem.read(int(g_row[0]) + 4 * start, count, F32)
+    else:
+        s = bf16_to_f32(mem.read(int(g_row[0]) + 2 * start, count, np.uint16))
+        for k in range(1, parts):
+            s = s + bf16_to_f32(mem.read(int(g_row[k]) + 2 * start, count, np.uint16))
+    return s / F32(accum) if accum > 1 else s
+
+
+def update_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, s, mu_bf16: bool,
+                 accum: int = 1) -> None:
     """adamw_update_kernel over every row: each block loads all its elements
-    (the vector groups, then the tail -- they are disjoint; g at gptrs[leaf]
-    + start, as float4 or, unaligned, one float at a time: the same
-    elements), computes, stores."""
+    (the vector groups, then the tail -- they are disjoint; g from its row of
+    gptrs + start, as vectors or, unaligned, one element at a time: the same
+    elements), computes, stores, and writes the copy where the row has one."""
+    gptrs = np.asarray(gptrs).reshape(len(gptrs), -1)
     with np.errstate(invalid='ignore', over='ignore'):
         for row in rows:
-            pa, ma, na, start, leaf, count, vec = unpack(row)
+            pa, ma, na, start, leaf, count, vec, ca, parts = unpack_all(row)
             idx = covered(count, vec)
             if idx.size == 0:
                 continue
-            g = mem.read(int(gptrs[leaf]) + 4 * start, count, F32)[idx]
+            g = grad_values(mem, gptrs[leaf], parts, accum, start, count)[idx]
             nu = mem.read(na, count, F32)[idx]
             p = mem.read(pa, count, F32)[idx]
             mu = (bf16_to_f32(mem.read(ma, count, np.uint16)) if mu_bf16
@@ -240,6 +294,10 @@ def update_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, s, mu_bf16: b
             arr = mem.read(ma, count, np.uint16 if mu_bf16 else F32)
             arr[idx] = bf16_bits(m) if mu_bf16 else m
             mem.write(ma, arr)
+            if ca:
+                arr = mem.read(ca, count, np.uint16)
+                arr[idx] = bf16_bits(q)
+                mem.write(ca, arr)
 
 
 def butterfly(x: np.ndarray) -> np.ndarray:
@@ -271,21 +329,23 @@ def sq_sum(acc: np.ndarray, vals: np.ndarray, valid: np.ndarray) -> np.ndarray:
 
 
 def norm_block_partial(parts) -> np.float64:
-    """One block of adamw_norm_kernel over its rows ``parts`` = [(g of the
-    row's chunk, count, g aligned)]: each thread adds its vector groups'
-    squares for every row in row order (a group past the end, or every group
-    of an unaligned row, is 0 and adds nothing), then each row's count % 4
-    tail, or all of an unaligned row one element per thread; then block_sum."""
+    """One block of adamw_norm_kernel over its rows ``parts`` = [(the row's
+    mean gradient, count, grouped)]: each thread adds its groups' squares for
+    every row in row order (a group past the end adds nothing; a row of bf16
+    parts that are not aligned is loaded an element at a time into the same
+    groups), then each row's count % 4 tail, or all of a row whose f32
+    gradient is not 16-byte aligned (not grouped) one element per thread;
+    then block_sum."""
     t = np.arange(THREADS)
     acc = np.zeros(THREADS)
-    for g, count, vec in parts:
-        n4 = count >> 2 if vec else 0
+    for g, count, grouped in parts:
+        n4 = count >> 2 if grouped else 0
         for u in range(UNROLL):
             q = u * THREADS + t
             for j in range(4):
                 acc = sq_sum(acc, take(g, 4 * q + j), q < n4)
-    for g, count, vec in parts:
-        if vec:
+    for g, count, grouped in parts:
+        if grouped:
             e = 4 * (count >> 2) + t
             acc = sq_sum(acc, take(g, e), e < count)
         else:
@@ -312,7 +372,7 @@ def finish(norm: np.float32, clip, zero_nonfinite: bool, count_in: int):
     return scale, flag, count_in + (0 if finite else 1)
 
 
-def norm_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, order=None):
+def norm_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, order=None, accum: int = 1):
     """adamw_norm_kernel: ceil(rows / NORM_ROWS) blocks of NORM_ROWS rows
     each, run in ``order`` (the order they finish), each writing its partial
     and taking a ticket; the one that takes the last ticket sums the
@@ -320,14 +380,17 @@ def norm_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, order=None):
     SUM_BATCH of them at a time and adds 0 past the end; then block_sum) and
     resets the ticket.  Returns (f32 norm, ticket after)."""
     n = -(-len(rows) // NORM_ROWS)
+    gptrs = np.asarray(gptrs).reshape(len(gptrs), -1)
     partials = np.full(n, np.nan)
     ticket, norm = 0, None
     for b in (range(n) if order is None else order):
         parts = []
         for row in rows[b * NORM_ROWS:(b + 1) * NORM_ROWS]:
-            _, _, _, start, leaf, count, _ = unpack(row)
-            g_addr = int(gptrs[leaf])
-            parts.append((mem.read(g_addr + 4 * start, count, F32), count, g_addr % 16 == 0))
+            _, _, _, start, leaf, count, _, _, n_parts = unpack_all(row)
+            grouped = n_parts > 0 or int(gptrs[leaf][0]) % 16 == 0
+            with np.errstate(invalid='ignore', over='ignore'):
+                parts.append((grad_values(mem, gptrs[leaf], n_parts, accum, start, count), count,
+                              grouped))
         partials[b] = norm_block_partial(parts)
         mine, ticket = ticket, ticket + 1
         if mine == n - 1:
@@ -344,9 +407,13 @@ def norm_model(mem: Memory, rows: np.ndarray, gptrs: np.ndarray, order=None):
 # --- helpers -----------------------------------------------------------------
 
 def torch_leaves(leaves, mu_dtype):
+    """p, g, mu, nu as torch tensors; g a tuple of bf16 tensors where the
+    leaf has ``g_parts``."""
     mu_t = torch.bfloat16 if mu_dtype == 'bfloat16' else torch.float32
-    return ([torch.from_numpy(l['p'].copy()) for l in leaves],
-            [torch.from_numpy(l['g'].copy()) for l in leaves],
+    grads = [tuple(torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+                   for x in l['g_parts']) if 'g_parts' in l
+             else torch.from_numpy(l['g'].copy()) for l in leaves]
+    return ([torch.from_numpy(l['p'].copy()) for l in leaves], grads,
             [torch.from_numpy(l['mu'].copy()).to(mu_t) for l in leaves],
             [torch.from_numpy(l['nu'].copy()) for l in leaves])
 
@@ -404,7 +471,7 @@ def test_vector_path_reads_whole_groups_and_loads_before_stores():
     assert (np.diff(groups[:, 0, 0]) == 4).all()          # coalesced across threads
     assert (tail >= 0).sum() == (CHUNK - 3) % 4 and tail[0] == 4 * ((CHUNK - 3) // 4)
     src = _source()
-    body_src = src[src.index('adamw_update_kernel('):src.index('// sum over the block')]
+    body_src = src[src.index('void update_block('):src.index('adamw_update_kernel(')]
     loads, compute = body_src.index('every load first'), body_src.index('Mu4<MuT>::get')
     assert loads < compute and '__stcs' not in body_src[loads:compute]
 
@@ -424,35 +491,54 @@ def test_alignment_rule(mu_dtype, offsets, vec, g_vec):
     leaves = make_leaves(np.random.default_rng(0), [71, CHUNK + 1], mu_dtype)
     _, ptrs = place_leaves(leaves, mu_dtype, {1: offsets})
     rows, gptrs = table(ptrs, [71, CHUNK + 1], 2 if mu_dtype == 'bfloat16' else 4)
-    assert rows[0, 5] == 1 and (rows[1:, 5] == vec).all()
-    assert gptrs[0] % 16 == 0 and (gptrs[1] % 16 == 0) == g_vec
+    flags = rows[:, 6] & 0xFFFFFFFF
+    assert flags[0] == 1 and (flags[1:] == vec).all()
+    assert gptrs[0, 0] % 16 == 0 and (gptrs[1, 0] % 16 == 0) == g_vec
     src = _source()
-    assert src.count('(g_addr & 15) == 0') == 2   # the update's g loads and the norm
+    assert src.count('a0 & 15') == 1
+    assert src.count('= grad_at(gptrs') == 2   # the update's g loads and the norm's
 
 
+@pytest.mark.parametrize('grads', list(GRADS))
 @pytest.mark.parametrize('step', list(STEPS))
 @pytest.mark.parametrize('mu_dtype', ['float32', 'bfloat16'])
-def test_update_model_matches_plain_bit_for_bit(mu_dtype, step):
+def test_update_model_matches_plain_bit_for_bit(mu_dtype, step, grads):
+    """The update on each kind of gradient; on bf16 gradients every leaf but
+    the first has a compute copy (one at a 2-byte offset: its leaf one
+    element per thread), which must be the updated p rounded to bf16."""
+    parts, accum = GRADS[grads]
     rng = np.random.default_rng(len(step) + (mu_dtype == 'bfloat16'))
     leaves = make_leaves(rng, SIZES, mu_dtype,
-                         nan_at=(2, 5) if step == 'nonfinite' else None)
+                         nan_at=(2, 5) if step == 'nonfinite' else None, parts=parts)
     # 16-byte views; a leaf with an unaligned nu (one element per thread); an
     # unaligned g in the vector path
     offsets = {4: {'p': 16, 'g': 16, 'nu': 16, 'mu': 16 if mu_dtype == 'float32' else 8},
                3: {'nu': 4}, 5: {'g': 4}}
-    mem, ptrs = place_leaves(leaves, mu_dtype, offsets)
+    copies = range(1, len(SIZES)) if parts else ()
+    if parts:
+        offsets[1] = {'copy': 2}
+    mem, ptrs = place_leaves(leaves, mu_dtype, offsets, copies)
     mu_bytes = 2 if mu_dtype == 'bfloat16' else 4
-    rows, gptrs = table(ptrs, SIZES, mu_bytes)
-    assert rows[:, 5].min() == 0 and rows[:, 5].max() == 1   # both paths run
+    rows, gptrs = table(ptrs, SIZES, mu_bytes, leaves, accum)
+    flags = rows[:, 6] & 0xFFFFFFFF
+    assert flags.min() == 0 and flags.max() == 1   # both paths run
     assert (gptrs % 16 != 0).any()
-    update_model(mem, rows, gptrs, STEPS[step], mu_bytes == 2)
+    update_model(mem, rows, gptrs, STEPS[step], mu_bytes == 2, accum)
     p, g, mu, nu = torch_leaves(leaves, mu_dtype)
-    adamw.adamw_update_reference(p, g, mu, nu, torch.tensor(STEPS[step]), **HYPER)
+    t_copies = [torch.zeros(n, dtype=torch.bfloat16) if i in copies else None
+                for i, n in enumerate(SIZES)]
+    adamw.adamw_update_reference(p, g, mu, nu, torch.tensor(STEPS[step]), accum=accum,
+                                 copies=t_copies, **HYPER)
     for got, tp, tmu, tnu in zip(read_leaves(mem, ptrs, SIZES, mu_bytes == 2), p, mu, nu):
         assert np.array_equal(bits(got['p']), bits(tp.numpy()))
         assert np.array_equal(bits(got['nu']), bits(tnu.numpy()))
         assert np.array_equal(bits(got['mu']), bits(tmu.float().numpy()))
         assert np.isfinite(got['p']).all()
+    for l, tc, tp in zip(leaves, t_copies, p):
+        if tc is not None:
+            got = mem.read(l['copy_addr'], tp.numel(), np.uint16)
+            assert np.array_equal(got, tc.view(torch.int16).numpy().view(np.uint16))
+            assert torch.equal(tc, tp.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize('shape', [(768,), (256, 128), (41, 768)])
@@ -497,19 +583,41 @@ def test_update_model_with_bf16_mu_matches_jax_fused_adamw():
                                    rtol=2 ** -7, atol=1e-9)
 
 
+@pytest.mark.parametrize('grads', list(GRADS))
 @pytest.mark.parametrize('offsets', [{}, {1: {'g': 16}, 4: {'g': 4}}])
-def test_norm_model_matches_optax_and_plain(offsets):
+def test_norm_model_matches_optax_and_plain(offsets, grads):
+    """The norm of each kind of step gradient (its mean, ``mean_grads``):
+    one f32 ulp from the exact norm; an f32 gradient's also within the f32
+    sums of optax and of the plain version."""
+    parts, accum = GRADS[grads]
     rng = np.random.default_rng(5)
-    leaves = make_leaves(rng, SIZES, 'float32')
+    leaves = make_leaves(rng, SIZES, 'float32', parts=parts)
     mem, ptrs = place_leaves(leaves, 'float32', offsets)
-    norm, ticket = norm_model(mem, *table(ptrs, SIZES, 4))
-    want = float(optax.global_norm([jnp.asarray(l['g']) for l in leaves]))
-    np.testing.assert_allclose(norm, want, rtol=1e-6)
-    plain = float(adamw.global_norm([torch.from_numpy(l['g']) for l in leaves]))
-    np.testing.assert_allclose(norm, plain, rtol=1e-6)
-    exact = np.sqrt(sum(float(np.sum(l['g'].astype(np.float64) ** 2)) for l in leaves))
+    norm, ticket = norm_model(mem, *table(ptrs, SIZES, 4, leaves, accum), accum=accum)
+    mean = adamw.mean_grads(torch_leaves(leaves, 'float32')[1], accum)
+    if grads == 'f32':
+        want = float(optax.global_norm([jnp.asarray(m.numpy()) for m in mean]))
+        np.testing.assert_allclose(norm, want, rtol=1e-6)
+        plain = float(adamw.global_norm(mean))
+        np.testing.assert_allclose(norm, plain, rtol=1e-6)
+    exact = np.sqrt(sum(float(np.sum(m.numpy().astype(np.float64) ** 2)) for m in mean))
     np.testing.assert_allclose(norm, exact, rtol=2 ** -23)   # f64 sums: one f32 ulp
     assert ticket == 0
+
+
+@pytest.mark.parametrize('grads', [k for k, (parts, _) in GRADS.items() if parts])
+def test_norm_is_the_same_bits_for_an_unaligned_gradient(grads):
+    """bf16 gradient parts read an element at a time (not 8-byte aligned)
+    are summed in the groups of aligned ones, so their norm is the same
+    bits."""
+    parts, accum = GRADS[grads]
+    leaves = make_leaves(np.random.default_rng(8), SIZES, 'float32', parts=parts)
+    norms = []
+    for offsets in ({}, {i: {'g': 4} for i in range(len(SIZES))}):
+        mem, ptrs = place_leaves(leaves, 'float32', offsets)
+        rows, gptrs = table(ptrs, SIZES, 4, leaves, accum)
+        norms.append(norm_model(mem, rows, gptrs, accum=accum)[0])
+    assert bits(norms[0]) == bits(norms[1])
 
 
 def test_norm_is_the_same_bits_whichever_block_finishes_last():

@@ -324,20 +324,25 @@ def test_mesh_route_runs_eager_steps_through_the_tape(corpus, tmp_path):
     assert len(k['losses']) == 2 + 2 and per_step['losses'][-1] == k['losses'][-1]
 
 
-def test_mesh_tape_steps_drop_ddp_and_equal_the_eager_ddp_steps(corpus, tmp_path):
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_mesh_tape_steps_drop_ddp_and_equal_the_eager_ddp_steps(corpus, tmp_path, dtype):
     """On a mesh of 'data' alone eager steps keep DDP (built at the first)
     and the tape's steps average with one flat all-reduce: the DDP wrapper
     holds each gradient accumulator, ``drop_ddp`` (before a capture) frees
     them, and an eager step, two tape steps and an eager step again equal
-    four eager steps bit for bit on two gloo ranks."""
+    four eager steps bit for bit on two gloo ranks.  In bf16 the tape steps
+    read kernel #5's compute copies and hand their bf16 gradients to the
+    flat buffer (each leaf padded to 4 elements, the 71-wide head bias's
+    too), the eager ones cast the parameters: the same bits."""
     splits = corpus[1]
     tcfg = TrainConfig(**{**BASE, 'num_train_epoch': 1})
     data = SplitData(splits.train.signals, splits.train.labels)
     with LocalRanks(2) as ranks:
-        runs = [ranks.run(prog.ddp_then_tape_run, _cfg('hash'), tcfg, (2, 1), data,
-                          str(tmp_path / str(mixed)), mixed)[0] for mixed in (False, True)]
+        runs = [ranks.run(prog.ddp_then_tape_run, _cfg('hash', dtype=dtype), tcfg, (2, 1),
+                          data, str(tmp_path / str(mixed)), mixed)[0]
+                for mixed in (False, True)]
     eager, mixed = runs
-    assert mixed['held'] and mixed['freed']
+    assert mixed['held'] and mixed['freed'] and mixed['copies'] == (dtype == 'bfloat16')
     assert all(torch.equal(eager['state'][n], mixed['state'][n]) for n in eager['state'])
 
 

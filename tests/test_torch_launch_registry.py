@@ -1,7 +1,8 @@
 """The launch registry of the port's hand-written kernels (ops/_build.py), on
 the CPU: it holds one counter for each kernel and direction, by the names of
-chip_smoke.py's kernels line; a CPU call of each kernel's wrapper runs the
-plain version and counts nothing; and a step tape's CUDA graph
+chip_smoke.py's kernels line, and ``param_cast``; a CPU call of each kernel's
+wrapper runs the plain version and counts nothing, as does a CPU training
+forward's parameter cast; and a step tape's CUDA graph
 (train/dispatch.py) puts back what its capture counted and adds it again at
 each replay, for every counter, #8's as #1-#5's."""
 import numpy as np
@@ -9,15 +10,16 @@ import pytest
 import torch
 
 from ecg_representation_learning_tpu_torch.models.moe import sort_pairs
+from ecg_representation_learning_tpu_torch.models.vit import Dense
 from ecg_representation_learning_tpu_torch.ops import (_build, adamw, attention, dropout,
                                                        moe_glue, nlm_fused)
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe
-from ecg_representation_learning_tpu_torch.train import dispatch
+from ecg_representation_learning_tpu_torch.train import dispatch, loop
 
 NAMES = ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq', 'flash_bwd_dkv', 'adamw', 'adamw_norm',
          'nlm_rows', 'nlm_variant', 'gelu_dropout', 'gelu_dropout_bwd', 'dropout_add',
          'dropout_add_bwd', 'moe_permute', 'moe_permute_bwd', 'moe_swiglu', 'moe_swiglu_bwd',
-         'moe_combine', 'moe_combine_bwd')
+         'moe_combine', 'moe_combine_bwd', 'param_cast')
 HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
 
 
@@ -86,6 +88,14 @@ def _glue(op: str, backward: bool):
     return out
 
 
+def _param_cast():
+    """A training forward of a bf16 Dense, counted as the trainers count
+    (``loop.count_param_casts``): it casts its weight and bias."""
+    layer = Dense(16, 8, dtype=torch.bfloat16).train()
+    loop.count_param_casts(layer)
+    return layer(_randn(3, 16))
+
+
 CPU_CALLS = {
     'flash_fwd': lambda: _flash(lse=False),
     'flash_fwd_lse': lambda: _flash(lse=True),
@@ -99,6 +109,7 @@ CPU_CALLS = {
        for kind in ('gelu_dropout', 'dropout_add') for way in ('', '_bwd')},
     **{f'moe_{op}{way}': (lambda op=op, way=way: _glue(op, way == '_bwd'))
        for op in ('permute', 'swiglu', 'combine') for way in ('', '_bwd')},
+    'param_cast': _param_cast,
 }
 
 

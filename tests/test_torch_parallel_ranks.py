@@ -96,7 +96,8 @@ def ddp_then_tape_run(cfg, tcfg, shape, data, out, mixed):
     an eager step (DDP), a dispatch of two tape steps after ``drop_ddp`` (as
     a capture drops it) and an eager step again.  Returns the full state and
     whether a parameter's gradient accumulator outlived its backward under
-    the DDP wrapper and after the drop."""
+    the DDP wrapper and after the drop, and whether the trainer keeps #5's
+    compute copies."""
     from ecg_representation_learning_tpu_torch.train.dispatch import Dispatcher
     tr = build('sup', cfg, tcfg, make_mesh(*shape, device='cpu'), data, out)
     tr.init_state()
@@ -119,7 +120,8 @@ def ddp_then_tape_run(cfg, tcfg, shape, data, out, mixed):
     freed = not kept()
     Dispatcher(tr, 2, scan=False).run(takes[1:3])
     tr.train_step(tr.train_data, takes[3])
-    return {'state': tr.state_dict(), 'held': held, 'freed': freed}
+    return {'state': tr.state_dict(), 'held': held, 'freed': freed,
+            'copies': tr._copies is not None}
 
 
 def replay_steps(kind, cfg, tcfg, shape, data, flax_params, steps):
