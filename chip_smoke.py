@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--phases kernels serving training pretrain denoise corpus stream
                                     scale artifacts parallel pipeline dispatch examples]
+                          [--flash-other ROOT]
 
 Builds every CUDA kernel of the port from ``ops/csrc`` with nvcc, one
 process per source started together (into ``build/torch_kernels/``), then:
@@ -16,6 +17,11 @@ process per source started together (into ``build/torch_kernels/``), then:
    shapes and longer sequences (ragged T and D, one row, exact tiles, rows
    of a size that takes the kernel's scalar-load branch), f32 and bf16,
    dropout 0 and 0.1,
+   then #1-#4 with a band (causal, a left window) and grouped KV heads at the
+   Trinity cell's attention and ViT-base's long records against their plain
+   versions, their launches and device ms (``tools/flash_band_probe.py``;
+   with ``--flash-other ROOT`` the default calls bit for bit against another
+   checkout's kernels),
    and the dropout masks of #1 to #4 checked entry by entry against
    ``keep_full``, and each launch again with the seed read from device
    memory (``seed_dev``, as a step tape passes it) for the same bits; #3 and
@@ -735,6 +741,66 @@ def flash_grad_phase():
         raise AssertionError(f'flash lse/backward kernels disagree with their plain '
                              f'versions: {failures}')
     return rows
+
+
+FLASH_BAND_CASES = [  # (B, H, H_kv, T, D, dtype, causal, window_left, dropout rate)
+    (2, 32, 4, 8192, 128, torch.bfloat16, True, -1, 0.0),     # the Trinity cell, full layers
+    (2, 32, 4, 8192, 128, torch.bfloat16, True, 2047, 0.0),   # ... and sliding layers
+    (2, 12, 12, 2048, 64, torch.bfloat16, False, -1, 0.0),    # ViT-base long records
+    (2, 8, 2, 300, 64, torch.float32, True, 100, 0.1)]
+# bf16 band cases: |got - plain| / |plain| over the whole output and each
+# gradient (at T = 8,192 an output element is ~0.03, so LIMITS' 2e-2 of abs
+# alone would pass a wrong key)
+BAND_REL_LIMIT = 6e-3
+
+
+def flash_band_phase(other=None):
+    """Kernels #1-#4 with a band and grouped KV heads
+    (``tools/flash_band_probe.py``): against their plain versions at the
+    Trinity cell's attention and ViT-base's long records (LIMITS, BWD_LIMITS,
+    LSE_LIMIT, BAND_REL_LIMIT), the launches a banded call and its gradient
+    count, and the device ms of #2-#4 against the band's FLOP bound; with
+    ``other`` (the root of a checkout from before the band) the default
+    calls' bits against that checkout's kernels at the kernel phase's
+    shapes, and without it a row that says the check was skipped."""
+    from ecg_representation_learning_tpu_torch.tools import flash_band_probe as probe
+    failures = []
+    for case in FLASH_BAND_CASES:
+        err = probe.band_errors(case, torch.device('cuda', 0))
+        dtype = case[5]
+        ok = (err['fwd_is_lse_fwd'] and err['finite'] and err['out'] <= LIMITS[dtype]
+              and err['lse'] <= LSE_LIMIT
+              and max(err['dq'], err['dk'], err['dv']) <= BWD_LIMITS[dtype]
+              and (dtype != torch.bfloat16 or max(
+                  err[f'{n}_rel'] for n in ('out', 'dq', 'dk', 'dv')) <= BAND_REL_LIMIT))
+        row = {'phase': 'kernel_band', 'case': [*case[:5], str(dtype), *case[6:]], **err,
+               'ok': ok}
+        emit(row)
+        if not ok:
+            failures.append(row)
+    q = torch.randn((1, 8, 1024, 64), device='cuda', dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn((1, 2, 1024, 64), device='cuda', dtype=torch.bfloat16,
+                        requires_grad=True) for _ in range(2))
+    before = _build.launch_counts()
+    attn.flash_attention(q, k, v, causal=True, window_left=255).sum().backward()
+    moved = {n: c - before[n] for n, c in _build.launch_counts().items() if c != before[n]}
+    emit({'phase': 'kernel_band_launches', 'launches': moved})
+    if moved != {'flash_fwd_lse': 1, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
+        failures.append({'launches': moved})
+    for row in probe.band_rows(torch.device('cuda', 0)):
+        emit({'phase': 'kernel_band_time', **row})
+    if other is None:
+        emit({'phase': 'kernel_band_same_bits',
+              'skipped': 'no --flash-other ROOT: the default calls were not held to '
+                         'another checkout\'s bits'})
+    else:
+        from pathlib import Path
+        for row in probe.same_bits_rows(Path(other), torch.device('cuda', 0)):
+            emit({'phase': 'kernel_band_same_bits', **row})
+            if not all(row['same'].values()):
+                failures.append(row)
+    if failures:
+        raise AssertionError(f'banded flash kernels disagree: {failures}')
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -4185,6 +4251,9 @@ def main(argv=None) -> int:
     ap.add_argument('--phases', nargs='+', choices=PHASES, default=list(PHASES),
                     help='run only these phases (default: all; the result line '
                          'is printed only when all ran)')
+    ap.add_argument('--flash-other', default=None, metavar='ROOT',
+                    help='another checkout of the port (e.g. a git archive of an older '
+                         'commit): hold the default calls of #1-#4 to its kernels\' bits')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
@@ -4212,6 +4281,7 @@ def main(argv=None) -> int:
         dropout_mask_phase()
         bwd_dropout_mask_phase()
         rows.update(flash_grad_phase())
+        flash_band_phase(args.flash_other)
         rows['adamw'], rows['adamw_norm'] = adamw_phase()
         rows['nlm_rows'] = nlm_phase(*chain_rows())
         rows['nlm_variant'] = nlm_variant_phase()

@@ -12,7 +12,8 @@ build the ('data', 'model') mesh (``parallel/``), ``mesh_stage`` the GPipe
 pipeline (``train/pipeline_vit.py``), and ``VitConfig.ring_axis`` runs ring
 context parallelism (``train/long_record.py``).
 ``DeepseekConfig``, a subclass of ``VitConfig`` with no JAX counterpart,
-runs DeepSeek-V3's block on the same trunk, and ``MODEL_PRESETS`` names
+runs DeepSeek-V3's block on the same trunk, ``AfmoeConfig`` (a subclass of
+it) Arcee's AFMoE block, and ``MODEL_PRESETS`` names
 published blocks cut to one device's share (``VitConfig.from_preset``,
 ``cli train --model-preset``).
 ``prng_impl`` and ``jax_debug_nans`` configure JAX alone and are carried,
@@ -71,11 +72,13 @@ class VitConfig:
     moe_aux_weight: float = 0.01
     @property
     def block(self) -> str:
-        """The block kind: 'vit' here, 'deepseek' for ``DeepseekConfig``."""
+        """The block kind: 'vit' here, 'deepseek' for ``DeepseekConfig``,
+        'afmoe' for ``AfmoeConfig``."""
         return 'vit'
 
     def require_vit_block(self, what: str) -> None:
-        """Raise ValueError where ``what`` cannot serve the deepseek block yet."""
+        """Raise ValueError where ``what`` cannot serve this block yet (every
+        path but the supervised one-device step serves 'vit' alone)."""
         if self.block != 'vit':
             raise ValueError(f'{what} does not serve the {self.block!r} block yet '
                              f"(only block='vit')")
@@ -107,11 +110,13 @@ class VitConfig:
     @classmethod
     def from_preset(cls, name: str, **overrides) -> 'VitConfig':
         """A configuration of ``MODEL_PRESETS`` (outside the reference ladder,
-        each a ``DeepseekConfig``)."""
+        each a ``DeepseekConfig``, or the class its 'block' names)."""
         if name not in MODEL_PRESETS:
             raise ValueError(f'Unknown model preset {name!r}; expected one of '
                              f'{sorted(MODEL_PRESETS)}')
-        return DeepseekConfig(**{**MODEL_PRESETS[name], **overrides})
+        fields = dict(MODEL_PRESETS[name])
+        kind = {'deepseek': DeepseekConfig, 'afmoe': AfmoeConfig}[fields.pop('block', 'deepseek')]
+        return kind(**{**fields, **overrides})
 
     @classmethod
     def from_defined(cls, model_name: str, **overrides) -> 'VitConfig':
@@ -167,6 +172,36 @@ class DeepseekConfig(VitConfig):
         return 'deepseek'
 
 
+@dataclasses.dataclass(frozen=True)
+class AfmoeConfig(DeepseekConfig):
+    """Arcee's AFMoE block (Trinity, ``models/afmoe.py``) on the ViT's trunk:
+    grouped-query attention of ``num_attention_heads`` query and
+    ``num_key_value_heads`` KV heads of ``head_dim`` (not hidden / heads),
+    per-head RMSNorm on q and k, a sigmoid output gate, causal when
+    ``causal``; in each ``global_attn_every_n_layers`` layers the last one
+    full attention without positions and the others a left window of
+    ``sliding_window`` keys (the query's own and the ones before it) with
+    RoPE; four RMSNorms a block; the patch embedding times sqrt(hidden) when
+    ``mup``, no position table and no cls token.  The MLPs are
+    ``DeepseekConfig``'s: ``first_k_dense_replace`` dense SwiGLU layers, then
+    ``DeepseekMoe``."""
+    num_key_value_heads: int = 4
+    head_dim: int = 128             # a field here: the heads are not hidden / H
+    sliding_window: int = 2048      # keys a sliding layer's query sees, its own included
+    global_attn_every_n_layers: int = 4
+    causal: bool = True
+    mup: bool = True                # the embedding times sqrt(hidden_size)
+
+    @property
+    def block(self) -> str:
+        return 'afmoe'
+
+    def sliding(self, i: int) -> bool:
+        """Whether layer ``i`` takes the window (and RoPE): all but every
+        ``global_attn_every_n_layers``-th."""
+        return (i + 1) % self.global_attn_every_n_layers != 0
+
+
 # Published blocks on the ECG trunk (patch embedding, cls token, 71-class
 # head), cut to one device's share of a stated deployment.
 MODEL_PRESETS = {
@@ -180,6 +215,19 @@ MODEL_PRESETS = {
         first_k_dense_replace=1, moe_num_experts=64, moe_intermediate_size=1408,
         moe_top_k=6, moe_routed_scale=2.446, moe_shared_experts=2, moe_held=(0, 8),
         moe_bias_rate=1e-3, moe_seq_aux_weight=1e-4, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, dtype='bfloat16'),
+    # Trinity-Mini (huggingface.co/arcee-ai/Trinity-Mini, config.json, Arcee's
+    # AFMoE block): 16-way expert parallel, this device holding experts 0-7 of
+    # 128, stage 1 of 2 (layers 0-15: 2 dense, 14 MoE; 12 sliding, 4 full),
+    # causal attention over 35-minute records (524,288 samples, 8,192 patches)
+    'trinity-mini-ep16': dict(
+        block='afmoe', max_signal_length=524288, hidden_size=2048, num_hidden_layers=16,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+        intermediate_size=6144, sliding_window=2048, global_attn_every_n_layers=4,
+        rope_theta=10000.0, rms_norm_eps=1e-5, first_k_dense_replace=2,
+        moe_num_experts=128, moe_intermediate_size=1024, moe_top_k=8,
+        moe_routed_scale=2.826, moe_shared_experts=1, moe_held=(0, 8), moe_bias_rate=1e-3,
+        moe_seq_aux_weight=0.0, pool='mean', hidden_dropout_prob=0.0,
         attention_probs_dropout_prob=0.0, dtype='bfloat16'),
 }
 

@@ -29,6 +29,7 @@ class EcgContrastive(nn.Module):
 
     def __init__(self, cfg: VitConfig, con_cfg: ContrastiveConfig):
         super().__init__()
+        cfg.require_vit_block('contrastive pretraining (models/contrastive.py)')
         self.cfg, self.con_cfg = cfg, con_cfg
         self.encoder = EcgVitEncoder(cfg)
         self.proj_fc1 = Dense(cfg.hidden_size, con_cfg.proj_hidden_size, dtype=_dtype(cfg))

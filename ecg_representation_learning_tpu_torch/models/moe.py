@@ -96,8 +96,8 @@ from ..parallel import spmd
 
 def moe_layer(cfg: VitConfig, i: int) -> bool:
     """Whether block ``i`` of a trunk is a MoE block (the JAX rule; for the
-    deepseek block every block from ``first_k_dense_replace`` on)."""
-    if cfg.block == 'deepseek':
+    deepseek and afmoe blocks every block from ``first_k_dense_replace`` on)."""
+    if cfg.block in ('deepseek', 'afmoe'):
         return cfg.moe_num_experts > 0 and i >= cfg.first_k_dense_replace
     return cfg.moe_num_experts > 0 and (i + 1) % cfg.moe_every == 0
 

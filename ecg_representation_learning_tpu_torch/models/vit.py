@@ -49,6 +49,13 @@ an RMSNorm, and the model output carries the sum of the MoE layers'
 sequence balance losses.  It has no dropout sites, and refuses remat,
 ``scan_blocks`` and ring attention.
 
+An ``AfmoeConfig`` (``cfg.block == 'afmoe'``): Arcee's AFMoE block
+(``models/afmoe.py``) on the trunk: the patch embedding times sqrt(hidden)
+(muP), no position table and no cls token (the head reads the mean over the
+tokens, ``pool='mean'``), causal grouped-query attention with the window on
+three layers of four, the deepseek block's MLPs, a final RMSNorm; refused
+where the deepseek block is.
+
 On a mesh (``parallel/mesh.py``) the modules run the Megatron plan that
 ``ShardedModel`` gives them: a ``Dense`` with ``tp`` 'col' / 'row' /
 'gather' is column-parallel, row-parallel (its bias added after the sum over
@@ -353,10 +360,13 @@ def _check_deepseek(cfg: VitConfig) -> None:
     if cfg.block == 'vit':
         return
     if cfg.scan_blocks or cfg.remat or cfg.ring_axis is not None:
-        raise ValueError('the deepseek block runs the unrolled stack without remat or ring '
+        raise ValueError(f'the {cfg.block} block runs the unrolled stack without remat or ring '
                          'attention')
     if max(cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob) > 0.0:
-        raise ValueError('the deepseek block has no dropout sites: set both dropout rates to 0')
+        raise ValueError(f'the {cfg.block} block has no dropout sites: set both dropout rates '
+                         'to 0')
+    if cfg.block == 'afmoe' and cfg.pool != 'mean':
+        raise ValueError("the afmoe block has no cls token: set pool='mean'")
 
 
 class EcgVitEncoder(nn.Module):
@@ -371,6 +381,13 @@ class EcgVitEncoder(nn.Module):
         _check_deepseek(cfg)
         self.cfg = cfg
         self.patch_embed = PatchEmbed1D(cfg)
+        if cfg.block == 'afmoe':
+            from .afmoe import AfmoeBlock
+            from .mla import RMSNorm
+            self.blocks = nn.ModuleList(AfmoeBlock(cfg, i, moe_layer(cfg, i), _dtype(cfg))
+                                        for i in range(cfg.num_hidden_layers))
+            self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+            return
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
         if cfg.block == 'vit':
             self.pos_embed = nn.Parameter(
@@ -396,6 +413,9 @@ class EcgVitEncoder(nn.Module):
         else None, the mean MoE aux loss).  Each block runs under remat when
         ``cfg.remat`` and gradients are on."""
         h = self.patch_embed(x)
+        if self.cfg.block == 'afmoe':
+            from .afmoe import embed_scale
+            return self._deepseek(h.float() * embed_scale(self.cfg), return_attention)
         b, n_patch, hidden = h.shape
         cls = self.cls_token.expand(b, 1, hidden).to(h.dtype)
         h = torch.cat([cls, h], dim=1)
@@ -422,10 +442,11 @@ class EcgVitEncoder(nn.Module):
                 mean_aux(auxes, h.device))
 
     def _deepseek(self, h, return_attention: bool):
-        """The deepseek blocks and the final RMSNorm; the MoE layers'
-        balance losses summed (each layer's is its own term, as in DeepSeek-V3)."""
+        """The deepseek (or afmoe) blocks and the final RMSNorm; the MoE
+        layers' balance losses summed (each layer's is its own term, as in
+        DeepSeek-V3)."""
         if return_attention:
-            raise ValueError('the deepseek block returns no attention maps')
+            raise ValueError(f'the {self.cfg.block} block returns no attention maps')
         aux = torch.zeros((), device=h.device)
         for block in self.blocks:
             h, _, a = block(h)

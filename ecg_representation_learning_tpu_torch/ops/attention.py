@@ -8,6 +8,13 @@ log-sum-exp (``_flash_kernel`` and ``_flash_kernel_lse``, here
 gradient (the JAX ``custom_vjp``, here a ``torch.autograd.Function``) and the
 dispatcher ``attention``.  Layout is the JAX package's: (B, H, T, D).
 
+Beyond the JAX package every kernel and plain version takes a band and
+grouped KV heads (``csrc/flash_mask.cuh``): ``causal`` (query i sees keys
+j <= i), ``window_left`` W (keys j >= i - W; -1: no bound) and k, v of
+(B, H_kv, T, D) with H a multiple of H_kv, query head h reading KV head
+h // (H / H_kv).  The kernels visit only the tiles that meet the band; their
+defaults (not causal, no window, H_kv = H) are the kernels as they were.
+
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs its
 plain PyTorch version (``*_reference``) for a CPU tensor; there is no
 fallback from one to the other.
@@ -101,20 +108,59 @@ def _scale(q, scale):
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
+def band_mask(t: int, causal: bool = False, window_left: int = -1,
+              device=None) -> Optional[torch.Tensor]:
+    """(T, T) bool of the (query, key) pairs the band lets attention see:
+    key j <= query i when ``causal``, j >= i - ``window_left`` when it is
+    >= 0; None when it lets every pair through."""
+    if not causal and window_left < 0:
+        return None
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    vis = torch.ones((t, t), dtype=torch.bool, device=device)
+    if causal:
+        vis &= j <= i
+    if window_left >= 0:
+        vis &= j >= i - window_left
+    return vis
+
+
+def expand_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """k or v (B, H_kv, T, D) as (B, ``heads``, T, D): each KV head repeated
+    for its group of query heads."""
+    g = heads // x.shape[1]
+    return x if g == 1 else x.repeat_interleave(g, dim=1)
+
+
+def fold_kv(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """A per-query-head (B, H, T, D) gradient of k or v summed over each
+    group: (B, ``kv_heads``, T, D)."""
+    b, h, t, d = x.shape
+    return x if h == kv_heads else x.reshape(b, kv_heads, h // kv_heads, t, d).sum(2)
+
+
 def flash_attention_forward_reference(q, k, v, seed: int = 0,
                                       scale: Optional[float] = None,
                                       dropout_rate: float = 0.0,
-                                      return_lse: bool = False, bh_offset: int = 0):
+                                      return_lse: bool = False, bh_offset: int = 0,
+                                      causal: bool = False, window_left: int = -1):
     """Plain PyTorch version of the flash forward kernels: f32 scores and
-    softmax, the hashed keep mask applied to the normalized probabilities,
+    softmax over the band's keys (``band_mask``; k and v expanded to q's
+    heads), the hashed keep mask applied to the normalized probabilities,
     probabilities rounded to the input dtype before the PV product (f32
     accumulation), output in the input dtype.  ``return_lse`` also returns
     the row log-sum-exp m + log(max(l, 1e-30)), (B, H, T) f32.  The masks
     are ``keep_full``'s with ``bh_offset``."""
     scale = _scale(q, scale)
     b, h, t, _ = q.shape
+    k, v = expand_kv(k, h), expand_kv(v, h)
+    vis = band_mask(t, causal, window_left, q.device)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if vis is not None:     # a row that saw no key would be uniform: 0 instead
+        p = torch.where(vis, p, 0.0)
     if dropout_rate > 0.0:
         keep = keep_full(seed, b, h, t, dropout_rate, device=q.device, bh_offset=bh_offset)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
@@ -126,12 +172,16 @@ def flash_attention_forward_reference(q, k, v, seed: int = 0,
     return out, lse
 
 
-def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset):
-    """p (recomputed from lse), the dropped-and-rescaled p and
-    ds = p * (dpv - delta), all (B, H, T, T) f32."""
+def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset,
+               causal=False, window_left=-1):
+    """p (recomputed from lse, 0 outside the band), the dropped-and-rescaled
+    p and ds = p * (dpv - delta), all (B, H, T, T) f32; k and v at q's heads."""
     b, h, t, _ = q.shape
     p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
                   - lse[..., None])
+    vis = band_mask(t, causal, window_left, q.device)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
     dpv = torch.matmul(do.float(), v.float().transpose(-1, -2))
     p_eff = p
     if dropout_rate > 0.0:
@@ -144,45 +194,62 @@ def _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset):
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, seed: int = 0,
                            scale: Optional[float] = None,
-                           dropout_rate: float = 0.0, bh_offset: int = 0) -> torch.Tensor:
+                           dropout_rate: float = 0.0, bh_offset: int = 0,
+                           causal: bool = False, window_left: int = -1) -> torch.Tensor:
     """Plain PyTorch version of the dQ kernel: dQ = scale * ds.K with ds
     rounded to K's dtype, in Q's dtype."""
     scale = _scale(q, scale)
-    _, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
+    k, v = expand_kv(k, q.shape[1]), expand_kv(v, q.shape[1])
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset,
+                       causal, window_left)
     return (torch.matmul(ds.to(k.dtype).float(), k.float()) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, seed: int = 0,
                             scale: Optional[float] = None, dropout_rate: float = 0.0,
-                            bh_offset: int = 0):
+                            bh_offset: int = 0, causal: bool = False, window_left: int = -1):
     """Plain PyTorch version of the dK/dV kernel: dK = scale * ds^T.Q with ds
-    rounded to Q's dtype, dV = (kept, rescaled p)^T.dO in f32."""
+    rounded to Q's dtype, dV = (kept, rescaled p)^T.dO in f32, each summed in
+    f32 over the query heads of a KV head's group."""
     scale = _scale(q, scale)
-    p_eff, ds = _bwd_terms(q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
+    kv_heads = k.shape[1]
+    ke, ve = expand_kv(k, q.shape[1]), expand_kv(v, q.shape[1])
+    p_eff, ds = _bwd_terms(q, ke, ve, do, lse, delta, seed, scale, dropout_rate, bh_offset,
+                           causal, window_left)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
     dv = torch.matmul(p_eff.transpose(-1, -2), do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return fold_kv(dk, kv_heads).to(k.dtype), fold_kv(dv, kv_heads).to(v.dtype)
 
 
 def flash_backward_blocked_reference(q, k, v, do, lse, delta, seed: int = 0,
                                      scale: Optional[float] = None,
-                                     dropout_rate: float = 0.0, bh_offset: int = 0):
+                                     dropout_rate: float = 0.0, bh_offset: int = 0,
+                                     causal: bool = False, window_left: int = -1):
     """Plain PyTorch version of the blocked backward kernels: (dQ, dK, dV)
     from p recomputed with the forward's lse, the keep mask regenerated."""
-    args = (q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset)
+    args = (q, k, v, do, lse, delta, seed, scale, dropout_rate, bh_offset, causal, window_left)
     return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
 
 
 def flash_backward_recompute(q, k, v, g, seed: int = 0,
                              scale: Optional[float] = None,
-                             dropout_rate: float = 0.0, bh_offset: int = 0):
+                             dropout_rate: float = 0.0, bh_offset: int = 0,
+                             causal: bool = False, window_left: int = -1):
     """The gradient below ``BLOCKED_BWD_MIN_SEQ`` (the JAX ``_flash_bwd``
     recompute, which JAX leaves to XLA and the port to plain PyTorch): the
-    T x T probabilities recomputed in f32, the keep mask regenerated."""
+    T x T probabilities recomputed in f32 over the band's keys, the keep
+    mask regenerated, dK and dV summed over each KV head's group."""
     scale = _scale(q, scale)
     b, h, t, _ = q.shape
-    qf, kf, vf, g32 = (x.float() for x in (q, k, v, g))
-    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    kv_heads = k.shape[1]
+    qf, kf, vf, g32 = (x.float() for x in (q, expand_kv(k, h), expand_kv(v, h), g))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    vis = band_mask(t, causal, window_left, q.device)
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if vis is not None:
+        p = torch.where(vis, p, 0.0)
     dp = torch.matmul(g32, vf.transpose(-1, -2))
     if dropout_rate > 0.0:
         keep = keep_full(seed, b, h, t, dropout_rate, device=q.device, bh_offset=bh_offset)
@@ -194,7 +261,8 @@ def flash_backward_recompute(q, k, v, g, seed: int = 0,
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(q.dtype), fold_kv(dk, kv_heads).to(k.dtype),
+            fold_kv(dv, kv_heads).to(v.dtype))
 
 
 def _seed_arg(seed):
@@ -204,18 +272,30 @@ def _seed_arg(seed):
 
 
 def _check_qkv(name: str, q, others, seed, dropout_rate: float,
-               device_type: str = 'cuda', bh_offset: int = 0):
+               device_type: str = 'cuda', bh_offset: int = 0, kv=(),
+               window_left: int = -1):
     """The input checks shared by the kernel wrappers: ``others`` (name,
-    tensor) must match q; q is (B, H, T, D) f32 or bf16 with D <= 128, all
-    contiguous tensors on a ``device_type`` device.  A tensor seed is one
-    int32 on q's device; its range is checked where the tape is filled
-    (reading it here would wait for the device)."""
+    tensor) must match q; ``kv`` (name, tensor) are k and v, (B, H_kv, T, D)
+    of q's dtype and device with H a multiple of H_kv; q is (B, H, T, D) f32
+    or bf16 with D <= 128, all contiguous tensors on a ``device_type``
+    device.  A tensor seed is one int32 on q's device; its range is checked
+    where the tape is filled (reading it here would wait for the device)."""
     for other, x in others:
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
                 f'{other} must match q in shape, dtype and device: '
                 f'{tuple(x.shape)} {x.dtype} {x.device} vs '
                 f'{tuple(q.shape)} {q.dtype} {q.device}')
+    for other, x in kv:
+        if (x.dim() != 4 or x.shape[0] != q.shape[0] or x.shape[2:] != q.shape[2:]
+                or x.shape[1] < 1 or q.shape[1] % x.shape[1] or x.shape != kv[0][1].shape
+                or x.dtype != q.dtype or x.device != q.device):
+            raise ValueError(
+                f'{other} must be (B, H_kv, T, D) with H a multiple of H_kv, of q\'s dtype '
+                f'and device: {tuple(x.shape)} {x.dtype} {x.device} vs q '
+                f'{tuple(q.shape)} {q.dtype} {q.device}')
+    if window_left < -1:
+        raise ValueError(f'window_left must be >= 0, or -1 for none; got {window_left}')
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'{name} kernel takes float32 or bfloat16, got {q.dtype}')
     if q.dim() != 4:
@@ -224,7 +304,7 @@ def _check_qkv(name: str, q, others, seed, dropout_rate: float,
     if not (1 <= d <= 128) or t < 1 or b * h < 1:
         raise ValueError(f'{name} kernel needs T >= 1 and 1 <= D <= 128, '
                          f'got {tuple(q.shape)}')
-    if not all(x.is_contiguous() for x in [q] + [x for _, x in others]):
+    if not all(x.is_contiguous() for x in [q] + [x for _, x in (*others, *kv)]):
         raise ValueError(f'{name} kernel needs contiguous inputs')
     if isinstance(seed, torch.Tensor):
         if seed.numel() != 1 or seed.dtype != torch.int32 or seed.device != q.device:
@@ -262,13 +342,18 @@ def _seed_args(seed):
     return seed, None
 
 
+def _band_args(q, k, causal: bool, window_left: int):
+    """(heads, kv_heads, causal, window) of a launch."""
+    return q.shape[1], k.shape[1], int(bool(causal)), int(window_left)
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # flash_bwd_dq(q, k, v, do, lse, delta, dq, ...) / flash_bwd_dkv(..., dk, dv, ...)
-_BWD_TAIL = [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
-# flash_fwd(q, k, v, o, lse, bh, t, d, is_bf16, scale, seed, seed_dev, bh_offset,
-#           use_dropout, thresh, inv_keep, stream)
+_BWD_TAIL = [_I] * 8 + [_F, _I, _P, _I, _I, _I, _F, _P]
+# flash_fwd(q, k, v, o, lse, bh, t, d, heads, kv_heads, causal, window, is_bf16, scale,
+#           seed, seed_dev, bh_offset, use_dropout, thresh, inv_keep, stream)
 FLASH_FWD = _build.CtypesLibrary('flash_fwd', {
-    'flash_fwd': [_P] * 5 + [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]})
+    'flash_fwd': [_P] * 5 + [_I] * 8 + [_F, _I, _P, _I, _I, _I, _F, _P]})
 FLASH_BWD = _build.CtypesLibrary('flash_bwd', {'flash_bwd_dq': [_P] * 7 + _BWD_TAIL,
                                                'flash_bwd_dkv': [_P] * 8 + _BWD_TAIL})
 
@@ -282,9 +367,10 @@ class _FlashForward:
         self.counter = 'flash_fwd_lse' if with_lse else 'flash_fwd'
 
     def __call__(self, q, k, v, seed, scale: float, dropout_rate: float,
-                 bh_offset: int = 0):
+                 bh_offset: int = 0, causal: bool = False, window_left: int = -1):
         """``seed``: an int, or one int32 on the device (read by the kernel)."""
-        _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate, bh_offset=bh_offset)
+        _check_qkv('flash', q, [], seed, dropout_rate, bh_offset=bh_offset,
+                   kv=[('k', k), ('v', v)], window_left=window_left)
         b, h, t, d = q.shape
         out = torch.empty_like(q)
         lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -292,6 +378,7 @@ class _FlashForward:
         FLASH_FWD.launch('flash_fwd', self.counter, q.device, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b * h, t, d,
+            *_band_args(q, k, causal, window_left),
             int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
             *_dropout_args(dropout_rate)))
         return (out, lse) if self.with_lse else out
@@ -305,15 +392,18 @@ class _FlashBackward:
         self.n_out = 1 if fn == 'flash_bwd_dq' else 2
 
     def __call__(self, q, k, v, do, lse, delta, seed, scale: float,
-                 dropout_rate: float, bh_offset: int = 0):
-        _check_qkv('flash backward', q, [('k', k), ('v', v), ('do', do)], seed,
-                   dropout_rate, bh_offset=bh_offset)
+                 dropout_rate: float, bh_offset: int = 0, causal: bool = False,
+                 window_left: int = -1):
+        _check_qkv('flash backward', q, [('do', do)], seed, dropout_rate, bh_offset=bh_offset,
+                   kv=[('k', k), ('v', v)], window_left=window_left)
         _check_rows(q, lse=lse, delta=delta)
         b, h, t, d = q.shape
-        outs = [torch.empty_like(q) for _ in range(self.n_out)]
+        outs = ([torch.empty_like(q)] if self.n_out == 1
+                else [torch.empty_like(k), torch.empty_like(v)])
         FLASH_BWD.launch(self.fn, self.fn, q.device, (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *(o.data_ptr() for o in outs), b * h, t, d,
+            *_band_args(q, k, causal, window_left),
             int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
             *_dropout_args(dropout_rate)))
         return outs[0] if self.n_out == 1 else tuple(outs)
@@ -351,7 +441,7 @@ def _(q, k, v, seed, scale, dropout_rate):
 
 @flash_fwd_op.register_kernel('cpu')
 def _(q, k, v, seed, scale, dropout_rate):
-    _check_qkv('flash', q, [('k', k), ('v', v)], seed, dropout_rate, device_type='cpu')
+    _check_qkv('flash', q, [], seed, dropout_rate, device_type='cpu', kv=[('k', k), ('v', v)])
     return flash_attention_forward_reference(q, k, v, seed, scale, dropout_rate)
 
 
@@ -362,30 +452,36 @@ def _(q, k, v, seed, scale, dropout_rate):
 
 def flash_attention_forward(q, k, v, seed: int = 0, scale: Optional[float] = None,
                             dropout_rate: float = 0.0, return_lse: bool = False,
-                            bh_offset: int = 0):
+                            bh_offset: int = 0, causal: bool = False, window_left: int = -1):
     """Flash attention forward, (B, H, T, D) -> (B, H, T, D), and with
     ``return_lse`` also the row log-sum-exp (B, H, T) f32.
 
     ``scale`` defaults to 1/sqrt(D).  ``dropout_rate`` > 0 drops attention
     probabilities with the hashed keep mask of ``seed`` (an int or a 0-d
-    int32 tensor; head bh hashing ``bh_offset + bh``).  A CUDA tensor runs
-    the kernel (#1, or #2 for the lse); a CPU tensor the plain version.
-    Under ``torch.export`` the forward without lse is the op
-    ``ecg_tpu_torch::flash_fwd`` (``flash_fwd_op``); eager calls use the
-    binding directly and skip the dispatcher."""
+    int32 tensor; head bh hashing ``bh_offset + bh``).  ``causal`` and
+    ``window_left`` band the keys; k and v may hold fewer heads than q
+    (module docstring).  A CUDA tensor runs the kernel (#1, or #2 for the
+    lse); a CPU tensor the plain version.  Under ``torch.export`` the
+    forward without lse is the op ``ecg_tpu_torch::flash_fwd``
+    (``flash_fwd_op``, no band, one head count); eager calls use the binding
+    directly and skip the dispatcher."""
     scale = _scale(q, scale)
     if not return_lse and torch.compiler.is_exporting():
+        if causal or window_left >= 0 or k.shape[1] != q.shape[1]:
+            raise NotImplementedError('the exported flash op has no band and one head count')
         return flash_fwd_op(q, k, v, int(seed), scale, float(dropout_rate))
     kernel = flash_fwd_lse_kernel if return_lse else flash_fwd_kernel
     return _on(q, lambda: kernel(q, k, v, _seed_arg(seed), scale, float(dropout_rate),
-                                 int(bh_offset)),
+                                 int(bh_offset), causal, int(window_left)),
                lambda: flash_attention_forward_reference(
-                   q, k, v, seed, scale, dropout_rate, return_lse, bh_offset))
+                   q, k, v, seed, scale, dropout_rate, return_lse, bh_offset, causal,
+                   window_left))
 
 
 def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
                                      scale: Optional[float] = None,
-                                     dropout_rate: float = 0.0, bh_offset: int = 0):
+                                     dropout_rate: float = 0.0, bh_offset: int = 0,
+                                     causal: bool = False, window_left: int = -1):
     """Gradient of flash attention from the forward's ``out`` and ``lse``,
     never forming the T x T probabilities in device memory: (dQ, dK, dV).
 
@@ -400,10 +496,10 @@ def flash_attention_backward_blocked(q, k, v, out, lse, g, seed: int = 0,
 
     def cuda():
         args = (q, k, v, g, lse, delta, _seed_arg(seed), scale, float(dropout_rate),
-                int(bh_offset))
+                int(bh_offset), causal, int(window_left))
         return (flash_bwd_dq_kernel(*args), *flash_bwd_dkv_kernel(*args))
     return _on(q, cuda, lambda: flash_backward_blocked_reference(
-        q, k, v, g, lse, delta, seed, scale, dropout_rate, bh_offset))
+        q, k, v, g, lse, delta, seed, scale, dropout_rate, bh_offset, causal, window_left))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -414,15 +510,16 @@ class FlashAttention(torch.autograd.Function):
     the f32 recompute.  Both backwards regenerate the hashed keep mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, dropout_rate, bh_offset):
-        ctx.args = (seed, scale, dropout_rate, bh_offset)
+    def forward(ctx, q, k, v, seed, scale, dropout_rate, bh_offset, causal=False,
+                window_left=-1):
+        ctx.args = (seed, scale, dropout_rate, bh_offset, causal, window_left)
+        band = dict(bh_offset=bh_offset, causal=causal, window_left=window_left)
         if q.shape[2] >= BLOCKED_BWD_MIN_SEQ:
             out, lse = flash_attention_forward(q, k, v, seed, scale, dropout_rate,
-                                               return_lse=True, bh_offset=bh_offset)
+                                               return_lse=True, **band)
             ctx.save_for_backward(q, k, v, out, lse)
         else:
-            out = flash_attention_forward(q, k, v, seed, scale, dropout_rate,
-                                          bh_offset=bh_offset)
+            out = flash_attention_forward(q, k, v, seed, scale, dropout_rate, **band)
             ctx.save_for_backward(q, k, v)
         return out
 
@@ -433,12 +530,15 @@ class FlashAttention(torch.autograd.Function):
             grads = flash_attention_backward_blocked(*saved, g, *ctx.args)
         else:
             grads = flash_backward_recompute(*saved, g, *ctx.args)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, seed: int = 0, scale: Optional[float] = None,
-                    dropout_rate: float = 0.0, bh_offset: int = 0) -> torch.Tensor:
-    """Multi-head attention, (B, H, T, D) -> (B, H, T, D), differentiable.
+                    dropout_rate: float = 0.0, bh_offset: int = 0, causal: bool = False,
+                    window_left: int = -1) -> torch.Tensor:
+    """Multi-head attention, (B, H, T, D) -> (B, H, T, D), differentiable;
+    k and v (B, H_kv, T, D), the keys banded by ``causal`` and
+    ``window_left`` (module docstring).
 
     Without a gradient to record (inference, or no input requiring grad)
     this is the flash forward alone, as the JAX primal is; otherwise the
@@ -447,8 +547,10 @@ def flash_attention(q, k, v, seed: int = 0, scale: Optional[float] = None,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, _seed_arg(seed), _scale(q, scale),
-                                    float(dropout_rate), int(bh_offset))
-    return flash_attention_forward(q, k, v, seed, scale, dropout_rate, bh_offset=bh_offset)
+                                    float(dropout_rate), int(bh_offset), bool(causal),
+                                    int(window_left))
+    return flash_attention_forward(q, k, v, seed, scale, dropout_rate, bh_offset=bh_offset,
+                                   causal=causal, window_left=window_left)
 
 
 # --- the mesh's flash wrapping (the JAX flash_tp_context) -----------------
@@ -505,14 +607,16 @@ def attention(q, k, v, dropout_rate: float = 0.0, deterministic: bool = True,
               seed=0, use_flash: bool = True, min_seq: int = 0,
               generator: Optional[torch.Generator] = None,
               bh_offset: int = 0,
-              draw_bits: Optional[Callable[[torch.Size, torch.device], torch.Tensor]] = None
-              ) -> torch.Tensor:
+              draw_bits: Optional[Callable[[torch.Size, torch.device], torch.Tensor]] = None,
+              causal: bool = False, window_left: int = -1) -> torch.Tensor:
     """Dispatch: flash attention whenever flash is enabled and
     T >= ``min_seq`` (with the hashed dropout mask of ``seed`` when dropout
     is active, head bh hashing ``bh_offset + bh``: a data-parallel rank's
     rows take the global batch's masks), through
     :func:`flash_attention_sharded` inside :class:`flash_tp_context`;
-    otherwise plain attention.  Its dropout, as in JAX, compares
+    otherwise plain attention.  ``causal``, ``window_left`` and k, v with
+    fewer heads than q hold on both paths (module docstring; the mesh's wrap
+    takes neither).  Its dropout, as in JAX, compares
     raw 32-bit draws from ``generator`` (on q's device; or, when given,
     ``draw_bits(shape, device)``, as a ``DropoutRng`` draws them) against
     round((1 - rate) * (2^32 - 1)) and multiplies after the cast to v's
@@ -521,14 +625,24 @@ def attention(q, k, v, dropout_rate: float = 0.0, deterministic: bool = True,
     if use_flash and q.shape[2] >= min_seq:
         rate = float(dropout_rate) if active else 0.0
         if _TP_CTX is not None:
+            if causal or window_left >= 0 or k.shape[1] != q.shape[1]:
+                raise NotImplementedError('the mesh\'s flash wrap takes no band and one '
+                                          'head count')
             mesh, batch_axis, head_axis = _TP_CTX
             return flash_attention_sharded(q, k, v, mesh, batch_axis, head_axis,
                                            seed if active else 0, rate)
         return flash_attention(q, k, v, seed if active else 0, None, rate,
-                               bh_offset if active else 0)
+                               bh_offset if active else 0, causal, window_left)
     scale = 1.0 / math.sqrt(q.shape[-1])
+    k, v = expand_kv(k, q.shape[1]), expand_kv(v, q.shape[1])
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    vis = band_mask(q.shape[2], causal, window_left, q.device)
+    if vis is not None:
+        logits = torch.where(vis, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if vis is not None:
+        probs = torch.where(vis, probs, 0.0)
+    probs = probs.to(v.dtype)
     if active:
         if draw_bits is None:
             if generator is None:

@@ -4,7 +4,7 @@
 // Replaces the TPU kernels ops/attention.py::_bwd_dq_kernel and
 // ::_bwd_dkv_kernel of the JAX package (Pallas, both launched by
 // _flash_backward_blocked's pl.pallas_call).  Same function, for each
-// bh = b*H + h, query row i and key j < T:
+// bh = b*H + h, query row i and key j < T (or the band's keys, below):
 //   p_ij   = exp(scale * q_i.k_j - lse_i)          (lse from the forward)
 //   dpv_ij = dO_i . v_j, times keep_ij / (1 - rate) when dropout is on
 //   ds_ij  = p_ij * (dpv_ij - delta_i)             (delta = rowsum(dO * O))
@@ -70,9 +70,18 @@
 // fragments (bf16) or as float4 rows (f32) instead of a shuffle per key;
 // 64-row tiles replace 16-row blocks of serial rows, so a T = 1024 head stages
 // each walked tile 16 times, not 64; and cp.async double-buffers the walk.
+// Band and grouped KV heads (flash_mask.cuh), as the forward: dQ walks the key
+// tiles that meet its rows' band; dK/dV owns a KV head's key tile and walks,
+// for each query head of its group in turn, the query tiles that meet the band
+// (one ring across the group's heads), so the group's sum stays in the
+// accumulators: no atomics, the same bits every run, no expanded k/v or
+// per-head dK/dV in memory.  Masked elements of the tiles across the band's
+// edge get p = 0.  f32 takes the band as a template argument (the unbanded
+// kernels are the ones from before the band).
 // Left for later: TMA and producer warps, one fused dQ + dK/dV pass, 8 x 8
 // f32 register tiles, 3xTF32 split products for f32.
 #include "hopper.cuh"
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -99,7 +108,15 @@ struct Params {
   int use_dropout;
   uint32_t thresh;
   float inv_keep;
+  int heads, kv_heads;                    // q's heads and k/v's a batch row (flash_mask.cuh)
+  int causal, window;                     // the band: keys j <= i, j >= i - window (-1: none)
 };
+
+// query row g of KV row kvbh's group
+__device__ __forceinline__ int group_row(const Params& p, int kvbh, int g) {
+  const int grp = p.heads / p.kv_heads;
+  return (kvbh / p.kv_heads) * p.heads + (kvbh % p.kv_heads) * grp + g;
+}
 
 __device__ __forceinline__ bool kept(const Params& p, uint32_t seed, int bh, int qpos,
                                      int kpos) {
@@ -126,9 +143,10 @@ __device__ __forceinline__ void load_lse_delta(float* rows_s, const Params& p, s
   }
 }
 
-// number of ring stages: one when the walk is a single tile
-__host__ __device__ __forceinline__ int ring_stages(int t, bool two_fit) {
-  return (t > kBlock && two_fit) ? 2 : 1;
+// number of ring stages: one when the walk is a single tile (a head of at
+// most one tile, walked by itself: grp, the query heads walked, is 1)
+__host__ __device__ __forceinline__ int ring_stages(int t, int grp, bool two_fit) {
+  return ((t > kBlock || grp > 1) && two_fit) ? 2 : 1;
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -186,14 +204,18 @@ bwd_dq_bf16(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const bool band = banded(p.causal, p.window);
+  int bh, qt;
+  block_tile(gridDim.x / n_qtiles, n_qtiles, band, p.causal, &bh, &qt);
+  const int q0 = qt * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const size_t base = static_cast<size_t>(bh) * t * d;
-  const bf16* kg = static_cast<const bf16*>(p.k) + base;
-  const bf16* vg = static_cast<const bf16*>(p.v) + base;
-  const int n_kt = (t + kBlock - 1) / kBlock;
+  const size_t kv_base = static_cast<size_t>(kv_row(bh, p.heads, p.kv_heads)) * t * d;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kv_base;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kv_base;
+  int j0, j1;                             // the key tiles the block's band meets
+  key_tiles(p.causal, p.window, q0, q0 + BQ, t, kBlock, &j0, &j1);
   const int row0 = q0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   const uint32_t wg_rows = (warp >> 2) * 64 * 128;
   const uint32_t q_addr = smem_u32(q_s) + wg_rows, do_addr = smem_u32(do_s) + wg_rows;
@@ -201,8 +223,8 @@ bwd_dq_bf16(const Params p) {
   load_tile_bf16<BQ, DP, ALIGNED>(q_s, static_cast<const bf16*>(p.q) + base, q0, t, d, tid, NT);
   load_tile_bf16<BQ, DP, ALIGNED>(do_s, static_cast<const bf16*>(p.dout) + base, q0, t, d,
                                   tid, NT);
-  load_tile_bf16<kBlock, DP, ALIGNED>(kv_s, kg, 0, t, d, tid, NT);
-  load_tile_bf16<kBlock, DP, ALIGNED>(kv_s + kBlock * DP, vg, 0, t, d, tid, NT);
+  load_tile_bf16<kBlock, DP, ALIGNED>(kv_s, kg, j0 * kBlock, t, d, tid, NT);
+  load_tile_bf16<kBlock, DP, ALIGNED>(kv_s + kBlock * DP, vg, j0 * kBlock, t, d, tid, NT);
   cp_async_commit();
 
   // the rows' lse in base 2 and delta (0 past t: those rows are not stored)
@@ -221,12 +243,12 @@ bwd_dq_bf16(const Params p) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
 
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
     cp_async_wait<0>();                   // tile j has landed
     fence_proxy_async();
     __syncthreads();                      // ... for all; tile j-1 is consumed
-    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+    if (j + 1 < j1) {                     // tile j+1 loads while tile j computes
       bf16* nxt = kv_s + (st ^ 1) * 2 * kBlock * DP;
       load_tile_bf16<kBlock, DP, ALIGNED>(nxt, kg, (j + 1) * kBlock, t, d, tid, NT);
       load_tile_bf16<kBlock, DP, ALIGNED>(nxt + kBlock * DP, vg, (j + 1) * kBlock, t, d, tid, NT);
@@ -254,10 +276,13 @@ bwd_dq_bf16(const Params p) {
 
     // p on the fragments: s[4nb + e] is (row0 + 8(e/2), key k0 + 8nb + 2tq + e%2)
     const int k0 = j * kBlock;
+    const bool edge = band && !interior(p.causal, p.window, q0, BQ, k0, kBlock);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = exp2_ftz(fmaf(s[i], sl2, nl[(i >> 1) & 1]));
-      if (k0 + kBlock > t && k0 + (i >> 2) * 8 + 2 * tq + (i & 1) >= t) x = 0.f;
+      const int kpos = k0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+      if (k0 + kBlock > t && kpos >= t) x = 0.f;
+      if (edge && !visible(p.causal, p.window, row0 + 8 * ((i >> 1) & 1), kpos)) x = 0.f;
       s[i] = x;
     }
     wgmma_wait();
@@ -323,25 +348,37 @@ bwd_dkv_bf16(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_ktiles = (t + BK - 1) / BK;
-  const int bh = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x % n_ktiles) * BK;
+  const bool band = banded(p.causal, p.window);
+  int kvbh, kt;                           // a KV row: its group's query rows are walked
+  block_tile(gridDim.x / n_ktiles, n_ktiles, band, false, &kvbh, &kt);
+  const int k0 = kt * BK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const size_t base = static_cast<size_t>(bh) * t * d;
-  const size_t row_base = static_cast<size_t>(bh) * t;
-  const bf16* qg = static_cast<const bf16*>(p.q) + base;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + base;
-  const int n_qt = (t + kBlock - 1) / kBlock;
-  float* rows_s = reinterpret_cast<float*>(qd_s + ring_stages(t, true) * 2 * kBlock * DP);
+  const size_t base = static_cast<size_t>(kvbh) * t * d;
+  int i0, i1;                             // the query tiles the block's band meets
+  query_tiles(p.causal, p.window, k0, k0 + BK, t, kBlock, &i0, &i1);
+  const int n_band = i1 - i0;
+  const int n_walk = (p.heads / p.kv_heads) * n_band;   // every query row of the group
+  // walked tile w: query row group_row(w / n_band), queries from (i0 + w % n_band) * 64
+  auto walk_row = [&](int w) { return group_row(p, kvbh, w / n_band); };
+  auto walk_q0 = [&](int w) { return (i0 + w % n_band) * kBlock; };
+  auto load_walk = [&](bf16* dst, float* rows, int w) {
+    const size_t qb = static_cast<size_t>(walk_row(w)) * t;
+    const int q1 = walk_q0(w);
+    load_tile_bf16<kBlock, DP, ALIGNED>(dst, static_cast<const bf16*>(p.q) + qb * d, q1, t, d,
+                                        tid, NT);
+    load_tile_bf16<kBlock, DP, ALIGNED>(dst + kBlock * DP, static_cast<const bf16*>(p.dout) +
+                                        qb * d, q1, t, d, tid, NT);
+    load_lse_delta<kBlock>(rows, p, qb, q1, t, tid);
+  };
+  float* rows_s = reinterpret_cast<float*>(qd_s + ring_stages(t, p.heads / p.kv_heads, true) * 2 * kBlock * DP);
   const int key0 = k0 + warp * 16 + g;    // this thread's keys: key0, key0 + 8
   const uint32_t wg_rows = (warp >> 2) * 64 * 128;
   const uint32_t k_addr = smem_u32(k_s) + wg_rows, v_addr = smem_u32(v_s) + wg_rows;
 
   load_tile_bf16<BK, DP, ALIGNED>(k_s, static_cast<const bf16*>(p.k) + base, k0, t, d, tid, NT);
   load_tile_bf16<BK, DP, ALIGNED>(v_s, static_cast<const bf16*>(p.v) + base, k0, t, d, tid, NT);
-  load_tile_bf16<kBlock, DP, ALIGNED>(qd_s, qg, 0, t, d, tid, NT);
-  load_tile_bf16<kBlock, DP, ALIGNED>(qd_s + kBlock * DP, dog, 0, t, d, tid, NT);
-  load_lse_delta<kBlock>(rows_s, p, row_base, 0, t, tid);
+  load_walk(qd_s, rows_s, 0);
   cp_async_commit();
 
   const float sl2 = p.scale * kLog2e;
@@ -351,19 +388,16 @@ bwd_dkv_bf16(const Params p) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc_k[pn][i] = acc_v[pn][i] = 0.f;
 
-  for (int j = 0; j < n_qt; ++j) {
+  for (int j = 0; j < n_walk; ++j) {
     const int st = j & 1;
     cp_async_wait<0>();                   // tile j has landed
     fence_proxy_async();
     __syncthreads();                      // ... for all; tile j-1 is consumed
-    if (j + 1 < n_qt) {                   // tile j+1 loads while tile j computes
-      const int q1 = (j + 1) * kBlock;
-      bf16* nxt = qd_s + (st ^ 1) * 2 * kBlock * DP;
-      load_tile_bf16<kBlock, DP, ALIGNED>(nxt, qg, q1, t, d, tid, NT);
-      load_tile_bf16<kBlock, DP, ALIGNED>(nxt + kBlock * DP, dog, q1, t, d, tid, NT);
-      load_lse_delta<kBlock>(rows_s + (st ^ 1) * 2 * kBlock, p, row_base, q1, t, tid);
+    if (j + 1 < n_walk) {                 // tile j+1 loads while tile j computes
+      load_walk(qd_s + (st ^ 1) * 2 * kBlock * DP, rows_s + (st ^ 1) * 2 * kBlock, j + 1);
       cp_async_commit();
     }
+    const int bh = walk_row(j);           // the walked query row (its dropout masks)
     const uint32_t q_addr = smem_u32(qd_s + st * 2 * kBlock * DP);
     const uint32_t do_addr = q_addr + kBlock * DP * 2;
     const float* lse_s = rows_s + st * 2 * kBlock;
@@ -388,12 +422,14 @@ bwd_dkv_bf16(const Params p) {
     // p on the fragments: s[4nb + e] is (key key0 + 8(e/2), query
     // q0 + 8nb + 2tq + e%2), so lse and delta are per column; queries >= t
     // contribute 0
-    const int q0 = j * kBlock;
+    const int q0 = walk_q0(j);
+    const bool edge = band && !interior(p.causal, p.window, q0, kBlock, k0, BK);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = (i >> 2) * 8 + 2 * tq + (i & 1);
       float x = exp2_ftz(fmaf(s[i], sl2, -lse_s[c] * kLog2e));
       if (q0 + kBlock > t && q0 + c >= t) x = 0.f;
+      if (edge && !visible(p.causal, p.window, q0 + c, key0 + 8 * ((i >> 1) & 1))) x = 0.f;
       s[i] = x;
     }
     wgmma_wait();
@@ -516,8 +552,10 @@ __device__ __forceinline__ void store_rows_f32(float* og, const float4 (&acc)[G]
 
 // kernel #3, f32: R = 16G query rows per block (G = 4, or 3 for a head of
 // at most 48 rows).  Shared: Q, dO [R][DP + 4]; dS [R][kPPitch]; the ring
-// [stages][K, V][R][DP + 4].
-template <int G, int DP, bool ALIGNED>
+// [stages][K, V][R][DP + 4].  BAND (causal or a window) is a template
+// argument, as in the f32 forward: the unbanded instantiation is the kernel
+// as it was before the band, contracted the same way.
+template <int G, int DP, bool ALIGNED, bool BAND>
 __global__ void __launch_bounds__(kF32Threads, DP == 64 ? 2 : 1)
 bwd_dq_f32(const Params p) {
   constexpr int R = 16 * G;
@@ -533,21 +571,25 @@ bwd_dq_f32(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + R - 1) / R;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * R;
+  constexpr bool band = BAND;
+  int bh, qt;
+  block_tile(gridDim.x / n_qtiles, n_qtiles, band, p.causal, &bh, &qt);
+  const int q0 = qt * R;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t base = static_cast<size_t>(bh) * t * d;
-  const float* kg = static_cast<const float*>(p.k) + base;
-  const float* vg = static_cast<const float*>(p.v) + base;
-  const int n_kt = (t + R - 1) / R;
+  const size_t kv_base = static_cast<size_t>(kv_row(bh, p.heads, p.kv_heads)) * t * d;
+  const float* kg = static_cast<const float*>(p.k) + kv_base;
+  const float* vg = static_cast<const float*>(p.v) + kv_base;
+  int j0 = 0, j1 = (t + R - 1) / R;       // the key tiles the block's band meets
+  if (BAND) key_tiles(p.causal, p.window, q0, q0 + R, t, R, &j0, &j1);
   const int dq4 = (d + 3) & ~3;           // columns read; zero past d
 
   load_rows_f32<R, DP, kF32Threads, ALIGNED>(q_s, QP, static_cast<const float*>(p.q) + base, q0,
                                              t, d, tid);
   load_rows_f32<R, DP, kF32Threads, ALIGNED>(do_s, QP, static_cast<const float*>(p.dout) + base,
                                              q0, t, d, tid);
-  load_rows_f32<R, DP, kF32Threads, ALIGNED>(kv_s, QP, kg, 0, t, d, tid);
-  load_rows_f32<R, DP, kF32Threads, ALIGNED>(kv_s + R * QP, QP, vg, 0, t, d, tid);
+  load_rows_f32<R, DP, kF32Threads, ALIGNED>(kv_s, QP, kg, j0 * R, t, d, tid);
+  load_rows_f32<R, DP, kF32Threads, ALIGNED>(kv_s + R * QP, QP, vg, j0 * R, t, d, tid);
   cp_async_commit();
 
   // this thread: rows ty + 16i; score keys tx + 16jj; output columns 4tx + 64c
@@ -564,11 +606,11 @@ bwd_dq_f32(const Params p) {
     for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
     cp_async_wait<0>();                   // tile j has landed
     __syncthreads();                      // ... for all; tile j-1 and dS are consumed
-    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+    if (j + 1 < j1) {                     // tile j+1 loads while tile j computes
       float* nxt = kv_s + (st ^ 1) * 2 * R * QP;
       load_rows_f32<R, DP, kF32Threads, ALIGNED>(nxt, QP, kg, (j + 1) * R, t, d, tid);
       load_rows_f32<R, DP, kF32Threads, ALIGNED>(nxt + R * QP, QP, vg, (j + 1) * R, t, d, tid);
@@ -581,12 +623,14 @@ bwd_dq_f32(const Params p) {
     score_tile<G, QP>(s, q_s, ks, ty, tx, dq4);
     score_tile<G, QP>(dp, do_s, vs, ty, tx, dq4);
     const int k0 = j * R;
+    const bool edge = band && !interior(p.causal, p.window, q0, R, k0, R);
 #pragma unroll
     for (int i = 0; i < G; ++i)
 #pragma unroll
       for (int jj = 0; jj < G; ++jj) {
         const int kpos = k0 + tx + 16 * jj;
-        const float pr = kpos < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl[i])) : 0.f;
+        float pr = kpos < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl[i])) : 0.f;
+        if (edge && !visible(p.causal, p.window, q0 + ty + 16 * i, kpos)) pr = 0.f;
         float dpv = dp[i][jj];
         if (p.use_dropout) dpv = kept(p, seed, bh, q0 + ty + 16 * i, kpos) ? dpv * p.inv_keep : 0.f;
         ds_s[(ty + 16 * i) * kPPitch + tx + 16 * jj] = pr * (dpv - dl[i]);
@@ -618,8 +662,8 @@ bwd_dq_f32(const Params p) {
 
 // kernel #4, f32: R = 16G keys per block.  Shared: K, V [R][DP + 4];
 // p_eff^T and dS^T [R][kPPitch]; the ring [stages][Q, dO][R][DP + 4]; then
-// [stages][lse, delta][R].  Two stages fit only at DP = 64.
-template <int G, int DP, bool ALIGNED>
+// [stages][lse, delta][R].  Two stages fit only at DP = 64.  BAND as dQ's.
+template <int G, int DP, bool ALIGNED, bool BAND>
 __global__ void __launch_bounds__(kF32Threads, DP == 64 ? 2 : 1)
 bwd_dkv_f32(const Params p) {
   constexpr int R = 16 * G;
@@ -635,23 +679,33 @@ bwd_dkv_f32(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_ktiles = (t + R - 1) / R;
-  const int bh = blockIdx.x / n_ktiles;
-  const int k0 = (blockIdx.x % n_ktiles) * R;
+  constexpr bool band = BAND;
+  int kvbh, kt;                           // a KV row: its group's query rows are walked
+  block_tile(gridDim.x / n_ktiles, n_ktiles, band, false, &kvbh, &kt);
+  const int k0 = kt * R;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t base = static_cast<size_t>(bh) * t * d;
-  const size_t row_base = static_cast<size_t>(bh) * t;
-  const float* qg = static_cast<const float*>(p.q) + base;
-  const float* dog = static_cast<const float*>(p.dout) + base;
-  const int n_qt = (t + R - 1) / R;
-  const int stages = ring_stages(t, DP == 64);
+  const size_t base = static_cast<size_t>(kvbh) * t * d;
+  int i0 = 0, i1 = (t + R - 1) / R;       // the query tiles the block's band meets
+  if (BAND) query_tiles(p.causal, p.window, k0, k0 + R, t, R, &i0, &i1);
+  const int n_band = i1 - i0;
+  const int n_walk = (p.heads / p.kv_heads) * n_band;   // every query row of the group
+  const int stages = ring_stages(t, p.heads / p.kv_heads, DP == 64);
   float* rows_s = qd_s + stages * 2 * R * QP;
   const int dq4 = (d + 3) & ~3;
+  // walked tile w: query row group_row(w / n_band), queries from (i0 + w % n_band) * R
+  auto walk_row = [&](int w) { return group_row(p, kvbh, w / n_band); };
+  auto walk_q0 = [&](int w) { return (i0 + w % n_band) * R; };
 
-  auto load_walk = [&](int st, int q1) {  // Q, dO, lse, delta of queries from q1
+  auto load_walk = [&](int st, int w) {   // Q, dO, lse, delta of walked tile w
     float* dst = qd_s + st * 2 * R * QP;
-    load_rows_f32<R, DP, kF32Threads, ALIGNED>(dst, QP, qg, q1, t, d, tid);
-    load_rows_f32<R, DP, kF32Threads, ALIGNED>(dst + R * QP, QP, dog, q1, t, d, tid);
-    load_lse_delta<R>(rows_s + st * 2 * R, p, row_base, q1, t, tid);
+    const size_t qb = static_cast<size_t>(walk_row(w)) * t;
+    const int q1 = walk_q0(w);
+    load_rows_f32<R, DP, kF32Threads, ALIGNED>(dst, QP, static_cast<const float*>(p.q) + qb * d,
+                                               q1, t, d, tid);
+    load_rows_f32<R, DP, kF32Threads, ALIGNED>(dst + R * QP, QP,
+                                               static_cast<const float*>(p.dout) + qb * d, q1, t,
+                                               d, tid);
+    load_lse_delta<R>(rows_s + st * 2 * R, p, qb, q1, t, tid);
     cp_async_commit();
   };
   load_rows_f32<R, DP, kF32Threads, ALIGNED>(k_s, QP, static_cast<const float*>(p.k) + base, k0,
@@ -668,11 +722,12 @@ bwd_dkv_f32(const Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int j = 0; j < n_qt; ++j) {
+  for (int j = 0; j < n_walk; ++j) {
     const int st = stages == 2 ? (j & 1) : 0;
     cp_async_wait<0>();                   // tile j has landed
     __syncthreads();                      // ... for all; tile j-1 and p_eff, dS are consumed
-    if (stages == 2 && j + 1 < n_qt) load_walk(st ^ 1, (j + 1) * R);
+    if (stages == 2 && j + 1 < n_walk) load_walk(st ^ 1, j + 1);
+    const int bh = walk_row(j);           // the walked query row (its dropout masks)
     const float* qs = qd_s + st * 2 * R * QP;
     const float* dos = qs + R * QP;
     const float* lse_s = rows_s + st * 2 * R;
@@ -681,14 +736,16 @@ bwd_dkv_f32(const Params p) {
     float s[G][G], dp[G][G];
     score_tile<G, QP>(s, k_s, qs, ty, tx, dq4);
     score_tile<G, QP>(dp, v_s, dos, ty, tx, dq4);
-    const int q0 = j * R;
+    const int q0 = walk_q0(j);
+    const bool edge = band && !interior(p.causal, p.window, q0, R, k0, R);
 #pragma unroll
     for (int jj = 0; jj < G; ++jj) {
       const int c = tx + 16 * jj;
       const float nl = -lse_s[c] * kLog2e, dl = dl_s[c];
 #pragma unroll
       for (int i = 0; i < G; ++i) {
-        const float pr = q0 + c < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl)) : 0.f;
+        float pr = q0 + c < t ? exp2_ftz(fmaf(s[i][jj], sl2, nl)) : 0.f;
+        if (edge && !visible(p.causal, p.window, q0 + c, k0 + ty + 16 * i)) pr = 0.f;
         float pe = pr, dpv = dp[i][jj];
         if (p.use_dropout) {
           const bool keep = kept(p, seed, bh, q0 + c, k0 + ty + 16 * i);
@@ -724,9 +781,9 @@ bwd_dkv_f32(const Params p) {
         }
       }
     }
-    if (stages == 1 && j + 1 < n_qt) {    // one stage: the next tile waits for this one
+    if (stages == 1 && j + 1 < n_walk) {  // one stage: the next tile waits for this one
       __syncthreads();
-      load_walk(0, (j + 1) * R);
+      load_walk(0, j + 1);
     }
   }
 
@@ -748,44 +805,48 @@ cudaError_t launch(void (*kernel)(Params), int blocks, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// bh: the launch's rows (query rows for dQ, KV rows for dK/dV)
 template <int NW, int DP, bool ALIGNED>
 cudaError_t run_bf16(int bh, bool want_dq, const Params& p, cudaStream_t stream) {
   const int rows = 16 * NW;
   const int blocks = bh * ((p.t + rows - 1) / rows);
-  const size_t stages = ring_stages(p.t, true);
+  const size_t stages = ring_stages(p.t, want_dq ? 1 : p.heads / p.kv_heads, true);
   const size_t tiles = (2 * rows + stages * 2 * kBlock) * DP * sizeof(bf16) + 1024;
   if (want_dq) return launch(bwd_dq_bf16<NW, DP, ALIGNED>, blocks, 32 * NW, tiles, stream, p);
   return launch(bwd_dkv_bf16<NW, DP, ALIGNED>, blocks, 32 * NW,
                 tiles + stages * 2 * kBlock * sizeof(float), stream, p);
 }
 
-template <int G, int DP, bool ALIGNED>
+template <int G, int DP, bool ALIGNED, bool BAND>
 cudaError_t run_f32_g(int bh, bool want_dq, const Params& p, cudaStream_t stream) {
   constexpr size_t R = 16 * G, kTile = R * (DP + 4);
   const int blocks = bh * ((p.t + R - 1) / R);
   if (want_dq) {
     const size_t smem =
-        (2 * kTile + R * kPPitch + ring_stages(p.t, true) * 2 * kTile) * sizeof(float);
-    return launch(bwd_dq_f32<G, DP, ALIGNED>, blocks, kF32Threads, smem, stream, p);
+        (2 * kTile + R * kPPitch + ring_stages(p.t, 1, true) * 2 * kTile) * sizeof(float);
+    return launch(bwd_dq_f32<G, DP, ALIGNED, BAND>, blocks, kF32Threads, smem, stream, p);
   }
   const size_t smem = (2 * kTile + 2 * R * kPPitch +
-                       ring_stages(p.t, DP == 64) * (2 * kTile + 2 * R)) * sizeof(float);
-  return launch(bwd_dkv_f32<G, DP, ALIGNED>, blocks, kF32Threads, smem, stream, p);
+                       ring_stages(p.t, p.heads / p.kv_heads, DP == 64) * (2 * kTile + 2 * R)) *
+                       sizeof(float);
+  return launch(bwd_dkv_f32<G, DP, ALIGNED, BAND>, blocks, kF32Threads, smem, stream, p);
 }
 
 // a head of at most 48 rows takes 48-row tiles: a 41-row head computes no
 // fourth 16-row group of scores
-template <int DP, bool ALIGNED>
+template <int DP, bool ALIGNED, bool BAND>
 cudaError_t run_f32(int bh, bool want_dq, const Params& p, cudaStream_t stream) {
-  return p.t <= 48 ? run_f32_g<3, DP, ALIGNED>(bh, want_dq, p, stream)
-                   : run_f32_g<4, DP, ALIGNED>(bh, want_dq, p, stream);
+  return p.t <= 48 ? run_f32_g<3, DP, ALIGNED, BAND>(bh, want_dq, p, stream)
+                   : run_f32_g<4, DP, ALIGNED, BAND>(bh, want_dq, p, stream);
 }
 
 // bf16 takes 128-row blocks (two warpgroups sharing each walked tile) unless
 // 64-row blocks leave fewer rows on the busiest SM, as the forward does
 template <int DP, bool ALIGNED>
 cudaError_t run(int bh, int is_bf16, bool want_dq, const Params& p, cudaStream_t stream) {
-  if (!is_bf16) return run_f32<DP, ALIGNED>(bh, want_dq, p, stream);
+  if (!is_bf16)
+    return banded(p.causal, p.window) ? run_f32<DP, ALIGNED, true>(bh, want_dq, p, stream)
+                                      : run_f32<DP, ALIGNED, false>(bh, want_dq, p, stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -802,9 +863,11 @@ int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool wa
              void* stream) {
   const long long n_tiles = (p.t + kBlock - 1) / kBlock;
   if (bh < 1 || p.t < 1 || p.d < 1 || p.d > 128 || (!p.seed_dev && seed < 0) || thresh < 0 ||
-      static_cast<long long>(bh) * n_tiles > 0x7FFFFFFFLL) {
+      static_cast<long long>(bh) * n_tiles > 0x7FFFFFFFLL || p.heads < 1 || p.kv_heads < 1 ||
+      p.heads % p.kv_heads || bh % p.heads || p.window < -1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!want_dq) bh = bh / p.heads * p.kv_heads;   // dK/dV: a block a KV row's key tile
   // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
   // aligned arrays; anything else takes the kernels' scalar-load branch
   const size_t elem = is_bf16 ? 2 : 4;
@@ -828,33 +891,39 @@ int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool wa
 
 }  // namespace
 
-// q, k, v, dout (the output's cotangent) and the outputs: contiguous (bh, t, d)
-// arrays on the device, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1);
-// 1 <= d <= 128.  lse and delta: contiguous (bh, t) f32.  seed >= 0, or seed_dev
+// q, dout (the output's cotangent) and dq: contiguous (bh, t, d) arrays on the
+// device, all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); 1 <= d <= 128.
+// bh = batch * heads; k, v, dk and dv hold kv_heads heads a batch row, query
+// head h reading KV head h / (heads / kv_heads); causal and window as the
+// forward's (flash_mask.cuh).  lse and delta: contiguous (bh, t) f32.  seed >= 0, or seed_dev
 // the address of an int32 seed on the device, read by the kernel instead; thresh
 // and inv_keep are dropout_keep's threshold on the low 24 hash bits and
 // 1/(1-rate); the masks hash bh_offset + bh, as the forward's.  Each launches
 // on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int t,
-                            int d, int is_bf16, float scale, int seed, const void* seed_dev,
+                            int d, int heads, int kv_heads, int causal, int window,
+                            int is_bf16, float scale, int seed, const void* seed_dev,
                             int bh_offset, int use_dropout, int thresh, float inv_keep,
                             void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                  dq, nullptr, nullptr, t, d, scale, static_cast<uint32_t>(seed),
                  static_cast<const int*>(seed_dev), static_cast<uint32_t>(bh_offset),
-                 use_dropout, static_cast<uint32_t>(thresh), inv_keep};
+                 use_dropout, static_cast<uint32_t>(thresh), inv_keep, heads, kv_heads,
+                 causal != 0, window};
   return dispatch(p, bh, is_bf16, seed, thresh, true, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
-                             int t, int d, int is_bf16, float scale, int seed,
-                             const void* seed_dev, int bh_offset, int use_dropout,
-                             int thresh, float inv_keep, void* stream) {
+                             int t, int d, int heads, int kv_heads, int causal, int window,
+                             int is_bf16, float scale, int seed, const void* seed_dev,
+                             int bh_offset, int use_dropout, int thresh, float inv_keep,
+                             void* stream) {
   const Params p{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                  nullptr, dk, dv, t, d, scale, static_cast<uint32_t>(seed),
                  static_cast<const int*>(seed_dev), static_cast<uint32_t>(bh_offset),
-                 use_dropout, static_cast<uint32_t>(thresh), inv_keep};
+                 use_dropout, static_cast<uint32_t>(thresh), inv_keep, heads, kv_heads,
+                 causal != 0, window};
   return dispatch(p, bh, is_bf16, seed, thresh, false, stream);
 }

@@ -5,7 +5,7 @@
 // _flash_forward's pl.pallas_call; the second also emits the row
 // log-sum-exp for the blocked backward).  Same function:
 // for each (bh = b*H + h, query row) the online-softmax attention
-// softmax(scale * q.k^T) . v over keys 0..T-1, with
+// softmax(scale * q.k^T) . v over keys 0..T-1 (or the band's, below), with
 //   * an f32 running max m, sum l and accumulator, output in the input dtype;
 //   * keys at positions >= T masked to NEG_INF = -1e30;
 //   * for bf16 inputs, p rounded to bf16 before the PV product (as the TPU
@@ -52,12 +52,26 @@
 //   conflict-free); a row's max is reduced over the 16 threads sharing it,
 //   P goes through shared memory, and O += P V is the same register tiling
 //   (4 rows x 4 columns per 64 of D).
+// Band and grouped KV heads (beyond the TPU kernels; flash_mask.cuh): a query
+// row i may see keys j <= i (causal) and j >= i - window, and k, v may hold
+// fewer heads than q (query head h reads KV head h / (heads / kv_heads), read
+// in place: no expanded copy).  A block walks only the key tiles that meet its
+// rows' band (key_tiles), and masks elements only in the tiles across the
+// band's edge: a masked score is -1e30 for the row max and its p is set to 0
+// (a row whose keys so far are all masked has max -1e30, and exp2 of its
+// masked scores would not be 0).  Banded launches go tile-major, a causal
+// one's last query tiles (the most keys) first.  f32 takes the band as a
+// template argument, so its unbanded kernels are the ones from before the band.
+// At Trinity's attention, q (2, 32, 8192, 128) and k, v (2, 4, ...) bf16, the
+// 2,047-key window takes 0.46 of the causal full layer's time (visible pairs
+// 0.4375; tools/flash_band_probe.py).
 // Left for later: TMA loads and warp-specialised producers for bf16, whose
 // softmax (bound by the special-function unit's exp2) does not yet overlap
 // the products of the same warpgroup; 8 x 8 register tiles for f32 (4 x 4
 // needs 0.5 FMA per shared-memory byte, half of what keeps the CUDA cores
 // fed).
 #include "hopper.cuh"
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -78,6 +92,8 @@ struct Params {
   int use_dropout;
   uint32_t thresh;
   float inv_keep;
+  int heads, kv_heads;                    // q's heads and k/v's a batch row (flash_mask.cuh)
+  int causal, window;                     // the band: keys j <= i, j >= i - window (-1: none)
 };
 
 // p after dropout (kept entries scaled by inv_keep); l has summed the raw p
@@ -110,21 +126,25 @@ flash_fwd_bf16(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + BQ - 1) / BQ;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * BQ;
+  const bool band = banded(p.causal, p.window);
+  int bh, qt;
+  block_tile(gridDim.x / n_qtiles, n_qtiles, band, p.causal, &bh, &qt);
+  const int q0 = qt * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const size_t base = static_cast<size_t>(bh) * t * d;
+  const size_t kv_base = static_cast<size_t>(kv_row(bh, p.heads, p.kv_heads)) * t * d;
   const bf16* qg = static_cast<const bf16*>(p.q) + base;
-  const bf16* kg = static_cast<const bf16*>(p.k) + base;
-  const bf16* vg = static_cast<const bf16*>(p.v) + base;
-  const int n_kt = (t + kBlockK - 1) / kBlockK;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kv_base;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kv_base;
+  int j0, j1;                             // the key tiles the block's band meets
+  key_tiles(p.causal, p.window, q0, q0 + BQ, t, kBlockK, &j0, &j1);
   const int row0 = q0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
   const uint32_t q_addr = smem_u32(q_s) + (warp >> 2) * 64 * 128;  // the warpgroup's rows
 
   load_tile_bf16<BQ, DP, ALIGNED>(q_s, qg, q0, t, d, tid, NT);
-  load_tile_bf16<kBlockK, DP, ALIGNED>(k_s, kg, 0, t, d, tid, NT);
-  load_tile_bf16<kBlockK, DP, ALIGNED>(v_s, vg, 0, t, d, tid, NT);
+  load_tile_bf16<kBlockK, DP, ALIGNED>(k_s, kg, j0 * kBlockK, t, d, tid, NT);
+  load_tile_bf16<kBlockK, DP, ALIGNED>(v_s, vg, j0 * kBlockK, t, d, tid, NT);
   cp_async_commit();
 
   float acc[NP][32];
@@ -134,12 +154,12 @@ flash_fwd_bf16(const Params p) {
     for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
     cp_async_wait<0>();                   // tile j has landed
     fence_proxy_async();
     __syncthreads();                      // ... for all; tile j-1 is consumed
-    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+    if (j + 1 < j1) {                     // tile j+1 loads while tile j computes
       load_tile_bf16<kBlockK, DP, ALIGNED>(k_s + (st ^ 1) * kBlockK * DP, kg,
                                            (j + 1) * kBlockK, t, d, tid, NT);
       load_tile_bf16<kBlockK, DP, ALIGNED>(v_s + (st ^ 1) * kBlockK * DP, vg,
@@ -164,11 +184,20 @@ flash_fwd_bf16(const Params p) {
     // online softmax on the fragments: s[4nb + e] is (row0 + 8(e/2), key
     // k0 + 8nb + 2tq + e%2)
     const int k0 = j * kBlockK;
+    // a tile across the band's edge masks its elements: a masked p is 0
+    // (a row may have seen no key yet, so its max does not zero it)
+    const bool edge = band && !interior(p.causal, p.window, q0, BQ, k0, kBlockK);
+    uint32_t seen = 0xFFFFFFFFu;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * p.scale;
-      if (k0 + kBlockK > t && k0 + (i >> 2) * 8 + 2 * tq + (i & 1) >= t) x = kNegInf;
+      const int kpos = k0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+      if (k0 + kBlockK > t && kpos >= t) x = kNegInf;
+      if (edge && !visible(p.causal, p.window, row0 + 8 * ((i >> 1) & 1), kpos)) {
+        x = kNegInf;
+        seen &= ~(1u << i);
+      }
       s[i] = x;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
@@ -192,6 +221,7 @@ flash_fwd_bf16(const Params p) {
     for (int i = 0; i < 32; ++i) {
       const int h = (i >> 1) & 1;
       float x = exp2_ftz(fmaf(s[i], kLog2e, neg[h]));
+      if (edge && !((seen >> i) & 1u)) x = 0.f;
       l[h] += x;                          // the normalizer sums the raw p
       if (p.use_dropout)
         x = drop(p, seed, x, bh, row0 + 8 * h, k0 + (i >> 2) * 8 + 2 * tq + (i & 1));
@@ -281,8 +311,11 @@ __device__ __forceinline__ void load_tile_f32(float* s, int pitch, const float* 
   load_rows_f32<kF32Rows, DP, kF32Threads, ALIGNED>(s, pitch, g, r0, t, d, tid);
 }
 
-// DP = D padded to 64 or 128
-template <int DP, bool ALIGNED>
+// DP = D padded to 64 or 128; BAND: causal or a window (flash_mask.cuh).  The
+// band is a template argument here, so the unbanded instantiation compiles to
+// the kernel as it was before the band, the same f32 operations contracted the
+// same way (a branch between the exp and the sum moved nvcc's contractions)
+template <int DP, bool ALIGNED, bool BAND>
 __global__ void __launch_bounds__(kF32Threads, DP == 64 ? 2 : 1)
 flash_fwd_f32(const Params p) {
   constexpr int QP = DP + 4;              // Q/K row pitch: float4 reads of 8
@@ -297,19 +330,23 @@ flash_fwd_f32(const Params p) {
   const int t = p.t, d = p.d;
   const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
   const int n_qtiles = (t + kF32Rows - 1) / kF32Rows;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kF32Rows;
+  constexpr bool band = BAND;
+  int bh, qt;
+  block_tile(gridDim.x / n_qtiles, n_qtiles, band, p.causal, &bh, &qt);
+  const int q0 = qt * kF32Rows;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t base = static_cast<size_t>(bh) * t * d;
+  const size_t kv_base = static_cast<size_t>(kv_row(bh, p.heads, p.kv_heads)) * t * d;
   const float* qg = static_cast<const float*>(p.q) + base;
-  const float* kg = static_cast<const float*>(p.k) + base;
-  const float* vg = static_cast<const float*>(p.v) + base;
-  const int n_kt = (t + kBlockK - 1) / kBlockK;
+  const float* kg = static_cast<const float*>(p.k) + kv_base;
+  const float* vg = static_cast<const float*>(p.v) + kv_base;
+  int j0 = 0, j1 = (t + kBlockK - 1) / kBlockK;   // the key tiles the band meets
+  if (BAND) key_tiles(p.causal, p.window, q0, q0 + kF32Rows, t, kBlockK, &j0, &j1);
   const int dq = (d + 3) & ~3;            // columns read; zero past d
 
   load_tile_f32<DP, ALIGNED>(q_s, QP, qg, q0, t, d, tid);
-  load_tile_f32<DP, ALIGNED>(k_s, QP, kg, 0, t, d, tid);
-  load_tile_f32<DP, ALIGNED>(v_s, DP, vg, 0, t, d, tid);
+  load_tile_f32<DP, ALIGNED>(k_s, QP, kg, j0 * kBlockK, t, d, tid);
+  load_tile_f32<DP, ALIGNED>(v_s, DP, vg, j0 * kBlockK, t, d, tid);
   cp_async_commit();
 
   // this thread: rows ty + 16i (i < 4); score keys tx + 16jj (jj < 4); output
@@ -324,11 +361,11 @@ flash_fwd_f32(const Params p) {
     for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
     cp_async_wait<0>();                   // tile j has landed
     __syncthreads();                      // ... for all; tile j-1 and P are consumed
-    if (j + 1 < n_kt) {                   // tile j+1 loads while tile j computes
+    if (j + 1 < j1) {                     // tile j+1 loads while tile j computes
       load_tile_f32<DP, ALIGNED>(k_s + (st ^ 1) * kBlockK * QP, QP, kg, (j + 1) * kBlockK,
                                  t, d, tid);
       load_tile_f32<DP, ALIGNED>(v_s + (st ^ 1) * kBlockK * DP, DP, vg, (j + 1) * kBlockK,
@@ -363,6 +400,7 @@ flash_fwd_f32(const Params p) {
     }
 
     const int k0 = j * kBlockK;
+    const bool edge = band && !interior(p.causal, p.window, q0, kF32Rows, k0, kBlockK);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = m[i];
@@ -370,6 +408,7 @@ flash_fwd_f32(const Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         float x = s[i][jj] * p.scale;
         if (k0 + tx + 16 * jj >= t) x = kNegInf;
+        if (edge && !visible(p.causal, p.window, q0 + ty + 16 * i, k0 + tx + 16 * jj)) x = kNegInf;
         s[i][jj] = x;
         mx = fmaxf(mx, x);
       }
@@ -390,6 +429,7 @@ flash_fwd_f32(const Params p) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float x = exp2_ftz(fmaf(s[i][jj], kLog2e, neg));
+        if (edge && !visible(p.causal, p.window, q0 + ty + 16 * i, k0 + tx + 16 * jj)) x = 0.f;
         l[i] += x;                        // the normalizer sums the raw p
         if (p.use_dropout) x = drop(p, seed, x, bh, q0 + ty + 16 * i, k0 + tx + 16 * jj);
         p_s[(ty + 16 * i) * kPPitch + tx + 16 * jj] = x;
@@ -463,19 +503,21 @@ cudaError_t run_bf16(int bh, const Params& p, cudaStream_t stream) {
   return launch(flash_fwd_bf16<NW, DP, ALIGNED>, bh * n_qtiles, 32 * NW, smem, stream, p);
 }
 
-template <int DP, bool ALIGNED>
+template <int DP, bool ALIGNED, bool BAND>
 cudaError_t run_f32(int bh, const Params& p, cudaStream_t stream) {
   const int n_qtiles = (p.t + kF32Rows - 1) / kF32Rows;
   const size_t smem = (static_cast<size_t>(kF32Rows + 2 * kBlockK) * (DP + 4) +
                        2 * kBlockK * DP + kF32Rows * kPPitch) * sizeof(float);
-  return launch(flash_fwd_f32<DP, ALIGNED>, bh * n_qtiles, kF32Threads, smem, stream, p);
+  return launch(flash_fwd_f32<DP, ALIGNED, BAND>, bh * n_qtiles, kF32Threads, smem, stream, p);
 }
 
 // bf16 takes 128-row blocks (two warpgroups sharing each K/V tile) unless
 // 64-row blocks leave fewer query rows on the busiest SM
 template <int DP, bool ALIGNED>
 cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
-  if (!is_bf16) return run_f32<DP, ALIGNED>(bh, p, stream);
+  if (!is_bf16)
+    return banded(p.causal, p.window) ? run_f32<DP, ALIGNED, true>(bh, p, stream)
+                                      : run_f32<DP, ALIGNED, false>(bh, p, stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -490,8 +532,11 @@ cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, o: contiguous (bh, t, d) arrays on the device, all f32 (is_bf16 = 0)
-// or all bf16 (is_bf16 = 1); 1 <= d <= 128.  lse: null, or a contiguous
+// q, o: contiguous (bh, t, d) arrays on the device, all f32 (is_bf16 = 0) or
+// all bf16 (is_bf16 = 1); 1 <= d <= 128.  bh = batch * heads; k and v hold
+// kv_heads heads a batch row (heads a multiple of kv_heads), query head h
+// reading KV head h / (heads / kv_heads).  causal: query i sees keys j <= i;
+// window >= 0: keys j >= i - window; -1: no bound.  lse: null, or a contiguous
 // (bh, t) f32 array that receives the row log-sum-exp.  seed >= 0, or seed_dev
 // the address of an int32 seed on the device, which the kernel reads instead
 // (a CUDA graph then replays the launch with whatever seed is there); thresh
@@ -500,18 +545,21 @@ cudaError_t run(int bh, int is_bf16, const Params& p, cudaStream_t stream) {
 // rows of a larger batch draws that batch's masks.
 // Launches on `stream` and returns the launch's CUDA error code (0: none).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int t, int d, int is_bf16, float scale, int seed,
-                         const void* seed_dev, int bh_offset, int use_dropout, int thresh,
-                         float inv_keep, void* stream) {
+                         void* lse, int bh, int t, int d, int heads, int kv_heads, int causal,
+                         int window, int is_bf16, float scale, int seed, const void* seed_dev,
+                         int bh_offset, int use_dropout, int thresh, float inv_keep,
+                         void* stream) {
   const long long n_qtiles = (t + kBlockK - 1) / kBlockK;
   if (bh < 1 || t < 1 || d < 1 || d > 128 || (!seed_dev && seed < 0) || thresh < 0 ||
-      static_cast<long long>(bh) * n_qtiles > 0x7FFFFFFFLL) {
+      static_cast<long long>(bh) * n_qtiles > 0x7FFFFFFFLL || heads < 1 || kv_heads < 1 ||
+      heads % kv_heads || bh % heads || window < -1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{q, k, v, o, static_cast<float*>(lse), t, d, scale,
                  static_cast<uint32_t>(seed), static_cast<const int*>(seed_dev),
                  static_cast<uint32_t>(bh_offset), use_dropout,
-                 static_cast<uint32_t>(thresh), inv_keep};
+                 static_cast<uint32_t>(thresh), inv_keep, heads, kv_heads, causal != 0,
+                 window};
   // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
   // aligned arrays; anything else takes the kernels' scalar-load branch
   const size_t elem = is_bf16 ? 2 : 4;

@@ -12,7 +12,10 @@ backward (the JAX package's ``parallel/ring_attention.py``).
 
 As in JAX the block products are plain matmuls with f32 results (JAX's
 ``preferred_element_type``: bf16 inputs keep f32 statistics), not a flash
-kernel.  The hops of the last step's K/V are left out (JAX sends them and
+kernel.  On an axis of one rank (or no mesh) there is no ring: the shard is
+the whole sequence, and ``ring_attention_local`` runs the flash kernels
+(``ops.attention.flash_attention``: #2-#4 from ``BLOCKED_BWD_MIN_SEQ`` tokens
+on, #1 and the plain recompute below).  The hops of the last step's K/V are left out (JAX sends them and
 drops them).  ``ring_attention_local`` runs inside a step on a mesh (the
 axis resolves against ``spmd.current()``); ``ring_attention`` takes global
 tensors and returns this rank's sequence shard.
@@ -100,10 +103,13 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis
                          scale: Optional[float] = None) -> torch.Tensor:
     """Ring attention of this rank's sequence shard (B, H, T/n, D) over axis
     ``axis`` of the current mesh (``spmd.mesh_context``); on no mesh, or an
-    axis of one rank, plain attention computed the same way.
+    axis of one rank, the flash attention of the whole sequence.
     Differentiable.  Every rank of the axis must call it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if spmd.axis_index(axis)[1] == 1:
+        from ..ops.attention import flash_attention
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     return _RingLocal.apply(q, k, v, axis, scale)
 
 

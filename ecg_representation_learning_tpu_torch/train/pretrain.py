@@ -84,8 +84,8 @@ class MaeTrainer(TrainerBase):
         """Normalize, pad, then crop to ``max_signal_length``: an input that
         is already a patch multiple gains a zero patch (the always-pad
         quirk) that would exceed the position embeddings."""
-        sig = _prep_batch(sig.float(), self.mean, self.std, self.model_cfg.patch_size)
-        return sig[..., :self.model_cfg.max_signal_length]
+        return _prep_batch(sig.float(), self.mean, self.std, self.model_cfg.patch_size,
+                           max_len=self.model_cfg.max_signal_length)
 
     def _micro_loss(self, sig: torch.Tensor, prep: Optional[Callable] = None):
         """(metrics of one microbatch, its objective) in train mode: the

@@ -103,11 +103,13 @@ class SplitData:
 def _prep_batch(sig: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                 patch_size: int, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                timeout_scale=(0.0, 0.5)) -> torch.Tensor:
-    """Per-batch transform: normalize -> pad -> (``train``) TimeOut, drawn
-    for the global batch on a mesh (``spmd.global_draw``)."""
+                timeout_scale=(0.0, 0.5), max_len: Optional[int] = None) -> torch.Tensor:
+    """Per-batch transform: normalize -> pad -> crop to ``max_len`` (a record
+    of the model's whole input length gains a zero patch from the always-pad
+    quirk, which would exceed it) -> (``train``) TimeOut, drawn for the
+    global batch on a mesh (``spmd.global_draw``)."""
     sig = normalize_fixed(sig, mean, std)
-    sig = time_end_pad(sig, patch_size)
+    sig = time_end_pad(sig, patch_size)[..., :max_len]
     if train:
         span, start = spmd.global_draw(sig.shape[0], lambda n: timeout_draws(
             (n,), *timeout_scale, generator=generator, device=sig.device))
@@ -409,7 +411,7 @@ class TrainerBase:
         loss, as in JAX)."""
         cfg = self.model_cfg
         if cfg.moe_num_experts > 0:
-            weight = cfg.moe_seq_aux_weight if cfg.block == 'deepseek' else cfg.moe_aux_weight
+            weight = cfg.moe_seq_aux_weight if cfg.block != 'vit' else cfg.moe_aux_weight
             return loss + weight * aux
         return loss
 
@@ -684,9 +686,9 @@ class Trainer(TrainerBase):
                  output_dir: Optional[str] = None, name: str = 'EcgVit', device=None,
                  mesh=None):
         self.save_time = datetime.datetime.now().strftime('%Y-%m-%d_%H-%M-%S')
-        # the deepseek block is built on the device (its CPU build of ~1e9
-        # parameters would take longer than the step); weights come after
-        with torch.device(default_device(device) if model_cfg.block == 'deepseek' else 'cpu'):
+        # the deepseek and afmoe blocks are built on the device (a CPU build of
+        # ~1e9 parameters would take longer than the step); weights come after
+        with torch.device(default_device(device) if model_cfg.block != 'vit' else 'cpu'):
             model = EcgVit(model_cfg)
         super().__init__(model, model_cfg, train_cfg, train_data, eval_data,
                          norm_stats, output_dir or os.path.join('runs', self.save_time),
@@ -773,7 +775,8 @@ class Trainer(TrainerBase):
             sig = sigs.index_select(0, idx_k).float()
             lab = labs.index_select(0, idx_k)
             sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size,
-                              train=cfg.augment_timeout, generator=self.rng.device)
+                              train=cfg.augment_timeout, generator=self.rng.device,
+                              max_len=self.model_cfg.max_signal_length)
             out = self._net(sig, labels=lab, loss_weight=self._loss_weight, rng=self.rng)
             # metrics of the global (micro)batch; identities on one device
             return ((spmd.mean_over_data(out.loss.detach()),
@@ -989,7 +992,8 @@ class Trainer(TrainerBase):
                                                 drop_last=False):
             sigs, labs, idx = self._step_inputs(data, self._local_take(take))
             sig = _prep_batch(sigs.index_select(0, idx).float(), self.mean, self.std,
-                              self.model_cfg.patch_size)
+                              self.model_cfg.patch_size,
+                              max_len=self.model_cfg.max_signal_length)
             out = self._eval_forward(sig, labels=labs.index_select(0, idx),
                                      loss_reduction='none')
             with self._spmd():   # the data ranks' rows, in batch order
@@ -1073,7 +1077,8 @@ class Trainer(TrainerBase):
         for take, n_real in self._index_batches(data, self.cfg.eval_batch_size,
                                                 drop_last=False):
             sig = torch.from_numpy(data.signals[self._local_take(take)]).to(self.device)
-            sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size)
+            sig = _prep_batch(sig, self.mean, self.std, self.model_cfg.patch_size,
+                              max_len=self.model_cfg.max_signal_length)
             logits = self._eval_forward(sig).logits
             with self._spmd():
                 probs = torch.sigmoid(spmd.gather_rows(logits).float())
