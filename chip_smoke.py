@@ -20,8 +20,9 @@ process per source started together (into ``build/torch_kernels/``), then:
    then #1-#4 with a band (causal, a left window) and grouped KV heads at the
    Trinity cell's attention and ViT-base's long records against their plain
    versions, their launches and device ms (``tools/flash_band_probe.py``;
-   with ``--flash-other ROOT`` the default calls bit for bit against another
-   checkout's kernels),
+   the warp-specialised #3 and #4 (aligned bf16) bit for bit against their
+   scalar-load kernels; with ``--flash-other ROOT`` the calls bit for bit
+   against another checkout's kernels),
    and the dropout masks of #1 to #4 checked entry by entry against
    ``keep_full``, and each launch again with the seed read from device
    memory (``seed_dev``, as a step tape passes it) for the same bits; #3 and
@@ -759,10 +760,13 @@ def flash_band_phase(other=None):
     (``tools/flash_band_probe.py``): against their plain versions at the
     Trinity cell's attention and ViT-base's long records (LIMITS, BWD_LIMITS,
     LSE_LIMIT, BAND_REL_LIMIT), the launches a banded call and its gradient
-    count, and the device ms of #2-#4 against the band's FLOP bound; with
-    ``other`` (the root of a checkout from before the band) the default
-    calls' bits against that checkout's kernels at the kernel phase's
-    shapes, and without it a row that says the check was skipped."""
+    count (``flash_bwd_ws`` both backward launches), the warp-specialised
+    #3 and #4 bit for bit against the scalar-load kernels at the probe's
+    WS_CASES, and the device ms of #2-#4 against the band's FLOP bound; with
+    ``other`` (the root of another checkout, e.g. the parent commit's) the
+    calls' bits against that checkout's kernels at the kernel phase's shapes
+    (and the band's, where its entries take the band), and without it a row
+    that says the check was skipped."""
     from ecg_representation_learning_tpu_torch.tools import flash_band_probe as probe
     failures = []
     for case in FLASH_BAND_CASES:
@@ -785,8 +789,14 @@ def flash_band_phase(other=None):
     attn.flash_attention(q, k, v, causal=True, window_left=255).sum().backward()
     moved = {n: c - before[n] for n, c in _build.launch_counts().items() if c != before[n]}
     emit({'phase': 'kernel_band_launches', 'launches': moved})
-    if moved != {'flash_fwd_lse': 1, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}:
+    if moved != {'flash_fwd_lse': 1, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1, 'flash_bwd_ws': 2}:
         failures.append({'launches': moved})
+    for case in probe.WS_CASES:     # the warp-specialised route against the scalar loads
+        row = probe.ws_bits(case, torch.device('cuda', 0))
+        emit({'phase': 'kernel_band_ws_bits', **row})
+        counted = (row['ws_launches'], row['scalar_ws_launches'])
+        if not all(row['same'].values()) or counted != (2, 0):
+            failures.append(row)
     for row in probe.band_rows(torch.device('cuda', 0)):
         emit({'phase': 'kernel_band_time', **row})
     if other is None:
@@ -1686,13 +1696,19 @@ def training_phase():
                'eval_macro_auc': aucs,
                'train_samples_per_s_bf16': _steps_per_s(tr, splits.train, 10)}
     emit(summary)
+    emit({'phase': 'train_flash_ws', 'flash_bwd_ws': launches['flash_bwd_ws'],
+          'flash_bwd_dq': launches['flash_bwd_dq'], 'flash_bwd_dkv': launches['flash_bwd_dkv'],
+          'all_warp_specialised': launches['flash_bwd_ws']
+          == launches['flash_bwd_dq'] + launches['flash_bwd_dkv']})
     want = {'flash_fwd_lse': layers * steps, 'flash_bwd_dq': layers * steps,
             'flash_bwd_dkv': layers * steps, 'adamw': steps, 'adamw_norm': steps,
             # every Bernoulli site of a block, once each way a step; eval draws none
             'gelu_dropout': layers * steps, 'gelu_dropout_bwd': layers * steps,
             'dropout_add': 2 * layers * steps, 'dropout_add_bwd': 2 * layers * steps,
             # every bf16 Linear reads its compute copy: no parameter cast
-            'param_cast': 0}
+            'param_cast': 0,
+            # aligned bf16 heads: every #3 and #4 launch warp-specialised
+            'flash_bwd_ws': 2 * layers * steps}
     if not (len(train_losses) == steps == 2 * tr.steps_per_epoch
             and summary['copy_leaves_per_update'] == summary['adamw_copy_leaves']
             == 2 + 7 * layers

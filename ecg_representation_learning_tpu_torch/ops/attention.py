@@ -355,7 +355,8 @@ _BWD_TAIL = [_I] * 8 + [_F, _I, _P, _I, _I, _I, _F, _P]
 FLASH_FWD = _build.CtypesLibrary('flash_fwd', {
     'flash_fwd': [_P] * 5 + [_I] * 8 + [_F, _I, _P, _I, _I, _I, _F, _P]})
 FLASH_BWD = _build.CtypesLibrary('flash_bwd', {'flash_bwd_dq': [_P] * 7 + _BWD_TAIL,
-                                               'flash_bwd_dkv': [_P] * 8 + _BWD_TAIL})
+                                               'flash_bwd_dkv': [_P] * 8 + _BWD_TAIL,
+                                               'flash_bwd_last_ws': []})
 
 
 class _FlashForward:
@@ -385,7 +386,9 @@ class _FlashForward:
 
 
 class _FlashBackward:
-    """``csrc/flash_bwd.cu``: kernel #3 (dQ) or #4 (dK, dV)."""
+    """``csrc/flash_bwd.cu``: kernel #3 (dQ) or #4 (dK, dV); a launch that
+    the C side reports as warp-specialised (aligned bf16 arrays) also counts
+    under ``flash_bwd_ws``."""
 
     def __init__(self, fn: str):
         self.fn = fn
@@ -406,6 +409,8 @@ class _FlashBackward:
             *_band_args(q, k, causal, window_left),
             int(q.dtype == torch.bfloat16), scale, *_seed_args(seed), bh_offset,
             *_dropout_args(dropout_rate)))
+        if FLASH_BWD.value('flash_bwd_last_ws'):
+            _build.add_launches({'flash_bwd_ws': 1})
         return outs[0] if self.n_out == 1 else tuple(outs)
 
 

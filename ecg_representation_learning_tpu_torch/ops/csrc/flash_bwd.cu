@@ -31,13 +31,16 @@
 // Design.  The TPU grids carry an accumulator across a sequential grid axis;
 // Hopper blocks run in any order, so a block owns 64-row tiles of its output
 // (no atomics: the result is the same from run to run) and walks the other
-// side of the head in 64-row tiles held in a 2-stage shared-memory ring:
-// tile j+1 is copied with cp.async (16-byte copies that zero-fill rows >= T
-// and columns >= D; 4-byte copies for the walked tile's lse and delta) while
-// tile j is computed.  The owned tile covers a whole 41-row training head,
-// so the head's other side is read once.  Rows whose D * size is not a
-// multiple of 16 bytes, or tensors not 16-byte aligned, take the same
-// kernels' scalar-load branch.
+// side of the head in 64-row tiles held in a shared-memory ring.  f32: a
+// 2-stage ring, tile j+1 copied with cp.async (16-byte copies that zero-fill
+// rows >= T and columns >= D; 4-byte copies for the walked tile's lse and
+// delta) while tile j is computed.  bf16 with rows of a multiple of 16 bytes
+// in 16-byte aligned arrays (every call of the training paths): the
+// warp-specialised kernels below, fed by TMA.  Other bf16 calls: the same
+// products in the same order, every thread staging the walked tiles with
+// scalar loads (bwd_dq_bf16, bwd_dkv_bf16); other f32 calls: the f32
+// kernels' scalar-load branch.  The owned tile covers a whole 41-row training
+// head, so the head's other side is read once.
 //   bf16, on wgmma: a warpgroup (4 warps) owns 64 output rows; a block of two
 //   warpgroups (128 rows) shares each walked tile unless that leaves more rows
 //   on the busiest SM (the forward's rule).  Tiles sit in the 128-byte swizzle
@@ -53,6 +56,33 @@
 //   The two score products are issued together and p is formed while the
 //   second runs.  dK is scaled, both outputs staged through the owned tiles'
 //   shared memory and stored 16 bytes per thread.
+//   Warp specialisation (bwd_dq_bf16_ws, bwd_dkv_bf16_ws): NW/4 consumer
+//   warpgroups and one producer warpgroup.  The producer's first thread loads
+//   the owned tiles once and each walked tile by TMA from 3-D tensor maps
+//   (d, t, rows: boxes of 64 columns x 64 rows of one head row, written in
+//   the 128-byte swizzle the descriptors read; coordinates past t or d read
+//   zeros, and never the next head's rows) into a ring of S stages, as deep
+//   as fits the block's share of the SM (up to 8: at 8 warps 5 stages for dQ
+//   and 4 for dK/dV at D 128, 8 at D 64).  Each stage has a full mbarrier
+//   (the TMA's bytes; for dK/dV also the producer warp's 32 lanes, whose
+//   4-byte cp.asyncs copy the tile's lse and delta, zeros past t) and an
+//   empty one (an arrival a consumer warpgroup).  The producer fetches the
+//   four maps at the block's start.  setmaxnreg leaves the producer 24
+//   registers and gives the consumers 240 (8 warps: 384 threads entering at
+//   168) or 232 (4 warps, two blocks an SM).  The consumers meet at no block
+//   barrier: a warpgroup issues a tile's two score products in its turn
+//   (named barriers 1 and 2, warpgroup 0 first), so the other warpgroup's
+//   products run while this one forms p and dS, and it frees the stage once
+//   its last product of the tile is in.  Every output element sums the same
+//   k16 products in the same order as the scalar-load kernels: the same bits.
+//   (Issuing a tile's last products and the next tile's score products as
+//   one turn, without a wait between, was slower at every probe shape and
+//   spilled dK/dV's registers at D 128.)  Reached on the H100 SXM (700 W),
+//   share of the FLOP bound, dQ / dK-dV (tools/flash_band_probe.py, bf16):
+//   q (2, 32, 8192, 128), k, v (2, 4, 8192, 128) causal 0.46 / 0.42 (0.38 /
+//   0.40 when every thread copied the walked tiles by cp.async), window
+//   2,047 0.43 / 0.36 (0.36 / 0.34); (2, 12, 2048, 64) bidirectional 0.26 /
+//   0.25 (0.27 / 0.25): the 32-tile walks there pay each block's prologue.
 //   f32, on the CUDA cores: 256 threads over 64 x 64 score tiles, each a 4 x 4
 //   block (rows ty + 16i, columns tx + 16jj) of outer products from float4
 //   reads (row pitch D + 4: conflict-free); the same tiling forms dpv.  dS
@@ -69,7 +99,10 @@
 // float4 reads); the second product takes dS and P_eff from the accumulator
 // fragments (bf16) or as float4 rows (f32) instead of a shuffle per key;
 // 64-row tiles replace 16-row blocks of serial rows, so a T = 1024 head stages
-// each walked tile 16 times, not 64; and cp.async double-buffers the walk.
+// each walked tile 16 times, not 64; cp.async double-buffers the f32 walk;
+// and in bf16 the loads left the consumers' issue slots and registers for a
+// producer warp and TMA, and the two warpgroups no longer wait for each other
+// at every tile.
 // Band and grouped KV heads (flash_mask.cuh), as the forward: dQ walks the key
 // tiles that meet its rows' band; dK/dV owns a KV head's key tile and walks,
 // for each query head of its group in turn, the query tiles that meet the band
@@ -78,8 +111,10 @@
 // per-head dK/dV in memory.  Masked elements of the tiles across the band's
 // edge get p = 0.  f32 takes the band as a template argument (the unbanded
 // kernels are the ones from before the band).
-// Left for later: TMA and producer warps, one fused dQ + dK/dV pass, 8 x 8
-// f32 register tiles, 3xTF32 split products for f32.
+// Left for later: one fused dQ + dK/dV pass, 8 x 8 f32 register tiles,
+// 3xTF32 split products for f32.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder comes through the runtime
+
 #include "hopper.cuh"
 #include "flash_mask.cuh"
 
@@ -184,11 +219,13 @@ __device__ __forceinline__ void store_rows_bf16(bf16* s, float (&acc)[DP / 64][3
   }
 }
 
-// kernel #3, bf16: NW warps = NW/4 warpgroups of 64 query rows; DP = D padded
-// to 64 or 128.  Shared: Q, dO [BQ][DP]; the ring [stages][K, V][64][DP].
-template <int NW, int DP, bool ALIGNED>
+// kernel #3, bf16, for unaligned rows (scalar loads): NW warps = NW/4
+// warpgroups of 64 query rows; DP = D padded to 64 or 128.  Shared: Q, dO
+// [BQ][DP]; the ring [stages][K, V][64][DP].
+template <int NW, int DP>
 __global__ void __launch_bounds__(NW * 32, 1)
 bwd_dq_bf16(const Params p) {
+  constexpr bool ALIGNED = false;
   constexpr int BQ = 16 * NW;             // query rows per block
   constexpr int NT = 32 * NW;
   constexpr int KS = DP / 16;             // k16 steps over D
@@ -328,11 +365,13 @@ bwd_dq_bf16(const Params p) {
                                    q0 + warp * 16, t, d, warp, lane);
 }
 
-// kernel #4, bf16: NW/4 warpgroups of 64 keys.  Shared: K, V [BK][DP]; the
-// ring [stages][Q, dO][64][DP]; then [stages][lse, delta][64] f32.
-template <int NW, int DP, bool ALIGNED>
+// kernel #4, bf16, for unaligned rows: NW/4 warpgroups of 64 keys.  Shared:
+// K, V [BK][DP]; the ring [stages][Q, dO][64][DP]; then [stages][lse,
+// delta][64] f32.
+template <int NW, int DP>
 __global__ void __launch_bounds__(NW * 32, 1)
 bwd_dkv_bf16(const Params p) {
+  constexpr bool ALIGNED = false;
   constexpr int BK = 16 * NW;             // keys per block
   constexpr int NT = 32 * NW;
   constexpr int KS = DP / 16;
@@ -490,6 +529,457 @@ bwd_dkv_bf16(const Params p) {
                                    k0 + warp * 16, t, d, warp, lane);
   store_rows_bf16<BK, DP, ALIGNED>(v_s, acc_v, 1.f, static_cast<bf16*>(p.dv) + base,
                                    k0 + warp * 16, t, d, warp, lane);
+}
+
+// ------------------------------------------- bf16 path, warp-specialised
+
+// q, k, v and dout as (rows, t, d) bf16 tensor maps read in boxes of 64
+// columns x 64 rows of one head, written in the 128-byte swizzle
+struct TileMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// the four maps fetched ahead of the first loads (at the block's start)
+__device__ __forceinline__ void prefetch_maps(const TileMaps& m) {
+  prefetch_tensormap(&m.q);
+  prefetch_tensormap(&m.k);
+  prefetch_tensormap(&m.v);
+  prefetch_tensormap(&m.dout);
+}
+
+constexpr int kMaxStages = 8;             // the ring's deepest
+constexpr int kTurnBar = 1;               // named barriers 1, 2: warpgroup 0's, 1's turn
+
+// dynamic shared memory of a warp-specialised block with `stages` ring
+// stages: 1024 bytes of alignment slack; the owned tiles (2 x rows x DP
+// bf16); each stage's two walked tiles (2 x 64 x DP bf16) and for dK/dV its
+// lse and delta (2 x 64 f32); the full and empty mbarrier of each stage and
+// the owned tiles' mbarrier
+__host__ __device__ constexpr int ws_smem(int nw, int dp, bool dkv, int stages) {
+  return 1024 + 2 * 16 * nw * dp * 2 + stages * (2 * kBlock * dp * 2 + (dkv ? 2 * kBlock * 4 : 0)) +
+         (2 * stages + 1) * 8;
+}
+
+// the ring's depth: as many stages as fit the block's share of an SM, the
+// 227 KB a block may use at 8 warps (one block an SM), half an SM's 228 KB
+// less the 1 KB reserved a block at 4 warps (two blocks an SM)
+__host__ __device__ constexpr int ws_stages(int nw, int dp, bool dkv) {
+  int s = kMaxStages;
+  while (s > 1 && ws_smem(nw, dp, dkv, s) > (nw == 8 ? 232448 : 233472 / 2 - 1024)) --s;
+  return s;
+}
+
+// the consumers' registers after the producer warpgroup gives up its own
+// (24 a thread): 8 warps, 384 threads entering at 168 each; 4 warps, 256
+// threads entering at 128 each, two blocks an SM
+template <int NW> __device__ __forceinline__ void consumer_regs() {
+  if constexpr (NW == 8) setmaxnreg_inc<240>();
+  else setmaxnreg_inc<232>();
+}
+
+// the owned tile (rows r0 .. r0 + 16 NW of head row `head`) of `map` into
+// shared memory at s, one box a warpgroup's 64 rows and 64-column panel
+template <int NW, int DP>
+__device__ __forceinline__ void tma_owned(bf16* s, const CUtensorMap& map, uint64_t* bar, int r0,
+                                          int head) {
+#pragma unroll
+  for (int pn = 0; pn < DP / 64; ++pn)
+#pragma unroll
+    for (int h = 0; h < NW / 4; ++h)
+      tma_load_3d(s + pn * 16 * NW * 64 + h * 64 * 64, &map, bar, 64 * pn, r0 + 64 * h, head);
+}
+
+// a walked tile (rows r0 .. r0 + 64 of head row `head`) into s
+template <int DP>
+__device__ __forceinline__ void tma_walked(bf16* s, const CUtensorMap& map, uint64_t* bar, int r0,
+                                           int head) {
+#pragma unroll
+  for (int pn = 0; pn < DP / 64; ++pn)
+    tma_load_3d(s + pn * kBlock * 64, &map, bar, 64 * pn, r0, head);
+}
+
+// the two score products of a walked tile for the warpgroup's 64 rows x 64
+// columns, each committed as a group (the first first): s = A0 B0^T and
+// dp = A1 B1^T, every operand K-major in the 128-byte swizzle (a k16 step
+// advances 32 bytes along a 128-byte row, then to the next panel)
+template <int DP, uint32_t PANEL_A, uint32_t PANEL_B>
+__device__ __forceinline__ void score_products(float (&s)[32], float (&dp)[32], uint32_t a0,
+                                               uint32_t b0, uint32_t a1, uint32_t b1) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss(s, gmma_desc(a0 + (kk >> 2) * PANEL_A + (kk & 3) * 32, 16, 1024),
+             gmma_desc(b0 + (kk >> 2) * PANEL_B + (kk & 3) * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss(dp, gmma_desc(a1 + (kk >> 2) * PANEL_A + (kk & 3) * 32, 16, 1024),
+             gmma_desc(b1 + (kk >> 2) * PANEL_B + (kk & 3) * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// kernel #3, bf16, warp-specialised: NW/4 consumer warpgroups of 64 query
+// rows (warps 0 .. NW - 1), then a producer warpgroup whose first thread
+// loads Q and dO once and the walked K and V tiles into a ring of stages,
+// each with a full and an empty mbarrier.  The products and their order are
+// bwd_dq_bf16's.  Shared: Q, dO [BQ][DP]; the ring [S][K, V][64][DP]; the
+// mbarriers.
+template <int NW, int DP>
+__global__ void __launch_bounds__(NW * 32 + 128, NW == 8 ? 1 : 2)
+bwd_dq_bf16_ws(const __grid_constant__ Params p, const __grid_constant__ TileMaps m) {
+  constexpr int BQ = 16 * NW;
+  constexpr int NC = 32 * NW;             // consumer threads
+  constexpr int NP = DP / 64;
+  constexpr int S = ws_stages(NW, DP, false);
+  constexpr uint32_t kPanelQ = BQ * 128, kPanelK = kBlock * 128;   // bytes
+  constexpr uint32_t kTile = kBlock * DP * 2;                        // a walked tile's bytes
+  extern __shared__ uint4 smem_u4[];
+  const uint32_t raw = smem_u32(smem_u4);
+  bf16* q_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<char*>(smem_u4) + (((raw + 1023u) & ~1023u) - raw));
+  bf16* do_s = q_s + BQ * DP;
+  bf16* kv_s = do_s + BQ * DP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + S * 2 * kBlock * DP);
+  uint64_t* empty = full + S;
+  uint64_t* owned = empty + S;
+
+  const int t = p.t, d = p.d;
+  const int n_qtiles = (t + BQ - 1) / BQ;
+  const bool band = banded(p.causal, p.window);
+  int bh, qt;
+  block_tile(gridDim.x / n_qtiles, n_qtiles, band, p.causal, &bh, &qt);
+  const int q0 = qt * BQ;
+  int j0, j1;                             // the key tiles the block's band meets
+  key_tiles(p.causal, p.window, q0, q0 + BQ, t, kBlock, &j0, &j1);
+  const int tid = threadIdx.x;
+
+  if (tid == NC) {
+    prefetch_maps(m);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NW / 4);       // one arrival a consumer warpgroup
+    }
+    mbar_init(owned, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {                        // the producer warpgroup
+    setmaxnreg_dec<24>();
+    if (tid == NC) {
+      const int kvr = kv_row(bh, p.heads, p.kv_heads);
+      mbar_arrive_expect_tx(owned, 2 * BQ * DP * 2);
+      tma_owned<NW, DP>(q_s, m.q, owned, q0, bh);
+      tma_owned<NW, DP>(do_s, m.dout, owned, q0, bh);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int j = j0; j < j1; ++j) {
+        if (j - j0 >= S) mbar_wait(&empty[st], ph ^ 1);   // stage st's last tile is consumed
+        bf16* dst = kv_s + st * 2 * kBlock * DP;
+        mbar_arrive_expect_tx(&full[st], 2 * kTile);
+        tma_walked<DP>(dst, m.k, &full[st], j * kBlock, kvr);
+        tma_walked<DP>(dst + kBlock * DP, m.v, &full[st], j * kBlock, kvr);
+        if (++st == S) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {                                // the consumer warpgroups
+    consumer_regs<NW>();
+    const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
+    const int lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+    const int g = lane >> 2, tq = lane & 3;
+    const size_t base = static_cast<size_t>(bh) * t * d;
+    const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const uint32_t wg_rows = wg * 64 * 128;
+    const uint32_t q_addr = smem_u32(q_s) + wg_rows, do_addr = smem_u32(do_s) + wg_rows;
+
+    const float sl2 = p.scale * kLog2e;
+    float nl[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = static_cast<size_t>(bh) * t + row0 + 8 * h;
+      nl[h] = row0 + 8 * h < t ? -p.lse[at] * kLog2e : 0.f;
+      dl[h] = row0 + 8 * h < t ? p.delta[at] : 0.f;
+    }
+    float acc[NP][32];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+
+    if (NW == 8 && wg == 1) named_arrive(kTurnBar, 256);   // warpgroup 0 goes first
+    mbar_wait(owned, 0);
+    int st = 0;
+    uint32_t ph = 0;
+    for (int j = j0; j < j1; ++j) {
+      mbar_wait(&full[st], ph);           // tile j has landed
+      const uint32_t k_addr = smem_u32(kv_s + st * 2 * kBlock * DP);
+      const uint32_t v_addr = k_addr + kBlock * DP * 2;
+
+      // S = Q K^T and dP = dO V^T, issued in this warpgroup's turn; the other
+      // warpgroup's turn follows, so its products run while this one forms dS
+      float s[32], dp[32];
+      if (NW == 8) named_sync(kTurnBar + wg, 256);
+      wgmma_fence();
+      score_products<DP, kPanelQ, kPanelK>(s, dp, q_addr, k_addr, do_addr, v_addr);
+      if (NW == 8 && (wg == 0 || j + 1 < j1)) named_arrive(kTurnBar + (wg ^ 1), 256);
+      wgmma_wait_n<1>();
+      fence_regs(s);
+
+      const int k0 = j * kBlock;
+      const bool edge = band && !interior(p.causal, p.window, q0, BQ, k0, kBlock);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = exp2_ftz(fmaf(s[i], sl2, nl[(i >> 1) & 1]));
+        const int kpos = k0 + (i >> 2) * 8 + 2 * tq + (i & 1);
+        if (k0 + kBlock > t && kpos >= t) x = 0.f;
+        if (edge && !visible(p.causal, p.window, row0 + 8 * ((i >> 1) & 1), kpos)) x = 0.f;
+        s[i] = x;
+      }
+      wgmma_wait();
+      fence_regs(dp);
+
+      uint32_t da[kBlock / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * kk + 2 * a + e;
+            float dpv = dp[i];
+            if (p.use_dropout)
+              dpv = kept(p, seed, bh, row0 + 8 * (a & 1), k0 + (i >> 2) * 8 + 2 * tq + e)
+                        ? dpv * p.inv_keep : 0.f;
+            ds[e] = s[i] * (dpv - dl[a & 1]);
+          }
+          da[kk][a] = pack_bf16(ds[0], ds[1]);
+        }
+      fence_regs(da);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) fence_regs(acc[pn]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn)
+          wgmma_rs(acc[pn], da[kk], gmma_desc(k_addr + pn * kPanelK + kk * 2048, kPanelK, 1024));
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) fence_regs(acc[pn]);
+      fence_regs(da);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);   // this warpgroup is done with it
+      if (++st == S) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    // each warp stages its own rows of Q, which only its warpgroup read
+    store_rows_bf16<BQ, DP, true>(q_s, acc, p.scale, static_cast<bf16*>(p.dq) + base,
+                                  q0 + warp * 16, t, d, warp, lane);
+  }
+}
+
+// kernel #4, bf16, warp-specialised: NW/4 consumer warpgroups of 64 keys,
+// then a producer warpgroup whose first warp loads K and V once and walks the
+// group's query heads, then their band's query tiles, into the ring: Q and dO
+// by TMA from its first thread, the tile's lse and delta by 4-byte cp.async
+// from each of its 32 lanes (zeros past t), each lane's copies counted on the
+// stage's full mbarrier (1 + 32 arrivals).  The products and their order are
+// bwd_dkv_bf16's.  Shared: K, V [BK][DP]; the ring [S][Q, dO][64][DP]; then
+// [S][lse, delta][64] f32; the mbarriers.
+template <int NW, int DP>
+__global__ void __launch_bounds__(NW * 32 + 128, NW == 8 ? 1 : 2)
+bwd_dkv_bf16_ws(const __grid_constant__ Params p, const __grid_constant__ TileMaps m) {
+  constexpr int BK = 16 * NW;
+  constexpr int NC = 32 * NW;
+  constexpr int NP = DP / 64;
+  constexpr int S = ws_stages(NW, DP, true);
+  constexpr uint32_t kPanelK = BK * 128, kPanelQ = kBlock * 128;
+  constexpr uint32_t kTile = kBlock * DP * 2;
+  extern __shared__ uint4 smem_u4[];
+  const uint32_t raw = smem_u32(smem_u4);
+  bf16* k_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<char*>(smem_u4) + (((raw + 1023u) & ~1023u) - raw));
+  bf16* v_s = k_s + BK * DP;
+  bf16* qd_s = v_s + BK * DP;
+  float* rows_s = reinterpret_cast<float*>(qd_s + S * 2 * kBlock * DP);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + S * 2 * kBlock);
+  uint64_t* empty = full + S;
+  uint64_t* owned = empty + S;
+
+  const int t = p.t, d = p.d;
+  const int n_ktiles = (t + BK - 1) / BK;
+  const bool band = banded(p.causal, p.window);
+  int kvbh, kt;
+  block_tile(gridDim.x / n_ktiles, n_ktiles, band, false, &kvbh, &kt);
+  const int k0 = kt * BK;
+  int i0, i1;
+  query_tiles(p.causal, p.window, k0, k0 + BK, t, kBlock, &i0, &i1);
+  const int n_band = i1 - i0;
+  const int n_walk = (p.heads / p.kv_heads) * n_band;
+  // walked tile w: query row group_row(w / n_band), queries from (i0 + w % n_band) * 64
+  auto walk_row = [&](int w) { return group_row(p, kvbh, w / n_band); };
+  auto walk_q0 = [&](int w) { return (i0 + w % n_band) * kBlock; };
+  const int tid = threadIdx.x;
+
+  if (tid == NC) {
+    prefetch_maps(m);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1 + 32);        // the TMA's expect-tx, each lane's cp.asyncs
+      mbar_init(&empty[s], NW / 4);
+    }
+    mbar_init(owned, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    setmaxnreg_dec<24>();
+    if (tid < NC + 32) {                  // the producer warp
+      const int lane = tid - NC;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(owned, 2 * BK * DP * 2);
+        tma_owned<NW, DP>(k_s, m.k, owned, k0, kvbh);
+        tma_owned<NW, DP>(v_s, m.v, owned, k0, kvbh);
+      }
+      int st = 0;
+      uint32_t ph = 0;
+      for (int w = 0; w < n_walk; ++w) {
+        if (w >= S) mbar_wait(&empty[st], ph ^ 1);
+        const int qr = walk_row(w), q1 = walk_q0(w);
+        if (lane == 0) {
+          bf16* dst = qd_s + st * 2 * kBlock * DP;
+          mbar_arrive_expect_tx(&full[st], 2 * kTile);
+          tma_walked<DP>(dst, m.q, &full[st], q1, qr);
+          tma_walked<DP>(dst + kBlock * DP, m.dout, &full[st], q1, qr);
+        }
+        float* rows = rows_s + st * 2 * kBlock;
+        const size_t qb = static_cast<size_t>(qr) * t;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {     // [lse, delta][64]: 4 a lane
+          const int at = lane + 32 * i, r = at & (kBlock - 1);
+          const bool ok = q1 + r < t;
+          const float* src = (at < kBlock ? p.lse : p.delta) + qb;
+          cp_async4(rows + at, ok ? src + q1 + r : src, ok ? 4 : 0);
+        }
+        cp_async_mbar_arrive(&full[st]);
+        if (++st == S) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    consumer_regs<NW>();
+    const uint32_t seed = kernel_seed(p.use_dropout, p.seed, p.seed_dev);
+    const int lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+    const int g = lane >> 2, tq = lane & 3;
+    const size_t base = static_cast<size_t>(kvbh) * t * d;
+    const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+    const uint32_t wg_rows = wg * 64 * 128;
+    const uint32_t k_addr = smem_u32(k_s) + wg_rows, v_addr = smem_u32(v_s) + wg_rows;
+
+    const float sl2 = p.scale * kLog2e;
+    float acc_k[NP][32], acc_v[NP][32];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_k[pn][i] = acc_v[pn][i] = 0.f;
+
+    if (NW == 8 && wg == 1) named_arrive(kTurnBar, 256);
+    mbar_wait(owned, 0);
+    int st = 0;
+    uint32_t ph = 0;
+    for (int j = 0; j < n_walk; ++j) {
+      mbar_wait(&full[st], ph);
+      const int bh = walk_row(j);         // the walked query row (its dropout masks)
+      const uint32_t q_addr = smem_u32(qd_s + st * 2 * kBlock * DP);
+      const uint32_t do_addr = q_addr + kBlock * DP * 2;
+      const float* lse_s = rows_s + st * 2 * kBlock;
+      const float* dl_s = lse_s + kBlock;
+
+      float s[32], dp[32];
+      if (NW == 8) named_sync(kTurnBar + wg, 256);
+      wgmma_fence();
+      score_products<DP, kPanelK, kPanelQ>(s, dp, k_addr, q_addr, v_addr, do_addr);
+      if (NW == 8 && (wg == 0 || j + 1 < n_walk)) named_arrive(kTurnBar + (wg ^ 1), 256);
+      wgmma_wait_n<1>();
+      fence_regs(s);
+
+      const int q0 = walk_q0(j);
+      const bool edge = band && !interior(p.causal, p.window, q0, kBlock, k0, BK);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = (i >> 2) * 8 + 2 * tq + (i & 1);
+        float x = exp2_ftz(fmaf(s[i], sl2, -lse_s[c] * kLog2e));
+        if (q0 + kBlock > t && q0 + c >= t) x = 0.f;
+        if (edge && !visible(p.causal, p.window, q0 + c, key0 + 8 * ((i >> 1) & 1))) x = 0.f;
+        s[i] = x;
+      }
+      wgmma_wait();
+      fence_regs(dp);
+
+      uint32_t pa[kBlock / 16][4], da[kBlock / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          float pe[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * kk + 2 * a + e;
+            const int c = (i >> 2) * 8 + 2 * tq + e;
+            float dpv = dp[i];
+            pe[e] = s[i];
+            if (p.use_dropout) {
+              const bool keep = kept(p, seed, bh, q0 + c, key0 + 8 * (a & 1));
+              pe[e] = keep ? s[i] * p.inv_keep : 0.f;
+              dpv = keep ? dpv * p.inv_keep : 0.f;
+            }
+            ds[e] = s[i] * (dpv - dl_s[c]);
+          }
+          pa[kk][a] = pack_bf16(pe[0], pe[1]);
+          da[kk][a] = pack_bf16(ds[0], ds[1]);
+        }
+      fence_regs(pa);
+      fence_regs(da);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) {
+        fence_regs(acc_k[pn]);
+        fence_regs(acc_v[pn]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) {
+          wgmma_rs(acc_v[pn], pa[kk], gmma_desc(do_addr + pn * kPanelQ + kk * 2048, kPanelQ, 1024));
+          wgmma_rs(acc_k[pn], da[kk], gmma_desc(q_addr + pn * kPanelQ + kk * 2048, kPanelQ, 1024));
+        }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) {
+        fence_regs(acc_k[pn]);
+        fence_regs(acc_v[pn]);
+      }
+      fence_regs(pa);
+      fence_regs(da);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
+      if (++st == S) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    store_rows_bf16<BK, DP, true>(k_s, acc_k, p.scale, static_cast<bf16*>(p.dk) + base,
+                                  k0 + warp * 16, t, d, warp, lane);
+    store_rows_bf16<BK, DP, true>(v_s, acc_v, 1.f, static_cast<bf16*>(p.dv) + base,
+                                  k0 + warp * 16, t, d, warp, lane);
+  }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -794,27 +1284,88 @@ bwd_dkv_f32(const Params p) {
 
 // ------------------------------------------------------------------ launch
 
-cudaError_t launch(void (*kernel)(Params), int blocks, int threads, size_t smem,
-                   cudaStream_t stream, const Params& p) {
+template <typename... Args>
+cudaError_t launch(void (*kernel)(Args...), int blocks, int threads, size_t smem,
+                   cudaStream_t stream, const Args&... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, threads, smem, stream>>>(p);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 // bh: the launch's rows (query rows for dQ, KV rows for dK/dV)
-template <int NW, int DP, bool ALIGNED>
+template <int NW, int DP>
 cudaError_t run_bf16(int bh, bool want_dq, const Params& p, cudaStream_t stream) {
   const int rows = 16 * NW;
   const int blocks = bh * ((p.t + rows - 1) / rows);
   const size_t stages = ring_stages(p.t, want_dq ? 1 : p.heads / p.kv_heads, true);
   const size_t tiles = (2 * rows + stages * 2 * kBlock) * DP * sizeof(bf16) + 1024;
-  if (want_dq) return launch(bwd_dq_bf16<NW, DP, ALIGNED>, blocks, 32 * NW, tiles, stream, p);
-  return launch(bwd_dkv_bf16<NW, DP, ALIGNED>, blocks, 32 * NW,
+  if (want_dq) return launch(bwd_dq_bf16<NW, DP>, blocks, 32 * NW, tiles, stream, p);
+  return launch(bwd_dkv_bf16<NW, DP>, blocks, 32 * NW,
                 tiles + stages * 2 * kBlock * sizeof(float), stream, p);
+}
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// a contiguous (rows, t, d) bf16 array as a 3-D map (d, t, rows) read in
+// boxes of 64 columns x 64 rows of one head row, written in the 128-byte
+// swizzle: coordinates at or past t or d read zeros, as the cp.async
+// zero fill does
+bool tile_map(CUtensorMap* map, const void* base, int rows, int t, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(t) * d * 2};   // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {64, kBlock, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the warp-specialised kernels; q_rows and kv_rows: the heads of q (and
+// dout) and of k and v in all
+template <int NW, int DP>
+cudaError_t run_ws(int bh, bool want_dq, const Params& p, int q_rows, int kv_rows,
+                   cudaStream_t stream) {
+  TileMaps m;
+  if (!tile_map(&m.q, p.q, q_rows, p.t, p.d) || !tile_map(&m.k, p.k, kv_rows, p.t, p.d) ||
+      !tile_map(&m.v, p.v, kv_rows, p.t, p.d) || !tile_map(&m.dout, p.dout, q_rows, p.t, p.d))
+    return cudaErrorInvalidValue;
+  const int rows = 16 * NW;
+  const int blocks = bh * ((p.t + rows - 1) / rows);
+  const int threads = 32 * NW + 128;
+  if (want_dq)
+    return launch(bwd_dq_bf16_ws<NW, DP>, blocks, threads,
+                  ws_smem(NW, DP, false, ws_stages(NW, DP, false)), stream, p, m);
+  return launch(bwd_dkv_bf16_ws<NW, DP>, blocks, threads,
+                ws_smem(NW, DP, true, ws_stages(NW, DP, true)), stream, p, m);
 }
 
 template <int G, int DP, bool ALIGNED, bool BAND>
@@ -841,9 +1392,11 @@ cudaError_t run_f32(int bh, bool want_dq, const Params& p, cudaStream_t stream) 
 }
 
 // bf16 takes 128-row blocks (two warpgroups sharing each walked tile) unless
-// 64-row blocks leave fewer rows on the busiest SM, as the forward does
+// 64-row blocks leave fewer rows on the busiest SM, as the forward does;
+// aligned bf16 calls take the warp-specialised kernels (TMA)
 template <int DP, bool ALIGNED>
-cudaError_t run(int bh, int is_bf16, bool want_dq, const Params& p, cudaStream_t stream) {
+cudaError_t run(int bh, int is_bf16, bool want_dq, const Params& p, int q_rows, int kv_rows,
+                cudaStream_t stream) {
   if (!is_bf16)
     return banded(p.causal, p.window) ? run_f32<DP, ALIGNED, true>(bh, want_dq, p, stream)
                                       : run_f32<DP, ALIGNED, false>(bh, want_dq, p, stream);
@@ -854,22 +1407,29 @@ cudaError_t run(int bh, int is_bf16, bool want_dq, const Params& p, cudaStream_t
   if (err != cudaSuccess) return err;
   const long long narrow = static_cast<long long>(bh) * ((p.t + 63) / 64);
   const long long wide = static_cast<long long>(bh) * ((p.t + 127) / 128);
-  return 128 * ((wide + sms - 1) / sms) <= 64 * ((narrow + sms - 1) / sms)
-             ? run_bf16<8, DP, ALIGNED>(bh, want_dq, p, stream)
-             : run_bf16<4, DP, ALIGNED>(bh, want_dq, p, stream);
+  const bool eight = 128 * ((wide + sms - 1) / sms) <= 64 * ((narrow + sms - 1) / sms);
+  if (ALIGNED)
+    return eight ? run_ws<8, DP>(bh, want_dq, p, q_rows, kv_rows, stream)
+                 : run_ws<4, DP>(bh, want_dq, p, q_rows, kv_rows, stream);
+  return eight ? run_bf16<8, DP>(bh, want_dq, p, stream) : run_bf16<4, DP>(bh, want_dq, p, stream);
 }
+
+// whether the calling thread's last launch took the warp-specialised route
+thread_local int last_ws = 0;
 
 int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool want_dq,
              void* stream) {
+  last_ws = 0;
   const long long n_tiles = (p.t + kBlock - 1) / kBlock;
   if (bh < 1 || p.t < 1 || p.d < 1 || p.d > 128 || (!p.seed_dev && seed < 0) || thresh < 0 ||
       static_cast<long long>(bh) * n_tiles > 0x7FFFFFFFLL || p.heads < 1 || p.kv_heads < 1 ||
       p.heads % p.kv_heads || bh % p.heads || p.window < -1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!want_dq) bh = bh / p.heads * p.kv_heads;   // dK/dV: a block a KV row's key tile
-  // cp.async moves 16-byte pieces: rows of a multiple of 16 bytes, 16-byte
-  // aligned arrays; anything else takes the kernels' scalar-load branch
+  const int q_rows = bh, kv_rows = bh / p.heads * p.kv_heads;
+  if (!want_dq) bh = kv_rows;             // dK/dV: a block a KV row's key tile
+  // cp.async and TMA move 16-byte pieces: rows of a multiple of 16 bytes,
+  // 16-byte aligned arrays; anything else takes the scalar-load kernels
   const size_t elem = is_bf16 ? 2 : 4;
   const uintptr_t addrs =
       reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
@@ -880,12 +1440,13 @@ int dispatch(const Params& p, int bh, int is_bf16, int seed, int thresh, bool wa
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (p.d <= 64) {
-    err = aligned ? run<64, true>(bh, is_bf16, want_dq, p, s)
-                  : run<64, false>(bh, is_bf16, want_dq, p, s);
+    err = aligned ? run<64, true>(bh, is_bf16, want_dq, p, q_rows, kv_rows, s)
+                  : run<64, false>(bh, is_bf16, want_dq, p, q_rows, kv_rows, s);
   } else {
-    err = aligned ? run<128, true>(bh, is_bf16, want_dq, p, s)
-                  : run<128, false>(bh, is_bf16, want_dq, p, s);
+    err = aligned ? run<128, true>(bh, is_bf16, want_dq, p, q_rows, kv_rows, s)
+                  : run<128, false>(bh, is_bf16, want_dq, p, q_rows, kv_rows, s);
   }
+  last_ws = err == cudaSuccess && is_bf16 && aligned;
   return static_cast<int>(err);
 }
 
@@ -927,3 +1488,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                  causal != 0, window};
   return dispatch(p, bh, is_bf16, seed, thresh, false, stream);
 }
+
+// 1 if the calling thread's last launch of flash_bwd_dq or flash_bwd_dkv
+// took the warp-specialised kernels (aligned bf16 arrays), else 0
+extern "C" int flash_bwd_last_ws() { return last_ws; }

@@ -1,6 +1,7 @@
 """Flash kernels #1-#4 with a band (causal, a left window) and grouped KV
-heads on the GPU: their device time beside the FLOPs the band needs, and
-their default calls beside another checkout's kernels, bit for bit.
+heads on the GPU: their device time beside the FLOPs the band needs, the
+warp-specialised backward beside the scalar-load kernels, and the calls
+beside another checkout's kernels, bit for bit.
 
     python -m ecg_representation_learning_tpu_torch.tools.flash_band_probe \\
         [--other ROOT] [--out FILE]
@@ -12,12 +13,17 @@ their default calls beside another checkout's kernels, bit for bit.
   and of dK/dV (#4), each with its FLOP bound (visible (query, key) pairs x D
   x 4, 6 and 8 at the bf16 peak), and the window's time over the full
   layer's.
-- with ``--other ROOT`` (a checkout of the port from before the band, e.g.
-  a ``git archive`` of the parent commit): its ``flash_fwd.cu`` and
-  ``flash_bwd.cu`` built into ``build/flash_other/``, and ``same_bits``
-  lines: the default calls of this checkout's kernels (no band, one head
-  count) against that build's at chip_smoke.py's kernel shapes, dropout 0
-  and 0.1, every output compared bit for bit.
+- ``ws_bits`` lines: at WS_CASES, the aligned bf16 calls of #3 and #4 (the
+  warp-specialised kernels, fed by TMA) against the same calls on q and dO
+  stored one element off 16 bytes (the scalar-load kernels), dQ, dK and dV
+  bit for bit, and the launches each route counted under ``flash_bwd_ws``.
+- with ``--other ROOT`` (another checkout of the port, e.g. a ``git
+  archive`` of the parent commit): its ``flash_fwd.cu`` and ``flash_bwd.cu``
+  built into ``build/flash_other/``, and ``same_bits`` lines: this
+  checkout's calls against that build's, every output compared bit for bit,
+  at chip_smoke.py's kernel shapes (default calls: no band, one head count)
+  and, where the other checkout's entries take the band, at BAND_CASES, at
+  dropout 0 and 0.1.
 
 Prints one JSON object per line, and writes them to ``--out`` as well.
 """
@@ -49,11 +55,17 @@ BAND_CASES = [('trinity_full', (2, 32, 8192, 128), 4, True, -1),
               ('trinity_window', (2, 32, 8192, 128), 4, True, 2047),
               ('vitb_t2048', (2, 12, 2048, 64), 12, False, -1)]
 
+# (B, H, H_kv, T, D, causal, window_left, dropout rate) of the ws_bits lines:
+# the Trinity cell's full and window layers, the MIM cell's, a ragged head and
+# a banded dropout case
+WS_CASES = [(2, 32, 4, 8192, 128, True, -1, 0.0), (2, 32, 4, 8192, 128, True, 2047, 0.0),
+            (2, 12, 12, 2048, 64, False, -1, 0.0), (3, 6, 3, 200, 80, False, 50, 0.0),
+            (2, 16, 4, 777, 128, True, 255, 0.1)]
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the entries before the band: no heads, kv_heads, causal, window
 _OLD_TAIL = [_I] * 4 + [_F, _I, _P, _I, _I, _I, _F, _P]
-_OLD_FWD = {'flash_fwd': [_P] * 5 + _OLD_TAIL}
-_OLD_BWD = {'flash_bwd_dq': [_P] * 7 + _OLD_TAIL, 'flash_bwd_dkv': [_P] * 8 + _OLD_TAIL}
+_BAND_TAIL = [_I] * 4 + _OLD_TAIL
 
 
 def visible_pairs(t: int, causal: bool, window_left: int) -> int:
@@ -181,10 +193,51 @@ def band_errors(case, dev, seed: int = 77,
             'finite': all(bool(torch.isfinite(x).all()) for x in (out, lse, dq, dk, dv))}
 
 
-def other_libraries(root: Path) -> Tuple[_build.CtypesLibrary, _build.CtypesLibrary]:
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """x stored one element past a 16-byte boundary (a storage offset of one
+    element): a call given it takes the kernels' scalar-load route."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def ws_bits(case, dev, seed: int = 77) -> dict:
+    """The warp-specialised route (aligned bf16 arrays) of #3 and #4 against
+    the scalar-load kernels (q and dO one element off 16 bytes) for ``case``
+    (B, H, H_kv, T, D, causal, window_left, dropout rate): whether dQ, dK and
+    dV have the same bits, and the launches each route counted under
+    ``flash_bwd_ws``."""
+    b, h, hk, t, d, causal, window, rate = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, h, t, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, hk, t, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = attn.flash_attention_forward(q, k, v, seed, None, rate, return_lse=True,
+                                            causal=causal, window_left=window)
+    delta = (do.float() * out.float()).sum(-1)
+    tail = (lse, delta, seed, d ** -0.5, rate, 0, causal, window)
+    counts = [_build.launch_counts()['flash_bwd_ws']]
+    got = {}
+    for name, (qq, dd) in (('ws', (q, do)), ('scalar', (unaligned(q), unaligned(do)))):
+        got[name] = (attn.flash_bwd_dq_kernel(qq, k, v, dd, *tail),
+                     *attn.flash_bwd_dkv_kernel(qq, k, v, dd, *tail))
+        counts.append(_build.launch_counts()['flash_bwd_ws'])
+    torch.cuda.synchronize()
+    return {'probe': 'ws_bits', 'case': [b, h, hk, t, d, causal, window, rate],
+            'same': {n: bool(torch.equal(a, c))
+                     for n, a, c in zip(('dq', 'dk', 'dv'), got['ws'], got['scalar'])},
+            'ws_launches': counts[1] - counts[0], 'scalar_ws_launches': counts[2] - counts[1]}
+
+
+def other_libraries(root: Path) -> Tuple[_build.CtypesLibrary, _build.CtypesLibrary, bool]:
     """The flash libraries of the checkout at ``root``, built with this
-    checkout's flags into ``build/flash_other/``."""
+    checkout's flags into ``build/flash_other/``, and whether their entries
+    take the band (heads, kv_heads, causal, window)."""
     csrc = root / 'ecg_representation_learning_tpu_torch' / 'ops' / 'csrc'
+    banded = 'int kv_heads' in (csrc / 'flash_bwd.cu').read_text()
+    tail = _BAND_TAIL if banded else _OLD_TAIL
     out_dir = _build.BUILD_DIR.parent / 'flash_other'
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, jobs = {}, []
@@ -202,13 +255,17 @@ def other_libraries(root: Path) -> Tuple[_build.CtypesLibrary, _build.CtypesLibr
         log, _ = job.communicate()
         if job.returncode:
             raise RuntimeError(f'nvcc failed on the other checkout:\n{log}')
-    return (_build.CtypesLibrary(libs['flash_fwd'], _OLD_FWD),
-            _build.CtypesLibrary(libs['flash_bwd'], _OLD_BWD))
+    return (_build.CtypesLibrary(libs['flash_fwd'], {'flash_fwd': [_P] * 5 + tail}),
+            _build.CtypesLibrary(libs['flash_bwd'], {'flash_bwd_dq': [_P] * 7 + tail,
+                                                     'flash_bwd_dkv': [_P] * 8 + tail}),
+            banded)
 
 
-def _old_calls(fwd, bwd, q, k, v, do, seed: int, rate: float) -> Dict[str, torch.Tensor]:
+def _old_calls(fwd, bwd, banded: bool, q, k, v, do, seed: int, rate: float,
+               causal: bool = False, window: int = -1) -> Dict[str, torch.Tensor]:
     b, h, t, d = q.shape
-    tail = (int(q.dtype == torch.bfloat16), d ** -0.5, seed, None, 0,
+    band = (h, k.shape[1], int(causal), window) if banded else ()
+    tail = (*band, int(q.dtype == torch.bfloat16), d ** -0.5, seed, None, 0,
             *attn._dropout_args(rate))
     out, lse = torch.empty_like(q), torch.empty((b, h, t), device=q.device)
     fwd.launch('flash_fwd', None, q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -218,7 +275,7 @@ def _old_calls(fwd, bwd, q, k, v, do, seed: int, rate: float) -> Dict[str, torch
     fwd.launch('flash_fwd', None, q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                              plain.data_ptr(), None, b * h, t, d, *tail))
     delta = (do.float() * out).sum(-1)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr())
     bwd.launch('flash_bwd_dq', None, q.device, (*common, dq.data_ptr(), b * h, t, d, *tail))
@@ -227,31 +284,45 @@ def _old_calls(fwd, bwd, q, k, v, do, seed: int, rate: float) -> Dict[str, torch
     return {'out': plain, 'out_lse': out, 'lse': lse, 'dq': dq, 'dk': dk, 'dv': dv}
 
 
-def _new_calls(q, k, v, do, seed: int, rate: float) -> Dict[str, torch.Tensor]:
-    plain = attn.flash_attention_forward(q, k, v, seed, None, rate)
-    out, lse = attn.flash_attention_forward(q, k, v, seed, None, rate, return_lse=True)
+def _new_calls(q, k, v, do, seed: int, rate: float, causal: bool = False,
+               window: int = -1) -> Dict[str, torch.Tensor]:
+    band = dict(causal=causal, window_left=window)
+    plain = attn.flash_attention_forward(q, k, v, seed, None, rate, **band)
+    out, lse = attn.flash_attention_forward(q, k, v, seed, None, rate, return_lse=True, **band)
     delta = (do.float() * out).sum(-1)
-    args = (q, k, v, do, lse, delta, seed, q.shape[-1] ** -0.5, rate)
+    args = (q, k, v, do, lse, delta, seed, q.shape[-1] ** -0.5, rate, 0, causal, window)
     dk, dv = attn.flash_bwd_dkv_kernel(*args)
     return {'out': plain, 'out_lse': out, 'lse': lse, 'dq': attn.flash_bwd_dq_kernel(*args),
             'dk': dk, 'dv': dv}
 
 
 def same_bits_rows(root: Path, dev) -> List[dict]:
-    """This checkout's default calls against the other checkout's kernels."""
-    fwd, bwd = other_libraries(root)
+    """This checkout's calls against the other checkout's kernels: the
+    default calls at DEFAULT_CASES and, where the other's entries take the
+    band, the banded calls at BAND_CASES."""
+    fwd, bwd, banded = other_libraries(root)
     gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(list(shape), dtype, shape[1], False, -1) for shape, dtype in DEFAULT_CASES]
+    if banded:
+        cases += [(list(shape), torch.bfloat16, hk, causal, window)
+                  for _, shape, hk, causal, window in BAND_CASES]
     rows = []
-    for shape, dtype in DEFAULT_CASES:
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                       for _ in range(4))
+    for shape, dtype, hk, causal, window in cases:
+        b, h, t, d = shape
+        q, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, hk, t, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
         for rate, seed in ((0.0, 0), (0.1, 1234)):
-            old = _old_calls(fwd, bwd, q, k, v, do, seed, rate)
-            new = _new_calls(q, k, v, do, seed, rate)
+            old = _old_calls(fwd, bwd, banded, q, k, v, do, seed, rate, causal, window)
+            new = _new_calls(q, k, v, do, seed, rate, causal, window)
             torch.cuda.synchronize()
-            rows.append({'probe': 'same_bits', 'shape': list(shape), 'dtype': str(dtype),
+            rows.append({'probe': 'same_bits', 'shape': shape, 'kv_heads': hk,
+                         'dtype': str(dtype), 'causal': causal, 'window_left': window,
                          'dropout_rate': rate,
                          'same': {n: bool(torch.equal(old[n], new[n])) for n in old}})
+            del old, new
+        del q, k, v, do
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -261,7 +332,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument('--out', default=None)
     args = p.parse_args(argv)
     dev = torch.device('cuda', 0)
-    rows = band_rows(dev)
+    rows = band_rows(dev) + [ws_bits(case, dev) for case in WS_CASES]
     if args.other:
         rows += same_bits_rows(Path(args.other), dev)
     lines = [json.dumps(r) for r in rows]
@@ -269,7 +340,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text('\n'.join(lines) + '\n')
-    same = [all(r['same'].values()) for r in rows if r['probe'] == 'same_bits']
+    same = [all(r['same'].values()) for r in rows if 'same' in r]
     return 0 if all(same) else 1
 
 

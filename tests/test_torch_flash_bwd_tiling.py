@@ -394,3 +394,328 @@ def test_bf16_width_rule_is_the_forwards():
     serving/training head takes 64-row blocks, T = 256 at 120 heads 128."""
     assert bf16_warps(768, 41) == 4 and bf16_warps(24, 1024) == 4
     assert bf16_warps(120, 256) == 8 and bf16_warps(96, 128) == 8
+
+
+# --------------------------------------- the warp-specialised route (TMA)
+#
+# bwd_dq_bf16_ws / bwd_dkv_bf16_ws, which aligned bf16 calls take: a
+# producer warpgroup loads the owned tiles once and the walked tiles into a
+# ring of stages by TMA from 3-D tensor maps (d, t, rows) in boxes of 64
+# columns x 64 rows, each stage guarded by a full and an empty mbarrier; two
+# consumer warpgroups (8 warps) take turns issuing their score products.
+
+MAX_STAGES = 8               # kMaxStages
+WS_THREADS = {4: 4 * 32 + 128, 8: 8 * 32 + 128}
+WS_MIN_BLOCKS = {4: 2, 8: 1}  # __launch_bounds__'s blocks an SM
+WS_BUDGET = {4: SMEM_PER_SM // 2 - 1024, 8: SMEM_LIMIT}
+PRODUCER_REGS = 24
+CONSUMER_REGS = {4: 232, 8: 240}
+REGS_PER_SM = 65536
+
+
+def ws_smem(nw, dp, kernel, stages):
+    """ws_smem: alignment slack, the owned tiles, each stage's walked tiles
+    (and for dK/dV its lse and delta), the mbarriers."""
+    stage = 2 * BLOCK * dp * 2 + (2 * BLOCK * 4 if kernel == 'dkv' else 0)
+    return 1024 + 2 * 16 * nw * dp * 2 + stages * stage + (2 * stages + 1) * 8
+
+
+def ws_stages(nw, dp, kernel):
+    """ws_stages: the deepest ring (up to MAX_STAGES) within the block's share."""
+    s = MAX_STAGES
+    while s > 1 and ws_smem(nw, dp, kernel, s) > WS_BUDGET[nw]:
+        s -= 1
+    return s
+
+
+def tma_box(x, c0, c1, c2, rows=BLOCK):
+    """A 3-D TMA load of x (heads, T, D): the box of `rows` rows x 64 columns
+    at column c0, row c1 of head c2; zeros where a coordinate is at or past
+    its dimension (the next head's rows are never read)."""
+    _, t, d = x.shape
+    box = np.zeros((rows, 64), x.dtype)
+    r, c = np.arange(c1, c1 + rows), np.arange(c0, c0 + 64)
+    box[np.ix_(r < t, c < d)] = x[c2][np.ix_(r[r < t], c[c < d])]
+    return box
+
+
+def tma_write(smem, at, box):
+    """The box written at element offset `at` (1024-byte aligned) with
+    CU_TENSOR_MAP_SWIZZLE_128B: row r at byte 128 r, its 16-byte chunk j at
+    the chunk j XOR bits 7-9 of the byte address."""
+    for r in range(box.shape[0]):
+        for j in range(8):
+            byte = 2 * at + 128 * r + 16 * j
+            byte ^= ((byte >> 7) & 7) << 4
+            smem[byte // 2:byte // 2 + 8] = box[r, 8 * j:8 * j + 8]
+
+
+def tma_owned(x, r0, head, nw, dp):
+    """tma_owned: the owned tile of 16 nw rows, a box a 64-column panel and
+    a warpgroup's 64 rows."""
+    rows = 16 * nw
+    smem = np.full(rows * dp, -1, x.dtype)
+    for pn in range(dp // 64):
+        for h in range(nw // 4):
+            tma_write(smem, pn * rows * 64 + h * 64 * 64, tma_box(x, 64 * pn, r0 + 64 * h, head))
+    return smem
+
+
+def tma_walked(x, r0, head, dp):
+    """tma_walked: a walked tile of 64 rows, a box a panel."""
+    smem = np.full(BLOCK * dp, -1, x.dtype)
+    for pn in range(dp // 64):
+        tma_write(smem, pn * BLOCK * 64, tma_box(x, 64 * pn, r0, head))
+    return smem
+
+
+def unswizzle(smem, rows, dp):
+    """The (rows, DP) tile the descriptors read from a swizzled tile."""
+    r, c = np.meshgrid(np.arange(rows), np.arange(dp), indexing='ij')
+    at = (c >> 6) * rows * 64 + r * 64 + (((c >> 3) & 7) ^ (r & 7)) * 8 + (c & 7)
+    return smem[at]
+
+
+@pytest.mark.parametrize('side', ['owned4', 'owned8', 'walked'])
+@pytest.mark.parametrize('dp', [64, 128])
+def test_tma_boxes_write_the_swizzled_tile(dp, side):
+    """The boxes the producer issues, written in the 128-byte swizzle, lay
+    a tile out as load_tile_bf16 does (swizzled_tile), which the unchanged
+    descriptors read."""
+    rows = {'owned4': 64, 'owned8': 128, 'walked': BLOCK}[side]
+    ids = (np.arange(rows)[:, None] * dp + np.arange(dp)[None, :]).astype(np.int64)[None]
+    smem = (tma_walked(ids, 0, 0, dp) if side == 'walked'
+            else tma_owned(ids, 0, 0, rows // 16, dp))
+    np.testing.assert_array_equal(smem, swizzled_tile(rows, dp))
+
+
+@pytest.mark.parametrize('d', [64, 80, 128])
+@pytest.mark.parametrize('t', [41, 200, 1000, 2049])
+def test_tma_reads_zeros_past_t_and_d(t, d):
+    """A 3-D map's rows >= T and columns >= D read zeros, as the cp.async
+    zero fill (_tile): every owned and walked tile of the middle head of
+    three, at ragged T and D, never a neighbouring head's rows."""
+    dp = padded_d(d)
+    x = np.random.default_rng(t + d).standard_normal((3, t, d)).astype(np.float32) + 5.0
+    for r0 in range(0, t, BLOCK):
+        got = unswizzle(tma_walked(x, r0, 1, dp), BLOCK, dp)
+        np.testing.assert_array_equal(got, _tile(x[1], r0, BLOCK, dp))
+    for nw in (4, 8):
+        rows = 16 * nw
+        for r0 in range(0, t, rows):
+            got = unswizzle(tma_owned(x, r0, 1, nw, dp), rows, dp)
+            np.testing.assert_array_equal(got, _tile(x[1], r0, rows, dp))
+
+
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+@pytest.mark.parametrize('dp', [64, 128])
+@pytest.mark.parametrize('t', [1, 41, 64, 65, 1024, 2049])
+def test_ws_ring_fits_shared_memory(t, dp, kernel):
+    """The owned tiles, the ring and its mbarriers fit each block width's
+    share of an SM (227 KB at 8 warps; two blocks an SM at 4), with at
+    least 2 stages at D 128 and 3 at D 64; the register split (producer 24,
+    consumers 240 or 232) fits the registers the launch bounds give the
+    block.  Neither depends on T."""
+    for nw in (4, 8):
+        stages = ws_stages(nw, dp, kernel)
+        assert stages >= (2 if dp == 128 else 3)
+        assert ws_smem(nw, dp, kernel, stages) <= WS_BUDGET[nw] <= SMEM_LIMIT
+        assert WS_MIN_BLOCKS[nw] * (ws_smem(nw, dp, kernel, stages) + 1024) <= SMEM_PER_SM
+        entry = REGS_PER_SM // (WS_THREADS[nw] * WS_MIN_BLOCKS[nw]) // 8 * 8
+        assert 128 * PRODUCER_REGS + 32 * nw * CONSUMER_REGS[nw] <= WS_THREADS[nw] * entry
+    assert ws_stages(8, dp, kernel) == {(64, 'dq'): 8, (64, 'dkv'): 8, (128, 'dq'): 5,
+                                        (128, 'dkv'): 4}[dp, kernel]
+
+
+# ------------------------------ the ring's protocol under the turn-taking
+
+def key_tiles(causal, window, q0, q1, t, width=BLOCK):
+    """flash_mask.cuh key_tiles."""
+    lo = 0 if window < 0 else max(q0 - window, 0)
+    hi = min(q1, t) if causal else t
+    return lo // width, -(-hi // width)
+
+
+def query_tiles(causal, window, k0, k1, t, width=BLOCK):
+    """flash_mask.cuh query_tiles."""
+    lo = k0 if causal else 0
+    hi = t if window < 0 else min(k1 + window, t)
+    return lo // width, -(-hi // width)
+
+
+def parent_walk(kernel, nw, t, heads, kv_heads, causal, window, row, tile):
+    """The walked tiles of the parent's bf16 loops, in order: dQ, block
+    (query row, tile), the key tiles j0 .. j1; dK/dV, block (KV row, tile),
+    each query head of the group, then its band's query tiles."""
+    rows = 16 * nw
+    if kernel == 'dq':
+        j0, j1 = key_tiles(causal, window, tile * rows, tile * rows + rows, t)
+        kvr = (row // heads) * kv_heads + (row % heads) // (heads // kv_heads)
+        return [(kvr, j * BLOCK) for j in range(j0, j1)]
+    i0, i1 = query_tiles(causal, window, tile * rows, tile * rows + rows, t)
+    grp = heads // kv_heads
+    first = (row // kv_heads) * heads + (row % kv_heads) * grp
+    return [(first + g, i * BLOCK) for g in range(grp) for i in range(i0, i1)]
+
+
+class _MBar:
+    """An mbarrier: a phase completes after `count` arrivals and once its
+    expected bytes have landed; try_wait.parity(x) passes once the phase of
+    parity x has completed."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.phase = count, count, 0, 0
+
+    def arrive(self, tx=0):
+        self.tx += tx
+        self.pending -= 1
+        self._complete()
+
+    def land(self, nbytes):
+        self.tx -= nbytes
+        self._complete()
+
+    def _complete(self):
+        assert self.pending >= 0 and self.tx >= 0
+        if self.pending == 0 and self.tx == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def passed(self, parity):
+        return (self.phase & 1) != parity
+
+
+class _Named:
+    """A named barrier over both consumer warpgroups (256 threads): one
+    warpgroup's bar.sync and the other's bar.arrive complete it."""
+
+    def __init__(self):
+        self.arrived, self.gen = 0, 0
+
+    def arrive(self):
+        self.arrived += 1
+        if self.arrived == 2:
+            self.arrived, self.gen = 0, self.gen + 1
+
+    def sync(self):
+        gen = self.gen
+        self.arrive()
+        while self.gen == gen:
+            yield
+
+
+def simulate_ring(kernel, nw, dp, walk, seed):
+    """The producer's and consumers' loops of bwd_*_bf16_ws, line by line,
+    with TMA loads and cp.async copies landing at random times and the agents
+    run in a random order.  Returns each warpgroup's consumed tiles, in
+    order, and the order in which the warpgroups issued their score
+    products; asserts no stage is loaded while a warpgroup may still read it
+    and no named barrier is left with an arrival."""
+    rng = np.random.default_rng(seed)
+    stages, n, nwg = ws_stages(nw, dp, kernel), len(walk), nw // 4
+    lanes = 32 if kernel == 'dkv' else 0
+    full = [_MBar(1 + lanes) for _ in range(stages)]
+    empty = [_MBar(nwg) for _ in range(stages)]
+    owned = _MBar(1)
+    turn = [_Named(), _Named()]
+    ring = [None] * stages                  # the tile each stage holds (Q/dO or K/V)
+    rows = [None] * stages                  # dK/dV: the tile whose lse and delta it holds
+    reading = [set() for _ in range(stages)]
+    in_flight = []                          # copies issued, not landed: callables
+    consumed = [[] for _ in range(nwg)]
+    issued = []
+    tile_bytes = 2 * BLOCK * dp * 2
+
+    def producer():
+        owned.arrive(2 * 16 * nw * dp * 2)
+        in_flight.append(lambda: owned.land(2 * 16 * nw * dp * 2))
+        st, ph = 0, 0
+        for f in range(n):
+            if f >= stages:
+                while not empty[st].passed(ph ^ 1):
+                    yield
+            assert not reading[st], 'a stage is loaded while a warpgroup reads it'
+            full[st].arrive(tile_bytes)
+
+            def tma(st=st, f=f):
+                ring[st] = walk[f]
+                full[st].land(tile_bytes)
+            in_flight.append(tma)
+            for _ in range(lanes):          # each lane's cp.asyncs, then its arrival
+
+                def lane(st=st, f=f):
+                    rows[st] = walk[f]
+                    full[st].arrive()
+                in_flight.append(lane)
+            st, ph = (0, ph ^ 1) if st + 1 == stages else (st + 1, ph)
+            yield
+
+    def consumer(wg):
+        if nwg == 2 and wg == 1:
+            turn[0].arrive()                # warpgroup 0 takes the first turn
+        while not owned.passed(0):
+            yield
+        st, ph = 0, 0
+        for f in range(n):
+            while not full[st].passed(ph):
+                yield
+            reading[st].add(wg)
+            assert ring[st] == walk[f] and (not lanes or rows[st] == walk[f])
+            if nwg == 2:
+                yield from turn[wg].sync()
+            issued.append(wg)               # the score products, in this turn
+            if nwg == 2 and (wg == 0 or f + 1 < n):
+                turn[wg ^ 1].arrive()
+            yield                           # p, dS and the packed operands
+            assert ring[st] == walk[f] and (not lanes or rows[st] == walk[f])
+            consumed[wg].append(ring[st])   # the last products read it
+            reading[st].discard(wg)         # ... and are in: the stage is freed
+            empty[st].arrive()
+            st, ph = (0, ph ^ 1) if st + 1 == stages else (st + 1, ph)
+            yield
+
+    agents = [producer()] + [consumer(wg) for wg in range(nwg)]
+    for _ in range(200 * (n + 4) * (lanes + 4)):
+        if not agents and not in_flight:
+            break
+        if in_flight and rng.random() < 0.3:
+            in_flight.pop(int(rng.integers(len(in_flight))))()
+            continue
+        if not agents:
+            continue
+        i = int(rng.integers(len(agents)))
+        try:
+            next(agents[i])
+        except StopIteration:
+            agents.pop(i)
+    assert not agents and not in_flight, 'the ring deadlocked'
+    assert turn[0].arrived == turn[1].arrived == 0
+    return consumed, issued
+
+
+WALK_CASES = [  # (T, heads, kv_heads, causal, window)
+    (41, 12, 12, False, -1), (200, 8, 2, True, 100), (1000, 4, 1, True, -1),
+    (2049, 2, 2, False, -1), (777, 16, 4, True, 255)]
+
+
+@pytest.mark.parametrize('nw', [4, 8])
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+@pytest.mark.parametrize('case', WALK_CASES)
+def test_ws_walk_order_equals_the_parents(case, kernel, nw):
+    """Under the ring and the turn-taking, each consumer warpgroup takes
+    the walked tiles in the parent's order (the key tiles for dQ; the
+    group's heads, then the band's query tiles, for dK/dV), every tile
+    intact from its score products to its last product; at 8 warps the
+    warpgroups issue their score products in turns, warpgroup 0 first."""
+    t, heads, kv_heads, causal, window = case
+    dp = 128 if kernel == 'dkv' else 64
+    rows = 16 * nw
+    n_tiles = -(-t // rows)
+    n_rows = heads if kernel == 'dq' else kv_heads
+    for row in (0, n_rows - 1):
+        for tile in sorted({0, n_tiles // 2, n_tiles - 1}):
+            walk = parent_walk(kernel, nw, t, heads, kv_heads, causal, window, row, tile)
+            consumed, issued = simulate_ring(kernel, nw, dp, walk, seed=7 * row + tile)
+            assert all(c == walk for c in consumed)
+            if nw == 8:
+                assert issued == [0, 1] * len(walk)

@@ -23,7 +23,15 @@ card tests/test_torch_flash_window_card.py`` (this file imports no JAX).
   * the same check fails kernels whose window is one key off the plain
     versions' (the plain versions given window_left + 1);
   * a banded call of ``flash_attention`` and its gradient counts one launch
-    of #2, #3 and #4 under their names in the launch registry.
+    of #2, #3 and #4 under their names in the launch registry, and the two
+    backward launches (aligned bf16) under ``flash_bwd_ws``;
+  * the warp-specialised route of #3 and #4 (aligned bf16: TMA, a producer
+    warpgroup, two consumer warpgroups taking turns) gives dQ, dK and dV
+    bit for bit equal to the scalar-load kernels, which a call reaches with q
+    and dO one element off 16 bytes, at the Trinity cell's full and window
+    layers, the MIM cell's, a ragged head and a dropout case
+    (``flash_band_probe.WS_CASES``); ``flash_bwd_ws`` counts the aligned
+    launches and not the unaligned or f32 ones.
 
 The default calls' bits against another checkout's kernels are held by
 ``python -m ecg_representation_learning_tpu_torch.tools.flash_band_probe
@@ -120,6 +128,37 @@ def test_banded_calls_count_under_the_kernels_names(card):
     out.backward(do)
     after = _build.launch_counts()
     moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
-    assert moved == {'flash_fwd_lse': 1, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}
+    assert moved == {'flash_fwd_lse': 1, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1,
+                     'flash_bwd_ws': 2}
     assert k.grad.shape == k.shape and v.grad.shape == v.shape
+
+
+@pytest.mark.card
+@pytest.mark.parametrize('case', range(5), ids=['cell_full', 'cell_window', 'mim', 'ragged',
+                                                 'dropout'])
+def test_ws_route_keeps_the_scalar_load_kernels_bits(card, case):
+    from ecg_representation_learning_tpu_torch.tools import flash_band_probe
+    row = flash_band_probe.ws_bits(flash_band_probe.WS_CASES[case], card)
+    assert all(row['same'].values()), row
+    assert (row['ws_launches'], row['scalar_ws_launches']) == (2, 0), row
+
+
+@pytest.mark.card
+def test_flash_bwd_ws_counts_only_aligned_bf16_launches(card):
+    from ecg_representation_learning_tpu_torch.tools import flash_band_probe
+    counted = {}
+    for dtype in (F32, BF16):
+        q, k, v, do = _inputs((1, 4, 2, 300, 64, dtype), card)
+        out, lse = attn.flash_attention_forward(q, k, v, return_lse=True, causal=True)
+        delta = (do.float() * out.float()).sum(-1)
+        for name, qq in (('aligned', q), ('unaligned', flash_band_probe.unaligned(q))):
+            args = (qq, k, v, do, lse, delta, 0, 0.125, 0.0, 0, True, -1)
+            before = _build.launch_counts()
+            attn.flash_bwd_dq_kernel(*args)
+            attn.flash_bwd_dkv_kernel(*args)
+            after = _build.launch_counts()
+            counted[str(dtype), name] = tuple(after[n] - before[n] for n in (
+                'flash_bwd_dq', 'flash_bwd_dkv', 'flash_bwd_ws'))
+    assert counted == {(str(F32), 'aligned'): (1, 1, 0), (str(F32), 'unaligned'): (1, 1, 0),
+                       (str(BF16), 'aligned'): (1, 1, 2), (str(BF16), 'unaligned'): (1, 1, 0)}
 

@@ -1,6 +1,7 @@
 """The launch registry of the port's hand-written kernels (ops/_build.py), on
 the CPU: it holds one counter for each kernel and direction, by the names of
-chip_smoke.py's kernels line, and ``param_cast``; a CPU call of each kernel's
+chip_smoke.py's kernels line, ``flash_bwd_ws`` (the launches of #3 and #4
+that took the warp-specialised route) and ``param_cast``; a CPU call of each kernel's
 wrapper runs the plain version and counts nothing, as does a CPU training
 forward's parameter cast; and a step tape's CUDA graph
 (train/dispatch.py) puts back what its capture counted and adds it again at
@@ -16,10 +17,10 @@ from ecg_representation_learning_tpu_torch.ops import (_build, adamw, attention,
 from ecg_representation_learning_tpu_torch.tools import nlm_sol_probe
 from ecg_representation_learning_tpu_torch.train import dispatch, loop
 
-NAMES = ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq', 'flash_bwd_dkv', 'adamw', 'adamw_norm',
-         'nlm_rows', 'nlm_variant', 'gelu_dropout', 'gelu_dropout_bwd', 'dropout_add',
-         'dropout_add_bwd', 'moe_permute', 'moe_permute_bwd', 'moe_swiglu', 'moe_swiglu_bwd',
-         'moe_combine', 'moe_combine_bwd', 'param_cast')
+NAMES = ('flash_fwd', 'flash_fwd_lse', 'flash_bwd_dq', 'flash_bwd_dkv', 'flash_bwd_ws', 'adamw',
+         'adamw_norm', 'nlm_rows', 'nlm_variant', 'gelu_dropout', 'gelu_dropout_bwd',
+         'dropout_add', 'dropout_add_bwd', 'moe_permute', 'moe_permute_bwd', 'moe_swiglu',
+         'moe_swiglu_bwd', 'moe_combine', 'moe_combine_bwd', 'param_cast')
 HYPER = dict(b1=0.9, b2=0.999, eps=1e-8, wd=1e-2)
 
 
@@ -101,6 +102,7 @@ CPU_CALLS = {
     'flash_fwd_lse': lambda: _flash(lse=True),
     'flash_bwd_dq': _flash_bwd,
     'flash_bwd_dkv': _flash_bwd,
+    'flash_bwd_ws': _flash_bwd,
     'adamw': lambda: _adamw(tail=False),
     'adamw_norm': lambda: _adamw(tail=True),
     'nlm_rows': lambda: _nlm(None),
